@@ -1,0 +1,51 @@
+"""One-line model loading — the port of ``deeplearning_tpu/hub.py``.
+
+    from deeplearning_tpu_torch import hub
+    model, state = hub.load("vit_base_patch16_224", num_classes=1000,
+                            seed=0)                  # on the card
+    logits = model(images)                           # (B, 224, 224, 3)
+
+``weights`` takes a flattened ``.npz`` of a JAX parameter tree (see
+``utils/convert.py``), a flax tree, or a ``state_dict``; without it the
+weights are initialised from ``seed``. The model runs on ``cuda`` unless
+``device`` says otherwise, and raises when no card is visible.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from .core.device import resolve_device
+
+__all__ = ["load", "list_models"]
+
+
+def list_models(filter: str = "") -> list:
+    """Registry names, optionally substring-filtered."""
+    from . import models  # noqa: F401  (registers the factories)
+    from .core.registry import MODELS
+    names = sorted(MODELS.keys())
+    return [n for n in names if filter in n] if filter else names
+
+
+def load(name: str, *, num_classes: int = 1000, weights: Any = None,
+         seed: int = 0,
+         device: Optional[Union[str, torch.device]] = None,
+         **model_kw) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
+    """Build a registry model (initialised from ``seed``), optionally load
+    ``weights``, move it to ``device`` once and put it in eval mode.
+    Returns ``(module, state_dict)``."""
+    from . import models  # noqa: F401  (registers the factories)
+    from .core.registry import MODELS
+    from .utils.convert import as_state_dict
+
+    dev = resolve_device(device)
+    model = MODELS.build(name, num_classes=num_classes,
+                         generator=torch.Generator().manual_seed(seed),
+                         **model_kw)
+    if weights is not None:
+        model.load_state_dict(as_state_dict(weights))
+    model = model.to(dev).eval()
+    return model, model.state_dict()

@@ -1,0 +1,1 @@
+"""Helpers of the port: weight conversion from the JAX package's trees."""

@@ -1,0 +1,86 @@
+"""flax parameter tree → the port's ``state_dict``: the reverse of
+``deeplearning_tpu/utils/torch_import.py``.
+
+Rules, per leaf of a tree of numpy arrays (flax names → port names):
+- module path ``blocks_0/attn/qkv`` → ``blocks.0.attn.qkv``;
+- Dense ``kernel`` (in, out) → ``weight`` (out, in);
+- the HWIO patch ``proj/kernel`` (p, p, c, embed) → ``weight``
+  (embed, p·p·c), the order PatchEmbed flattens patches in;
+- LayerNorm ``scale`` → ``weight``; ``bias``, ``cls_token`` and
+  ``pos_embed`` keep their names and shapes.
+
+``load_npz`` reads a flattened ``.npz`` of such a tree (keys joined by
+``/``, with or without the leading ``params``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["from_flax_params", "load_npz", "as_state_dict"]
+
+_INDEXED = re.compile(r"(.+)_(\d+)")
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def _module_name(part: str) -> str:
+    m = _INDEXED.fullmatch(part)
+    return f"{m.group(1)}.{m.group(2)}" if m else part
+
+
+def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax param tree (optionally wrapped in ``{"params": ...}``)
+    of numpy-convertible arrays to a ``state_dict`` of float32 tensors."""
+    if isinstance(params.get("params"), Mapping):
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        arr = np.asarray(value, dtype=np.float32)
+        *mods, leaf = path
+        stem = ".".join(_module_name(m) for m in mods)
+        if leaf == "kernel":
+            if arr.ndim == 4:                 # HWIO conv-shaped projection
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            elif arr.ndim == 2:
+                arr = arr.T
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        key = f"{stem}.{leaf}" if stem else leaf
+        out[key] = torch.from_numpy(np.array(arr, order="C"))  # own copy
+    return out
+
+
+def load_npz(path: str) -> Dict[str, torch.Tensor]:
+    """``state_dict`` from a flattened ``.npz`` of a flax param tree."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as archive:
+        for key in archive.files:
+            node = tree
+            *mods, leaf = key.split("/")
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = archive[key]
+    return from_flax_params(tree)
+
+
+def as_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
+    """Weights as the port takes them: a path to an ``.npz``, a flax tree
+    (``{"params": ...}``), or already a ``state_dict``."""
+    if isinstance(variables, str):
+        return load_npz(variables)
+    if isinstance(variables.get("params"), Mapping):
+        return from_flax_params(variables)
+    return {k: torch.as_tensor(v) for k, v in variables.items()}
