@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Card smoke test of the PyTorch/CUDA port: build, check, serve, measure.
+"""Card smoke test of the PyTorch/CUDA port: build, check, serve, train, measure.
 
     python chip_smoke.py            # one NVIDIA Hopper card (sm_90)
 
@@ -27,7 +27,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    path's shape against the plain version, against
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    and against its bound (H100 SXM data sheet at a 700 W power limit:
-   3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s float32).
+   3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s float32);
+5. hold the four flash-attention backward kernels (dQ and dK/dV, one and
+   four heads per CTA) against their plain version on the card: dQ, dK
+   and dV at the training shape (B=128, H=12, N=197, D=64), N=49/D=32,
+   causal, N=1, D=16 and D=128, bf16 and float32, q/k/v as strided
+   fused-qkv slices (bf16: norm-relative error 1e-2 with an RMS floor of
+   1e-4; float32: max abs 1e-4), and ``flash_chunk_grads`` (float32
+   gradients) the same way;
+6. train ViT-B/16 at full width at batch 128 through
+   ``make_train_step(make_loss_fn(label_smoothing=0.1))`` with AdamW
+   (weight decay 0.05) under warmup-cosine: 3 steps with
+   ``attn="flash_hb"``, 2 with ``attn="flash"``. Launch counters are zeroed
+   just before each run and read just after; each step must launch 12
+   forward and 12 of each backward kernel of its route (24 forward with
+   ``remat``, checked on one more step). The first step's loss and
+   grad_norm must match a naive-attention state's on the same weights and
+   batch (loss 5e-3 relative, grad_norm 5e-2: bf16 compute through 12
+   layers); every metric is finite and ``bad_step`` 0; 8 steps on the
+   fixed batch at constant lr 1e-4 must lower the loss;
+7. measure: train step time, images/s and MFU for flash_hb and naive in
+   turns, the ``train/bench.py`` line for both, and each backward
+   kernel's time at the training shape against the plain version, the
+   backward of ``scaled_dot_product_attention`` through autograd (a
+   yardstick only) and its bound.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -49,8 +72,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet, at 700 W
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_fwd.cu"
-REPLACES = {"flash_attn_fwd": "deeplearning_tpu/ops/pallas/flash_attention.py:38",
-            "flash_attn_fwd_hb": "deeplearning_tpu/ops/pallas/flash_attention.py:166"}
+BWD_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_bwd.cu"
+_PALLAS = "deeplearning_tpu/ops/pallas/flash_attention.py"
+REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
+            "flash_attn_fwd_hb": f"{_PALLAS}:166",
+            "flash_attn_bwd_dq": f"{_PALLAS}:84",
+            "flash_attn_bwd_dkv": f"{_PALLAS}:122",
+            "flash_attn_bwd_dq_hb": f"{_PALLAS}:214",
+            "flash_attn_bwd_dkv_hb": f"{_PALLAS}:252"}
 ATTN_FOR = {"flash_attn_fwd_hb": "flash_hb", "flash_attn_fwd": "flash"}
 HPC_FOR = {"flash_attn_fwd": 1, "flash_attn_fwd_hb": 4}
 LOGP_TOL = 0.05
@@ -93,9 +122,9 @@ def main() -> int:
     built = build.build_all()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
         f"total {time.perf_counter() - t0:.2f}s")
-    for line in (build.ptxas_report("flash_attn_fwd") or "").splitlines():
-        if "registers" in line or "bytes spill" in line:
-            log("  ptxas:", line.strip())
+    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+        for line in _ptxas_summary(build.ptxas_report(src) or ""):
+            log(f"  ptxas {src}: {line}")
 
     # ---------------------------------------- 2. kernel vs plain on card
     errs = {name: 0.0 for name in HPC_FOR}
@@ -230,6 +259,18 @@ def main() -> int:
             f"{flops / 1e9:.3f} GFLOP; {nbytes / ms / 1e6:.0f} GB/s, "
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
 
+    # ------------------------------- 5. backward kernels vs plain on card
+    del engines, lp
+    torch.cuda.empty_cache()
+    bwd_errs = _check_backward(fa, dev, g)
+
+    # ------------------------------------------- 6. the training path
+    train_launches = _train_path(fa, dev, args.seed)
+
+    # ------------------------------------------------------ 7. measure
+    _measure_training(dev, args.seed)
+    kernels += _time_backward(fa, dev, g, bwd_errs, train_launches)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -240,6 +281,318 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ptxas_summary(report: str) -> list:
+    """One line per kernel of a ``ptxas -v`` report: the kernel with its
+    template arguments (D, heads per CTA, output type), its registers and
+    its spill stores."""
+    import re
+    out, name, spill = [], None, "?"
+    for line in report.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"(?:fwd|bwd)_(?:dq_|dkv_)?(?:bf16_mma|f32_simt)",
+                             mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            out_t = ",f32" if "EfE" in mangled else (
+                ",bf16" if "bfloat16" in mangled else "")
+            name = f"{base.group(0) if base else mangled}<{','.join(args)}" \
+                   f"{out_t}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} registers, {spill} bytes "
+                       f"spill stores")
+            name, spill = None, "?"
+    return out
+
+
+TRAIN_BATCH = 128
+BWD_CASES = [(TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM, False),
+             (8, 4, 49, 32, False), (4, 12, 197, 64, True),
+             (8, 12, 1, 64, False), (2, 4, 17, 16, True),
+             (2, 8, 300, 128, False)]
+
+
+def _bwd_inputs(fa, dev, g, b, h, n, d, dtype, causal):
+    """The training layout: q, k, v strided slices of one fused qkv, dO a
+    (B, H, N, D) view of a (B, N, H, D) tensor; O and LSE from the plain
+    forward."""
+    import torch
+    qkv = torch.randn(b, n, 3, h, d, device=dev, generator=g).to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    do = torch.randn(b, n, h, d, device=dev, generator=g).to(
+        dtype).transpose(1, 2)
+    return q, k, v, o, lse, do
+
+
+def _grad_err(got, want, dtype) -> tuple:
+    """(max abs error, pass): bf16 norm-relative 1e-2 with an RMS floor of
+    1e-4 (N=1 gradients are 0 up to summation order); float32 max abs
+    1e-4."""
+    diff = (got.float() - want.float())
+    err = diff.abs().max().item()
+    if dtype == "float32":
+        return err, err <= 1e-4
+    floor = 1e-4 * want.numel() ** 0.5
+    return err, diff.norm().item() <= 1e-2 * want.float().norm().item() + floor
+
+
+def _check_backward(fa, dev, g) -> dict:
+    """Phase 5: every backward kernel against the plain version. Returns
+    the largest max-abs error of each kernel at the training shape in
+    bf16 (the kernels line)."""
+    import torch
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for b, h, n, d, causal in BWD_CASES:
+            q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d, dtype,
+                                              causal)
+            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    causal=causal)
+            for hpc in sorted({1, fa._head_block(h, 4)}):
+                got = fa._attention_bwd(q, k, v, o, lse, do, sm_scale=None,
+                                        causal=causal, heads_per_cta=hpc)
+                torch.cuda.synchronize()
+                res = [_grad_err(x, w, tag) for x, w in zip(got, want)]
+                log(f"kernel-vs-plain bwd hpc={hpc} {tag} B={b} H={h} N={n} "
+                    f"D={d} causal={causal}: max_abs_err dq {res[0][0]:.3e} "
+                    f"dk {res[1][0]:.3e} dv {res[2][0]:.3e}")
+                check(all(ok for _, ok in res) and all(
+                    torch.isfinite(x).all().item() for x in got),
+                    f"backward hpc={hpc} disagrees with the plain version")
+                if (b, n, dtype) == (TRAIN_BATCH, TOKENS, torch.bfloat16):
+                    for which, e in (("dq", res[0][0]),
+                                     ("dkv", max(res[1][0], res[2][0]))):
+                        name = fa.BWD_KERNEL_NAMES[which][hpc]
+                        errs[name] = max(errs.get(name, 0.0), e)
+            del q, k, v, o, lse, do, want
+        # ring attention's chunk backward: global LSE/delta, f32 gradients
+        q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, 8, 12, 197, 64, dtype,
+                                          False)
+        delta = (do.float() * o.float()).sum(-1)
+        got = fa.flash_chunk_grads(q, k, v, do, lse, delta)
+        want = fa.flash_attention_bwd_reference(q, k, v, None, lse, do,
+                                                delta=delta,
+                                                out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        res = [_grad_err(x, w, tag) for x, w in zip(got, want)]
+        log(f"kernel-vs-plain flash_chunk_grads {tag} B=8 H=12 N=197 D=64: "
+            f"max_abs_err {max(e for e, _ in res):.3e}")
+        check(all(x.dtype == torch.float32 for x in got)
+              and all(ok for _, ok in res), "flash_chunk_grads disagrees")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _train_state(attn, seed, dev, lr=None):
+    """ViT-B/16 at full width from ``seed`` with the bench's optimizer:
+    AdamW wd 0.05 under warmup-cosine (base 1e-3, 10 000 steps, 100
+    warmup), or at a constant ``lr``."""
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    from deeplearning_tpu_torch.train.schedules import build_schedule
+    model, _ = hub.load(MODEL, num_classes=1000, seed=seed, device=dev,
+                        attn_fn=get_attn_fn(attn))
+    sched = (build_schedule("constant", base_lr=lr) if lr is not None else
+             build_schedule("warmup_cosine", base_lr=1e-3,
+                            total_steps=10_000, warmup_steps=100))
+    tx = build_optimizer("adamw", sched, weight_decay=0.05,
+                         params=dict(model.named_parameters()))
+    return TrainState.create(model=model, tx=tx)
+
+
+def _train_batch(seed, dev):
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.normal(
+                size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, 1000, TRAIN_BATCH)).to(dev)}
+
+
+def _metrics(m) -> dict:
+    out = {k: float(v) for k, v in m.items()}
+    check(all(np.isfinite(v) for v in out.values()) and out["bad_step"] == 0,
+          f"metrics finite and bad_step 0: {out}")
+    return out
+
+
+def _train_path(fa, dev, seed) -> dict:
+    """Phase 6: the training main path; returns each backward kernel's
+    launches from its route's run."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    first, launches = {}, {}
+    for attn, hpc, n_steps in (("flash_hb", 4, 3), ("flash", 1, 2)):
+        state = _train_state(attn, seed, dev)
+        names = [fa.KERNEL_NAMES[hpc], fa.BWD_KERNEL_NAMES["dq"][hpc],
+                 fa.BWD_KERNEL_NAMES["dkv"][hpc]]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(n_steps):
+            state, m = step(state, batch, key)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        metrics = [_metrics(m) for m in metrics]
+        first[attn] = metrics[0]
+        log(f"trained {n_steps} steps via attn={attn} at batch "
+            f"{TRAIN_BATCH} in {wall:.2f}s: losses "
+            f"{[round(m['loss'], 4) for m in metrics]}, grad_norm "
+            f"{metrics[0]['grad_norm']:.4f}, launches {json.dumps(counts)}")
+        for name in names:
+            check(counts[name] == DEPTH * n_steps,
+                  f"{name} launches == {DEPTH} x {n_steps} steps")
+            launches[name] = counts[name]
+        check(sum(counts.values()) == 3 * DEPTH * n_steps,
+              f"attn={attn} launched only its own route's kernels")
+        if attn == "flash_hb":
+            state.model.remat = True        # one step with checkpointing
+            fa.reset_launch_counts()
+            state, m = step(state, batch, key)
+            torch.cuda.synchronize()
+            counts = fa.launch_counts()
+            _metrics(m)
+            state.model.remat = False
+            log(f"remat step via attn=flash_hb: launches {json.dumps(counts)}")
+            check(counts[names[0]] == 2 * DEPTH
+                  and counts[names[1]] == counts[names[2]] == DEPTH,
+                  "remat doubles the forward launches only")
+        del state
+        torch.cuda.empty_cache()
+
+    state = _train_state("naive", seed, dev)
+    state, m = step(state, batch, key)
+    first["naive"] = _metrics(m)
+    del state
+    for attn in ("flash_hb", "flash"):
+        a, b = first[attn], first["naive"]
+        dl = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        dn = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+        log(f"first step {attn} vs naive: loss {a['loss']:.5f} vs "
+            f"{b['loss']:.5f} (rel {dl:.2e}, tol 5e-3), grad_norm "
+            f"{a['grad_norm']:.5f} vs {b['grad_norm']:.5f} (rel {dn:.2e}, "
+            f"tol 5e-2)")
+        check(dl <= 5e-3 and dn <= 5e-2, f"{attn} first step vs naive")
+
+    state = _train_state("flash_hb", seed, dev, lr=1e-4)
+    losses = []
+    for _ in range(8):
+        state, m = step(state, batch, key)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    log(f"fixed batch, constant lr 1e-4, flash_hb: losses "
+        f"{[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "training on a fixed batch lowers the loss")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _measure_training(dev, seed) -> None:
+    """Phase 7a: step time, images/s and MFU for flash_hb and naive in
+    turns (naive, flash_hb, flash_hb, naive), then the bench lines."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import bench, make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    states = {a: _train_state(a, seed, dev) for a in ("flash_hb", "naive")}
+    step_flops = 3.0 * bench.vit_forward_flops(states["naive"].model,
+                                               TRAIN_BATCH)
+    times = {a: [] for a in states}
+    for attn in ("naive", "flash_hb", "flash_hb", "naive") * 3:
+        state = states[attn]
+        state, _ = step(state, batch, key)           # untimed warm step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, batch, key)
+        torch.cuda.synchronize()
+        times[attn].append((time.perf_counter() - t0) / 3)
+    for attn, ts in times.items():
+        dt = statistics.median(ts)
+        log(f"train step {attn} batch {TRAIN_BATCH}: "
+            f"{json.dumps({'step_time_ms': round(dt * 1e3, 3), 'images_per_sec': round(TRAIN_BATCH / dt, 1), 'mfu_pct': round(step_flops / dt / bench.PEAK_BF16_FLOPS * 100, 2), 'runs_ms': [round(t * 1e3, 2) for t in ts]})}")
+    del states, state
+    torch.cuda.empty_cache()
+    for attn in ("flash_hb", "naive"):
+        log(f"train bench --attn {attn}:")
+        check(bench.main(["--attn", attn, "--steps", "10",
+                          "--seed", str(seed)]) == 0, "train bench runs")
+        torch.cuda.empty_cache()
+
+
+def _time_backward(fa, dev, g, errs, launches) -> list:
+    """Phase 7b: each backward kernel alone at the training shape (bf16,
+    fused-qkv strides), the plain backward, the SDPA backward through
+    autograd, and the bound. Also the forward kernels at B=128."""
+    import torch
+    b, h, n, d = TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM
+    q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d,
+                                      torch.bfloat16, False)
+    lse = lse.reshape(b * h, n).contiguous()
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, n).contiguous()
+    grads = [fa._empty_bhnd(q, torch.bfloat16, True) for _ in range(3)]
+    plain_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse.view(b, h, n), do), iters=10, warmup=2)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), iters=20, warmup=3)
+    rows = []
+    for hpc in (4, 1):
+        for which in ("dq", "dkv"):
+            name = fa.BWD_KERNEL_NAMES[which][hpc]
+            before = fa.launch_counts()[name]
+            ms = _time_ms(lambda: fa._launch_bwd(
+                q, k, v, do, lse, delta, *grads, d ** -0.5, False, hpc,
+                kernels=(which,)))
+            check(fa.launch_counts()[name] > before, f"{name} launched")
+            flops = fa.bwd_flops(b, h, n, d, kernel=which)
+            nbytes = fa.bwd_min_bytes(b, h, n, d, 2, kernel=which)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            rows.append({
+                "name": name, "route": "cuda", "source": BWD_SOURCE,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms})
+            log(f"timing {name} B={b} H={h} N={n} D={d} bf16: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+                f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
+                f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} "
+                f"TFLOP/s achieved)")
+    qb, kb, vb = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_bound = max(fa.min_bytes(b, h, n, d, 2) / HBM_BYTES_PER_S,
+                    fa.flops(b, h, n, d) / PEAK_FLOPS["bfloat16"]) * 1e3
+    for name, hpc in HPC_FOR.items():
+        ms = _time_ms(lambda: fa.attention_bnhd(qb, kb, vb,
+                                                heads_per_cta=hpc))
+        log(f"timing {name} B={b} H={h} N={n} D={d} bf16: kernel {ms:.4f} "
+            f"ms, bound {fwd_bound:.4f} ms")
+    return rows
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -18,6 +18,13 @@ Train/eval follows PyTorch's ``module.train()`` / ``module.eval()``
 (JAX's ``train=`` argument); weights are initialised from a
 ``torch.Generator`` with flax's initialisers (lecun-normal Dense
 kernels, trunc-normal 0.02 position embedding, trunc-normal 0.01 head).
+
+Randomness is explicit, as JAX's ``rngs={"dropout": key}``: ``forward``
+takes ``rng``, a ``torch.Generator`` (the train step's
+``core.rng.step_key``), and every dropout, drop-path and attention-dropout
+mask is drawn from it. A mask drawn in train mode without one raises.
+``remat=True`` wraps each Block in non-reentrant activation checkpointing
+(JAX's ``nn.remat``); its recompute replays the forward's draws.
 """
 
 from __future__ import annotations
@@ -28,12 +35,14 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...core import numerics
 from ...core.registry import MODELS
 
-__all__ = ["drop_path", "DropPath", "PatchEmbed", "dot_product_attention",
-           "Attention", "Mlp", "Block", "VisionTransformer", "LayerNorm"]
+__all__ = ["drop_path", "DropPath", "dropout", "Dropout", "PatchEmbed",
+           "dot_product_attention", "Attention", "Mlp", "Block",
+           "VisionTransformer", "LayerNorm"]
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor,
@@ -43,15 +52,23 @@ def _dense(layer: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def _require(rng: Optional[torch.Generator], what: str) -> torch.Generator:
+    if rng is None:
+        raise ValueError(f"{what} in train mode needs an explicit "
+                         f"torch.Generator (pass rng=, e.g. core.rng.step_key)")
+    return rng
+
+
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
               rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stochastic depth on the residual branch."""
+    """Stochastic depth on the residual branch; the per-sample mask is
+    drawn from ``rng``."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
     mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
-        keep, generator=rng)
+        keep, generator=_require(rng, "drop_path"))
     return x / keep * mask
 
 
@@ -60,8 +77,28 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        return drop_path(x, self.rate, not self.training)
+    def forward(self, x, rng: Optional[torch.Generator] = None):
+        return drop_path(x, self.rate, not self.training, rng)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
+    kept values by 1 / (1 - rate); the mask is drawn from ``rng``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - rate, generator=_require(rng, "dropout")).bool()
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, rng: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, not self.training, rng)
 
 
 class LayerNorm(nn.Module):
@@ -111,8 +148,8 @@ def dot_product_attention(q, k, v, dropout_rate=0.0, deterministic=True,
     attn = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
     attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
     if dropout_rate > 0 and not deterministic:
-        keep = torch.empty_like(attn).bernoulli_(1.0 - dropout_rate,
-                                                 generator=rng)
+        keep = torch.empty_like(attn).bernoulli_(
+            1.0 - dropout_rate, generator=_require(rng, "attention dropout"))
         attn = attn * keep / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
@@ -132,18 +169,18 @@ class Attention(nn.Module):
         self.attn_fn = attn_fn
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        self.proj_dropout = nn.Dropout(proj_drop)
+        self.proj_dropout = Dropout(proj_drop)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[torch.Generator] = None):
         b, n, c = x.shape
         qkv = _dense(self.qkv, x, self.dtype).view(
             b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.unbind(2)
         fn = self.attn_fn or dot_product_attention
         out = fn(q, k, v, dropout_rate=self.attn_drop,
-                 deterministic=not self.training, rng=None)
+                 deterministic=not self.training, rng=rng)
         out = _dense(self.proj, out.reshape(b, n, c), self.dtype)
-        return self.proj_dropout(out)
+        return self.proj_dropout(out, rng)
 
 
 class Mlp(nn.Module):
@@ -153,12 +190,12 @@ class Mlp(nn.Module):
         self.dtype = dtype
         self.fc1 = nn.Linear(dim, int(dim * hidden_ratio))
         self.fc2 = nn.Linear(int(dim * hidden_ratio), dim)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[torch.Generator] = None):
         x = numerics.gelu(_dense(self.fc1, x, self.dtype))
-        x = self.drop(x)
-        return self.drop(_dense(self.fc2, x, self.dtype))
+        x = self.drop(x, rng)
+        return self.drop(_dense(self.fc2, x, self.dtype), rng)
 
 
 class Block(nn.Module):
@@ -175,9 +212,33 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, mlp_ratio, drop, dtype)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x):
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x, rng: Optional[torch.Generator] = None):
+        x = x + self.drop_path(self.attn(self.norm1(x), rng), rng)
+        return x + self.drop_path(self.mlp(self.norm2(x), rng), rng)
+
+
+def _remat(block: Block, x: torch.Tensor,
+           rng: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, rng)`` under non-reentrant activation checkpointing. The
+    recompute in the backward restarts ``rng`` from the state the forward
+    saw, so it draws the same masks, and then puts the stream back where
+    it was, so later draws do not depend on ``remat``."""
+    if rng is None:
+        return checkpoint(block, x, None, use_reentrant=False)
+    start = rng.get_state()
+    ran = []
+
+    def run(inp):
+        if not ran:                 # the forward
+            ran.append(True)
+            return block(inp, rng)
+        resume = rng.get_state()    # the recompute
+        rng.set_state(start)
+        try:
+            return block(inp, rng)
+        finally:
+            rng.set_state(resume)
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -197,17 +258,19 @@ class VisionTransformer(nn.Module):
                  drop_path_rate: float = 0.0,
                  representation_size: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False,
                  attn_fn: Optional[Callable] = None,
                  in_chans: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.num_classes = num_classes
         self.patch_embed = PatchEmbed(patch_size, embed_dim, in_chans, dtype)
         n = (img_size // patch_size) ** 2
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, embed_dim))
-        self.pos_drop = nn.Dropout(drop_rate)
+        self.pos_drop = Dropout(drop_rate)
         dpr = torch.linspace(0, drop_path_rate, depth).tolist()
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
@@ -234,14 +297,15 @@ class VisionTransformer(nn.Module):
         nn.init.trunc_normal_(self.pos_embed, std=0.02, a=-0.04, b=0.04,
                               generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[torch.Generator] = None):
         x = self.patch_embed(x)
         b, _, c = x.shape
         cls = self.cls_token.to(x.dtype).expand(b, 1, c)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x)
+        x = self.pos_drop(x, rng)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = _remat(block, x, rng) if remat else block(x, rng)
         x = self.norm(x)[:, 0]
         if self.pre_logits is not None:
             x = torch.tanh(_dense(self.pre_logits, x, self.dtype))

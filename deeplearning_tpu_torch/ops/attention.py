@@ -4,8 +4,9 @@
 (``models/classification/vit.py`` Attention) with the same names as
 ``deeplearning_tpu/ops/attention.py``. Every adapter takes and returns
 (B, N, H, D). "flash" runs the kernel with one head per CTA, "flash_hb"
-with four (the short-N path, and the serve default); both read the
-fused-qkv slices in place. "sdpa" is
+with four (the short-N path, and the serve and train default); both read
+the fused-qkv slices in place and train through the backward kernels
+(``flash_attention._FlashAttention``). "sdpa" is
 ``torch.nn.functional.scaled_dot_product_attention``, the counterpart of
 ``jax.nn.dot_product_attention``: a library call, never the port's main
 path. Attention dropout exists on the naive path only, as in JAX.

@@ -1,18 +1,26 @@
-"""Flash attention forward on Hopper: the port of
-``deeplearning_tpu/ops/pallas/flash_attention.py``'s forward kernels.
+"""Flash attention on Hopper: the port of
+``deeplearning_tpu/ops/pallas/flash_attention.py``, forward and backward.
 
 Entry points keep the JAX signatures and the (B, H, N, D) layout:
-``flash_attention`` (one head per CTA, the ``_fwd_kernel`` port),
-``flash_attention_hb`` (``head_block`` heads per CTA, the
-``_fwd_kernel_hb`` port), ``flash_attention_with_lse`` and
-``flash_attention_bnhd``. All reach one CUDA source,
-``csrc/flash_attn_fwd.cu``, built with nvcc at first use.
+``flash_attention`` (one head per CTA, the ``_fwd_kernel`` and
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ports), ``flash_attention_hb``
+(``head_block`` heads per CTA, the ``_hb`` ports), ``flash_attention_bnhd``
+and ``attention_bnhd`` are differentiable through one
+``torch.autograd.Function`` (the counterpart of the JAX ``custom_vjp``):
+its forward launches the forward kernel and saves the row log-sum-exp the
+kernel writes, its backward computes ``delta = rowsum(dO * O)`` and
+launches the dQ and dK/dV kernels. ``flash_attention_with_lse`` is
+forward-only, as in JAX; ``flash_chunk_grads`` (ring attention's
+backward) reaches the same backward kernels with caller-supplied global
+statistics. The kernels are ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu``, built with nvcc at first use.
 
 Dispatch is by where the tensors lie, nothing else: a CUDA tensor
 launches the kernel or raises (a card below sm_90, a build failure, a
 launch error, a shape the kernel does not take); a CPU tensor takes the
-plain PyTorch version, ``flash_attention_reference``. There is no
-fallback from one to the other.
+plain PyTorch versions, ``flash_attention_reference`` and
+``flash_attention_bwd_reference``. There is no fallback from one to the
+other.
 
 ``block_q`` / ``block_k`` are accepted so calls written against the JAX
 entry points run unchanged; they set the TPU kernel's tiling and do not
@@ -29,8 +37,10 @@ import torch
 
 __all__ = ["flash_attention", "flash_attention_hb", "flash_attention_with_lse",
            "flash_attention_bnhd", "flash_attention_reference",
+           "flash_attention_bwd_reference", "flash_chunk_grads",
            "attention_bnhd", "launch_counts", "reset_launch_counts",
-           "flops", "min_bytes", "KERNEL_NAMES", "HEAD_DIMS"]
+           "flops", "min_bytes", "bwd_flops", "bwd_min_bytes",
+           "KERNEL_NAMES", "BWD_KERNEL_NAMES", "HEAD_DIMS"]
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
@@ -42,10 +52,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # nowhere else — a run proves it went through the kernel by reading them
 KERNEL_NAMES = {1: "flash_attn_fwd", 2: "flash_attn_fwd_hb",
                 4: "flash_attn_fwd_hb"}
-_LAUNCHES: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_fwd_hb": 0}
+BWD_KERNEL_NAMES = {
+    "dq": {1: "flash_attn_bwd_dq", 2: "flash_attn_bwd_dq_hb",
+           4: "flash_attn_bwd_dq_hb"},
+    "dkv": {1: "flash_attn_bwd_dkv", 2: "flash_attn_bwd_dkv_hb",
+            4: "flash_attn_bwd_dkv_hb"}}
+_LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ["flash_attn_fwd", "flash_attn_fwd_hb", "flash_attn_bwd_dq",
+     "flash_attn_bwd_dkv", "flash_attn_bwd_dq_hb", "flash_attn_bwd_dkv_hb"],
+    0)
 _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 _LIB = None
+_BWD_LIB = None
 _CAPABILITY: Dict[int, Tuple[int, int]] = {}
 
 
@@ -72,14 +91,57 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     yardstick the kernel is held against on the card."""
     d, n = q.shape[-1], q.shape[2]
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    ct = _compute_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
     if causal:
-        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, float("-inf"))
+        s = s.masked_fill(~_causal_keep(n, q.device), float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(ct))
     return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: Optional[torch.Tensor],
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  sm_scale: Optional[float] = None,
+                                  causal: bool = False,
+                                  out_dtype: Optional[torch.dtype] = None,
+                                  delta: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The FlashAttention-2 gradients in float32, on any device: the CPU
+    path of the backward, and the yardstick the backward kernels are held
+    against on the card. (B, H, N, D) q, k, v, o, do; ``lse`` (B, H, N)
+    from the forward; ``delta`` (B, H, N) = rowsum(dO * O) when given (ring
+    attention passes the global one), else computed from ``o``. Returns
+    (dq, dk, dv) in ``out_dtype`` (default q's dtype)."""
+    d, n = q.shape[-1], q.shape[2]
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    ct = _compute_dtype(q)
+    qf, kf, vf, dof = (x.to(ct) for x in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.to(ct)[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_keep(n, q.device), 0.0)
+    if delta is None:
+        delta = (dof * o.to(ct)).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta.to(ct)[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dt = out_dtype or q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs (the gradcheck case)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _causal_keep(n: int, device) -> torch.Tensor:
+    return torch.ones(n, n, dtype=torch.bool, device=device).tril()
 
 
 # ------------------------------------------------------------ the kernel
@@ -100,6 +162,28 @@ def _lib():
         return _LIB
 
 
+def _bwd_lib():
+    global _BWD_LIB
+    with _LIB_LOCK:
+        if _BWD_LIB is None:
+            from .kernels import build
+            lib = build.load("flash_attn_bwd")
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            strides = ctypes.POINTER(ctypes.c_longlong)
+            lib.flash_attn_bwd_dq.argtypes = (
+                [vp] * 7 + [i32] * 4 + [strides, ctypes.c_float]
+                + [i32] * 4 + [vp])
+            lib.flash_attn_bwd_dkv.argtypes = (
+                [vp] * 8 + [i32] * 4 + [strides, ctypes.c_float]
+                + [i32] * 4 + [vp])
+            for fn in (lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkv):
+                fn.restype = i32
+            lib.flash_attn_bwd_error_string.argtypes = [i32]
+            lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+            _BWD_LIB = lib
+        return _BWD_LIB
+
+
 def _check_card(device: torch.device) -> None:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -108,7 +192,7 @@ def _check_card(device: torch.device) -> None:
         cap = _CAPABILITY[index] = torch.cuda.get_device_capability(index)
     if cap < (9, 0):
         raise RuntimeError(
-            f"flash_attn_fwd is built for sm_90a (Hopper); "
+            f"the flash-attention kernels are built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(index)} is sm_{cap[0]}{cap[1]}")
 
 
@@ -122,28 +206,36 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _launch(q, k, v, out, sm_scale: float, causal: bool,
-            heads_per_cta: int) -> torch.Tensor:
-    """Run the kernel on CUDA tensors q, k, v, writing ``out`` (all
-    (B, H, N, D), any strides); returns the (B*H, N) float32 LSE."""
+def _check_launch(name: str, q: torch.Tensor, heads_per_cta: int) -> None:
+    """What every kernel of this module takes; raises on anything else."""
     b, h, n, d = q.shape
     _check_card(q.device)
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attn_fwd takes head dim in {HEAD_DIMS}, "
-                         f"got {d}")
+        raise ValueError(f"{name} takes head dim in {HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attn_fwd takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if heads_per_cta not in HEADS_PER_CTA or h % heads_per_cta:
         raise ValueError(f"heads_per_cta={heads_per_cta} must be in "
                          f"{HEADS_PER_CTA} and divide H={h}")
     if b * h // heads_per_cta > 65535:
         raise ValueError(f"B*H/heads_per_cta = {b * h // heads_per_cta} "
                          f"exceeds the grid's 65535 rows")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    if _aligned(out) is not out:
+
+
+def _check_out(*outs: torch.Tensor) -> None:
+    if any(_aligned(o) is not o for o in outs):
         raise ValueError("output view must be 16-byte aligned with a "
                          "contiguous last dim")
+
+
+def _launch(q, k, v, out, sm_scale: float, causal: bool,
+            heads_per_cta: int) -> torch.Tensor:
+    """Run the kernel on CUDA tensors q, k, v, writing ``out`` (all
+    (B, H, N, D), any strides); returns the (B*H, N) float32 LSE."""
+    b, h, n, d = q.shape
+    _check_launch("flash_attn_fwd", q, heads_per_cta)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    _check_out(out)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
@@ -162,9 +254,47 @@ def _launch(q, k, v, out, sm_scale: float, causal: bool,
     return lse
 
 
-def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
-    """(out, lse (B, H, N)) for (B, H, N, D) q, k, v on one device.
-    ``out``: an optional (B, H, N, D) view to write the result into."""
+def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, sm_scale: float,
+                causal: bool, heads_per_cta: int,
+                kernels: Tuple[str, ...] = ("dq", "dkv")) -> None:
+    """Run the dQ kernel, then the dK/dV kernel, on CUDA tensors: q, k, v,
+    do and the outputs dq, dk, dv are (B, H, N, D) with any strides; lse
+    and delta are (B*H, N) float32. The outputs share one dtype: q's, or
+    float32. ``kernels`` picks one of the two (a timing harness times
+    each alone)."""
+    b, h, n, d = q.shape
+    _check_launch("flash_attn_bwd", q, heads_per_cta)
+    if not (dq.dtype == dk.dtype == dv.dtype) or (
+            dq.dtype != q.dtype and dq.dtype != torch.float32):
+        raise ValueError(f"gradients must share q's dtype or float32, got "
+                         f"{dq.dtype}, {dk.dtype}, {dv.dtype}")
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    _check_out(dq, dk, dv)
+    lse = lse.to(torch.float32).reshape(b * h, n).contiguous()
+    delta = delta.to(torch.float32).reshape(b * h, n).contiguous()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    codes = (float(sm_scale), int(bool(causal)), heads_per_cta,
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[dq.dtype])
+    calls = [c for c in (("dq", (dq,)), ("dkv", (dk, dv))) if c[0] in kernels]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        lib = _bwd_lib()
+        for which, outs in calls:
+            strides = (ctypes.c_longlong * (3 * (4 + len(outs))))(
+                *(s for t in (q, k, v, do, *outs) for s in t.stride()[:3]))
+            fn = getattr(lib, f"flash_attn_bwd_{which}")
+            rc = fn(*args, *(o.data_ptr() for o in outs), b, h, n, d,
+                    strides, *codes, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"flash_attn_bwd_{which} launch failed ({rc}): "
+                    f"{lib.flash_attn_bwd_error_string(rc).decode()}")
+            with _COUNT_LOCK:
+                _LAUNCHES[BWD_KERNEL_NAMES[which][heads_per_cta]] += 1
+
+
+def _check_qkv(q, k, v) -> None:
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, N, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -173,6 +303,14 @@ def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
         raise ValueError("q, k, v must lie on one device")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k, v must share one dtype")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention for device {q.device}")
+
+
+def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
+    """(out, lse (B, H, N)) for (B, H, N, D) q, k, v on one device.
+    ``out``: an optional (B, H, N, D) view to write the result into."""
+    _check_qkv(q, k, v)
     b, h, n, d = q.shape
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     if q.device.type == "cpu":
@@ -182,8 +320,6 @@ def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
             out.copy_(o)
             o = out
         return o, lse
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if n == 0 or b * h == 0:
@@ -191,6 +327,69 @@ def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
                                 device=q.device)
     lse = _launch(q, k, v, out, scale, causal, heads_per_cta)
     return out, lse.view(b, h, n)
+
+
+def _empty_bhnd(like: torch.Tensor, dtype: torch.dtype,
+                bnhd: bool) -> torch.Tensor:
+    """A (B, H, N, D) buffer for an output or a gradient; ``bnhd``: a view
+    of a contiguous (B, N, H, D) tensor, the layout the models hand the
+    kernels."""
+    b, h, n, d = like.shape
+    if bnhd:
+        return torch.empty((b, n, h, d), dtype=dtype,
+                           device=like.device).transpose(1, 2)
+    return torch.empty((b, h, n, d), dtype=dtype, device=like.device)
+
+
+def _attention_bwd(q, k, v, o, lse, do, *, sm_scale, causal, heads_per_cta,
+                   out_dtype=None, delta=None, bnhd=False):
+    """(dq, dk, dv) of attention for (B, H, N, D) operands: the plain
+    version on the CPU, the two backward kernels on the card. ``delta``
+    (B, H, N) defaults to rowsum(dO * O), computed in float32 as the JAX
+    code does outside its kernels."""
+    b, h, n, d = q.shape
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    dtype = out_dtype or q.dtype
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, o, lse, do, sm_scale=scale, causal=causal,
+            out_dtype=dtype, delta=delta)
+    grads = tuple(_empty_bhnd(x, dtype, bnhd) for x in (q, k, v))
+    if n == 0 or b * h == 0:
+        return grads
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1)
+    _launch_bwd(q, k, v, do, lse, delta, *grads, scale, causal,
+                heads_per_cta)
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the kernels' backward: the counterpart of the JAX
+    package's ``custom_vjp`` pairs ``_flash`` / ``_flash_hb``. The forward
+    saves q, k, v, O and the LSE the forward kernel writes; the backward
+    recomputes P from them. ``bnhd``: q, k, v are (B, H, N, D) views of
+    (B, N, H, D) tensors, and the output and gradients are laid out the
+    same way, so no transpose is ever copied."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal, heads_per_cta, bnhd):
+        _check_qkv(q, k, v)
+        out = _empty_bhnd(q, q.dtype, bnhd) if bnhd else None
+        o, lse = _attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                            heads_per_cta=heads_per_cta, out=out)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (sm_scale, causal, heads_per_cta, bnhd)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        sm_scale, causal, heads_per_cta, bnhd = ctx.cfg
+        dq, dk, dv = _attention_bwd(q, k, v, o, lse, do, sm_scale=sm_scale,
+                                    causal=causal,
+                                    heads_per_cta=heads_per_cta, bnhd=bnhd)
+        return dq, dk, dv, None, None, None, None
 
 
 def _head_block(h: int, head_block: int) -> int:
@@ -205,10 +404,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None, causal: bool = False,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """Fused attention, one head per CTA. q, k, v: (B, H, N, D), any N."""
+    """Fused attention, one head per CTA. q, k, v: (B, H, N, D), any N.
+    Differentiable: the backward runs the dQ and dK/dV kernels."""
     del block_q, block_k
-    return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
-                      heads_per_cta=1)[0]
+    return _FlashAttention.apply(q, k, v, sm_scale, causal, 1, False)
 
 
 def flash_attention_hb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -217,10 +416,11 @@ def flash_attention_hb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        block_k: int = DEFAULT_BLOCK_K,
                        head_block: int = 4) -> torch.Tensor:
     """Head-batched fused attention: ``head_block`` heads (halved until it
-    divides H) share one CTA — the short-N path (ViT's N = 197)."""
+    divides H) share one CTA, forward and backward — the short-N path
+    (ViT's N = 197)."""
     del block_q, block_k
-    return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
-                      heads_per_cta=_head_block(q.shape[1], head_block))[0]
+    return _FlashAttention.apply(q, k, v, sm_scale, causal,
+                                 _head_block(q.shape[1], head_block), False)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -231,25 +431,50 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              block_k: int = DEFAULT_BLOCK_K
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (B, H, N, D), lse (B, H, N) float32): the hook ring attention
-    merges per-chunk results with."""
+    merges per-chunk results with. Forward-only, as in JAX: no gradient
+    flows through the pair."""
     del block_q, block_k
-    return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
-                      heads_per_cta=1)
+    with torch.no_grad():
+        return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                          heads_per_cta=1)
+
+
+def flash_chunk_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, *,
+                      sm_scale: Optional[float] = None,
+                      block_q: int = DEFAULT_BLOCK_Q,
+                      block_k: int = DEFAULT_BLOCK_K
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention over ONE KV chunk given the GLOBAL
+    softmax statistics: ``lse`` / ``delta`` (B, H, Nq) are the
+    full-sequence log-sum-exp and rowsum(dO * O), so per-chunk gradients
+    sum over chunks to the exact full-attention gradient (ring attention's
+    backward). q, do: (B, H, Nq, D); k, v: (B, H, Nk, D) with Nq == Nk.
+    Gradients come back in float32 whatever the input dtype: the ring
+    accumulates them across steps."""
+    del block_q, block_k
+    n = q.shape[2]
+    if k.shape[2] != n:
+        raise ValueError(f"ring chunks must be equal: Nq={n} "
+                         f"Nk={k.shape[2]}")
+    _check_qkv(q, k, v)
+    return _attention_bwd(q, k, v, None, lse, do, sm_scale=sm_scale,
+                          causal=False, heads_per_cta=1,
+                          out_dtype=torch.float32, delta=delta)
 
 
 def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    heads_per_cta: int = 1,
                    sm_scale: Optional[float] = None,
                    causal: bool = False) -> torch.Tensor:
-    """(B, N, H, D) in and out, with no transposes: the kernel reads the
-    strided (B, H, N, D) views of its inputs (e.g. slices of a fused qkv)
-    and writes a (B, N, H, D) tensor through the matching view."""
-    b, n, h, d = q.shape
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    """(B, N, H, D) in and out, with no transposes: the kernels read the
+    strided (B, H, N, D) views of their inputs (e.g. slices of a fused qkv)
+    and write the output and the gradients as (B, N, H, D) tensors through
+    the matching views. Differentiable."""
     t = lambda x: x.transpose(1, 2)  # noqa: E731
-    _attention(t(q), t(k), t(v), sm_scale=sm_scale, causal=causal,
-               heads_per_cta=heads_per_cta, out=t(out))
-    return out
+    return t(_FlashAttention.apply(t(q), t(k), t(v), sm_scale, causal,
+                                   heads_per_cta, True))
 
 
 def flash_attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -271,3 +496,27 @@ def min_bytes(b: int, h: int, n: int, d: int, itemsize: int) -> int:
     """q, k, v read once, O written once, LSE (float32) written once."""
     return 4 * b * h * n * d * itemsize + b * h * n * 4
 
+
+# (N x N x D) products each backward kernel does: dQ recomputes S and dP
+# and forms dS K; dK/dV recomputes S and dP and forms P^T dO and dS^T Q
+_BWD_PRODUCTS = {"dq": 3, "dkv": 4, None: 5}
+_BWD_OUTPUTS = {"dq": 1, "dkv": 2, None: 3}
+
+
+def bwd_flops(b: int, h: int, n: int, d: int, causal: bool = False,
+              kernel: Optional[str] = None) -> float:
+    """Operations of the backward ("dq", "dkv", or None for the whole
+    backward as the math needs it: S, dP, dV, dQ, dK), 2 per
+    multiply-add; the causal mask halves them to first order."""
+    full = _BWD_PRODUCTS[kernel] * 2.0 * b * h * n * n * d
+    return full * (n + 1) / (2 * n) if causal else full
+
+
+def bwd_min_bytes(b: int, h: int, n: int, d: int, itemsize: int,
+                  kernel: Optional[str] = None,
+                  out_itemsize: Optional[int] = None) -> int:
+    """q, k, v, dO, LSE and delta (float32) read once, the kernel's
+    gradients ("dq": dQ, "dkv": dK and dV, None: all three) written once."""
+    t = b * h * n * d
+    return (4 * t * itemsize + 2 * b * h * n * 4
+            + _BWD_OUTPUTS[kernel] * t * (out_itemsize or itemsize))

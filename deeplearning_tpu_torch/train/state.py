@@ -1,0 +1,92 @@
+"""TrainState — the port of ``deeplearning_tpu/train/state.py``.
+
+The step count, the model (whose parameters are the params), the
+optimizer and its state, BN statistics and an optional EMA shadow of the
+params, in one object. JAX's state is an immutable pytree that each step
+replaces; the port updates the parameters, the optimizer state and the
+EMA in place (no second copy of 86M parameters per step) and
+``apply_gradients`` returns the same object.
+
+``step`` is a host integer: the schedules and Adam's bias correction read
+it on the host, so a step never waits for the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from .optim import GradientTransformation, apply_updates
+
+__all__ = ["TrainState"]
+
+
+class TrainState:
+    def __init__(self, *, model: nn.Module, tx: GradientTransformation,
+                 opt_state: Any, step: int = 0,
+                 batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+                 ema_params: Optional[Dict[str, torch.Tensor]] = None,
+                 ema_decay: float = 0.9998):
+        self.model = model
+        self.tx = tx
+        self.opt_state = opt_state
+        self.step = step
+        self.batch_stats = batch_stats if batch_stats is not None else {}
+        self.ema_params = ema_params
+        self.ema_decay = ema_decay
+
+    @classmethod
+    def create(cls, *, model: nn.Module, tx: GradientTransformation,
+               batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+               use_ema: bool = False,
+               ema_decay: float = 0.9998) -> "TrainState":
+        params = dict(model.named_parameters())
+        ema = ({n: p.detach().clone() for n, p in params.items()}
+               if use_ema else None)
+        return cls(model=model, tx=tx, opt_state=tx.init(params),
+                   batch_stats=batch_stats, ema_params=ema,
+                   ema_decay=ema_decay)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    @property
+    def eval_params(self) -> Dict[str, torch.Tensor]:
+        return self.ema_params if self.ema_params is not None else self.params
+
+    def apply_fn(self, params: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                 train: bool = False,
+                 rng: Optional[torch.Generator] = None) -> Any:
+        """The model on ``params`` (JAX's ``apply_fn(variables, x, train=,
+        rngs=)``): train mode draws its masks from ``rng``."""
+        self.model.train(train)
+        return torch.func.functional_call(self.model, params, (x,),
+                                          {"rng": rng})
+
+    def apply_gradients(self, grads: Dict[str, torch.Tensor],
+                        new_batch_stats: Optional[Dict] = None
+                        ) -> "TrainState":
+        """One optimizer update in place; the EMA (if on) follows with
+        d = decay * (1 - exp(-(step + 1) / 2000)) on the step before the
+        increment (the YOLOX warmup EMA)."""
+        params = self.params
+        updates, self.opt_state = self.tx.update(grads, self.opt_state,
+                                                 params)
+        apply_updates(params, updates)
+        if self.ema_params is not None:
+            d = self.ema_decay * (1.0 - math.exp(-(self.step + 1) / 2000.0))
+            names = list(self.ema_params)
+            with torch.no_grad():
+                ema = [self.ema_params[n] for n in names]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [params[n].detach().to(self.ema_params[n].dtype)
+                     for n in names], 1 - d))
+        if new_batch_stats is not None:
+            self.batch_stats = new_batch_stats
+        self.step += 1
+        return self

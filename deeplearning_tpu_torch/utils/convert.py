@@ -10,7 +10,9 @@ Rules, per leaf of a tree of numpy arrays (flax names → port names):
   ``pos_embed`` keep their names and shapes.
 
 ``load_npz`` reads a flattened ``.npz`` of such a tree (keys joined by
-``/``, with or without the leading ``params``).
+``/``, with or without the leading ``params``). ``flax_path`` maps a
+port name back to its flax path (what the optimizer masks are judged
+on), and ``from_optax_state`` carries an optax optimizer state across.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_flax_params", "load_npz", "as_state_dict"]
+__all__ = ["from_flax_params", "load_npz", "as_state_dict", "flax_path",
+           "from_optax_state"]
 
 _INDEXED = re.compile(r"(.+)_(\d+)")
 
@@ -61,6 +64,42 @@ def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         key = f"{stem}.{leaf}" if stem else leaf
         out[key] = torch.from_numpy(np.array(arr, order="C"))  # own copy
     return out
+
+
+def flax_path(name: str, ndim: int) -> str:
+    """The flax path of port parameter ``name`` with ``ndim`` dims:
+    ``blocks.0.attn.qkv.weight`` (2-D) -> ``blocks_0/attn/qkv/kernel``;
+    a 1-D ``weight`` is a LayerNorm ``scale``."""
+    *mods, leaf = name.split(".")
+    parts: list = []
+    for m in mods:
+        if m.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}_{m}"
+        else:
+            parts.append(m)
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    return "/".join(parts + [leaf])
+
+
+def from_optax_state(state: Any) -> Any:
+    """An optax optimizer state (numpy leaves) as the port's optimizer
+    state (``train/optim.py``): each optax state namedtuple becomes a dict
+    of its fields, a chain's tuple stays a tuple, a parameter-shaped tree
+    (Adam's ``mu``/``nu``, SGD's ``trace``) goes through
+    ``from_flax_params`` (names and kernel layouts), and a count becomes
+    an int. Built by ``build_optimizer`` with the same arguments, the
+    port's chain has this very structure."""
+    if hasattr(state, "_fields"):
+        return {f: from_optax_state(getattr(state, f)) for f in state._fields}
+    if isinstance(state, Mapping):
+        return from_flax_params(state)
+    if isinstance(state, (tuple, list)):
+        return tuple(from_optax_state(s) for s in state)
+    arr = np.asarray(state)
+    if arr.ndim == 0 and np.issubdtype(arr.dtype, np.integer):
+        return int(arr)
+    raise TypeError(f"no port counterpart for optax state leaf {state!r}")
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:

@@ -64,3 +64,96 @@ def test_vit_adapter_reads_strided_qkv_and_raises_on_bad_input(cuda_device):
         fa.flash_attention(*(torch.zeros(1, 2, 8, 64, device=cuda_device,
                                          dtype=torch.float16)
                              for _ in range(3)))
+
+
+def _bwd_inputs(device, b, h, n, d, dtype, causal, seed=0):
+    """Fused-qkv slices (the training layout), the forward's O and LSE
+    from the plain version, and a random dO."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, n, 3, h, d, device=device, generator=g).to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    do = torch.randn(b, n, h, d, device=device,
+                     generator=g).to(dtype).transpose(1, 2)
+    return q, k, v, o, lse, do
+
+
+def _close(got, want, rtol=1e-2, floor=1e-4):
+    """Norm-relative error within ``rtol``, with an RMS floor of ``floor``
+    for gradients that are exactly zero in the plain version (N = 1: one
+    key, so dS = P (dP - delta) = 0 up to summation order)."""
+    err = (got.float() - want.float()).norm().item()
+    return err <= rtol * want.float().norm().item() + floor * want.numel() ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hpc", [1, 2, 4])
+@pytest.mark.parametrize("n,d,causal", [(197, 64, False), (49, 32, False),
+                                        (128, 32, True), (1, 64, False),
+                                        (17, 16, True), (300, 128, False)])
+def test_flash_attn_bwd_matches_plain(cuda_device, n, d, causal, hpc, dtype):
+    """dQ, dK, dV of both backward kernels against the plain version:
+    norm-relative 1e-2 in bf16 (P and dS are rounded to bf16 before their
+    products, as on the TPU; RMS floor 1e-4), max-abs 1e-4 in float32."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, d, dtype, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=causal)
+    before = fa.launch_counts()
+    got = fa._attention_bwd(q, k, v, o, lse, do, sm_scale=None,
+                            causal=causal, heads_per_cta=hpc)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    for which in ("dq", "dkv"):
+        name = fa.BWD_KERNEL_NAMES[which][hpc]
+        assert after[name] == before[name] + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        if dtype == torch.bfloat16:
+            assert _close(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_chunk_grads_float32_out(cuda_device, dtype):
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, 49, 64, dtype,
+                                      False, seed=3)
+    delta = (do.float() * o.float()).sum(-1)
+    got = fa.flash_chunk_grads(q, k, v, do, lse, delta)
+    want = fa.flash_attention_bwd_reference(q, k, v, None, lse, do,
+                                            delta=delta,
+                                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        if dtype == torch.bfloat16:
+            assert _close(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_vit_adapter_trains_through_the_kernels(cuda_device):
+    """Autograd through the flash_hb adapter on fused-qkv views: one
+    forward and one dQ, one dK/dV launch; gradients match the plain
+    version's autograd."""
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(4, 197, 3, 12, 64, device=cuda_device,
+                      generator=g).to(torch.bfloat16).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    before = fa.launch_counts()
+    out = get_attn_fn("flash_hb")(q, k, v)
+    dout = torch.randn_like(out)
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    after = fa.launch_counts()
+    assert after["flash_attn_fwd_hb"] == before["flash_attn_fwd_hb"] + 1
+    assert after["flash_attn_bwd_dq_hb"] == before["flash_attn_bwd_dq_hb"] + 1
+    assert after["flash_attn_bwd_dkv_hb"] == before["flash_attn_bwd_dkv_hb"] + 1
+    ref = fa.flash_attention_reference(
+        *(x.transpose(1, 2) for x in qkv.float().unbind(2)))[0].transpose(1, 2)
+    (want,) = torch.autograd.grad(ref, qkv, dout.float())
+    torch.cuda.synchronize()
+    assert _close(grad, want)

@@ -149,3 +149,68 @@ def test_default_dtype_is_bf16_compute_with_f32_logits():
             size=(2, 56, 56, 3)).astype(np.float32)))
     assert out.dtype == torch.float32 and out.shape == (2, 7)
     assert torch.isfinite(out).all()
+
+
+# ------------------------------------------- explicit randomness and remat
+def _train_grads(model, x, rng):
+    model.train()
+    loss = model(x, rng=rng).square().sum()
+    return torch.autograd.grad(loss, list(model.parameters()))
+
+
+@pytest.mark.parametrize("attn", ["naive", "flash_hb"])
+def test_remat_gives_the_same_gradients(jax_variables, attn):
+    """remat=True (non-reentrant checkpoint per Block) against remat=False
+    on the same weights and generator state, with drop-path on: the
+    recompute replays the forward's masks."""
+    from deeplearning_tpu_torch.core import rng as trng
+    x = torch.from_numpy(_images(4, seed=1))
+    grads = []
+    for remat in (False, True):
+        model = tvit.VisionTransformer(**TINY, dtype=torch.float32,
+                                       drop_path_rate=0.3, remat=remat,
+                                       attn_fn=t_get_attn_fn(attn))
+        model.load_state_dict(from_flax_params(jax_variables))
+        gen = trng.step_key(trng.root_key(0), 5)
+        grads.append(_train_grads(model, x, gen))
+        # the stream ends where it would without remat
+        grads[-1] = grads[-1] + (torch.rand(3, generator=gen),)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_registry_accepts_remat():
+    model = TMODELS.build("vit_micro_patch4_56", num_classes=7, depth=1,
+                          remat=True)
+    assert model.remat
+    jmodel = JMODELS.build("vit_micro_patch4_56", num_classes=7, depth=1,
+                           remat=True)
+    assert jmodel.remat
+
+
+def test_masks_follow_the_step_key():
+    """Same step key -> same drop-path masks; another step -> others."""
+    from deeplearning_tpu_torch.core import rng as trng
+    x = torch.ones(64, 3, 8)
+    key = trng.root_key(3)
+    a = tvit.drop_path(x, 0.5, False, trng.step_key(key, 1))
+    b = tvit.drop_path(x, 0.5, False, trng.step_key(key, 1))
+    c = tvit.drop_path(x, 0.5, False, trng.step_key(key, 2))
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert not torch.equal(a, c)
+    d = tvit.dot_product_attention(
+        *(torch.ones(2, 5, 2, 4) for _ in range(3)), dropout_rate=0.5,
+        deterministic=False, rng=trng.step_key(key, 1))
+    assert d.shape == (2, 5, 2, 4)
+
+
+def test_train_mode_randomness_needs_a_generator():
+    model = tvit.VisionTransformer(**TINY, dtype=torch.float32,
+                                   drop_path_rate=0.1).train()
+    x = torch.from_numpy(_images(2))
+    with pytest.raises(ValueError, match="Generator"):
+        model(x)
+    with pytest.raises(ValueError, match="Generator"):
+        tvit.dropout(x, 0.1, False)
+    with torch.no_grad():               # eval mode draws nothing
+        assert model.eval()(x).shape == (2, 10)
