@@ -50,7 +50,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    turns, the ``train/bench.py`` line for both, and each backward
    kernel's time at the training shape against the plain version, the
    backward of ``scaled_dot_product_attention`` through autograd (a
-   yardstick only) and its bound.
+   yardstick only) and its bound;
+8. hold the fused window-attention kernel (``csrc/window_attn_fwd.cu``)
+   against its plain PyTorch version on the card, bf16 (2e-2) and float32
+   (1e-4), with qkv as strided slices of one (B·nW, N, 3·C) projection: the
+   four Swin-T stage shapes at batch 32 (masked with nW = 64, 16, 4, then
+   unmasked), N = 9 and 16, d = 16 and 64, nW not a multiple of
+   ``windows_per_block``, and a mask of whole rows of -1e9 but the diagonal;
+9. serve Swin-T at full width (224², patch 4, depths 2/2/6/2, heads
+   3/6/12/24, embed 96, 1000 classes, weights from ``--seed``) through
+   ``InferenceEngine`` (buckets 1/8/32) and ``MicroBatcher`` with the fused
+   kernel: 64 requests from 8 threads. The K2 counter is zeroed just before
+   and read just after: 12 × batches dispatched (one launch a block; the
+   7×7 last stage runs unshifted, with no mask). Every answer arrives and
+   matches ``engine.infer``, and the engine matches an unfused engine on
+   the same weights (log-probabilities within 0.05);
+10. train Swin-T at full width at batch 128 (the step, optimizer and
+   schedule of phase 6): 3 steps with the fused kernel, 12 launches each,
+   and one with ``remat``, 24. The first step's loss and grad_norm match an
+   unfused state's (loss 5e-3 relative, grad_norm 5e-2); every metric is
+   finite and ``bad_step`` 0; 8 steps at constant lr 1e-4 on a fixed batch
+   lower the loss;
+11. measure: Swin-T per-bucket served latency and its train step (time,
+   images/s, MFU), fused and unfused in turns, the ``train/bench.py`` line
+   for both, and K2 at the four Swin-T stage shapes at batch 128 against
+   its plain version, ``scaled_dot_product_attention`` with the combined
+   additive mask (a yardstick only) and its bound.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -73,22 +98,34 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet, at 700 W
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_fwd.cu"
 BWD_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_bwd.cu"
+WIN_SOURCE = "deeplearning_tpu_torch/csrc/window_attn_fwd.cu"
 _PALLAS = "deeplearning_tpu/ops/pallas/flash_attention.py"
 REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
             "flash_attn_fwd_hb": f"{_PALLAS}:166",
             "flash_attn_bwd_dq": f"{_PALLAS}:84",
             "flash_attn_bwd_dkv": f"{_PALLAS}:122",
             "flash_attn_bwd_dq_hb": f"{_PALLAS}:214",
-            "flash_attn_bwd_dkv_hb": f"{_PALLAS}:252"}
+            "flash_attn_bwd_dkv_hb": f"{_PALLAS}:252",
+            "window_attn_fwd":
+                "deeplearning_tpu/ops/pallas/window_attention.py:43"}
 ATTN_FOR = {"flash_attn_fwd_hb": "flash_hb", "flash_attn_fwd": "flash"}
 HPC_FOR = {"flash_attn_fwd": 1, "flash_attn_fwd_hb": 4}
 LOGP_TOL = 0.05
 MODEL = "vit_base_patch16_224"
 DEPTH, HEADS, TOKENS, HEAD_DIM = 12, 12, 197, 64
+SWIN = "swin_tiny_patch4_window7_224"
+SWIN_BLOCKS = 12                 # depths 2/2/6/2: one K2 launch a block
+# Swin-T's window attention by stage: windows an image, heads, mask windows
+SWIN_STAGES = [(64, 3, 64), (16, 6, 16), (4, 12, 4), (1, 24, 0)]
+WIN_TOKENS, WIN_HEAD_DIM = 49, 32
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def phase(n: int, started: float) -> None:
+    log(f"--- phase {n} at {time.perf_counter() - started:.1f}s")
 
 
 def check(cond: bool, what: str) -> None:
@@ -101,6 +138,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
     if not torch.cuda.is_available():
@@ -118,15 +156,17 @@ def main() -> int:
         f"sm_{''.join(map(str, torch.cuda.get_device_capability(0)))}")
 
     # ------------------------------------------------------ 1. build
+    phase(1, started)
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
         f"total {time.perf_counter() - t0:.2f}s")
-    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+    for src in ("flash_attn_fwd", "flash_attn_bwd", "window_attn_fwd"):
         for line in _ptxas_summary(build.ptxas_report(src) or ""):
             log(f"  ptxas {src}: {line}")
 
     # ---------------------------------------- 2. kernel vs plain on card
+    phase(2, started)
     errs = {name: 0.0 for name in HPC_FOR}
     g = torch.Generator(device=dev).manual_seed(args.seed)
     cases = [(32, 12, 197, 64, False), (8, 4, 49, 32, False),
@@ -154,6 +194,7 @@ def main() -> int:
                     errs[name] = max(errs[name], err)
 
     # ------------------------------------------------ 3. the main path
+    phase(3, started)
     from deeplearning_tpu_torch import hub
     from deeplearning_tpu_torch.ops.attention import get_attn_fn
     from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
@@ -217,20 +258,8 @@ def main() -> int:
     _compare(lp["flash"], lp["naive"], "flash engine vs naive engine")
 
     # ------------------------------------------------------- 4. measure
-    for b in buckets:
-        xb = images[:b]
-        times = {"flash_hb": [], "naive": []}
-        for attn in ("naive", "flash_hb", "flash_hb", "naive") * 5:
-            eng = engines[attn]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.run(b, xb)
-            torch.cuda.synchronize()
-            times[attn].append((time.perf_counter() - t0) * 1e3)
-        line = {a: {"latency_ms_p50": round(statistics.median(t), 3),
-                    "img_per_s": round(b / statistics.median(t) * 1e3, 1)}
-                for a, t in times.items()}
-        log(f"bucket {b}: {json.dumps(line)}")
+    phase(4, started)
+    _bucket_latency(engines, ("naive", "flash_hb"), MODEL)
 
     kernels = []
     qkv = torch.randn(32, TOKENS, 3, HEADS, HEAD_DIM, device=dev,
@@ -260,16 +289,41 @@ def main() -> int:
             f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
 
     # ------------------------------- 5. backward kernels vs plain on card
+    phase(5, started)
     del engines, lp
     torch.cuda.empty_cache()
     bwd_errs = _check_backward(fa, dev, g)
 
     # ------------------------------------------- 6. the training path
+    phase(6, started)
     train_launches = _train_path(fa, dev, args.seed)
 
     # ------------------------------------------------------ 7. measure
+    phase(7, started)
     _measure_training(dev, args.seed)
     kernels += _time_backward(fa, dev, g, bwd_errs, train_launches)
+
+    # --------------------------------------- 8. K2 vs plain on the card
+    phase(8, started)
+    from deeplearning_tpu_torch.ops import window_attention as wa
+    win_err = _check_window_kernel(wa, dev, g)
+
+    # ------------------------------------------ 9. serve Swin-T (fused)
+    phase(9, started)
+    win_launches, swin_engines = _serve_swin(wa, dev, args.seed)
+
+    # -------------------------------------------- 10. train Swin-T
+    phase(10, started)
+    _train_swin(wa, dev, args.seed)
+
+    # ------------------------------------------------------ 11. measure
+    phase(11, started)
+    _bucket_latency(swin_engines, ("unfused", "fused"), SWIN)
+    del swin_engines
+    torch.cuda.empty_cache()
+    _measure_training(dev, args.seed, SWIN)
+    kernels.append(_time_window_kernel(wa, dev, g, win_err, win_launches))
+    log(f"chip_smoke: phases 1-11 in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -283,6 +337,31 @@ def main() -> int:
     return 0
 
 
+def _bucket_latency(engines, pair, model) -> None:
+    """Per-bucket served latency (one ``engine.run`` ending in a
+    synchronise, p50 of 10) of two engines on the same weights, in turns
+    (a, b, b, a)."""
+    import torch
+    images = np.random.default_rng(1).normal(
+        size=(32, 224, 224, 3)).astype(np.float32)
+    a, b = pair
+    for bucket in engines[a].buckets:
+        xb = images[:bucket]
+        times = {b: [], a: []}
+        for name in (a, b, b, a) * 5:
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(bucket, xb)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        line = {n: {"latency_ms_p50": round(statistics.median(t), 3),
+                    "img_per_s": round(bucket / statistics.median(t) * 1e3,
+                                       1)}
+                for n, t in times.items()}
+        log(f"{model} bucket {bucket}: {json.dumps(line)}")
+
+
 def _ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: the kernel with its
     template arguments (D, heads per CTA, output type), its registers and
@@ -293,8 +372,8 @@ def _ptxas_summary(report: str) -> list:
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(?:fwd|bwd)_(?:dq_|dkv_)?(?:bf16_mma|f32_simt)",
-                             mangled)
+            base = re.search(r"(?:(?:fwd|bwd)_(?:dq_|dkv_)?|win_)"
+                             r"(?:bf16_mma|f32_simt)", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             out_t = ",f32" if "EfE" in mangled else (
                 ",bf16" if "bfloat16" in mangled else "")
@@ -391,17 +470,18 @@ def _check_backward(fa, dev, g) -> dict:
     return errs
 
 
-def _train_state(attn, seed, dev, lr=None):
-    """ViT-B/16 at full width from ``seed`` with the bench's optimizer:
-    AdamW wd 0.05 under warmup-cosine (base 1e-3, 10 000 steps, 100
-    warmup), or at a constant ``lr``."""
+def _train_state(attn, seed, dev, lr=None, name=MODEL):
+    """``name`` (ViT-B/16 or Swin-T) at full width from ``seed`` with the
+    bench's optimizer: AdamW wd 0.05 under warmup-cosine (base 1e-3,
+    10 000 steps, 100 warmup), or at a constant ``lr``. ``attn`` as the
+    CLIs take it: for Swin, "naive" is the unfused window attention and a
+    flash name the fused kernel."""
     from deeplearning_tpu_torch import hub
-    from deeplearning_tpu_torch.ops.attention import get_attn_fn
     from deeplearning_tpu_torch.train import TrainState
     from deeplearning_tpu_torch.train.optim import build_optimizer
     from deeplearning_tpu_torch.train.schedules import build_schedule
-    model, _ = hub.load(MODEL, num_classes=1000, seed=seed, device=dev,
-                        attn_fn=get_attn_fn(attn))
+    model, _ = hub.load(name, num_classes=1000, seed=seed, device=dev,
+                        **hub.model_kwargs(name, attn))
     sched = (build_schedule("constant", base_lr=lr) if lr is not None else
              build_schedule("warmup_cosine", base_lr=1e-3,
                             total_steps=10_000, warmup_steps=100))
@@ -506,18 +586,20 @@ def _train_path(fa, dev, seed) -> dict:
     return launches
 
 
-def _measure_training(dev, seed) -> None:
-    """Phase 7a: step time, images/s and MFU for flash_hb and naive in
-    turns (naive, flash_hb, flash_hb, naive), then the bench lines."""
+def _measure_training(dev, seed, name=MODEL) -> None:
+    """Phases 7a and 11: step time, images/s and MFU of ``name`` for
+    flash_hb (Swin: the fused kernel) and naive in turns (naive, flash_hb,
+    flash_hb, naive), then the bench lines."""
     import torch
     from deeplearning_tpu_torch.core.rng import root_key
     from deeplearning_tpu_torch.train import bench, make_train_step
     from deeplearning_tpu_torch.train.classification import make_loss_fn
     step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
     batch, key = _train_batch(seed, dev), root_key(seed)
-    states = {a: _train_state(a, seed, dev) for a in ("flash_hb", "naive")}
-    step_flops = 3.0 * bench.vit_forward_flops(states["naive"].model,
-                                               TRAIN_BATCH)
+    states = {a: _train_state(a, seed, dev, name=name)
+              for a in ("flash_hb", "naive")}
+    step_flops = 3.0 * bench.forward_flops(states["naive"].model,
+                                           TRAIN_BATCH, 224)
     times = {a: [] for a in states}
     for attn in ("naive", "flash_hb", "flash_hb", "naive") * 3:
         state = states[attn]
@@ -530,13 +612,13 @@ def _measure_training(dev, seed) -> None:
         times[attn].append((time.perf_counter() - t0) / 3)
     for attn, ts in times.items():
         dt = statistics.median(ts)
-        log(f"train step {attn} batch {TRAIN_BATCH}: "
+        log(f"train step {name} {attn} batch {TRAIN_BATCH}: "
             f"{json.dumps({'step_time_ms': round(dt * 1e3, 3), 'images_per_sec': round(TRAIN_BATCH / dt, 1), 'mfu_pct': round(step_flops / dt / bench.PEAK_BF16_FLOPS * 100, 2), 'runs_ms': [round(t * 1e3, 2) for t in ts]})}")
     del states, state
     torch.cuda.empty_cache()
     for attn in ("flash_hb", "naive"):
-        log(f"train bench --attn {attn}:")
-        check(bench.main(["--attn", attn, "--steps", "10",
+        log(f"train bench --model {name} --attn {attn}:")
+        check(bench.main(["--model", name, "--attn", attn, "--steps", "10",
                           "--seed", str(seed)]) == 0, "train bench runs")
         torch.cuda.empty_cache()
 
@@ -593,6 +675,226 @@ def _time_backward(fa, dev, g, errs, launches) -> list:
         log(f"timing {name} B={b} H={h} N={n} D={d} bf16: kernel {ms:.4f} "
             f"ms, bound {fwd_bound:.4f} ms")
     return rows
+
+
+WIN_CASES = [  # BW, N, heads, d, nW (0: no mask), windows_per_block, diag
+    *((32 * w, WIN_TOKENS, h, WIN_HEAD_DIM, nw, 8, False)
+      for w, h, nw in SWIN_STAGES),             # Swin-T at batch 32
+    (24, 9, 4, 32, 4, 8, False), (16, 16, 4, 32, 4, 8, False),
+    (64, 49, 4, 16, 4, 8, False), (64, 49, 2, 64, 16, 8, False),
+    (36, 49, 3, 32, 6, 4, False),               # nW not a multiple of wb
+    (16, 49, 3, 32, 8, 8, True)]                # whole rows masked
+
+
+def _window_inputs(dev, g, bw, n, heads, d, dtype, nw, diag=False):
+    """qkv as the model hands it over (a view of one (BW, N, 3C)
+    projection), a bias (heads, N, N), and a shift mask over nW windows of
+    the squarest grid (None for nW = 0; ``diag``: rows of -1e9 but the
+    diagonal)."""
+    import torch
+    from deeplearning_tpu_torch.ops.window_utils import shift_window_mask
+    qkv = torch.randn(bw, n, 3 * heads * d, device=dev, generator=g).to(
+        dtype).view(bw, n, 3, heads, d)
+    bias = torch.randn(heads, n, n, device=dev, generator=g)
+    mask = None
+    if nw and diag:
+        mask = torch.full((nw, n, n), -1e9, device=dev)
+        mask[:, torch.arange(n), torch.arange(n)] = 0.0
+    elif nw:
+        side = int(round(n ** 0.5))
+        rows = max(r for r in range(1, nw + 1) if nw % r == 0 and r * r <= nw)
+        mask = torch.from_numpy(shift_window_mask(
+            rows * side, nw // rows * side, side, side // 2)).to(dev)
+    return qkv, bias, mask
+
+
+def _check_window_kernel(wa, dev, g) -> float:
+    """Phase 8: K2 against its plain version. Returns the largest max-abs
+    error at the four Swin-T stage shapes in bf16 (the kernels line)."""
+    import torch
+    err_main = 0.0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for i, (bw, n, heads, d, nw, wb, diag) in enumerate(WIN_CASES):
+            qkv, bias, mask = _window_inputs(dev, g, bw, n, heads, d, dtype,
+                                             nw, diag)
+            out = wa.window_attention(qkv, bias, mask, windows_per_block=wb)
+            ref = wa.window_attention_plain(qkv, bias, mask)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"kernel-vs-plain window_attn_fwd {str(dtype)[6:]} BW={bw} "
+                f"N={n} heads={heads} d={d} nW={nw} wb={wb} diag={diag}: "
+                f"max_abs_err {err:.3e} (tol {tol})")
+            check(out.shape == (bw, n, heads * d) and out.dtype == dtype
+                  and err <= tol, "window_attn_fwd disagrees with the plain "
+                                  "version")
+            if dtype == torch.bfloat16 and i < len(SWIN_STAGES):
+                err_main = max(err_main, err)
+    return err_main
+
+
+def _serve_swin(wa, dev, seed):
+    """Phase 9: Swin-T served through the batcher with the fused kernel.
+    Returns K2's launches and the fused and unfused engines."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    engines = {}
+    for name, use_pallas in (("fused", True), ("unfused", False)):
+        t0 = time.perf_counter()
+        model, _ = hub.load(SWIN, num_classes=1000, seed=seed, device=dev,
+                            use_pallas=use_pallas)
+        engines[name] = InferenceEngine(SWIN, model=model,
+                                        batch_buckets=(1, 8, 32), device=dev)
+        log(f"engine {SWIN} {name}: built and warmed in "
+            f"{time.perf_counter() - t0:.2f}s; "
+            f"{json.dumps(engines[name].stats())}")
+    ref_state = engines["unfused"].model.state_dict()
+    state = engines["fused"].model.state_dict()
+    check(set(state) == set(ref_state) and all(
+        torch.equal(state[k], ref_state[k]) for k in ref_state),
+        "fused and unfused Swin-T engines share their weights")
+
+    images = np.random.default_rng(seed + 1).normal(
+        size=(64, 224, 224, 3)).astype(np.float32)
+    engine = engines["fused"]
+    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+        wa.reset_launch_counts()
+        t0 = time.perf_counter()
+
+        def client(part):
+            handles = [mb.submit(img) for img in part]
+            return [h.result(timeout=120.0) for h in handles]
+
+        with ThreadPoolExecutor(8) as pool:
+            rows = [r for part in pool.map(client, np.array_split(images, 8))
+                    for r in part]
+        served_ms = (time.perf_counter() - t0) * 1e3
+        launches = wa.launch_counts()[wa.KERNEL_NAME]
+        batches = mb.dispatched
+    log(f"served {len(rows)}/64 {SWIN} requests (fused) in {served_ms:.1f} "
+        f"ms ({64 / served_ms * 1e3:.1f} img/s): {batches} batches, "
+        f"window_attn_fwd launches {launches}")
+    check(len(rows) == 64, "every answer arrives")
+    check(launches == SWIN_BLOCKS * batches and launches > 0,
+          f"window_attn_fwd launches == {SWIN_BLOCKS} x batches dispatched")
+    served = np.stack(rows)
+    check(served.shape == (64, 1000) and np.isfinite(served).all(),
+          "answers are finite (n, 1000) probabilities")
+    single = np.concatenate([engine.infer(img) for img in images])
+    _compare(served, single, "Swin-T served vs engine.infer")
+    x = images[:32]
+    _compare(engine.infer(x), engines["unfused"].infer(x),
+             "Swin-T fused engine vs unfused engine")
+    return launches, engines
+
+
+def _train_swin(wa, dev, seed) -> None:
+    """Phase 10: the Swin-T training path through the fused kernel."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    state = _train_state("flash_hb", seed, dev, name=SWIN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, counts = [], []
+    for remat in (False, False, False, True):
+        state.model.remat = remat
+        wa.reset_launch_counts()
+        state, m = step(state, batch, key)
+        counts.append(wa.launch_counts()[wa.KERNEL_NAME])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    metrics = [_metrics(m) for m in metrics]
+    log(f"trained {SWIN} 3 steps + 1 remat step (fused) at batch "
+        f"{TRAIN_BATCH} in {wall:.2f}s: losses "
+        f"{[round(m['loss'], 4) for m in metrics]}, grad_norm "
+        f"{metrics[0]['grad_norm']:.4f}, window_attn_fwd launches a step "
+        f"{counts}")
+    check(counts == [SWIN_BLOCKS] * 3 + [2 * SWIN_BLOCKS],
+          f"{SWIN_BLOCKS} launches a step, {2 * SWIN_BLOCKS} with remat")
+    del state
+    torch.cuda.empty_cache()
+
+    state = _train_state("naive", seed, dev, name=SWIN)
+    wa.reset_launch_counts()
+    state, m = step(state, batch, key)
+    ref = _metrics(m)
+    check(wa.launch_counts()[wa.KERNEL_NAME] == 0,
+          "the unfused step launches no window_attn_fwd")
+    del state
+    a = metrics[0]
+    dl = abs(a["loss"] - ref["loss"]) / abs(ref["loss"])
+    dn = abs(a["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    log(f"first {SWIN} step fused vs unfused: loss {a['loss']:.5f} vs "
+        f"{ref['loss']:.5f} (rel {dl:.2e}, tol 5e-3), grad_norm "
+        f"{a['grad_norm']:.5f} vs {ref['grad_norm']:.5f} (rel {dn:.2e}, tol "
+        f"5e-2)")
+    check(dl <= 5e-3 and dn <= 5e-2, "fused first step vs unfused")
+
+    state = _train_state("flash_hb", seed, dev, lr=1e-4, name=SWIN)
+    losses = []
+    for _ in range(8):
+        state, m = step(state, batch, key)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    log(f"{SWIN} fixed batch, constant lr 1e-4, fused: losses "
+        f"{[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "training Swin-T on a fixed batch lowers the loss")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _time_window_kernel(wa, dev, g, err, launches) -> dict:
+    """Phase 11c: K2 at the four Swin-T stage shapes at the training batch
+    (bf16, masks as the shifted blocks have them), against the plain
+    version, SDPA with the combined additive mask (a yardstick) and the
+    bound. Returns the kernels-line entry, at stage 1."""
+    import torch
+    import torch.nn.functional as F
+    entry = None
+    for stage, (wins, heads, nw) in enumerate(SWIN_STAGES, 1):
+        bw, n, d = TRAIN_BATCH * wins, WIN_TOKENS, WIN_HEAD_DIM
+        qkv, bias, mask = _window_inputs(dev, g, bw, n, heads, d,
+                                         torch.bfloat16, nw)
+        ms = _time_ms(lambda: wa.window_attention(qkv, bias, mask))
+        plain_ms = _time_ms(lambda: wa.window_attention_plain(qkv, bias,
+                                                               mask),
+                            iters=10, warmup=2)
+        # SDPA over (B, nW, heads, N, d) views with a (nW, heads, N, N) mask
+        q, k, v = (x.transpose(1, 2).unflatten(0, (TRAIN_BATCH, wins))
+                   for x in qkv.unbind(2))
+        comb = bias[None] if mask is None else bias[None] + mask[:, None]
+        comb = comb.to(torch.bfloat16)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=comb))
+        nbytes = wa.min_bytes(bw, n, heads, d, 2, nw)
+        flops = wa.flops(bw, n, heads, d)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        bound = max(bytes_ms, ops_ms)
+        log(f"timing window_attn_fwd stage {stage} BW={bw} N={n} "
+            f"heads={heads} d={d} nW={nw} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+            f"GFLOP; {nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s achieved)")
+        if entry is None:
+            entry = {"name": wa.KERNEL_NAME, "route": "cuda",
+                     "source": WIN_SOURCE,
+                     "replaces": REPLACES[wa.KERNEL_NAME],
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations",
+                     "library_ms": library_ms}
+        del qkv, bias, mask, q, k, v, comb
+    torch.cuda.empty_cache()
+    return entry
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -19,7 +19,7 @@ import torch
 
 from .core.device import resolve_device
 
-__all__ = ["load", "list_models"]
+__all__ = ["load", "list_models", "model_kwargs"]
 
 
 def list_models(filter: str = "") -> list:
@@ -28,6 +28,28 @@ def list_models(filter: str = "") -> list:
     from .core.registry import MODELS
     names = sorted(MODELS.keys())
     return [n for n in names if filter in n] if filter else names
+
+
+def model_kwargs(name: str, attn: str = "flash_hb",
+                 size: Optional[int] = None) -> Dict[str, Any]:
+    """The factory keywords behind a CLI's ``--attn`` and ``--size`` for
+    registry model ``name``. A ViT takes ``attn_fn`` (``ops.attention``'s
+    names). A Swin model takes ``use_pallas``: "naive" runs the unfused
+    window attention, any flash name the fused window-attention kernel;
+    "sdpa" raises. Both take ``img_size`` when ``size`` is given."""
+    from .ops.attention import get_attn_fn, sdpa_adapter
+    fn = get_attn_fn(attn)
+    kw: Dict[str, Any] = {} if size is None else {"img_size": int(size)}
+    if name.startswith("vit_"):
+        kw["attn_fn"] = fn
+    elif name.startswith("swin"):
+        if fn is sdpa_adapter:
+            raise ValueError(
+                f"--attn {attn} is a ViT attention; a Swin model runs its "
+                f"window attention fused ({attn!r} -> use 'flash' or "
+                f"'flash_hb') or unfused ('naive')")
+        kw["use_pallas"] = fn is not None
+    return kw
 
 
 def load(name: str, *, num_classes: int = 1000, weights: Any = None,

@@ -1,6 +1,7 @@
-"""Classification models of the port (ViT in this slice)."""
+"""Classification models of the port: the ViT and Swin families."""
 
-from . import vit  # noqa: F401
+from . import swin, vit  # noqa: F401
+from .swin import SwinTransformer
 from .vit import VisionTransformer
 
-__all__ = ["VisionTransformer"]
+__all__ = ["SwinTransformer", "VisionTransformer"]

@@ -266,6 +266,7 @@ class VisionTransformer(nn.Module):
         self.dtype = dtype
         self.remat = remat
         self.num_classes = num_classes
+        self.img_size = img_size
         self.patch_embed = PatchEmbed(patch_size, embed_dim, in_chans, dtype)
         n = (img_size // patch_size) ** 2
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))

@@ -3,8 +3,8 @@
 ``cross_entropy`` (integer labels, label smoothing, labels < 0 ignored,
 optional weights) and ``soft_target_cross_entropy`` (mixup targets). Both
 reduce with an explicit weight mask, so padded or invalid rows drop out of
-the mean. The detection and dense-prediction losses come with the
-detection slice.
+the mean. ``safe_normalize`` serves Swin v2's cosine attention. The
+detection and dense-prediction losses come with the detection slice.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy", "soft_target_cross_entropy"]
+__all__ = ["cross_entropy", "soft_target_cross_entropy", "safe_normalize"]
 
 
 def _weighted_mean(x: torch.Tensor,
@@ -55,3 +55,12 @@ def soft_target_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """CE against soft targets (the mixup path)."""
     losses = _softmax_cross_entropy(logits, targets.to(logits.dtype))
     return _weighted_mean(losses, weights)
+
+
+def safe_normalize(x: torch.Tensor, axis: int = -1,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """L2-normalize with a finite gradient at x == 0: x * rsqrt(max(|x|^2,
+    eps^2)) keeps a zero row zero, with gradient x / eps, where the norm's
+    derivative would be NaN."""
+    sq = torch.sum(x * x, dim=axis, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=eps * eps))

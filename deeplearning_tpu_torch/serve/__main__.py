@@ -3,6 +3,8 @@
   # stdin mode: one .npy/.npz path per line, one JSON answer per image
   echo img.npy | python -m deeplearning_tpu_torch.serve \\
       --model vit_base_patch16_224 --attn flash_hb
+  echo img.npy | python -m deeplearning_tpu_torch.serve \\
+      --model swin_tiny_patch4_window7_224
 
   # HTTP mode (stdlib): POST /predict with an .npy body, GET /healthz,
   # GET /stats
@@ -185,7 +187,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attn", default="flash_hb",
                     help="attention: flash_hb (default), flash, naive, "
-                         "sdpa")
+                         "sdpa; for a Swin model naive runs the unfused "
+                         "window attention and flash / flash_hb the fused "
+                         "window-attention kernel")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=224)
     ap.add_argument("--buckets", default="1,8,32",
@@ -211,14 +215,13 @@ def main(argv=None) -> int:
 
     from .. import hub
     from ..obs import threads as obs_threads
-    from ..ops.attention import get_attn_fn
     from .batcher import MicroBatcher
     from .engine import InferenceEngine
 
     model, _ = hub.load(args.model, num_classes=args.num_classes,
                         weights=args.weights, seed=args.seed,
-                        device=args.device, img_size=args.size,
-                        attn_fn=get_attn_fn(args.attn))
+                        device=args.device,
+                        **hub.model_kwargs(args.model, args.attn, args.size))
     engine = InferenceEngine(
         args.model, model=model, num_classes=args.num_classes,
         image_size=args.size, device=args.device,

@@ -9,8 +9,10 @@ profiler, whose own host cost would inflate it), the device time summed
 over every CUDA kernel and copy that ``torch.profiler`` records for the
 same call, the device idle share (1 - device / wall), and the kernels
 that take the most device time. One JSON line per (attn, bucket), then the
-card's name and power limit. ViT-B/16 at full width, weights from
-``--seed``. Needs a card; it never runs on the CPU.
+card's name and power limit. ViT-B/16 (or ``--model``, e.g. Swin-T, whose
+``--attn`` naive is the unfused window attention and flash_hb the fused
+kernel) at full width, weights from ``--seed``. Needs a card; it never
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -70,7 +72,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from .. import hub
-    from ..ops.attention import get_attn_fn
     from .engine import InferenceEngine
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
@@ -78,7 +79,7 @@ def main(argv=None) -> int:
         size=(max(buckets), 224, 224, 3)).astype(np.float32)
     for attn in args.attn.split(","):
         model, _ = hub.load(args.model, seed=args.seed,
-                            attn_fn=get_attn_fn(attn))
+                            **hub.model_kwargs(args.model, attn))
         engine = InferenceEngine(args.model, model=model,
                                  batch_buckets=buckets)
         for b in buckets:

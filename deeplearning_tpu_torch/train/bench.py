@@ -1,7 +1,9 @@
-"""ViT-B/16 train-step benchmark of the port: one JSON line.
+"""Train-step benchmark of the port (ViT-B/16 by default): one JSON line.
 
     python -m deeplearning_tpu_torch.train.bench              # flash_hb, batch 128
     python -m deeplearning_tpu_torch.train.bench --attn naive
+    python -m deeplearning_tpu_torch.train.bench --model \
+        swin_tiny_patch4_window7_224          # the fused window-attention kernel
     python -m deeplearning_tpu_torch.train.bench --device cpu --model \
         vit_micro_patch4_56 --depth 1 --batch 2 --steps 1     # a CPU smoke
 
@@ -10,12 +12,16 @@ The counterpart of the JAX package's ``bench.py`` train record and
 label_smoothing=0.1))``), AdamW with weight decay 0.05 under warmup-cosine
 (base 1e-3, 10 000 steps, 100 warmup), random images and labels from
 ``--seed``. One warmup step, then ``--steps`` timed steps ending in
-``torch.cuda.synchronize()``.
+``torch.cuda.synchronize()``. Any registered ViT or Swin classifier runs:
+``--attn`` picks a ViT's attention, or a Swin model's window attention
+(naive: unfused; a flash name: the fused kernel), and ``--size`` the input
+(default: the model's own, 224 for ViT-B/16 and Swin-T).
 
 MFU is the analytic step FLOPs (3 x the forward's matmul and attention
-products, counted from the model's shapes: ~1.35e13 for ViT-B/16 at batch
-128) over the H100 SXM dense bf16 peak (989 TFLOP/s). On the CPU the line
-carries ``value: null``: a CPU time is no device measurement.
+products, counted from the model's shapes: ~1.35e13 for ViT-B/16 and
+~3.45e12 for Swin-T at batch 128) over the H100 SXM dense bf16 peak (989
+TFLOP/s). On the CPU the line carries ``value: null``: a CPU time is no
+device measurement.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from ..core import rng as rng_mod
 from ..core.device import resolve_device
 from ..core.precision import tree_leaves
 
-__all__ = ["main", "vit_forward_flops", "PEAK_BF16_FLOPS"]
+__all__ = ["main", "vit_forward_flops", "swin_forward_flops",
+           "forward_flops", "PEAK_BF16_FLOPS"]
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM data sheet, dense bf16, 700 W
 
@@ -63,6 +70,52 @@ def vit_forward_flops(model: nn.Module, batch: int) -> float:
     return total * batch
 
 
+def swin_forward_flops(model: nn.Module, batch: int, size: int) -> float:
+    """Operations of one forward of a SwinTransformer on ``size``² images at
+    ``batch``: every Linear's product at the token count it sees, the two
+    window-attention products of every block (4·N²·C per window: 4·tokens·
+    N·C a stage), Swin-MLP's token mix over the padded grid, and the
+    PatchMerging reductions. v2's position-bias MLP runs once a forward,
+    not once an image."""
+    from ..models.classification.swin import PatchMerging, SwinMLPBlock
+
+    def linear(layer: nn.Linear, rows: int) -> float:
+        return 2.0 * rows * layer.in_features * layer.out_features
+
+    h = w = size // model.patch_size
+    total = linear(model.patch_embed, h * w)
+    per_forward = 0.0
+    for blk in model.stages():
+        if isinstance(blk, PatchMerging):
+            h, w = h // 2, w // 2
+            total += linear(blk.reduction, h * w)
+            continue
+        tokens, n = h * w, blk.window * blk.window
+        dim = blk.mlp.fc1.in_features
+        if isinstance(blk, SwinMLPBlock):
+            pad = blk.window if blk.shift else 0
+            total += 2.0 * (h + pad) * (w + pad) * n * dim
+        else:
+            attn = blk.attn
+            total += linear(attn.qkv, tokens) + linear(attn.proj, tokens)
+            total += 4.0 * tokens * n * dim
+            if attn.v2:
+                rows = (2 * blk.window - 1) ** 2
+                per_forward += linear(attn.cpb_fc1, rows) \
+                    + linear(attn.cpb_fc2, rows)
+        total += linear(blk.mlp.fc1, tokens) + linear(blk.mlp.fc2, tokens)
+    total += linear(model.head, 1)
+    return total * batch + per_forward
+
+
+def forward_flops(model: nn.Module, batch: int, size: int) -> float:
+    """``vit_forward_flops`` or ``swin_forward_flops``, by the model's kind."""
+    from ..models.classification.swin import SwinTransformer
+    if isinstance(model, SwinTransformer):
+        return swin_forward_flops(model, batch, size)
+    return vit_forward_flops(model, batch)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--attn", default="flash_hb",
@@ -75,12 +128,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="default cuda; raises when no card is visible")
     ap.add_argument("--model", default="vit_base_patch16_224")
     ap.add_argument("--depth", type=int, default=None,
-                    help="cut the depth (a smoke run); full depth by default")
+                    help="cut a ViT's depth (a smoke run); full depth by "
+                         "default")
+    ap.add_argument("--size", type=int, default=None,
+                    help="input size; default: the model's own (224 for "
+                         "ViT-B/16 and Swin-T)")
     args = ap.parse_args(argv)
 
     from .. import models  # noqa: F401  (registers the factories)
     from ..core.registry import MODELS
-    from ..ops.attention import get_attn_fn
+    from ..hub import model_kwargs
+    from ..models.classification.swin import SwinTransformer
     from .classification import make_loss_fn
     from .optim import build_optimizer
     from .schedules import build_schedule
@@ -88,9 +146,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .steps import make_train_step
 
     dev = resolve_device(args.device)
-    kw = {} if args.depth is None else {"depth": args.depth}
+    kw = model_kwargs(args.model, args.attn, args.size)
+    if args.depth is not None:
+        kw["depth"] = args.depth
     model = MODELS.build(args.model, num_classes=1000, remat=args.remat,
-                         attn_fn=get_attn_fn(args.attn),
                          generator=torch.Generator().manual_seed(args.seed),
                          **kw).to(dev)
     sched = build_schedule("warmup_cosine", base_lr=1e-3,
@@ -101,8 +160,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     opt_state_bytes = sum(t.numel() * t.element_size()
                           for t in tree_leaves(state.opt_state))
 
-    size = model.patch_embed.patch_size * int(round(
-        (model.pos_embed.shape[1] - 1) ** 0.5))
+    size = model.img_size
     data = np.random.default_rng(args.seed)
     batch = {"image": torch.from_numpy(data.normal(
                  size=(args.batch, size, size, 3)).astype(np.float32)),
@@ -128,10 +186,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not (np.isfinite(loss0) and np.isfinite(loss1)):
         raise RuntimeError(f"non-finite loss: {loss0} -> {loss1}")
 
-    step_flops = 3.0 * vit_forward_flops(model, args.batch)
+    step_flops = 3.0 * forward_flops(model, args.batch, size)
     on_card = dev.type == "cuda"
     rec = {
-        "metric": "vit_b16_train_mfu",
+        "metric": ("swin_t_train_mfu" if isinstance(model, SwinTransformer)
+                   else "vit_b16_train_mfu"),
         "value": (round(step_flops / dt / PEAK_BF16_FLOPS * 100.0, 2)
                   if on_card else None),
         "unit": "%",
@@ -143,6 +202,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "attn": args.attn,
         "remat": args.remat,
         "model": args.model,
+        "size": size,
         "step_flops": step_flops,
         "loss0": round(loss0, 4),
         "loss1": round(loss1, 4),

@@ -8,7 +8,8 @@ them: integer labels with optional label smoothing, mixup soft targets
 ``(logits, aux_logits)`` in train mode (the 0.3-weighted GoogLeNet aux
 heads). The harvest of model-internal auxiliary losses (the JAX
 ``losses`` / ``moe_metrics`` collections, sown by ``MoEMlp``) comes with
-``MoEMlp`` in the Swin slice; no model of the port sows any yet.
+the port of ``parallel/moe.py``; no model of the port sows any yet (its
+Swin factories with ``moe=True`` raise).
 """
 
 from __future__ import annotations

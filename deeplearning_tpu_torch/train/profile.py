@@ -1,4 +1,5 @@
-"""Where a ViT-B/16 train step's time goes on the card.
+"""Where a ViT-B/16 (or ``--model``, e.g. Swin-T) train step's time goes
+on the card.
 
     python -m deeplearning_tpu_torch.train.profile [--attn flash_hb,naive]
         [--batch 128] [--iters 5]
@@ -7,10 +8,10 @@ For each attention choice: the host wall time of one train step ending in
 a synchronise (timed without the profiler, whose own host cost would
 inflate it), the device time summed over every CUDA kernel and copy that
 ``torch.profiler`` records for the same steps, the device idle share
-(1 - device / wall), the device time by kind of kernel (the flash
-kernels, GEMMs, the optimizer's multi-tensor kernels, ...) and the
-kernels that take the most of it. One JSON line per attention choice,
-then the card's name and power limit. The step and the weights are the
+(1 - device / wall), the device time by kind of kernel (the flash and
+window-attention kernels, GEMMs, the optimizer's multi-tensor kernels,
+...) and the kernels that take the most of it. One JSON line per
+attention choice, then the card's name and power limit. The step and the weights are the
 bench's (``train/bench.py``). Needs a card; it never runs on the CPU.
 """
 
@@ -29,6 +30,7 @@ from ..serve.profile import _device_us
 # kind of kernel, by substrings of its name (first match wins)
 KINDS = (("flash attention", ("bwd_dq_", "bwd_dkv_", "fwd_bf16_mma",
                               "fwd_f32_simt")),
+         ("window attention", ("win_bf16_mma", "win_f32_simt")),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
          ("optimizer", ("multi_tensor", "foreach")),
          ("softmax", ("softmax",)),
@@ -90,7 +92,6 @@ def main(argv=None) -> int:
 
     from .. import hub
     from ..core.rng import root_key
-    from ..ops.attention import get_attn_fn
     from .classification import make_loss_fn
     from .optim import build_optimizer
     from .schedules import build_schedule
@@ -106,7 +107,7 @@ def main(argv=None) -> int:
                  0, 1000, args.batch)).to(dev)}
     for attn in args.attn.split(","):
         model, _ = hub.load(args.model, seed=args.seed, device=dev,
-                            attn_fn=get_attn_fn(attn))
+                            **hub.model_kwargs(args.model, attn))
         sched = build_schedule("warmup_cosine", base_lr=1e-3,
                                total_steps=10_000, warmup_steps=100)
         tx = build_optimizer("adamw", sched, weight_decay=0.05,

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from deeplearning_tpu_torch.ops import flash_attention as fa
+from deeplearning_tpu_torch.ops import window_attention as wa
+from deeplearning_tpu_torch.ops import window_utils as wu
 
 
 @pytest.fixture
@@ -157,3 +159,92 @@ def test_vit_adapter_trains_through_the_kernels(cuda_device):
     (want,) = torch.autograd.grad(ref, qkv, dout.float())
     torch.cuda.synchronize()
     assert _close(grad, want)
+
+
+# ---------------------------------------------- fused window attention (K2)
+def _window_inputs(device, bw, n, heads, d, dtype, nw, diag=False, seed=0):
+    """qkv as strided slices of one (BW, N, 3C) projection, the bias, and
+    a shift mask of nW windows (or None for nw == 0); ``diag``: a mask of
+    whole rows of -1e9 except the diagonal."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn(bw, n, 3 * heads * d, device=device, generator=g)
+    qkv = proj.to(dtype).view(bw, n, 3, heads, d)
+    bias = torch.randn(heads, n, n, device=device, generator=g)
+    mask = None
+    if nw:
+        side = int(round(n ** 0.5))
+        if diag:
+            mask = torch.full((nw, n, n), -1e9, device=device)
+            mask[:, torch.arange(n), torch.arange(n)] = 0.0
+        else:
+            # the squarest grid of nW windows
+            rows = max(r for r in range(1, nw + 1)
+                       if nw % r == 0 and r * r <= nw)
+            mask = torch.from_numpy(wu.shift_window_mask(
+                rows * side, nw // rows * side, side, side // 2)).to(device)
+    return qkv, bias, mask
+
+
+WINDOW_CASES = [  # bw, n, heads, d, nW, windows_per_block, diagonal mask
+    (2048, 49, 3, 32, 64, 8, False),     # Swin-T stages at batch 32
+    (512, 49, 6, 32, 16, 8, False),
+    (128, 49, 12, 32, 4, 8, False),
+    (32, 49, 24, 32, 0, 8, False),
+    (24, 9, 4, 32, 4, 8, False),         # N = 9
+    (16, 16, 4, 32, 4, 8, False),        # N = 16
+    (64, 49, 4, 16, 4, 8, False),        # d = 16
+    (64, 49, 2, 64, 16, 8, False),       # d = 64
+    (36, 49, 3, 32, 6, 4, False),        # nW not a multiple of wb
+    (16, 49, 3, 32, 8, 8, True),         # whole rows masked but the diagonal
+    (10, 64, 2, 32, 0, 3, False),        # an 8x8 window, ragged last block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("bw,n,heads,d,nw,wb,diag", WINDOW_CASES)
+def test_window_attn_fwd_matches_plain(cuda_device, bw, n, heads, d, nw, wb,
+                                       diag, dtype, tol):
+    qkv, bias, mask = _window_inputs(cuda_device, bw, n, heads, d, dtype, nw,
+                                     diag)
+    before = wa.launch_counts()[wa.KERNEL_NAME]
+    out = wa.window_attention(qkv, bias, mask, windows_per_block=wb)
+    ref = wa.window_attention_plain(qkv, bias, mask)
+    torch.cuda.synchronize()
+    assert wa.launch_counts()[wa.KERNEL_NAME] == before + 1
+    assert out.shape == (bw, n, heads * d) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_window_attn_trains_through_the_reference(cuda_device):
+    """The checkpointed form: forward through the kernel, gradients those
+    of the unfused reference."""
+    qkv, bias, mask = _window_inputs(cuda_device, 64, 49, 3, 32,
+                                     torch.float32, 4, seed=2)
+    a, b = qkv.detach().requires_grad_(), bias.requires_grad_()
+    before = wa.launch_counts()[wa.KERNEL_NAME]
+    out = wa.window_attention_checkpointed(a, b, mask)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, (a, b), g)
+    want = torch.autograd.grad(wu.windowed_attention_reference(a, b, mask),
+                               (a, b), g)
+    torch.cuda.synchronize()
+    assert wa.launch_counts()[wa.KERNEL_NAME] == before + 1
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_window_attn_raises_on_what_the_kernel_does_not_take(cuda_device):
+    def call(n=49, d=32, dtype=torch.bfloat16):
+        qkv = torch.zeros(4, n, 3, 2, d, device=cuda_device, dtype=dtype)
+        return wa.window_attention(qkv, torch.zeros(2, n, n,
+                                                    device=cuda_device))
+    with pytest.raises(ValueError, match="head dim"):
+        call(d=48)
+    with pytest.raises(ValueError, match="N <="):
+        call(n=81)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        call(dtype=torch.float16)
