@@ -75,7 +75,35 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    images/s, MFU), fused and unfused in turns, the ``train/bench.py`` line
    for both, and K2 at the four Swin-T stage shapes at batch 128 against
    its plain version, ``scaled_dot_product_attention`` with the combined
-   additive mask (a yardstick only) and its bound.
+   additive mask (a yardstick only) and its bound;
+12. hold the blocked NMS kernels (K3, ``csrc/nms_sweep.cu``: the IoU
+   bitmask, then the greedy scan) against their plain version on the card,
+   exactly (equal ``valid``, equal ``idx`` on valid slots): 32 images of
+   N = 8 400 overlap-heavy boxes (YOLOX-S's candidates at 640²) under the
+   four regimes of tests/test_blocked_nms.py (2% NaN scores in the first),
+   class-aware with 80 classes at 640² coordinates, tied scores, identical
+   boxes (one keep), N = 1, N below and not a multiple of the block,
+   max_out > N, and N = 20 000; the first images of each also against the
+   greedy oracle;
+13. serve YOLOX-S at full width (640², depth 0.33, width 0.5, 80 classes,
+   weights from ``--seed``, BatchNorm statistics calibrated on seeded
+   images, ``score_thresh`` 0, ``max_det`` 100) through ``InferenceEngine``
+   (buckets 1/8/32) and ``MicroBatcher``: 64 requests from 8 threads. The
+   K3 counters are zeroed just before and read just after: each kernel once
+   a batch dispatched. Every answer has ``max_det`` rows with class -1
+   exactly on the invalid ones, and equals ``engine.infer`` of the same
+   image at the bucket it was served in (no op mixes images; across buckets
+   the top-20 overlap is logged only, since the calibrated random network
+   amplifies bf16 rounding differences between cuDNN's per-shape
+   algorithms). On one bucket-32 batch the head's raw output goes through
+   the postprocess with K3 and with the plain blocked sweep: equal
+   detections, at ``max_det`` 100 and over all 8 400 candidates (where the
+   alive and suppressed counts must both be > 0);
+14. measure: YOLOX-S per-bucket served latency, K3 and plain engines in
+   turns, and K3 (each kernel, the sweep, the whole call) at 32 x 8 400
+   (the served batch) and 1 x 20 000 against the plain version, its bound
+   and ``torchvision.ops.batched_nms`` where torchvision imports (a
+   yardstick only; torch has no NMS call).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -99,6 +127,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_fwd.cu"
 BWD_SOURCE = "deeplearning_tpu_torch/csrc/flash_attn_bwd.cu"
 WIN_SOURCE = "deeplearning_tpu_torch/csrc/window_attn_fwd.cu"
+NMS_SOURCE = "deeplearning_tpu_torch/csrc/nms_sweep.cu"
 _PALLAS = "deeplearning_tpu/ops/pallas/flash_attention.py"
 REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
             "flash_attn_fwd_hb": f"{_PALLAS}:166",
@@ -107,7 +136,9 @@ REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
             "flash_attn_bwd_dq_hb": f"{_PALLAS}:214",
             "flash_attn_bwd_dkv_hb": f"{_PALLAS}:252",
             "window_attn_fwd":
-                "deeplearning_tpu/ops/pallas/window_attention.py:43"}
+                "deeplearning_tpu/ops/pallas/window_attention.py:43",
+            "nms_iou_mask": "deeplearning_tpu/ops/pallas/nms.py:45",
+            "nms_scan": "deeplearning_tpu/ops/pallas/nms.py:45"}
 ATTN_FOR = {"flash_attn_fwd_hb": "flash_hb", "flash_attn_fwd": "flash"}
 HPC_FOR = {"flash_attn_fwd": 1, "flash_attn_fwd_hb": 4}
 LOGP_TOL = 0.05
@@ -118,6 +149,12 @@ SWIN_BLOCKS = 12                 # depths 2/2/6/2: one K2 launch a block
 # Swin-T's window attention by stage: windows an image, heads, mask windows
 SWIN_STAGES = [(64, 3, 64), (16, 6, 16), (4, 12, 4), (1, 24, 0)]
 WIN_TOKENS, WIN_HEAD_DIM = 49, 32
+YOLOX, YOLOX_SIZE, YOLOX_CLASSES = "yolox_s", 640, 80
+YOLOX_ANCHORS = 80 * 80 + 40 * 40 + 20 * 20          # 8 400 candidates
+YOLOX_MAX_DET, YOLOX_NMS_TH = 100, 0.65
+# (iou_thresh, score_thresh, max_out): tests/test_blocked_nms.py's regimes
+NMS_CONFIGS = [(0.5, float("-inf"), 64), (0.3, 0.25, 32), (0.7, 0.5, 16),
+               (0.45, 0.05, 100)]
 
 
 def log(*parts) -> None:
@@ -161,7 +198,8 @@ def main() -> int:
     built = build.build_all()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})} "
         f"total {time.perf_counter() - t0:.2f}s")
-    for src in ("flash_attn_fwd", "flash_attn_bwd", "window_attn_fwd"):
+    for src in ("flash_attn_fwd", "flash_attn_bwd", "window_attn_fwd",
+                "nms_sweep"):
         for line in _ptxas_summary(build.ptxas_report(src) or ""):
             log(f"  ptxas {src}: {line}")
 
@@ -323,7 +361,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     _measure_training(dev, args.seed, SWIN)
     kernels.append(_time_window_kernel(wa, dev, g, win_err, win_launches))
-    log(f"chip_smoke: phases 1-11 in {time.perf_counter() - started:.1f}s")
+
+    # ------------------------------------------- 12. K3 vs plain on card
+    phase(12, started)
+    from deeplearning_tpu_torch.ops import nms as nms_ops
+    nms_err = _check_nms_kernels(nms_ops, dev, g)
+
+    # ------------------------------------------------ 13. serve YOLOX-S
+    phase(13, started)
+    nms_launches, served = _serve_yolox(nms_ops, dev, args.seed)
+
+    # ------------------------------------------------------ 14. measure
+    phase(14, started)
+    _bucket_latency(served["engines"], ("blocked", "auto"), YOLOX,
+                    size=YOLOX_SIZE)
+    kernels += _time_nms(nms_ops, dev, g, served, nms_err, nms_launches)
+    del served
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -337,13 +392,13 @@ def main() -> int:
     return 0
 
 
-def _bucket_latency(engines, pair, model) -> None:
+def _bucket_latency(engines, pair, model, size=224) -> None:
     """Per-bucket served latency (one ``engine.run`` ending in a
     synchronise, p50 of 10) of two engines on the same weights, in turns
     (a, b, b, a)."""
     import torch
     images = np.random.default_rng(1).normal(
-        size=(32, 224, 224, 3)).astype(np.float32)
+        size=(32, size, size, 3)).astype(np.float32)
     a, b = pair
     for bucket in engines[a].buckets:
         xb = images[:bucket]
@@ -373,7 +428,8 @@ def _ptxas_summary(report: str) -> list:
         if m:
             mangled = m.group(1)
             base = re.search(r"(?:(?:fwd|bwd)_(?:dq_|dkv_)?|win_)"
-                             r"(?:bf16_mma|f32_simt)", mangled)
+                             r"(?:bf16_mma|f32_simt)|iou_mask_kernel|"
+                             r"scan_kernel", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             out_t = ",f32" if "EfE" in mangled else (
                 ",bf16" if "bfloat16" in mangled else "")
@@ -895,6 +951,341 @@ def _time_window_kernel(wa, dev, g, err, launches) -> dict:
         del qkv, bias, mask, q, k, v, comb
     torch.cuda.empty_cache()
     return entry
+
+
+def _nms_boxes(dev, g, cases, n, span=64.0, wh_max=24.0, nan_frac=0.0):
+    """Overlap-heavy boxes (cases, n, 4) and scores (cases, n): the
+    ``make_cases`` recipe of tests/test_blocked_nms.py, made on the card."""
+    import torch
+    ctr = torch.rand(cases, n, 2, device=dev, generator=g) * span
+    wh = 2.0 + torch.rand(cases, n, 2, device=dev, generator=g) * (
+        wh_max - 2.0)
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    scores = torch.rand(cases, n, device=dev, generator=g)
+    if nan_frac:
+        nan = torch.rand(cases, n, device=dev, generator=g) < nan_frac
+        scores = torch.where(nan, torch.full_like(scores, float("nan")),
+                             scores)
+    return boxes, scores
+
+
+def _keep_mismatches(ref, got) -> int:
+    """Slots where two (idx, valid) results differ: valid, or idx on a
+    valid slot. 0 is the contract."""
+    (i1, v1), (i2, v2) = ref, got
+    return int((v1 != v2).sum()) + int(((i1 != i2) & v1 & v2).sum())
+
+
+def _check_nms_kernels(nms_ops, dev, g) -> int:
+    """Phase 12: K3 against its plain version (and the greedy oracle on the
+    first images of each case), exactly. Returns the mismatching slots over
+    every case (0, or the run has failed)."""
+    import torch
+    inf = float("inf")
+    cases = []      # name, boxes, scores, classes, th, st, max_out, greedy
+    for ci, (th, st, mo) in enumerate(NMS_CONFIGS):
+        b, s = _nms_boxes(dev, g, 32, YOLOX_ANCHORS,
+                          nan_frac=0.02 if ci == 0 else 0.0)
+        cases.append((f"regime {ci}", b, s, None, th, st, mo, 2))
+    b, s = _nms_boxes(dev, g, 32, YOLOX_ANCHORS, span=640.0, wh_max=160.0)
+    cls = torch.randint(0, YOLOX_CLASSES, (32, YOLOX_ANCHORS), device=dev,
+                        generator=g)
+    cases.append(("80 classes at 640²", b, s, cls, YOLOX_NMS_TH, 0.0,
+                  YOLOX_MAX_DET, 2))
+    b, s = _nms_boxes(dev, g, 32, YOLOX_ANCHORS)
+    cases.append(("tied scores (16 levels)", b, (s * 16).floor() / 16, None,
+                  0.5, -inf, 100, 2))
+    b = torch.tensor([10., 10., 20., 20.], device=dev).expand(
+        4, 500, 4).contiguous()
+    cases.append(("identical boxes", b, torch.rand(4, 500, device=dev,
+                                                   generator=g),
+                  None, 0.5, -inf, 10, 4))
+    for n, mo in ((1, 5), (7, 32), (1000, 64), (130, 200)):
+        b, s = _nms_boxes(dev, g, 8, n, span=80.0)
+        cases.append((f"N={n} max_out={mo}", b, s, None, 0.5, -inf, mo, 8))
+    b, s = _nms_boxes(dev, g, 1, 20_000)
+    cases.append(("N=20000", b, s, None, 0.5, -inf, 100, 1))
+
+    total = 0
+    for name, b, s, cls, th, st, mo, n_greedy in cases:
+        def call(impl, b=b, s=s, cls=cls):
+            if cls is None:
+                return nms_ops.nms(b, s, th, mo, st, impl=impl)
+            return nms_ops.batched_nms(b, s, cls, th, mo, st, impl=impl)
+        got = call("auto")
+        bad = _keep_mismatches(call("blocked"), got)
+        k = n_greedy
+        greedy = call("greedy", b[:k], s[:k],
+                      None if cls is None else cls[:k])
+        bad_greedy = _keep_mismatches(greedy, tuple(x[:k] for x in got))
+        torch.cuda.synchronize()
+        kept = got[1].sum(dim=1)
+        log(f"kernel-vs-plain nms {name}: B={b.shape[0]} N={b.shape[1]} "
+            f"th={th} score>{st} max_out={mo}: alive "
+            f"{int((s > st).sum())}, kept {int(kept.sum())} (per image "
+            f"{int(kept.min())}-{int(kept.max())}), mismatching slots vs "
+            f"blocked {bad}, vs greedy on {k} images {bad_greedy}")
+        check(bad == 0 and bad_greedy == 0,
+              f"nms kernels disagree with the plain version ({name})")
+        if name == "identical boxes":
+            check(bool((kept == 1).all()), "identical boxes keep one")
+        total += bad + bad_greedy
+        del b, s, got, greedy
+    torch.cuda.empty_cache()
+    return total
+
+
+def _yolox_counts(nms_ops, raw, centers, strides, max_det):
+    """The served postprocess through K3 and through the plain blocked sweep
+    on one raw head output; returns (alive, kept) after checking the two
+    equal."""
+    import torch
+    from deeplearning_tpu_torch.models.detection.yolox import (
+        decode_outputs, yolox_postprocess)
+    dets = {impl: yolox_postprocess(raw, centers, strides, score_thresh=0.0,
+                                    max_det=max_det, nms_impl=impl)
+            for impl in ("auto", "blocked")}
+    torch.cuda.synchronize()
+    check(all(torch.equal(dets["auto"][k], dets["blocked"][k])
+              for k in dets["auto"]),
+          f"YOLOX detections through K3 == through the plain sweep "
+          f"(max_det {max_det})")
+    dec = decode_outputs(raw, centers, strides)
+    score = (torch.sigmoid(dec[..., 4:5]) * torch.sigmoid(dec[..., 5:])
+             ).amax(dim=-1)
+    return int((score > 0.0).sum()), int(dets["auto"]["valid"].sum())
+
+
+def _serve_yolox(nms_ops, dev, seed):
+    """Phase 13: YOLOX-S served through the batcher with K3. Returns each
+    K3 kernel's launches and what phase 14 measures on."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.models.detection.yolox import (
+        calibrate_batchnorm, yolox_grid)
+    from deeplearning_tpu_torch.ops.boxes import box_iou
+    from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    t0 = time.perf_counter()
+    model, _ = hub.load(YOLOX, num_classes=YOLOX_CLASSES, seed=seed,
+                        device=dev)
+    rng = np.random.default_rng(seed + 2)
+    calibrate_batchnorm(model, torch.from_numpy(rng.normal(size=(
+        8, YOLOX_SIZE, YOLOX_SIZE, 3)).astype(np.float32)).to(dev))
+    engines = {impl: InferenceEngine(
+        YOLOX, model=model, num_classes=YOLOX_CLASSES,
+        image_size=YOLOX_SIZE, batch_buckets=(1, 8, 32), device=dev,
+        score_thresh=0.0, max_det=YOLOX_MAX_DET, nms_impl=impl)
+        for impl in ("auto", "blocked")}
+    log(f"engine {YOLOX} (K3 and plain): built, calibrated and warmed in "
+        f"{time.perf_counter() - t0:.2f}s; "
+        f"{json.dumps(engines['auto'].stats())}")
+
+    images = rng.normal(size=(64, YOLOX_SIZE, YOLOX_SIZE, 3)).astype(
+        np.float32)
+    engine = engines["auto"]
+    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+        torch.cuda.synchronize()
+        nms_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+
+        def client(part):
+            handles = [mb.submit(img) for img in part]
+            return [h.result(timeout=120.0) for h in handles]
+
+        with ThreadPoolExecutor(8) as pool:
+            rows = [r for part in pool.map(client, np.array_split(images, 8))
+                    for r in part]
+        served_ms = (time.perf_counter() - t0) * 1e3
+        counts = nms_ops.launch_counts()
+        batches = mb.dispatched
+    log(f"served {len(rows)}/64 {YOLOX} requests through K3 in "
+        f"{served_ms:.1f} ms ({64 / served_ms * 1e3:.1f} img/s): {batches} "
+        f"batches, launches {json.dumps(counts)}")
+    check(len(rows) == 64, "every answer arrives")
+    check(batches > 0 and all(counts[k] == batches
+                              for k in nms_ops.KERNEL_NAMES),
+          "each K3 kernel launches once a batch dispatched")
+    for row in rows:
+        check(row["boxes"].shape == (YOLOX_MAX_DET, 4)
+              and row["valid"].shape == (YOLOX_MAX_DET,)
+              and np.isfinite(row["boxes"]).all()
+              and bool(((row["labels"] == -1) == ~row["valid"]).all()),
+              "max_det rows an answer, class -1 exactly on invalid rows")
+    # served vs engine.infer of the same image at the bucket it was served
+    # in: exact, since no op of the forward or of K3 mixes images. A batch
+    # may have gone out in any bucket, so each answer is held against the
+    # engine's answer at each bucket and must equal one. Across buckets the
+    # answers differ: the calibrated random network amplifies the bf16
+    # rounding differences of cuDNN's per-shape algorithms through its ~70
+    # layers (a 1e-3 input change moves its raw outputs by up to ~3 on the
+    # CPU), so the top-20 overlap with bucket 1 is logged, not gated.
+    refs = {}
+    for bucket in engine.buckets:
+        parts = [engine.infer(images[i:i + bucket])
+                 for i in range(0, len(images), bucket)]
+        refs[bucket] = {k: np.concatenate([p[k] for p in parts])
+                        for k in parts[0]}
+    equal_at = []
+    for i, row in enumerate(rows):
+        hit = [b for b, ref in refs.items()
+               if all(np.array_equal(row[k], ref[k][i]) for k in row)]
+        equal_at.append(hit[0] if hit else None)
+    log(f"{YOLOX} served vs engine.infer of the same image: equal at bucket "
+        f"{json.dumps({str(b): equal_at.count(b) for b in engine.buckets})}"
+        f", equal at none {equal_at.count(None)}")
+    check(None not in equal_at, "every served answer == engine.infer")
+    matched = total = 0
+    for i, row in enumerate(rows):
+        one = {k: v[i] for k, v in refs[1].items()}
+        top = min(20, int(row["valid"].sum()))
+        ref_n = int(one["valid"].sum())
+        iou = box_iou(torch.from_numpy(row["boxes"][:top]),
+                      torch.from_numpy(one["boxes"][:ref_n])).numpy()
+        ok = (iou >= 0.9) & (row["labels"][:top, None]
+                             == one["labels"][None, :ref_n])
+        matched += int(ok.any(axis=1).sum())
+        total += top
+    log(f"{YOLOX} served vs bucket 1, for information: {matched}/{total} "
+        f"top-20 rows with a same-label box at IoU >= 0.9")
+
+    # one served bucket-32 batch: K3 and the plain sweep on one raw output
+    x = torch.from_numpy(images[:32]).to(dev)
+    centers, strides = (torch.from_numpy(a).to(dev)
+                        for a in yolox_grid((YOLOX_SIZE, YOLOX_SIZE)))
+    with torch.no_grad():
+        raw = model(x)
+    alive, kept = _yolox_counts(nms_ops, raw, centers, strides,
+                                YOLOX_MAX_DET)
+    log(f"{YOLOX} bucket-32 batch, max_det {YOLOX_MAX_DET}: K3 == plain; "
+        f"alive {alive}, kept {kept}")
+    alive_all, kept_all = _yolox_counts(nms_ops, raw, centers, strides,
+                                        YOLOX_ANCHORS)
+    log(f"{YOLOX} bucket-32 batch, every candidate ({YOLOX_ANCHORS} slots): "
+        f"K3 == plain; alive {alive_all}, kept {kept_all}, suppressed "
+        f"{alive_all - kept_all}")
+    check(alive > 0 and alive_all - kept_all > 0,
+          "candidates were alive and suppressed in the checked batch")
+    return counts, {"engines": engines, "raw": raw, "centers": centers,
+                    "strides": strides}
+
+
+def _time_nms(nms_ops, dev, g, served, err, launches) -> list:
+    """Phase 14b: K3 at YOLOX-S's served batch (32 x 8 400, its class-offset
+    boxes) and at 1 x 20 000 (overlap-heavy): each kernel, the sweep and
+    the whole call against the plain version, the bound and torchvision's
+    batched_nms where it imports. Returns the kernels-line entries (at the
+    served batch)."""
+    import torch
+    from deeplearning_tpu_torch.models.detection.yolox import decode_outputs
+    try:
+        import torchvision
+        tv_nms = torchvision.ops.batched_nms
+        log(f"torchvision {torchvision.__version__}: batched_nms is timed "
+            f"as a yardstick only")
+    except Exception as exc:  # noqa: BLE001 - a yardstick, not a phase
+        tv_nms = None
+        log(f"torchvision does not import ({type(exc).__name__}: {exc}); "
+            f"torch itself has no NMS call, so library_ms is null")
+    dec = decode_outputs(served["raw"], served["centers"], served["strides"])
+    score_all = torch.sigmoid(dec[..., 4:5]) * torch.sigmoid(dec[..., 5:])
+    best, label = score_all.amax(dim=-1), score_all.argmax(dim=-1)
+    workloads = [
+        ("YOLOX-S served batch", nms_ops.class_offset_boxes(dec[..., :4],
+                                                             label),
+         best, 0.0, YOLOX_NMS_TH, YOLOX_MAX_DET, label),
+        ("overlap-heavy", *_nms_boxes(dev, g, 1, 20_000), float("-inf"), 0.5,
+         100, None)]
+    lib = nms_ops._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    entries = []
+    for name, boxes, scores, st, th, mo, classes in workloads:
+        b, n = scores.shape
+        sboxes, alive0, order, _ = nms_ops.sort_pad_candidates(
+            boxes, scores, st, nms_ops.WORD)
+        npad = sboxes.shape[1]
+        words = npad // nms_ops.WORD
+        n_live = nms_ops.live_counts(alive0)
+        live_t = torch.tensor(n_live, dtype=torch.int32, device=dev)
+        mask = torch.empty((b, words, npad), dtype=torch.int64, device=dev)
+        out = torch.empty((b, npad), dtype=torch.bool, device=dev)
+        th32 = float(torch.tensor(th, dtype=torch.float32))
+        rc = [0]
+
+        def mask_call():
+            rc[0] |= lib.nms_iou_mask(sboxes.data_ptr(), live_t.data_ptr(),
+                                      mask.data_ptr(), b, npad, words, th32,
+                                      stream)
+
+        def scan_call():
+            rc[0] |= lib.nms_scan(mask.data_ptr(), alive0.data_ptr(),
+                                  live_t.data_ptr(), out.data_ptr(), b, npad,
+                                  mo, stream)
+        ms = {"mask": _time_ms(mask_call), "scan": _time_ms(scan_call),
+              "sweep": _time_ms(lambda: nms_ops.nms_sweep(sboxes, alive0,
+                                                          th, mo)),
+              "call": _time_ms(lambda: nms_ops.nms(boxes, scores, th, mo, st,
+                                                   impl="auto"))}
+        check(rc[0] == 0, "the timed K3 launches succeeded")
+        plain_ms = _time_ms(lambda: nms_ops.nms_sweep_plain(
+            sboxes, alive0, th, mo, nms_ops.WORD), iters=5, warmup=1)
+        plain_call_ms = _time_ms(lambda: nms_ops.nms(
+            boxes, scores, th, mo, st, impl="blocked"), iters=5, warmup=1)
+        library_ms = None
+        if tv_nms is not None:
+            flat = boxes.reshape(-1, 4)
+            idxs = torch.arange(b, device=dev).repeat_interleave(n)
+            if classes is not None:
+                # per image and class, on the un-offset boxes
+                flat = dec[..., :4].reshape(-1, 4)
+                idxs = idxs * YOLOX_CLASSES + classes.reshape(-1)
+            library_ms = _time_ms(lambda: tv_nms(flat, scores.reshape(-1),
+                                                 idxs, th), iters=20,
+                                  warmup=3)
+        alive = nms_ops.nms_sweep(sboxes, alive0, th, mo)
+        torch.cuda.synchronize()
+        mask_ops = nms_ops.iou_flops(n_live)
+        mask_bytes = nms_ops.mask_bytes(npad, n_live)
+        scan_bytes = nms_ops.scan_bytes(alive, n_live)
+        greedy_ops = nms_ops.greedy_ious(alive, alive0, mo) * \
+            nms_ops.OPS_PER_IOU
+        call_bytes = b * n * 20 + b * mo * 9      # boxes + scores, idx + valid
+        bound = {
+            "nms_iou_mask": (mask_bytes / HBM_BYTES_PER_S * 1e3,
+                             mask_ops / PEAK_FLOPS["float32"] * 1e3),
+            "nms_scan": (scan_bytes / HBM_BYTES_PER_S * 1e3, 0.0),
+            "call": (call_bytes / HBM_BYTES_PER_S * 1e3,
+                     greedy_ops / PEAK_FLOPS["float32"] * 1e3)}
+        tri_ms = b * n * (n - 1) / 2 * nms_ops.OPS_PER_IOU / \
+            PEAK_FLOPS["float32"] * 1e3
+        lib_txt = "null" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"timing nms {name} B={b} N={n} (Npad {npad}, live "
+            f"{min(n_live)}-{max(n_live)}) th={th} max_out={mo}: "
+            f"nms_iou_mask {ms['mask']:.4f} ms, nms_scan {ms['scan']:.4f} "
+            f"ms, sweep {ms['sweep']:.4f} ms, whole call {ms['call']:.4f} "
+            f"ms; plain sweep {plain_ms:.4f} ms, plain call "
+            f"{plain_call_ms:.4f} ms; torchvision batched_nms {lib_txt}; "
+            f"kept {int(alive.sum())}")
+        for key, (bytes_ms, ops_ms) in bound.items():
+            log(f"  bound {key}: {max(bytes_ms, ops_ms):.5f} ms (bytes "
+                f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: "
+                f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        log(f"  the full triangle, N(N-1)/2 IoUs an image x "
+            f"{nms_ops.OPS_PER_IOU} ops at 67 TFLOP/s: {tri_ms:.4f} ms; the "
+            f"mask kernel reaches {mask_ops / ms['mask'] / 1e9:.1f} TFLOP/s")
+        if not entries:                   # the kernels line: served batch
+            for kname, key in (("nms_iou_mask", "mask"),
+                               ("nms_scan", "scan")):
+                bytes_ms, ops_ms = bound[kname]
+                entries.append({
+                    "name": kname, "route": "cuda", "source": NMS_SOURCE,
+                    "replaces": REPLACES[kname], "launches": launches[kname],
+                    "max_abs_err": float(err), "ms": ms[key],
+                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "library_ms": library_ms})
+        del mask, out, alive
+    torch.cuda.empty_cache()
+    return entries
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -1,4 +1,4 @@
 """Model zoo of the port; importing it registers every factory in
 ``core.registry.MODELS``."""
 
-from . import classification  # noqa: F401
+from . import classification, detection  # noqa: F401

@@ -5,6 +5,8 @@
       --model vit_base_patch16_224 --attn flash_hb
   echo img.npy | python -m deeplearning_tpu_torch.serve \\
       --model swin_tiny_patch4_window7_224
+  echo img.npy | python -m deeplearning_tpu_torch.serve \\
+      --model yolox_s --size 640 --score-thresh 0.3
 
   # HTTP mode (stdlib): POST /predict with an .npy body, GET /healthz,
   # GET /stats
@@ -12,7 +14,11 @@
       --http 8000
 
 Requests are model-ready float32 arrays (H, W, 3) or (n, H, W, 3): an
-``.npy`` file, or an ``.npz`` with an ``images`` array. Every request
+``.npy`` file, or an ``.npz`` with an ``images`` array. A classifier
+answers ``{"top": [[class, p], ...]}``; a detector (picked from the name,
+e.g. ``yolox_s``) answers ``{"detections": [{"box", "score", "label"},
+...]}`` with its valid rows only: the padded class −1 slots never leave
+the server. Every request
 path goes through ``MicroBatcher.submit()``, so concurrent clients batch
 together; a full queue answers 429 with ``retry_after_s`` and a request
 past its deadline 504 (``X-Deadline-Ms`` tightens the deadline).
@@ -51,6 +57,17 @@ def load_request_images(path: str, size: int) -> np.ndarray:
 
 
 def format_answer(row, names, topk: int) -> dict:
+    """One image's JSON answer: the top-k classes of a probability row, or
+    the valid rows of a detection dict."""
+    if isinstance(row, dict):
+        keep = np.asarray(row["valid"], bool)
+        return {"detections": [
+            {"box": [round(float(x), 1) for x in b],
+             "score": round(float(sc), 4),
+             "label": names.get(int(c), int(c))}
+            for b, sc, c in zip(np.asarray(row["boxes"])[keep],
+                                np.asarray(row["scores"])[keep],
+                                np.asarray(row["labels"])[keep])]}
     order = np.argsort(-row)[:topk]
     return {"top": [[names.get(int(i), int(i)), round(float(row[i]), 4)]
                     for i in order]}
@@ -181,7 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", required=True,
                     help="registry name, e.g. vit_base_patch16_224")
-    ap.add_argument("--num-classes", type=int, default=1000)
+    ap.add_argument("--num-classes", type=int, default=None,
+                    help="head classes (default 1000, a detector 80)")
     ap.add_argument("--weights", default=None,
                     help=".npz of a JAX parameter tree (else --seed)")
     ap.add_argument("--seed", type=int, default=0)
@@ -189,7 +207,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="attention: flash_hb (default), flash, naive, "
                          "sdpa; for a Swin model naive runs the unfused "
                          "window attention and flash / flash_hb the fused "
-                         "window-attention kernel")
+                         "window-attention kernel; a detector has none")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=224)
     ap.add_argument("--buckets", default="1,8,32",
@@ -199,6 +217,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--timeout-s", type=float, default=30.0,
                     help="per-request deadline")
     ap.add_argument("--topk", type=int, default=5)
+    ap.add_argument("--score-thresh", type=float, default=0.3,
+                    help="detection score threshold")
+    ap.add_argument("--max-det", type=int, default=100,
+                    help="detection slots an image")
+    ap.add_argument("--nms-impl", default="auto",
+                    help="detection NMS: auto (the CUDA kernel on the card), "
+                         "pallas (the same), blocked, greedy")
     ap.add_argument("--classes", default=None,
                     help="json mapping class index -> name")
     ap.add_argument("--http", type=int, default=None,
@@ -214,18 +239,23 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .. import hub
+    from ..models.detection.predict import is_detection_model
     from ..obs import threads as obs_threads
     from .batcher import MicroBatcher
     from .engine import InferenceEngine
 
-    model, _ = hub.load(args.model, num_classes=args.num_classes,
+    num_classes = args.num_classes or (
+        80 if is_detection_model(args.model) else 1000)
+    model, _ = hub.load(args.model, num_classes=num_classes,
                         weights=args.weights, seed=args.seed,
                         device=args.device,
                         **hub.model_kwargs(args.model, args.attn, args.size))
     engine = InferenceEngine(
-        args.model, model=model, num_classes=args.num_classes,
+        args.model, model=model, num_classes=num_classes,
         image_size=args.size, device=args.device,
-        batch_buckets=tuple(int(b) for b in args.buckets.split(",")))
+        batch_buckets=tuple(int(b) for b in args.buckets.split(",")),
+        score_thresh=args.score_thresh, max_det=args.max_det,
+        nms_impl=args.nms_impl)
     print(json.dumps({"ready": engine.stats()}), file=sys.stderr,
           flush=True)
     names = {}

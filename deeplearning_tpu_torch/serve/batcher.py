@@ -58,9 +58,10 @@ class _Request:
 
 
 class _SharedBatch:
-    """One dispatched batch's DEVICE output with a lazily-cached host
-    copy: the first requester pays one copy for the whole batch, every
-    other row rides the cache."""
+    """One dispatched batch's DEVICE output (a tensor, or a detection dict
+    of tensors) with a lazily-cached host copy: the first requester pays
+    one copy a tensor for the whole batch, every other row rides the
+    cache. A dict demuxes per key, as the JAX batcher's ``tree.map``."""
 
     __slots__ = ("_device", "_host", "_lock")
 
@@ -72,8 +73,13 @@ class _SharedBatch:
     def row(self, i: int) -> Any:
         with self._lock:
             if self._host is None:
-                self._host = self._device.cpu().numpy()
+                out = self._device
+                self._host = ({k: v.cpu().numpy() for k, v in out.items()}
+                              if isinstance(out, dict)
+                              else out.cpu().numpy())
                 self._device = None     # free device memory once copied
+        if isinstance(self._host, dict):
+            return {k: v[i] for k, v in self._host.items()}
         return self._host[i]
 
 

@@ -1,6 +1,8 @@
 """InferenceEngine: one model session on the card, bucketed batch shapes.
 
-The port of ``deeplearning_tpu/serve/engine.py`` for ``task="classify"``:
+The port of ``deeplearning_tpu/serve/engine.py``, for ``task="classify"``
+and ``task="detect"`` (picked from the registry name when ``task="auto"``,
+as in JAX):
 
 - **One session.** The model is built (registry + seed or weights) and
   moved to the device once; every request runs against those resident
@@ -16,9 +18,17 @@ The port of ``deeplearning_tpu/serve/engine.py`` for ``task="classify"``:
   steady-state serve loop leaves both at ``len(buckets)``, and ``warm``
   means what it means in JAX.
 
-Outputs of ``run`` stay on the device; callers materialise them (the
-batcher's dispatch thread never synchronises). Detection, TTA and int8
-weight residency are not in this slice and raise ``NotImplementedError``.
+A detection engine runs its family's postprocess
+(``models/detection/predict.build_predict_fn``) after the forward, so an
+answer is ``max_det`` rows of {boxes, scores, labels, valid}, never raw
+heads; padded slots carry label −1. Every NMS of a batch on the card is
+one launch of each K3 kernel (``ops/nms.py``). The YOLOX family is
+ported; another detection family raises ``NotImplementedError``.
+
+Outputs of ``run`` stay on the device (a tensor, or a dict of tensors for
+detection); callers materialise them (the batcher's dispatch thread never
+synchronises). TTA and int8 weight residency are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,13 +45,22 @@ from ..core.device import resolve_device
 __all__ = ["InferenceEngine"]
 
 
+def _map(fn, out):
+    """``fn`` over a tensor or over each value of a detection dict."""
+    return {k: fn(v) for k, v in out.items()} if isinstance(out, dict) \
+        else fn(out)
+
+
 class InferenceEngine:
     """A servable model session with per-bucket warmed shapes.
 
     Build from a registry name (weights from ``seed``, or ``weights``:
-    an ``.npz`` of a JAX parameter tree), or pass a built module via
+    an ``.npz`` of a JAX variable tree), or pass a built module via
     ``model=`` with optional ``variables=`` (a ``state_dict`` or a flax
-    tree) — the ``hub.load`` return surface.
+    tree) — the ``hub.load`` return surface. ``score_thresh``,
+    ``max_det``, ``nms_impl`` and ``post_nms_top_n`` (Faster R-CNN's
+    proposals) shape a detection engine's postprocess, with the JAX
+    defaults.
     """
 
     def __init__(self, model_name: Optional[str] = None, *,
@@ -53,16 +72,21 @@ class InferenceEngine:
                  model: Optional[torch.nn.Module] = None,
                  variables: Any = None,
                  tta: bool = False,
+                 score_thresh: float = 0.05,
+                 max_det: int = 100,
+                 nms_impl: str = "auto",
+                 post_nms_top_n: int = 256,
                  seed: int = 0,
                  precompile: bool = True,
                  weight_quant: str = "fp32",
                  device: Optional[Union[str, torch.device]] = None):
+        from ..models.detection.predict import (is_detection_model,
+                                                require_ported)
         if model is None and model_name is None:
             raise ValueError("pass model_name or a prebuilt model")
-        if task not in ("auto", "classify"):
-            raise NotImplementedError(
-                f"task={task!r}: the port serves classification only; "
-                "detection serving comes with the detection slice")
+        if task not in ("auto", "classify", "detect"):
+            raise ValueError(f"task must be auto, classify or detect, "
+                             f"got {task!r}")
         if tta:
             raise NotImplementedError("test-time augmentation is not "
                                       "ported yet")
@@ -73,7 +97,14 @@ class InferenceEngine:
             raise ValueError(f"weight_quant must be fp32 or int8, "
                              f"got {weight_quant!r}")
         self.name = model_name or type(model).__name__.lower()
-        self.task = "classify"
+        self.task = (("detect" if is_detection_model(self.name)
+                      else "classify") if task == "auto" else task)
+        if self.task == "detect":
+            require_ported(self.name)
+        self.score_thresh = score_thresh
+        self.max_det = max_det
+        self.nms_impl = nms_impl
+        self.post_nms_top_n = post_nms_top_n
         self.weight_quant = weight_quant
         self.num_classes = num_classes
         self.image_size = int(image_size)
@@ -91,9 +122,17 @@ class InferenceEngine:
         elif variables is not None or weights is not None:
             from ..utils.convert import as_state_dict
             model.load_state_dict(as_state_dict(
-                variables if variables is not None else weights))
+                variables if variables is not None else weights,
+                like=model))
         # the session's single resident copy of the weights
         self.model = model.to(self.device).eval()
+        self._predict = None
+        if self.task == "detect":
+            from ..models.detection.predict import build_predict_fn
+            self._predict = build_predict_fn(
+                self.model, self.name, num_classes,
+                score_thresh=score_thresh, max_det=max_det,
+                post_nms_top_n=post_nms_top_n, nms_impl=nms_impl)
 
         # counters: the "no new work after warmup" test surface
         self.trace_count = 0        # first forward of a bucket
@@ -105,7 +144,9 @@ class InferenceEngine:
             self.warmup()
 
     # ------------------------------------------------------- forward fn
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _forward(self, images: torch.Tensor) -> Any:
+        if self._predict is not None:
+            return self._predict(images)
         with torch.no_grad():
             return torch.softmax(self.model(images), dim=-1)
 
@@ -150,9 +191,11 @@ class InferenceEngine:
             return host.pin_memory().to(self.device, non_blocking=True)
         return host
 
-    def run(self, bucket: int, images) -> torch.Tensor:
-        """Run one bucket on an exactly-``bucket``-row batch; returns
-        DEVICE probabilities (no synchronisation — callers materialise)."""
+    def run(self, bucket: int, images) -> Any:
+        """Run one bucket on an exactly-``bucket``-row batch; returns DEVICE
+        probabilities, or for detection a dict of DEVICE tensors {boxes
+        (bucket, max_det, 4), scores, labels, valid} (no synchronisation —
+        callers materialise)."""
         if bucket not in self.buckets:
             raise ValueError(f"unknown bucket {bucket} "
                              f"(have {self.buckets})")
@@ -187,9 +230,14 @@ class InferenceEngine:
             chunk = images[start:start + big]
             bucket = self.bucket_for(chunk.shape[0])
             out = self.run(bucket, self.pad_to_bucket(chunk, bucket))
-            outs.append(out[:chunk.shape[0]])
-        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-        return out.cpu().numpy() if materialize else out
+            outs.append(_map(lambda t: t[:chunk.shape[0]], out))
+        if len(outs) == 1:
+            out = outs[0]
+        elif isinstance(outs[0], dict):
+            out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        else:
+            out = torch.cat(outs, dim=0)
+        return _map(lambda t: t.cpu().numpy(), out) if materialize else out
 
     # ------------------------------------------------------ introspection
     def variables_nbytes(self) -> int:
@@ -202,6 +250,8 @@ class InferenceEngine:
         return {
             "model": self.name,
             "task": self.task,
+            **({"score_thresh": self.score_thresh, "max_det": self.max_det,
+                "nms_impl": self.nms_impl} if self.task == "detect" else {}),
             "device": str(self.device),
             "image_size": self.image_size,
             "buckets": list(self.buckets),

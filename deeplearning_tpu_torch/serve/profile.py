@@ -2,17 +2,24 @@
 
     python -m deeplearning_tpu_torch.serve.profile [--attn flash_hb,naive]
         [--buckets 1,8,32] [--iters 10]
+    python -m deeplearning_tpu_torch.serve.profile --model yolox_s
+        --size 640 [--nms-impl auto,blocked]
 
-For each attention choice and bucket: the host wall time of one
-``InferenceEngine.run`` ending in a synchronise (timed without the
-profiler, whose own host cost would inflate it), the device time summed
-over every CUDA kernel and copy that ``torch.profiler`` records for the
-same call, the device idle share (1 - device / wall), and the kernels
-that take the most device time. One JSON line per (attn, bucket), then the
-card's name and power limit. ViT-B/16 (or ``--model``, e.g. Swin-T, whose
-``--attn`` naive is the unfused window attention and flash_hb the fused
-kernel) at full width, weights from ``--seed``. Needs a card; it never
-runs on the CPU.
+For each attention choice (a detector: each NMS path) and bucket: the
+host wall time of one ``InferenceEngine.run`` ending in a synchronise
+(timed without the profiler, whose own host cost would inflate it), the
+device time summed over every CUDA kernel and copy that ``torch.profiler``
+records for the same call, the device idle share (1 - device / wall), and
+the kernels that take the most device time. One JSON line per (variant,
+bucket), then the card's name and power limit. ViT-B/16 (or ``--model``,
+e.g. Swin-T, whose ``--attn`` naive is the unfused window attention and
+flash_hb the fused kernel) at full width, weights from ``--seed``. A
+detector (YOLOX) is served as ``chip_smoke.py`` serves it: BatchNorm
+statistics calibrated on seeded images (``calibrate_batchnorm``: with the
+init's statistics every box is its grid cell and every score 1.0e-4) and
+a score threshold of 0, so every candidate reaches NMS; ``--nms-impl`` auto
+runs the K3 kernels, blocked the plain sweep. Needs a card; it never runs
+on the CPU.
 """
 
 from __future__ import annotations
@@ -69,22 +76,38 @@ def main(argv=None) -> int:
     ap.add_argument("--buckets", default="1,8,32")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--size", type=int, default=224)
+    ap.add_argument("--nms-impl", default="auto,blocked",
+                    help="a detector's NMS paths to profile")
     args = ap.parse_args(argv)
 
     from .. import hub
+    from ..models.detection.predict import is_detection_model
     from .engine import InferenceEngine
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
     images = np.random.default_rng(args.seed).normal(
-        size=(max(buckets), 224, 224, 3)).astype(np.float32)
-    for attn in args.attn.split(","):
-        model, _ = hub.load(args.model, seed=args.seed,
-                            **hub.model_kwargs(args.model, attn))
+        size=(max(buckets), args.size, args.size, 3)).astype(np.float32)
+    detect = is_detection_model(args.model)
+    classes = 80 if detect else 1000
+    for variant in (args.nms_impl if detect else args.attn).split(","):
+        model, _ = hub.load(args.model, num_classes=classes, seed=args.seed,
+                            **hub.model_kwargs(args.model, variant,
+                                               args.size))
+        extra = {}
+        if detect:
+            from ..models.detection.yolox import calibrate_batchnorm
+            calibrate_batchnorm(model, torch.from_numpy(
+                np.random.default_rng(args.seed + 2).normal(size=(
+                    8, args.size, args.size, 3)).astype(np.float32)).cuda())
+            extra = {"nms_impl": variant, "score_thresh": 0.0}
         engine = InferenceEngine(args.model, model=model,
-                                 batch_buckets=buckets)
+                                 num_classes=classes, image_size=args.size,
+                                 batch_buckets=buckets, **extra)
         for b in buckets:
             row = profile_bucket(engine, b, images[:b], args.iters)
-            print(json.dumps({"attn": attn, **row}), flush=True)
+            print(json.dumps({"nms_impl" if detect else "attn": variant,
+                              **row}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,15 +4,22 @@
 Rules, per leaf of a tree of numpy arrays (flax names → port names):
 - module path ``blocks_0/attn/qkv`` → ``blocks.0.attn.qkv``;
 - Dense ``kernel`` (in, out) → ``weight`` (out, in);
-- the HWIO patch ``proj/kernel`` (p, p, c, embed) → ``weight``
+- a 4-D HWIO ``kernel`` (kh, kw, cin, cout): → ``weight`` (cout, cin, kh,
+  kw) where the target (``like``) holds a 4-D weight, a ``Conv2d``;
+  otherwise it is the patch ``proj/kernel`` (p, p, c, embed) → ``weight``
   (embed, p·p·c), the order PatchEmbed flattens patches in;
-- LayerNorm ``scale`` → ``weight``; ``bias``, ``cls_token`` and
-  ``pos_embed`` keep their names and shapes.
+- LayerNorm / BatchNorm ``scale`` → ``weight``; ``bias``, ``cls_token`` and
+  ``pos_embed`` keep their names and shapes;
+- the ``batch_stats`` collection, beside ``params``: BatchNorm ``mean`` →
+  ``running_mean``, ``var`` → ``running_var``. The port's
+  ``num_batches_tracked`` has no flax counterpart; a strict
+  ``load_state_dict`` fills it in by itself.
 
 ``load_npz`` reads a flattened ``.npz`` of such a tree (keys joined by
-``/``, with or without the leading ``params``). ``flax_path`` maps a
-port name back to its flax path (what the optimizer masks are judged
-on), and ``from_optax_state`` carries an optax optimizer state across.
+``/``, with or without the leading ``params``; a ``batch_stats/...`` key
+carries the statistics). ``flax_path`` maps a port name back to its flax
+path (what the optimizer masks are judged on), and ``from_optax_state``
+carries an optax optimizer state across.
 """
 
 from __future__ import annotations
@@ -43,18 +50,38 @@ def _module_name(part: str) -> str:
     return f"{m.group(1)}.{m.group(2)}" if m else part
 
 
-def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Map a flax param tree (optionally wrapped in ``{"params": ...}``)
-    of numpy-convertible arrays to a ``state_dict`` of float32 tensors."""
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _target_ndims(like: Any) -> Dict[str, int]:
+    if like is None:
+        return {}
+    if isinstance(like, torch.nn.Module):
+        like = like.state_dict()
+    return {k: len(v.shape) for k, v in like.items()}
+
+
+def from_flax_params(params: Mapping, like: Any = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Map a flax param tree (optionally wrapped in ``{"params": ...}``,
+    with ``batch_stats`` beside it) of numpy-convertible arrays to a
+    ``state_dict`` of float32 tensors. ``like`` (the target module or its
+    ``state_dict``) tells a conv kernel from a patch projection."""
+    stats: Mapping = {}
     if isinstance(params.get("params"), Mapping):
+        stats = params.get("batch_stats") or {}
         params = params["params"]
+    ndims = _target_ndims(like)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         arr = np.asarray(value, dtype=np.float32)
         *mods, leaf = path
         stem = ".".join(_module_name(m) for m in mods)
+        key = f"{stem}.weight" if stem else "weight"
         if leaf == "kernel":
-            if arr.ndim == 4:                 # HWIO conv-shaped projection
+            if arr.ndim == 4 and ndims.get(key) == 4:     # Conv2d: HWIO→OIHW
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 4:               # HWIO conv-shaped projection
                 arr = arr.reshape(-1, arr.shape[-1]).T
             elif arr.ndim == 2:
                 arr = arr.T
@@ -63,13 +90,20 @@ def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         key = f"{stem}.{leaf}" if stem else leaf
         out[key] = torch.from_numpy(np.array(arr, order="C"))  # own copy
+    for path, value in _leaves(stats):
+        *mods, leaf = path
+        stem = ".".join(_module_name(m) for m in mods)
+        out[f"{stem}.{_STATS.get(leaf, leaf)}"] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order="C"))
     return out
 
 
 def flax_path(name: str, ndim: int) -> str:
     """The flax path of port parameter ``name`` with ``ndim`` dims:
     ``blocks.0.attn.qkv.weight`` (2-D) -> ``blocks_0/attn/qkv/kernel``;
-    a 1-D ``weight`` is a LayerNorm ``scale``."""
+    a 1-D ``weight`` is a LayerNorm / BatchNorm ``scale``; a BatchNorm
+    ``running_mean`` / ``running_var`` is its ``batch_stats`` ``mean`` /
+    ``var``."""
     *mods, leaf = name.split(".")
     parts: list = []
     for m in mods:
@@ -79,6 +113,7 @@ def flax_path(name: str, ndim: int) -> str:
             parts.append(m)
     if leaf == "weight":
         leaf = "kernel" if ndim >= 2 else "scale"
+    leaf = {v: k for k, v in _STATS.items()}.get(leaf, leaf)
     return "/".join(parts + [leaf])
 
 
@@ -102,8 +137,9 @@ def from_optax_state(state: Any) -> Any:
     raise TypeError(f"no port counterpart for optax state leaf {state!r}")
 
 
-def load_npz(path: str) -> Dict[str, torch.Tensor]:
-    """``state_dict`` from a flattened ``.npz`` of a flax param tree."""
+def load_npz(path: str, like: Any = None) -> Dict[str, torch.Tensor]:
+    """``state_dict`` from a flattened ``.npz`` of a flax param tree (and
+    its ``batch_stats``); ``like`` as for ``from_flax_params``."""
     tree: Dict[str, Any] = {}
     with np.load(path) as archive:
         for key in archive.files:
@@ -112,14 +148,16 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
             for m in mods:
                 node = node.setdefault(m, {})
             node[leaf] = archive[key]
-    return from_flax_params(tree)
+    return from_flax_params(tree, like)
 
 
-def as_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
+def as_state_dict(variables: Any, like: Any = None
+                  ) -> Dict[str, torch.Tensor]:
     """Weights as the port takes them: a path to an ``.npz``, a flax tree
-    (``{"params": ...}``), or already a ``state_dict``."""
+    (``{"params": ...}``, with its ``batch_stats``), or already a
+    ``state_dict``. ``like``: the module they are for (conv kernels)."""
     if isinstance(variables, str):
-        return load_npz(variables)
+        return load_npz(variables, like)
     if isinstance(variables.get("params"), Mapping):
-        return from_flax_params(variables)
+        return from_flax_params(variables, like)
     return {k: torch.as_tensor(v) for k, v in variables.items()}

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from deeplearning_tpu_torch.ops import flash_attention as fa
+from deeplearning_tpu_torch.ops import nms as nms_ops
 from deeplearning_tpu_torch.ops import window_attention as wa
 from deeplearning_tpu_torch.ops import window_utils as wu
 
@@ -248,3 +249,76 @@ def test_window_attn_raises_on_what_the_kernel_does_not_take(cuda_device):
         call(n=81)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         call(dtype=torch.float16)
+
+
+# ----------------------------------------------------- blocked NMS (K3)
+def _nms_cases(device, cases, n, span=64.0, wh_max=24.0, nan_frac=0.0,
+               seed=0):
+    """Overlap-heavy boxes (cases, n, 4) and scores (cases, n), the JAX
+    tests' recipe, made on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ctr = torch.rand(cases, n, 2, device=device, generator=g) * span
+    wh = 2.0 + torch.rand(cases, n, 2, device=device,
+                          generator=g) * (wh_max - 2.0)
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    scores = torch.rand(cases, n, device=device, generator=g)
+    if nan_frac:
+        nan = torch.rand(cases, n, device=device, generator=g) < nan_frac
+        scores = torch.where(nan, torch.full_like(scores, float("nan")),
+                             scores)
+    return boxes, scores
+
+
+def _same_keeps(ref, got):
+    (i1, v1), (i2, v2) = ref, got
+    return torch.equal(v1, v2) and bool(((i1 == i2) | ~v1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,st,mo", [(0.5, float("-inf"), 64),
+                                      (0.3, 0.25, 32), (0.7, 0.5, 16),
+                                      (0.45, 0.05, 100)])
+@pytest.mark.parametrize("n", [200, 1000])
+def test_nms_kernels_match_plain(cuda_device, n, th, st, mo):
+    """K3 (both kernels, one launch each a batch) against the plain blocked
+    sweep and, at n = 200, the greedy oracle: equal keep sets."""
+    boxes, scores = _nms_cases(cuda_device, 64, n,
+                               nan_frac=0.02 if mo == 64 else 0.0)
+    before = nms_ops.launch_counts()
+    got = nms_ops.nms(boxes, scores, th, mo, st, impl="auto")
+    plain = nms_ops.nms(boxes, scores, th, mo, st, impl="blocked",
+                        block_size=64)
+    torch.cuda.synchronize()
+    after = nms_ops.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in nms_ops.KERNEL_NAMES)
+    assert _same_keeps(plain, got)
+    if n == 200:
+        assert _same_keeps(nms_ops.nms(boxes, scores, th, mo, st,
+                                       impl="greedy"), got)
+
+
+@pytest.mark.cuda
+def test_nms_kernels_edge_cases(cuda_device):
+    boxes = torch.tensor([[10., 10., 20., 20.]],
+                         device=cuda_device).repeat(64, 1)
+    scores = torch.linspace(0.1, 0.9, 64, device=cuda_device)
+    idx, valid = nms_ops.nms(boxes, scores, 0.5, 10, impl="pallas")
+    assert int(valid.sum()) == 1 and int(idx[0]) == 63  # identical boxes
+    for n, mo in ((1, 5), (7, 32), (63, 16), (65, 16), (130, 200)):
+        b, s = _nms_cases(cuda_device, 8, n, span=80.0, seed=n)
+        s[:, ::4] = s[:, :1].clone()                      # tied scores
+        assert _same_keeps(nms_ops.nms(b, s, 0.5, mo, impl="greedy"),
+                           nms_ops.nms(b, s, 0.5, mo, impl="auto"))
+    # class-aware at 640² coordinates with 80 classes
+    b, s = _nms_cases(cuda_device, 4, 3000, span=640.0, wh_max=120.0)
+    cls = torch.randint(0, 80, (4, 3000), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(3))
+    assert _same_keeps(nms_ops.batched_nms(b, s, cls, 0.65, 100,
+                                           impl="blocked"),
+                       nms_ops.batched_nms(b, s, cls, 0.65, 100,
+                                           impl="auto"))
+    with pytest.raises(ValueError, match="float32"):
+        nms_ops.nms_sweep(b.half(), s > 0, 0.5, 10)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        nms_ops.nms_sweep(b[:, :100], s[:, :100] > 0, 0.5, 10)
