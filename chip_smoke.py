@@ -24,7 +24,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    12 layers; top-1 equal unless the two classes tie within that);
 4. measure: per-bucket latency and throughput of the served model (flash
    and naive attention, in turns), and each kernel's time at the main
-   path's shape against the plain version, against
+   path's shape (device time: calls captured in a CUDA graph and replayed;
+   the eager call time beside it) against the plain version, against
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    and against its bound (H100 SXM data sheet at a 700 W power limit:
    3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s float32);
@@ -48,9 +49,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    fixed batch at constant lr 1e-4 must lower the loss;
 7. measure: train step time, images/s and MFU for flash_hb and naive in
    turns, the ``train/bench.py`` line for both, and each backward
-   kernel's time at the training shape against the plain version, the
-   backward of ``scaled_dot_product_attention`` through autograd (a
-   yardstick only) and its bound;
+   kernel's time at the training shape (graph replay) against the plain
+   version, the backward of ``scaled_dot_product_attention`` through
+   autograd (a yardstick only) and its bound; the dQ + dK/dV pair of each
+   heads-per-CTA beside that whole SDPA backward; the forward kernels at
+   the training shape beside SDPA's forward;
 8. hold the fused window-attention kernel (``csrc/window_attn_fwd.cu``)
    against its plain PyTorch version on the card, bf16 (2e-2) and float32
    (1e-4), with qkv as strided slices of one (B·nW, N, 3·C) projection: the
@@ -182,6 +185,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 3
     from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
     from deeplearning_tpu_torch.ops.kernels import build
 
     dev = torch.device("cuda")
@@ -309,10 +313,17 @@ def main() -> int:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
     plain_ms = _time_ms(lambda: fa.flash_attention_reference(qt, kt, vt))
-    library_ms = _time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+
+    # the kernels' and SDPA's device time: calls replayed from a CUDA graph
+    # (an eager loop of B=32 calls measures the host issuing them)
+    library_ms, library_call_ms = graph_ms(sdpa), _time_ms(sdpa)
     for name, hpc in HPC_FOR.items():
-        ms = _time_ms(lambda: fa.attention_bnhd(q, k, v, heads_per_cta=hpc))
+        def fwd():
+            return fa.attention_bnhd(q, k, v, heads_per_cta=hpc)
+        ms, call_ms = graph_ms(fwd), _time_ms(fwd)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -320,11 +331,13 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms})
-        log(f"timing {name} B=32 H=12 N=197 D=64 bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP; {nbytes / ms / 1e6:.0f} GB/s, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        log(f"timing {name} B=32 H=12 N=197 D=64 bf16: kernel {ms:.4f} ms "
+            f"(graph replay; eager calls {call_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (eager "
+            f"{library_call_ms:.4f}), bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
+            f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s "
+            f"achieved)")
 
     # ------------------------------- 5. backward kernels vs plain on card
     phase(5, started)
@@ -428,7 +441,8 @@ def _ptxas_summary(report: str) -> list:
         if m:
             mangled = m.group(1)
             base = re.search(r"(?:(?:fwd|bwd)_(?:dq_|dkv_)?|win_)"
-                             r"(?:bf16_mma|f32_simt)|iou_mask_kernel|"
+                             r"(?:bf16_mma|bf16_wgmma|f32_simt)|"
+                             r"iou_mask_kernel|"
                              r"scan_kernel", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             out_t = ",f32" if "EfE" in mangled else (
@@ -681,8 +695,10 @@ def _measure_training(dev, seed, name=MODEL) -> None:
 
 def _time_backward(fa, dev, g, errs, launches) -> list:
     """Phase 7b: each backward kernel alone at the training shape (bf16,
-    fused-qkv strides), the plain backward, the SDPA backward through
-    autograd, and the bound. Also the forward kernels at B=128."""
+    fused-qkv strides; device time from a CUDA graph's replay), the plain
+    backward, the SDPA backward through autograd, and the bound; the pair
+    of each heads-per-CTA beside SDPA's backward. Also the forward kernels
+    at B=128 beside SDPA's forward."""
     import torch
     b, h, n, d = TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM
     q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d,
@@ -697,39 +713,55 @@ def _time_backward(fa, dev, g, errs, launches) -> list:
     library_ms = _time_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), do, retain_graph=True), iters=20, warmup=3)
     rows = []
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
     for hpc in (4, 1):
-        for which in ("dq", "dkv"):
-            name = fa.BWD_KERNEL_NAMES[which][hpc]
-            before = fa.launch_counts()[name]
-            ms = _time_ms(lambda: fa._launch_bwd(
+        for which in ("dq", "dkv", None):
+            kernels = (which,) if which else ("dq", "dkv")
+            names = [fa.BWD_KERNEL_NAMES[w][hpc] for w in kernels]
+            before = fa.launch_counts()
+            ms = graph_ms(lambda: fa._launch_bwd(
                 q, k, v, do, lse, delta, *grads, d ** -0.5, False, hpc,
-                kernels=(which,)))
-            check(fa.launch_counts()[name] > before, f"{name} launched")
+                kernels=kernels))
+            after = fa.launch_counts()
+            check(all(after[x] > before[x] for x in names),
+                  f"{names} launched")
             flops = fa.bwd_flops(b, h, n, d, kernel=which)
             nbytes = fa.bwd_min_bytes(b, h, n, d, 2, kernel=which)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            bound = max(bytes_ms, ops_ms)
+            if which is None:       # the pair, beside SDPA's whole backward
+                log(f"timing backward pair dq + dkv heads_per_cta={hpc} "
+                    f"B={b} H={h} N={n} D={d} bf16: kernels {ms:.4f} ms, "
+                    f"sdpa backward {library_ms:.4f} ms "
+                    f"({ms / library_ms:.2f}x), plain {plain_ms:.4f} ms, "
+                    f"bound {bound:.4f} ms")
+                continue
+            name = names[0]
             rows.append({
                 "name": name, "route": "cuda", "source": BWD_SOURCE,
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_ms": bound,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms})
             log(f"timing {name} B={b} H={h} N={n} D={d} bf16: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
-                f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                f"{ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, sdpa "
+                f"backward {library_ms:.4f} ms, bound {bound:.4f} ms "
                 f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
                 f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} "
                 f"TFLOP/s achieved)")
     qb, kb, vb = (x.transpose(1, 2) for x in (q, k, v))
     fwd_bound = max(fa.min_bytes(b, h, n, d, 2) / HBM_BYTES_PER_S,
                     fa.flops(b, h, n, d) / PEAK_FLOPS["bfloat16"]) * 1e3
+    sdpa_ms = graph_ms(lambda: torch.nn.functional.
+                       scaled_dot_product_attention(q, k, v))
     for name, hpc in HPC_FOR.items():
-        ms = _time_ms(lambda: fa.attention_bnhd(qb, kb, vb,
+        ms = graph_ms(lambda: fa.attention_bnhd(qb, kb, vb,
                                                 heads_per_cta=hpc))
         log(f"timing {name} B={b} H={h} N={n} D={d} bf16: kernel {ms:.4f} "
-            f"ms, bound {fwd_bound:.4f} ms")
+            f"ms (graph replay), sdpa {sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x), "
+            f"bound {fwd_bound:.4f} ms")
     return rows
 
 

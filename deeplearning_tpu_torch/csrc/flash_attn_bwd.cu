@@ -27,23 +27,42 @@
 //   - The Pallas grid padded N to a block multiple (zero rows of dO made the
 //     padded queries harmless). Here nothing is padded: the dQ kernel masks
 //     key columns >= N, and the dK/dV kernel masks query columns >= N
-//     (P = 0 there, and no dO, Q, LSE or delta row past N is ever read).
-//   - bf16: every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-//     dQ: each warp owns 16 query rows; S and dP leave their products in the
-//     accumulator layout, dS is formed in registers and repacked as the A
-//     operand of dS K (as the forward repacks P).
-//     dK/dV: each warp owns 16 key rows and computes S^T = K Q^T and
-//     dP^T = V dO^T, so P^T and dS^T come out in the accumulator layout with
-//     keys as rows and repack as the A operands of P^T dO and dS^T Q; LSE and
-//     delta are then indexed by column, from shared memory.
+//     (P = 0 there, and no LSE or delta row past N is ever read; Q and dO
+//     rows past N arrive as zeros from the copy engine).
+//   - dQ, bf16 (bwd_dq_bf16_mma): every product is mma.sync.m16n8k16 (bf16
+//     in, f32 accumulate). Each warp owns 16 query rows; S and dP leave
+//     their products in the accumulator layout, dS is formed in registers
+//     and repacked as the A operand of dS K (as the forward repacks P).
+//     Each head's warps synchronise on their own named barrier (ids
+//     1..HPC): the heads of a CTA share no shared memory.
+//   - dK/dV, bf16 (bwd_dkv_bf16_wgmma), built for Hopper like the forward
+//     (helpers in hopper.cuh):
+//       * 160 threads: one consumer warpgroup that owns the CTA's 64 key
+//         rows (warp w keys 16w..16w+15) and one producer warp.
+//       * The head's K and V tiles are TMA-loaded once into one of 2 slots
+//         (the next head's arrive under this one's products) and read by
+//         the tensor cores straight from shared memory: never reloaded.
+//       * Q and dO tiles of 64 queries stream through a ring of 2 stages:
+//         lane 0 of the producer warp issues their TMA loads, and the whole
+//         warp stages the tile's LSE (times log2 e) and delta beside them;
+//         a stage's "full" mbarrier waits for both (one arrival carrying
+//         the copies' bytes, plus 32), its "empty" one for the consumers.
+//       * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both
+//         operands in shared memory (K-major descriptors); P^T and dS^T
+//         come out in the accumulator layout with keys as rows, are
+//         rounded to bf16 in registers and are the A operands of
+//         dV += P^T dO and dK += dS^T Q, wgmma m64nDk16 with dO and Q read
+//         through the descriptor's transpose (MN-major) mode.
+//       * The two 64 x D float32 accumulators stay in registers for the
+//         whole query loop (2 x D/2 a thread; ptxas reports no spills at any
+//         D, 229 registers at D = 128). Causal: the walk starts at the
+//         query tile of the block's first key.
+//       * Swizzle (128/64/32-byte), tiles on 1024-byte boundaries, tensor
+//         maps and heads_per_cta (heads walked in sequence by one CTA, not
+//         more threads) as in the forward.
 //   - float32: scalar FMA; a group of 4 (D <= 64) or 8 (D = 128) threads
 //     shares one row and splits the head dimension, reducing each dot product
 //     with shuffles.
-//   - Registers: dK/dV keeps two (16 x D) f32 accumulators a warp; at D = 128
-//     a head gets 2 warps (not 4) so a 4-head CTA has 256 threads and each
-//     thread may use up to 255 registers.
-//   - Each head's warps synchronise on their own named barrier (ids 1..HPC),
-//     as the forward does: the heads of a CTA share no shared memory.
 //
 // Bound at the ViT-B/16 training shape (B = 128, H = 12, N = 197, D = 64,
 // bf16): one (B*H*N*D) bf16 tensor is 38.73 MB, LSE or delta 1.21 MB.
@@ -60,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -131,11 +152,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
@@ -149,8 +165,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
 
 // acc[nb] (16 x 8 each) += A(16 x K) * B^T where A is the warp's 16-row
 // strip `aw` and B is `rows` rows of `bw`, both row-major in shared memory
-// with row stride S: the products S = Q K^T, dP = dO V^T and their
-// transposes.
+// with row stride S: the dQ kernel's products S = Q K^T and dP = dO V^T.
 template <int K, int NB, int S>
 __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* aw,
                                         const bf16* bw, int g, int t) {
@@ -171,18 +186,18 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* aw,
 
 // out[db] (16 x 8 each, D / 8 of them) += X(16 x 16*KS) * B, where X sits in
 // registers in the accumulator layout (x[nb], 8 columns each) and B is
-// 16*KS rows of `bw` (row-major, stride S): dQ += dS K, dV += P^T dO,
-// dK += dS^T Q. Two adjacent 8-column blocks of X are one A operand.
+// 16*KS rows of `bw` (row-major, stride S): dQ += dS K. Two adjacent
+// 8-column blocks of X are one A operand.
 template <int D, int KS, int S>
 __device__ __forceinline__ void mma_xb(float (&out)[D / 8][4],
                                        const float (&x)[2 * KS][4],
                                        const bf16* bw, int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t a0 = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const uint32_t a0 = hopper::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
+    const uint32_t a1 = hopper::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
+    const uint32_t a2 = hopper::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    const uint32_t a3 = hopper::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
     const unsigned short* br =
         reinterpret_cast<const unsigned short*>(bw + (kk * 16 + 2 * t) * S);
 #pragma unroll
@@ -300,120 +315,191 @@ __global__ void __launch_bounds__(DqCfg<D, HPC>::kThreads)
   }
 }
 
-template <int D, int HPC>
+struct BwdMaps {  // TMA tensor maps of the q, k, v and dO views
+  CUtensorMap q, k, v, dout;
+};
+
+template <int D>
 struct DkvCfg {
-  static constexpr int kWarpsPerHead = D <= 64 ? 4 : 2;
-  static constexpr int kBlockN = 16 * kWarpsPerHead;  // key rows per head
-  static constexpr int kBlockM = 32;                  // queries per Q/dO tile
-  static constexpr int kStride = D + 8;
-  static constexpr int kHeadThreads = 32 * kWarpsPerHead;
-  static constexpr int kThreads = kHeadThreads * HPC;
-  static constexpr size_t kSmem =
-      size_t(HPC) * (2 * kBlockN + 2 * kBlockM) * kStride * sizeof(bf16) +
-      size_t(HPC) * 2 * kBlockM * sizeof(float);
+  using T = hopper::Tile<D>;
+  static constexpr int kBlock = 64;                 // key rows; queries a tile
+  static constexpr int kStages = 2;                 // Q/dO/LSE/delta ring depth
+  static constexpr int kKvSlots = 2;                // this head's K/V, the next's
+  static constexpr int kThreads = 160;              // consumer warpgroup + producer warp
+  static constexpr size_t kTileBytes =
+      size_t(2 * kKvSlots + 2 * kStages) * T::kBytes;
+  static constexpr size_t kStatBytes = size_t(2 * kStages) * kBlock * sizeof(float);
+  static constexpr size_t kSmem = 1024 + kTileBytes + kStatBytes +
+                                  2 * (kKvSlots + kStages) * sizeof(uint64_t);
 };
 
 template <int D, int HPC, typename OutT>
-__global__ void __launch_bounds__(DkvCfg<D, HPC>::kThreads)
-    bwd_dkv_bf16_mma(const Params p) {
-  using Cfg = DkvCfg<D, HPC>;
-  constexpr int BN = Cfg::kBlockN, BM = Cfg::kBlockM, S = Cfg::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // HPC x BN x S
-  bf16* v_s = k_s + HPC * BN * S;                 // HPC x BN x S
-  bf16* q_s = v_s + HPC * BN * S;                 // HPC x BM x S
-  bf16* do_s = q_s + HPC * BM * S;                // HPC x BM x S
-  float* lse_s = reinterpret_cast<float*>(do_s + HPC * BM * S);  // HPC x BM
-  float* dl_s = lse_s + HPC * BM;                                 // HPC x BM
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads)
+    bwd_dkv_bf16_wgmma(const __grid_constant__ BwdMaps maps, const Params p) {
+  using Cfg = DkvCfg<D>;
+  using T = hopper::Tile<D>;
+  constexpr int BN = Cfg::kBlock, NS = Cfg::kStages, NK = Cfg::kKvSlots;
+  extern __shared__ __align__(128) unsigned char smem_tma[];
+  const uint32_t raw = hopper::smem_addr(smem_tma);
+  unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* k_s = base;                         // NK tiles
+  unsigned char* v_s = k_s + NK * T::kBytes;         // NK tiles
+  unsigned char* q_s = v_s + NK * T::kBytes;         // NS tiles
+  unsigned char* do_s = q_s + NS * T::kBytes;        // NS tiles
+  float* lse_s = reinterpret_cast<float*>(base + Cfg::kTileBytes);  // NS x 64
+  float* dl_s = lse_s + NS * BN;                                     // NS x 64
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + NS * BN);
+  uint64_t* kv_empty = kv_full + NK;
+  uint64_t* rg_full = kv_empty + NK;
+  uint64_t* rg_empty = rg_full + NS;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hh = warp / Cfg::kWarpsPerHead;
-  const int n0 = (warp % Cfg::kWarpsPerHead) * 16;  // warp's 16 key rows
-  const int g = lane >> 2, t = lane & 3;
-  const int htid = tid % Cfg::kHeadThreads;
-  const int k_block = blockIdx.x * BN;
-  const int bh = blockIdx.y * HPC + hh;
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + head_offset(p, bh, p.q_st);
-  const bf16* kg = static_cast<const bf16*>(p.k) + head_offset(p, bh, p.k_st);
-  const bf16* vg = static_cast<const bf16*>(p.v) + head_offset(p, bh, p.v_st);
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + head_offset(p, bh, p.do_st);
-  const float* lse = p.lse + (long long)bh * p.N;
-  const float* delta = p.delta + (long long)bh * p.N;
-  load_rows_bf16<D, S>(k_s + hh * BN * S, kg, p.k_st.n, k_block, BN, p.N, htid,
-                       Cfg::kHeadThreads);
-  load_rows_bf16<D, S>(v_s + hh * BN * S, vg, p.v_st.n, k_block, BN, p.N, htid,
-                       Cfg::kHeadThreads);
-
-  const int key_a = k_block + n0 + g, key_b = key_a + 8;
-  const bf16* kw = k_s + hh * BN * S + n0 * S;
-  const bf16* vw = v_s + hh * BN * S + n0 * S;
-  const bf16* qw = q_s + hh * BM * S;
-  const bf16* dow = do_s + hh * BM * S;
-  const float* lw = lse_s + hh * BM;
-  const float* dw = dl_s + hh * BM;
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[db][e] = dv[db][e] = 0.f;
-
-  // causal: queries before the block's first key never see it
-  const int q_start = p.causal ? (k_block / BM) * BM : 0;
-  for (int q0 = q_start; q0 < p.N; q0 += BM) {
-    head_barrier(hh, Cfg::kHeadThreads);  // previous tile consumed, K/V stored
-    load_rows_bf16<D, S>(q_s + hh * BM * S, qg, p.q_st.n, q0, BM, p.N, htid,
-                         Cfg::kHeadThreads);
-    load_rows_bf16<D, S>(do_s + hh * BM * S, dog, p.do_st.n, q0, BM, p.N, htid,
-                         Cfg::kHeadThreads);
-    for (int i = htid; i < BM; i += Cfg::kHeadThreads) {
-      const bool in = q0 + i < p.N;  // no LSE or delta read past N
-      lse_s[hh * BM + i] = in ? lse[q0 + i] * kLog2e : 0.f;
-      dl_s[hh * BM + i] = in ? delta[q0 + i] : 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NK; ++i) {
+      hopper::mbar_init(&kv_full[i], 1);
+      hopper::mbar_init(&kv_empty[i], 128);
     }
-    head_barrier(hh, Cfg::kHeadThreads);
+    for (int i = 0; i < NS; ++i) {
+      hopper::mbar_init(&rg_full[i], 33);  // the copies' arrival + 32 lanes
+      hopper::mbar_init(&rg_empty[i], 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-    float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BM / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_abt<D, BM / 8, S>(s, kw, qw, g, t);    // S^T  = K Q^T
-    mma_abt<D, BM / 8, S>(dp, vw, dow, g, t);  // dP^T = V dO^T
+  const int k_block = blockIdx.x * BN;
+  // causal: query tiles before the block's first key never see it
+  const int q_start = p.causal ? k_block : 0;
 
-    // element e of s[nb] sits at key (e < 2 ? key_a : key_b), query
-    // q0 + nb*8 + 2t + (e & 1); s becomes P^T and dp becomes dS^T there.
-    // Query columns >= N get P = 0: they add nothing to dK or dV.
-#pragma unroll
-    for (int nb = 0; nb < BM / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = nb * 8 + 2 * t + (e & 1);
-        const int col = q0 + cl;
-        const int key = e < 2 ? key_a : key_b;
-        const bool keep = col < p.N && (!p.causal || key <= col);
-        const float pr = keep ? exp2f(s[nb][e] * p.scale_log2 - lw[cl]) : 0.f;
-        s[nb][e] = pr;
-        dp[nb][e] = pr * (dp[nb][e] - dw[cl]) * p.scale;
+  if (warp == 4) {  // ---- producer warp: lane 0 copies tiles, all load stats
+    if (lane == 0) {
+      hopper::tma_prefetch(&maps.q);
+      hopper::tma_prefetch(&maps.k);
+      hopper::tma_prefetch(&maps.v);
+      hopper::tma_prefetch(&maps.dout);
+    }
+    hopper::Ring kr, rr;
+    for (int hh = 0; hh < HPC; ++hh) {
+      const int bh = blockIdx.y * HPC + hh, b = bh / p.H, h = bh % p.H;
+      if (lane == 0) {
+        hopper::mbar_wait(&kv_empty[kr.slot], kr.phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], 2 * T::kBytes);
+        hopper::tma_load_tile<D>(k_s + kr.slot * T::kBytes, &maps.k,
+                                 &kv_full[kr.slot], k_block, h, b);
+        hopper::tma_load_tile<D>(v_s + kr.slot * T::kBytes, &maps.v,
+                                 &kv_full[kr.slot], k_block, h, b);
       }
-    mma_xb<D, BM / 16, S>(dv, s, dow, g, t);  // dV += P^T dO
-    mma_xb<D, BM / 16, S>(dk, dp, qw, g, t);  // dK += dS^T Q
+      kr.advance(NK);
+      const float* lse = p.lse + (long long)bh * p.N;
+      const float* delta = p.delta + (long long)bh * p.N;
+      for (int q0 = q_start; q0 < p.N; q0 += BN) {
+        hopper::mbar_wait(&rg_empty[rr.slot], rr.phase ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&rg_full[rr.slot], 2 * T::kBytes);
+          hopper::tma_load_tile<D>(q_s + rr.slot * T::kBytes, &maps.q,
+                                   &rg_full[rr.slot], q0, h, b);
+          hopper::tma_load_tile<D>(do_s + rr.slot * T::kBytes, &maps.dout,
+                                   &rg_full[rr.slot], q0, h, b);
+        }
+        for (int i = lane; i < BN; i += 32) {
+          const bool in = q0 + i < p.N;  // no LSE or delta read past N
+          lse_s[rr.slot * BN + i] = in ? lse[q0 + i] * kLog2e : 0.f;
+          dl_s[rr.slot * BN + i] = in ? delta[q0 + i] : 0.f;
+        }
+        hopper::mbar_arrive(&rg_full[rr.slot]);
+        rr.advance(NS);
+      }
+    }
+    return;
   }
 
-  OutT* dkg = static_cast<OutT*>(p.dk) + head_offset(p, bh, p.dk_st);
-  OutT* dvg = static_cast<OutT*>(p.dv) + head_offset(p, bh, p.dv_st);
+  // ---- consumer warpgroup: warp w owns key rows 16w .. 16w + 15
+  const int g = lane >> 2, t = lane & 3;
+  const int key_a = k_block + warp * 16 + g, key_b = key_a + 8;
+  hopper::Ring kr, rr;
+  for (int hh = 0; hh < HPC; ++hh) {
+    const int bh = blockIdx.y * HPC + hh;
+    hopper::mbar_wait(&kv_full[kr.slot], kr.phase);
+    const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
+    const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    const int col = db * 8 + 2 * t;
-    if (key_a < p.N) {
-      store2(dkg + (long long)key_a * p.dk_st.n + col, dk[db][0], dk[db][1]);
-      store2(dvg + (long long)key_a * p.dv_st.n + col, dv[db][0], dv[db][1]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int q0 = q_start; q0 < p.N; q0 += BN) {
+      hopper::mbar_wait(&rg_full[rr.slot], rr.phase);
+      const uint32_t q_tile = hopper::smem_addr(q_s + rr.slot * T::kBytes);
+      const uint32_t do_tile = hopper::smem_addr(do_s + rr.slot * T::kBytes);
+      const float* lw = lse_s + rr.slot * BN;
+      const float* dw = dl_s + rr.slot * BN;
+
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries each)
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      hopper::wgmma_abt<D>(s, k_tile, q_tile);
+      hopper::wgmma_abt<D>(dp, v_tile, do_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // element 4 nb + e sits at key (e < 2 ? key_a : key_b), query
+      // q0 + 8 nb + 2t + (e & 1); s becomes P^T and dp becomes dS^T there.
+      // Query columns >= N get P = 0: they add nothing to dK or dV.
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cl = nb * 8 + 2 * t + (e & 1);
+          const int col = q0 + cl;
+          const int key = e < 2 ? key_a : key_b;
+          const bool keep = col < p.N && (!p.causal || key <= col);
+          const int i = 4 * nb + e;
+          const float pr = keep ? exp2f(s[i] * p.scale_log2 - lw[cl]) : 0.f;
+          s[i] = pr;
+          dp[i] = pr * (dp[i] - dw[cl]) * p.scale;
+        }
+
+      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q through
+      // the transpose mode
+      uint32_t pa[4][4], da[4][4];
+      hopper::pack_a(s, pa);
+      hopper::pack_a(dp, da);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      hopper::wgmma_fence();
+      hopper::wgmma_xb<D>(dv, pa, do_tile);
+      hopper::wgmma_xb<D>(dk, da, q_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      hopper::fence_a(pa);
+      hopper::fence_a(da);
+      hopper::mbar_arrive(&rg_empty[rr.slot]);
+      rr.advance(NS);
     }
-    if (key_b < p.N) {
-      store2(dkg + (long long)key_b * p.dk_st.n + col, dk[db][2], dk[db][3]);
-      store2(dvg + (long long)key_b * p.dv_st.n + col, dv[db][2], dv[db][3]);
+    hopper::mbar_arrive(&kv_empty[kr.slot]);
+    kr.advance(NK);
+
+    OutT* dkg = static_cast<OutT*>(p.dk) + head_offset(p, bh, p.dk_st);
+    OutT* dvg = static_cast<OutT*>(p.dv) + head_offset(p, bh, p.dv_st);
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db) {
+      const int col = db * 8 + 2 * t;
+      if (key_a < p.N) {
+        store2(dkg + (long long)key_a * p.dk_st.n + col, dk[4 * db], dk[4 * db + 1]);
+        store2(dvg + (long long)key_a * p.dv_st.n + col, dv[4 * db], dv[4 * db + 1]);
+      }
+      if (key_b < p.N) {
+        store2(dkg + (long long)key_b * p.dk_st.n + col, dk[4 * db + 2], dk[4 * db + 3]);
+        store2(dvg + (long long)key_b * p.dv_st.n + col, dv[4 * db + 2], dv[4 * db + 3]);
+      }
     }
   }
 }
@@ -640,15 +726,31 @@ cudaError_t run_dq(const Params& p, int bf16_in, int bf16_out, cudaStream_t s) {
   return launch(bwd_dq_f32_simt<D, HPC>, grid, C::kThreads, C::kSmem, s, p);
 }
 
+template <int D, int HPC, typename OutT>
+cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t s) {
+  using C = DkvCfg<D>;
+  BwdMaps maps;
+  const void* src[4] = {p.q, p.k, p.v, p.dout};
+  const Strides st[4] = {p.q_st, p.k_st, p.v_st, p.do_st};
+  CUtensorMap* dst[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = hopper::encode_bhnd(dst[i], src[i], p.B, p.H, p.N, D,
+                                                st[i].b, st[i].h, st[i].n);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err =
+      hopper::allow_smem<bwd_dkv_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + C::kBlock - 1) / C::kBlock, p.B * p.H / HPC);
+  bwd_dkv_bf16_wgmma<D, HPC, OutT><<<grid, C::kThreads, C::kSmem, s>>>(maps, p);
+  return cudaGetLastError();
+}
+
 template <int D, int HPC>
 cudaError_t run_dkv(const Params& p, int bf16_in, int bf16_out, cudaStream_t s) {
-  if (bf16_in) {
-    using C = DkvCfg<D, HPC>;
-    const dim3 grid((p.N + C::kBlockN - 1) / C::kBlockN, p.B * p.H / HPC);
-    if (bf16_out)
-      return launch(bwd_dkv_bf16_mma<D, HPC, bf16>, grid, C::kThreads, C::kSmem, s, p);
-    return launch(bwd_dkv_bf16_mma<D, HPC, float>, grid, C::kThreads, C::kSmem, s, p);
-  }
+  if (bf16_in)
+    return bf16_out ? launch_dkv_wgmma<D, HPC, bf16>(p, s)
+                    : launch_dkv_wgmma<D, HPC, float>(p, s);
   if (bf16_out) return cudaErrorInvalidValue;
   using C = SimtCfg<D, HPC>;
   const dim3 grid((p.N + C::kRows - 1) / C::kRows, p.B * p.H / HPC);

@@ -16,17 +16,38 @@
 // Design against the TPU original:
 //   - The Pallas grid walked K/V blocks sequentially on one core with N
 //     padded to a power-of-two block multiple (_blocks_and_pad). Here the
-//     grid is (ceil(N / BLOCK_M), B*H / HPC); a loop inside the CTA walks the
-//     K/V tiles through shared memory and the ragged edge (rows or keys >= N)
-//     is masked in the kernel, so no padded copy of q/k/v is ever made.
+//     grid is (query tiles, B*H / HPC); a loop inside the CTA walks the
+//     K/V tiles and the ragged edge (rows or keys >= N) is masked in the
+//     kernel, so no padded copy of q/k/v is ever made.
 //   - The running max m, the running sum l and the O accumulator stay in
 //     float32 registers for the whole loop; only O and LSE are written.
-//   - bf16: both products use mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-//     Each warp owns 16 query rows of one head; S comes out of the first
-//     product in the accumulator layout, the softmax runs on those registers
-//     (row reductions are two quad shuffles), and P is repacked in registers
-//     as the A operand of the second product. Shared-memory rows are padded
-//     by 8 elements so every fragment load is free of bank conflicts.
+//   - bf16 (fwd_bf16_wgmma), built for Hopper (helpers in hopper.cuh):
+//       * 160 threads: one consumer warpgroup that owns the CTA's 64 query
+//         rows (warp w rows 16w..16w+15), and one producer warp whose lane 0
+//         issues every copy. They meet only on mbarriers.
+//       * Copies are TMA loads of 64-row boxes through rank-4 tensor maps
+//         of the strided (B, H, N, D) views (encoded on the host per call),
+//         completing on "full" mbarriers. Rows past N arrive as zeros from
+//         the copy engine: nothing is padded in device memory.
+//       * A ring of 2 K/V stages ("empty" mbarriers hand a stage back once
+//         both products that read it are done), so the loads of key tile
+//         j+1 run under the products of tile j; Q is loaded once per head
+//         into one of 2 slots, so the next head's Q arrives early too.
+//       * S = Q K^T is wgmma m64n64k16 with both operands in shared memory
+//         (K-major descriptors); O += P V is wgmma m64nDk16 with P as the
+//         register A operand (the S accumulator, rounded to bf16, is
+//         already in the A layout) and V read through the descriptor's
+//         transpose (MN-major) mode: no per-element shared-memory gathers.
+//       * Shared tiles use the TMA swizzle the descriptors name: 128-byte
+//         for D >= 64 (D = 128 is two 64-column panels), 64-byte for D =
+//         32, 32-byte for D = 16; every tile sits on a 1024-byte boundary.
+//       * heads_per_cta (the JAX head_block) is how many heads a CTA walks
+//         in sequence through the same ring; it no longer multiplies the
+//         threads, so every instantiation has the same shape and the
+//         registers of one warpgroup (ptxas reports no spills).
+//       * Key tiles are 64 keys; at N = 197 that is 4 tiles, the last 5
+//         keys wide (masked in registers), the same padded work as 2 tiles
+//         of 128 with half the S registers.
 //   - float32: scalar FMA (no tensor cores); four threads share a query row
 //     and split the head dimension, reducing each score with two shuffles.
 //
@@ -34,18 +55,22 @@
 // batch b: q, k, v and O are b*12*197*64*2 bytes each, LSE b*12*197*4 bytes,
 // about 1.22 MB an image; the two products are 4*b*12*197^2*64, about 119
 // MFLOP an image. That is ~98 FLOP/byte, under the H100's ~295 FLOP/byte
-// ridge, so the kernel is memory-bound: at b = 32 about 11.6 us of HBM time
-// against about 3.9 us of tensor-core time (H100 SXM data sheet: 3.35 TB/s,
-// 989 TFLOP/s bf16 dense, 700 W). The naive path, by contrast, writes and
-// re-reads the b*12*197*197 score and probability tensors.
+// ridge, so the kernel is memory-bound: at b = 32 about 11.7 us of HBM time
+// against about 3.9 us of tensor-core time, at b = 128 46.6 us against 15.4
+// (H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 dense, 700 W). The
+// naive path, by contrast, writes and re-reads the b*12*197*197 score and
+// probability tensors.
 //
 // Built by deeplearning_tpu_torch/ops/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes; flash_attn_fwd returns cudaGetLastError().
+// and called through ctypes; flash_attn_fwd returns cudaGetLastError() (or
+// the error of encoding a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -82,211 +107,195 @@ __device__ __forceinline__ long long head_offset(const Params& p, int bh,
 
 // ---------------------------------------------------------------- bf16 path
 
-template <int D, int HPC>
-struct MmaCfg {
-  static constexpr int kWarpsPerHead = 4;
-  static constexpr int kBlockM = 16 * kWarpsPerHead;  // query rows per head
-  static constexpr int kBlockN = D <= 64 ? 64 : 32;   // keys per K/V tile
-  static constexpr int kStride = D + 8;               // padded smem row
-  static constexpr int kHeadThreads = 32 * kWarpsPerHead;
-  static constexpr int kThreads = kHeadThreads * HPC;
-  static constexpr size_t kSmem =
-      size_t(HPC) * (kBlockM + 2 * kBlockN) * kStride * sizeof(__nv_bfloat16);
+struct FwdMaps {  // TMA tensor maps of the q, k and v views
+  CUtensorMap q, k, v;
 };
 
-// rows [row0, row0 + rows) of one head into shared memory; rows >= n are
-// zero so masked keys contribute exactly 0 * 0 to P V.
-template <int D, int STRIDE>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long sn, int row0,
-                                               int rows, int n, int tid,
-                                               int nthreads) {
-  constexpr int kVec = 8;  // 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int i = tid; i < rows * kPerRow; i += nthreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sn + c);
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + c) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <int D>
+struct WgmmaCfg {
+  using T = hopper::Tile<D>;
+  static constexpr int kBlock = 64;                 // query rows, keys a tile
+  static constexpr int kStages = 2;                 // K/V ring depth
+  static constexpr int kQSlots = 2;                 // this head's Q, the next's
+  static constexpr int kThreads = 160;              // consumer warpgroup + producer warp
+  // CTAs an SM the registers must allow: 4 at D <= 64 (<= 102 a thread;
+  // shared memory allows 4 too), 2 at D = 128
+  static constexpr int kMinBlocks = D <= 64 ? 4 : 2;
+  static constexpr size_t kTileBytes =
+      size_t(kQSlots + 2 * kStages) * T::kBytes;
+  static constexpr size_t kSmem =
+      1024 + kTileBytes + 2 * (kQSlots + kStages) * sizeof(uint64_t);
+};
 
 template <int D, int HPC>
-__global__ void __launch_bounds__(MmaCfg<D, HPC>::kThreads)
-    fwd_bf16_mma(const Params p) {
-  using Cfg = MmaCfg<D, HPC>;
-  constexpr int BM = Cfg::kBlockM, BN = Cfg::kBlockN, S = Cfg::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + HPC * BM * S;
-  __nv_bfloat16* v_s = k_s + HPC * BN * S;
+__global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks)
+    fwd_bf16_wgmma(const __grid_constant__ FwdMaps maps, const Params p) {
+  using Cfg = WgmmaCfg<D>;
+  using T = hopper::Tile<D>;
+  constexpr int BM = Cfg::kBlock, NS = Cfg::kStages, NQ = Cfg::kQSlots;
+  extern __shared__ __align__(128) unsigned char smem_tma[];
+  const uint32_t raw = hopper::smem_addr(smem_tma);
+  unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* q_s = base;                         // NQ tiles
+  unsigned char* k_s = q_s + NQ * T::kBytes;         // NS tiles
+  unsigned char* v_s = k_s + NS * T::kBytes;         // NS tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Cfg::kTileBytes);
+  uint64_t* q_empty = q_full + NQ;
+  uint64_t* kv_full = q_empty + NQ;
+  uint64_t* kv_empty = kv_full + NS;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hh = warp / Cfg::kWarpsPerHead;         // head within the CTA
-  const int m0 = (warp % Cfg::kWarpsPerHead) * 16;  // warp's 16-row strip
-  const int g = lane >> 2, t = lane & 3;            // mma fragment coords
-  const int htid = tid % Cfg::kHeadThreads;         // thread within head
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NQ; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 128);
+    }
+    for (int i = 0; i < NS; ++i) {
+      hopper::mbar_init(&kv_full[i], 1);
+      hopper::mbar_init(&kv_empty[i], 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
   const int q_block = blockIdx.x * BM;
-  const int bh = blockIdx.y * HPC + hh;
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            head_offset(p, bh, p.q_sb, p.q_sh);
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            head_offset(p, bh, p.k_sb, p.k_sh);
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            head_offset(p, bh, p.v_sb, p.v_sh);
-  load_rows_bf16<D, S>(q_s + hh * BM * S, qg, p.q_sn, q_block, BM, p.N, htid,
-                       Cfg::kHeadThreads);
-
   // causal: keys past the block's last row never contribute
   const int n_kv = p.causal ? min(p.N, q_block + BM) : p.N;
-  const int n_tiles = (n_kv + BN - 1) / BN;
-  const int row_a = q_block + m0 + g, row_b = row_a + 8;
-  const __nv_bfloat16* qw = q_s + hh * BM * S + m0 * S;
-  const __nv_bfloat16* kw = k_s + hh * BN * S;
-  const __nv_bfloat16* vw = v_s + hh * BN * S;
+  const int n_tiles = (n_kv + BM - 1) / BM;
 
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[db][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * BN;
-    head_barrier(hh, Cfg::kHeadThreads);  // previous tile consumed, Q stored
-    load_rows_bf16<D, S>(k_s + hh * BN * S, kg, p.k_sn, kv0, BN, p.N, htid,
-                         Cfg::kHeadThreads);
-    load_rows_bf16<D, S>(v_s + hh * BN * S, vg, p.v_sn, kv0, BN, p.N, htid,
-                         Cfg::kHeadThreads);
-    head_barrier(hh, Cfg::kHeadThreads);
-
-    // S = Q K^T for this warp's 16 rows and the tile's BN keys
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      const uint32_t a0 = ld32(qw + g * S + c);
-      const uint32_t a1 = ld32(qw + (g + 8) * S + c);
-      const uint32_t a2 = ld32(qw + g * S + c + 8);
-      const uint32_t a3 = ld32(qw + (g + 8) * S + c + 8);
-#pragma unroll
-      for (int nb = 0; nb < BN / 8; ++nb) {
-        const __nv_bfloat16* kr = kw + (nb * 8 + g) * S + c;
-        mma_bf16(s[nb], a0, a1, a2, a3, ld32(kr), ld32(kr + 8));
+  if (warp == 4) {  // ---- producer: one thread keeps the copies in flight
+    if (lane == 0) {
+      hopper::tma_prefetch(&maps.q);
+      hopper::tma_prefetch(&maps.k);
+      hopper::tma_prefetch(&maps.v);
+      hopper::Ring qr, kr;
+      for (int hh = 0; hh < HPC; ++hh) {
+        const int bh = blockIdx.y * HPC + hh, b = bh / p.H, h = bh % p.H;
+        hopper::mbar_wait(&q_empty[qr.slot], qr.phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&q_full[qr.slot], T::kBytes);
+        hopper::tma_load_tile<D>(q_s + qr.slot * T::kBytes, &maps.q,
+                                 &q_full[qr.slot], q_block, h, b);
+        qr.advance(NQ);
+        for (int tile = 0; tile < n_tiles; ++tile) {
+          hopper::mbar_wait(&kv_empty[kr.slot], kr.phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], 2 * T::kBytes);
+          hopper::tma_load_tile<D>(k_s + kr.slot * T::kBytes, &maps.k,
+                                   &kv_full[kr.slot], tile * BM, h, b);
+          hopper::tma_load_tile<D>(v_s + kr.slot * T::kBytes, &maps.v,
+                                   &kv_full[kr.slot], tile * BM, h, b);
+          kr.advance(NS);
+        }
       }
     }
+    return;
+  }
 
-    // scale, mask, online softmax; element e of s[nb] sits at row
-    // (e < 2 ? row_a : row_b), key kv0 + nb*8 + 2t + (e & 1)
-    float mx[2] = {m_r[0], m_r[1]};
+  // ---- consumer warpgroup: warp w owns query rows 16w .. 16w + 15
+  const int g = lane >> 2, t = lane & 3;
+  const int row_a = q_block + warp * 16 + g, row_b = row_a + 8;
+  hopper::Ring qr, kr;
+  for (int hh = 0; hh < HPC; ++hh) {
+    const int bh = blockIdx.y * HPC + hh;
+    hopper::mbar_wait(&q_full[qr.slot], qr.phase);
+    const uint32_t q_tile = hopper::smem_addr(q_s + qr.slot * T::kBytes);
+
+    float o[D / 2];
 #pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb)
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int kv0 = tile * BM;
+      hopper::mbar_wait(&kv_full[kr.slot], kr.phase);
+      const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
+      const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
+
+      // S = Q K^T (64 x 64), both operands from shared memory
+      float s[32];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nb * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool keep = col < p.N && (!p.causal || col <= row);
-        const float x = keep ? s[nb][e] * p.scale_log2 : kNegInf;
-        s[nb][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
+      hopper::wgmma_abt<D>(s, q_tile, k_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      if (tile == n_tiles - 1) hopper::mbar_arrive(&q_empty[qr.slot]);
+
+      // scale, mask, online softmax; element 4 nb + e of s sits at row
+      // (e < 2 ? row_a : row_b), key kv0 + 8 nb + 2t + (e & 1)
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + nb * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          const bool keep = col < p.N && (!p.causal || col <= row);
+          const float x = keep ? s[4 * nb + e] * p.scale_log2 : kNegInf;
+          s[4 * nb + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m_r[r] - mx[r]);
+        m_r[r] = mx[r];
       }
-    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = exp2f(s[i] - m_r[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_r[r] = l_r[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P from registers, V through the transpose mode
+      uint32_t pa[4][4];
+      hopper::pack_a(s, pa);
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+      hopper::wgmma_xb<D>(o, pa, v_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(o);
+      hopper::fence_a(pa);
+      hopper::mbar_arrive(&kv_empty[kr.slot]);
+      kr.advance(NS);
+    }
+    qr.advance(NQ);
+
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                        head_offset(p, bh, p.o_sb, p.o_sh);
+    float l_safe[2], inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
+      l_safe[r] = fmaxf(l_r[r], 1e-30f);
+      inv[r] = 1.f / l_safe[r];
     }
 #pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nb][e] = exp2f(s[nb][e] - m_r[e >> 1]);
-        sum[e >> 1] += s[nb][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_r[r] = l_r[r] * alpha[r] + sum[r];
+    for (int db = 0; db < D / 8; ++db) {
+      const int col = db * 8 + 2 * t;
+      if (row_a < p.N)
+        *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_a * p.o_sn + col) =
+            __floats2bfloat162_rn(o[4 * db] * inv[0], o[4 * db + 1] * inv[0]);
+      if (row_b < p.N)
+        *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_b * p.o_sn + col) =
+            __floats2bfloat162_rn(o[4 * db + 2] * inv[1], o[4 * db + 3] * inv[1]);
     }
-#pragma unroll
-    for (int db = 0; db < D / 8; ++db)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o_acc[db][e] *= alpha[e >> 1];
-
-    // O += P V: the accumulator layout of two adjacent 8-key blocks of P is
-    // the A-operand layout of one 16-key step
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const unsigned short* vr =
-          reinterpret_cast<const unsigned short*>(vw + (kk * 16 + 2 * t) * S);
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        const int col = db * 8 + g;
-        const uint32_t b0 = uint32_t(vr[col]) | (uint32_t(vr[S + col]) << 16);
-        const uint32_t b1 =
-            uint32_t(vr[8 * S + col]) | (uint32_t(vr[9 * S + col]) << 16);
-        mma_bf16(o_acc[db], a0, a1, a2, a3, b0, b1);
-      }
+    if (t == 0) {
+      float* lse = p.lse + (long long)bh * p.N;
+      if (row_a < p.N) lse[row_a] = (m_r[0] + log2f(l_safe[0])) * kLn2;
+      if (row_b < p.N) lse[row_b] = (m_r[1] + log2f(l_safe[1])) * kLn2;
     }
-  }
-
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
-                      head_offset(p, bh, p.o_sb, p.o_sh);
-  float l_safe[2], inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_safe[r] = fmaxf(l_r[r], 1e-30f);
-    inv[r] = 1.f / l_safe[r];
-  }
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    const int col = db * 8 + 2 * t;
-    if (row_a < p.N)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_a * p.o_sn + col) =
-          __floats2bfloat162_rn(o_acc[db][0] * inv[0], o_acc[db][1] * inv[0]);
-    if (row_b < p.N)
-      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_b * p.o_sn + col) =
-          __floats2bfloat162_rn(o_acc[db][2] * inv[1], o_acc[db][3] * inv[1]);
-  }
-  if (t == 0) {
-    float* lse = p.lse + (long long)bh * p.N;
-    if (row_a < p.N) lse[row_a] = (m_r[0] + log2f(l_safe[0])) * kLn2;
-    if (row_b < p.N) lse[row_b] = (m_r[1] + log2f(l_safe[1])) * kLn2;
   }
 }
 
@@ -425,9 +434,23 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 template <int D, int HPC>
 cudaError_t run(const Params& p, int bf16, cudaStream_t stream) {
   if (bf16) {
-    using C = MmaCfg<D, HPC>;
-    const dim3 grid((p.N + C::kBlockM - 1) / C::kBlockM, p.B * p.H / HPC);
-    return launch(fwd_bf16_mma<D, HPC>, grid, C::kThreads, C::kSmem, stream, p);
+    using C = WgmmaCfg<D>;
+    FwdMaps maps;
+    cudaError_t err = cudaSuccess;
+    const void* src[3] = {p.q, p.k, p.v};
+    const long long st[3][3] = {{p.q_sb, p.q_sh, p.q_sn},
+                                {p.k_sb, p.k_sh, p.k_sn},
+                                {p.v_sb, p.v_sh, p.v_sn}};
+    CUtensorMap* dst[3] = {&maps.q, &maps.k, &maps.v};
+    for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+      err = hopper::encode_bhnd(dst[i], src[i], p.B, p.H, p.N, D, st[i][0],
+                                st[i][1], st[i][2]);
+    if (err != cudaSuccess) return err;
+    err = hopper::allow_smem<fwd_bf16_wgmma<D, HPC>>(C::kSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + C::kBlock - 1) / C::kBlock, p.B * p.H / HPC);
+    fwd_bf16_wgmma<D, HPC><<<grid, C::kThreads, C::kSmem, stream>>>(maps, p);
+    return cudaGetLastError();
   }
   using C = SimtCfg<D, HPC>;
   const dim3 grid((p.N + C::kBlockM - 1) / C::kBlockM, p.B * p.H / HPC);

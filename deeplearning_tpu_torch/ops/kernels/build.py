@@ -8,8 +8,9 @@ every source that has no up-to-date library yet (one ``nvcc`` per
 source, all started together) and opens the one it was asked for.
 
 Libraries land in ``<checkout>/build/kernels/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source is never served by a stale library. The
+``.gitignore``) under a name that carries a hash of the source, of every
+shared header (``csrc/*.cuh``) and of the flags, so an edited source or
+header is never served by a stale library. The
 ``ptxas -v`` report (registers, shared memory, spills per kernel) is
 kept beside each library as ``<name>.ptxas.txt``.
 
@@ -31,8 +32,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path",
-           "nvcc_command", "library_path", "sources", "build_all", "load",
-           "ptxas_report"]
+           "nvcc_command", "library_path", "sources", "headers", "build_all",
+           "load", "ptxas_report"]
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -65,9 +66,18 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``src``: its name hashes the source, every header in
+    ``CSRC_DIR`` (any source may include any of them) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
 
 

@@ -130,6 +130,24 @@ def test_nvcc_command_targets_sm90a():
     assert build.library_path(src).name.startswith("libflash_attn_fwd-")
 
 
+def test_library_name_hashes_the_shared_headers(monkeypatch, tmp_path):
+    # a source that includes csrc/*.cuh must rebuild when only a header
+    # changes: every header is hashed into every library's name
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    src = tmp_path / "kernel.cu"
+    src.write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    first = build.library_path(src)
+    assert build.headers() == [header]
+    assert build.library_path(src) == first          # stable when unchanged
+    header.write_text("// v2\n")
+    second = build.library_path(src)
+    assert second != first and second.name.startswith("libkernel-")
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert build.library_path(src) not in (first, second)
+
+
 def test_bound_helpers():
     # ViT-B/16 layer at batch 32: ~119 MFLOP and ~1.22 MB an image
     assert tfa.flops(32, 12, 197, 64) / 32 == pytest.approx(119.2e6,

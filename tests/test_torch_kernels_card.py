@@ -24,16 +24,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the tile edges of the kernels' 64-row query and key tiles, and ViT's N
+EDGE_N = [1, 17, 49, 63, 64, 65, 128, 129, 197, 256, 300]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("hpc", [1, 2, 4])
-@pytest.mark.parametrize("n,d,causal", [(197, 64, False), (49, 32, False),
-                                        (128, 32, True), (1, 64, False),
-                                        (300, 128, False), (17, 16, True)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("n", EDGE_N)
 def test_flash_attn_fwd_matches_plain(cuda_device, n, d, causal, hpc,
                                       dtype, tol):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+    g = torch.Generator(device=cuda_device).manual_seed(n + d)
     q, k, v = (torch.randn(2, 4, n, d, device=cuda_device,
                            generator=g).to(dtype) for _ in range(3))
     before = fa.launch_counts()[fa.KERNEL_NAMES[hpc]]
@@ -44,6 +48,27 @@ def test_flash_attn_fwd_matches_plain(cuda_device, n, d, causal, hpc,
     assert fa.launch_counts()[fa.KERNEL_NAMES[hpc]] == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["flash", "flash_hb"])
+@pytest.mark.parametrize("n,d", [(197, 64), (65, 32), (129, 128), (63, 16)])
+def test_vit_adapter_fused_qkv_views_match_plain(cuda_device, attn, n, d):
+    """The adapters hand the kernels q, k, v as strided views of one fused
+    (B, N, 3, H, D) projection (k and v at byte offsets H*D*2 and 2*H*D*2)
+    and take the output as a (B, N, H, D) tensor."""
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    qkv = torch.randn(3, n, 3, 12, d, device=cuda_device,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out = get_attn_fn(attn)(q, k, v)
+    ref = fa.flash_attention_reference(
+        *(x.transpose(1, 2) for x in (q, k, v)))[0].transpose(1, 2)
+    torch.cuda.synchronize()
+    assert out.shape == (3, n, 12, d)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -92,9 +117,9 @@ def _close(got, want, rtol=1e-2, floor=1e-4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hpc", [1, 2, 4])
-@pytest.mark.parametrize("n,d,causal", [(197, 64, False), (49, 32, False),
-                                        (128, 32, True), (1, 64, False),
-                                        (17, 16, True), (300, 128, False)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("n", EDGE_N)
 def test_flash_attn_bwd_matches_plain(cuda_device, n, d, causal, hpc, dtype):
     """dQ, dK, dV of both backward kernels against the plain version:
     norm-relative 1e-2 in bf16 (P and dS are rounded to bf16 before their
@@ -120,8 +145,10 @@ def test_flash_attn_bwd_matches_plain(cuda_device, n, d, causal, hpc, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_chunk_grads_float32_out(cuda_device, dtype):
-    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, 49, 64, dtype,
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("n", [1, 49, 64, 65, 197])
+def test_flash_chunk_grads_float32_out(cuda_device, n, d, dtype):
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, d, dtype,
                                       False, seed=3)
     delta = (do.float() * o.float()).sum(-1)
     got = fa.flash_chunk_grads(q, k, v, do, lse, delta)

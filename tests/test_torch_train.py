@@ -420,6 +420,12 @@ def test_profile_sorts_kernels_by_kind():
     from deeplearning_tpu_torch.train.profile import kind_of
     assert kind_of("void (anonymous namespace)::bwd_dkv_bf16_mma<64, 4>"
                    ) == "flash attention"
+    # the Hopper (wgmma) forward and dK/dV kernels are flash attention too
+    assert kind_of("void (anonymous namespace)::fwd_bf16_wgmma<64, 4>"
+                   "((anonymous namespace)::FwdMaps, (anonymous namespace)"
+                   "::Params)") == "flash attention"
+    assert kind_of("void (anonymous namespace)::bwd_dkv_bf16_wgmma<64, 4, "
+                   "__nv_bfloat16>(...)") == "flash attention"
     assert kind_of("nvjet_tst_192x192_64x4_2x1_v_bz_coopB_bias_TNN") == "gemm"
     assert kind_of("void at::native::multi_tensor_apply_kernel<...>"
                    ) == "optimizer"
