@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the card, for both instantiations (one head and four heads per CTA),
    at the ViT-B/16 shape (B=32, H=12, N=197, D=64; bf16 tolerance 2e-2,
    float32 1e-4), a Swin-window shape (N=49, D=32), a causal case, N=1,
-   D=16 and D=128;
+   D=16, D=128, ViT-H/14's D=80 (N=257, run zero-padded to the D=128
+   kernel; plain and causal) and B*H = 262 144 (N=17, D=16: 65 536 head
+   groups at four heads per CTA, past the 65 535 of a grid's y);
 3. serve ViT-B/16 at full width (224², 12 layers, 768 wide, 1000
    classes, weights from ``--seed``) through ``InferenceEngine`` (buckets
    1/8/32) and ``MicroBatcher``: 64 requests from 8 submitting threads
@@ -21,7 +23,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    answer must arrive and match ``engine.infer`` of the same image, and
    the engine must match a second engine on the same weights with the
    naive attention (log-probabilities within 0.05: bf16 compute through
-   12 layers; top-1 equal unless the two classes tie within that);
+   12 layers; top-1 equal unless the two classes tie within that). Then
+   ViT-H/14 at full width and depth (224², patch 14, 32 layers, 1 280
+   wide, 16 heads: D = 80) served at bucket 1 through ``MicroBatcher``
+   with ``attn="flash_hb"``: 4 requests, the forward counter zeroed just
+   before and read just after (32 × batches), each answer equal to
+   ``engine.infer`` and to a naive-attention engine's on the same weights
+   (log-probabilities within 0.05);
 4. measure: per-bucket latency and throughput of the served model (flash
    and naive attention, in turns), and each kernel's time at the main
    path's shape (device time: calls captured in a CUDA graph and replayed;
@@ -32,7 +40,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 5. hold the four flash-attention backward kernels (dQ and dK/dV, one and
    four heads per CTA) against their plain version on the card: dQ, dK
    and dV at the training shape (B=128, H=12, N=197, D=64), N=49/D=32,
-   causal, N=1, D=16 and D=128, bf16 and float32, q/k/v as strided
+   causal, N=1, D=16, D=128 and D=80 (N=257, plain and causal), bf16
+   (where the dQ kernel computes delta from O) and float32, q/k/v as
+   strided
    fused-qkv slices (bf16: norm-relative error 1e-2 with an RMS floor of
    1e-4; float32: max abs 1e-4), and ``flash_chunk_grads`` (float32
    gradients) the same way;
@@ -49,11 +59,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    fixed batch at constant lr 1e-4 must lower the loss;
 7. measure: train step time, images/s and MFU for flash_hb and naive in
    turns, the ``train/bench.py`` line for both, and each backward
-   kernel's time at the training shape (graph replay) against the plain
-   version, the backward of ``scaled_dot_product_attention`` through
-   autograd (a yardstick only) and its bound; the dQ + dK/dV pair of each
-   heads-per-CTA beside that whole SDPA backward; the forward kernels at
-   the training shape beside SDPA's forward;
+   kernel's time at the training shape (graph replay; dQ computing delta
+   from O, as the step runs it) against the plain version, the backward
+   of ``scaled_dot_product_attention`` through autograd (a yardstick only)
+   and its bound; the dQ + dK/dV pair of each heads-per-CTA beside that
+   whole SDPA backward; the forward kernels at the training shape beside
+   SDPA's forward;
 8. hold the fused window-attention kernel (``csrc/window_attn_fwd.cu``)
    against its plain PyTorch version on the card, bf16 (2e-2) and float32
    (1e-4), with qkv as strided slices of one (B·nW, N, 3·C) projection: the
@@ -79,15 +90,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    for both, and K2 at the four Swin-T stage shapes at batch 128 against
    its plain version, ``scaled_dot_product_attention`` with the combined
    additive mask (a yardstick only) and its bound;
-12. hold the blocked NMS kernels (K3, ``csrc/nms_sweep.cu``: the IoU
-   bitmask, then the greedy scan) against their plain version on the card,
-   exactly (equal ``valid``, equal ``idx`` on valid slots): 32 images of
-   N = 8 400 overlap-heavy boxes (YOLOX-S's candidates at 640²) under the
-   four regimes of tests/test_blocked_nms.py (2% NaN scores in the first),
+12. hold the NMS kernel (K3, ``csrc/nms_sweep.cu``: one greedy sweep, a
+   CTA an image) against its plain version on the card, exactly (equal
+   ``valid``, equal ``idx`` on valid slots): 32 images of N = 8 400
+   overlap-heavy boxes (YOLOX-S's candidates at 640²) under the four
+   regimes of tests/test_blocked_nms.py (2% NaN scores in the first),
    class-aware with 80 classes at 640² coordinates, tied scores, identical
    boxes (one keep), N = 1, N below and not a multiple of the block,
-   max_out > N, and N = 20 000; the first images of each also against the
-   greedy oracle;
+   max_out > N, N = 20 000, max_out >= n_live over images whose live
+   counts differ (NaN and -inf scores), and 12 000 keeps an image (past the
+   10 240 kept boxes held in shared memory, with copies only those past it
+   suppress); the first images of each also against the greedy oracle;
 13. serve YOLOX-S at full width (640², depth 0.33, width 0.5, 80 classes,
    weights from ``--seed``, BatchNorm statistics calibrated on seeded
    images, ``score_thresh`` 0, ``max_det`` 100) through ``InferenceEngine``
@@ -103,10 +116,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    detections, at ``max_det`` 100 and over all 8 400 candidates (where the
    alive and suppressed counts must both be > 0);
 14. measure: YOLOX-S per-bucket served latency, K3 and plain engines in
-   turns, and K3 (each kernel, the sweep, the whole call) at 32 x 8 400
-   (the served batch) and 1 x 20 000 against the plain version, its bound
-   and ``torchvision.ops.batched_nms`` where torchvision imports (a
-   yardstick only; torch has no NMS call).
+   turns, and K3 (the kernel by graph replay, the sweep, the whole call)
+   at 32 x 8 400 (the served batch), 1 x 20 000 overlap-heavy boxes and
+   its worst case (1 x 20 000 boxes that overlap nowhere, max_out 20 000)
+   against the plain version, its bound (greedy's own need) and
+   ``torchvision.ops.batched_nms`` where torchvision imports (a yardstick
+   only; torch has no NMS call).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -140,13 +155,13 @@ REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
             "flash_attn_bwd_dkv_hb": f"{_PALLAS}:252",
             "window_attn_fwd":
                 "deeplearning_tpu/ops/pallas/window_attention.py:43",
-            "nms_iou_mask": "deeplearning_tpu/ops/pallas/nms.py:45",
-            "nms_scan": "deeplearning_tpu/ops/pallas/nms.py:45"}
+            "nms_greedy_sweep": "deeplearning_tpu/ops/pallas/nms.py:45"}
 ATTN_FOR = {"flash_attn_fwd_hb": "flash_hb", "flash_attn_fwd": "flash"}
 HPC_FOR = {"flash_attn_fwd": 1, "flash_attn_fwd_hb": 4}
 LOGP_TOL = 0.05
 MODEL = "vit_base_patch16_224"
 DEPTH, HEADS, TOKENS, HEAD_DIM = 12, 12, 197, 64
+HUGE, HUGE_DEPTH = "vit_huge_patch14_224", 32     # 16 heads of D = 80
 SWIN = "swin_tiny_patch4_window7_224"
 SWIN_BLOCKS = 12                 # depths 2/2/6/2: one K2 launch a block
 # Swin-T's window attention by stage: windows an image, heads, mask windows
@@ -213,7 +228,9 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(args.seed)
     cases = [(32, 12, 197, 64, False), (8, 4, 49, 32, False),
              (4, 12, 197, 64, True), (8, 12, 1, 64, False),
-             (2, 8, 300, 128, False), (2, 4, 17, 16, True)]
+             (2, 8, 300, 128, False), (2, 4, 17, 16, True),
+             (4, 16, 257, 80, False), (2, 16, 257, 80, True),
+             (16384, 16, 17, 16, False)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for b, h, n, d, causal in cases:
             # the serve path's layout: strided slices of one fused qkv
@@ -298,6 +315,7 @@ def main() -> int:
     lp = {a: engines[a].infer(x) for a in ("flash_hb", "flash", "naive")}
     _compare(lp["flash_hb"], lp["naive"], "flash_hb engine vs naive engine")
     _compare(lp["flash"], lp["naive"], "flash engine vs naive engine")
+    _serve_vit_huge(fa, dev, args.seed)
 
     # ------------------------------------------------------- 4. measure
     phase(4, started)
@@ -430,6 +448,54 @@ def _bucket_latency(engines, pair, model, size=224) -> None:
         log(f"{model} bucket {bucket}: {json.dumps(line)}")
 
 
+def _serve_vit_huge(fa, dev, seed) -> None:
+    """Phase 3, last: ViT-H/14 (D = 80, which the K1 kernels run
+    zero-padded to D = 128) served at bucket 1 through the batcher with
+    flash_hb, against engine.infer and a naive-attention engine on the
+    same weights."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    engines = {}
+    for attn in ("flash_hb", "naive"):
+        t0 = time.perf_counter()
+        model, _ = hub.load(HUGE, num_classes=1000, seed=seed, device=dev,
+                            attn_fn=get_attn_fn(attn))
+        engines[attn] = InferenceEngine(HUGE, model=model, batch_buckets=(1,),
+                                        device=dev)
+        log(f"engine {HUGE} {attn}: built and warmed in "
+            f"{time.perf_counter() - t0:.2f}s; "
+            f"{json.dumps(engines[attn].stats())}")
+    images = np.random.default_rng(seed + 3).normal(
+        size=(4, 224, 224, 3)).astype(np.float32)
+    engine, name = engines["flash_hb"], fa.KERNEL_NAMES[4]
+    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [mb.submit(img) for img in images]
+        rows = [h.result(timeout=300.0) for h in handles]
+        served_ms = (time.perf_counter() - t0) * 1e3
+        counts = fa.launch_counts()
+        batches = mb.dispatched
+    log(f"served {len(rows)}/4 {HUGE} requests via attn=flash_hb at bucket "
+        f"1 in {served_ms:.1f} ms: {batches} batches, launches "
+        f"{json.dumps(counts)}")
+    check(len(rows) == 4, "every answer arrives")
+    check(counts[name] == HUGE_DEPTH * batches and batches > 0,
+          f"{name} launches == {HUGE_DEPTH} x batches dispatched")
+    served = np.stack(rows)
+    check(served.shape == (4, 1000) and np.isfinite(served).all(),
+          "answers are finite (n, 1000) probabilities")
+    single = np.concatenate([engine.infer(img) for img in images])
+    _compare(served, single, f"{HUGE}: served vs engine.infer")
+    naive = np.concatenate([engines["naive"].infer(img) for img in images])
+    _compare(single, naive, f"{HUGE}: flash_hb engine vs naive engine")
+    del engines, engine
+    torch.cuda.empty_cache()
+
+
 def _ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: the kernel with its
     template arguments (D, heads per CTA, output type), its registers and
@@ -442,8 +508,7 @@ def _ptxas_summary(report: str) -> list:
             mangled = m.group(1)
             base = re.search(r"(?:(?:fwd|bwd)_(?:dq_|dkv_)?|win_)"
                              r"(?:bf16_mma|bf16_wgmma|f32_simt)|"
-                             r"iou_mask_kernel|"
-                             r"scan_kernel", mangled)
+                             r"nms_greedy_sweep_kernel", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             out_t = ",f32" if "EfE" in mangled else (
                 ",bf16" if "bfloat16" in mangled else "")
@@ -464,7 +529,8 @@ TRAIN_BATCH = 128
 BWD_CASES = [(TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM, False),
              (8, 4, 49, 32, False), (4, 12, 197, 64, True),
              (8, 12, 1, 64, False), (2, 4, 17, 16, True),
-             (2, 8, 300, 128, False)]
+             (2, 8, 300, 128, False), (4, 16, 257, 80, False),
+             (2, 16, 257, 80, True)]
 
 
 def _bwd_inputs(fa, dev, g, b, h, n, d, dtype, causal):
@@ -695,15 +761,17 @@ def _measure_training(dev, seed, name=MODEL) -> None:
 
 def _time_backward(fa, dev, g, errs, launches) -> list:
     """Phase 7b: each backward kernel alone at the training shape (bf16,
-    fused-qkv strides; device time from a CUDA graph's replay), the plain
-    backward, the SDPA backward through autograd, and the bound; the pair
-    of each heads-per-CTA beside SDPA's backward. Also the forward kernels
-    at B=128 beside SDPA's forward."""
+    fused-qkv strides; device time from a CUDA graph's replay; dQ given O,
+    so it computes delta and writes it, as the training step runs it), the
+    plain backward, the SDPA backward through autograd, and the bound; the
+    pair of each heads-per-CTA beside SDPA's backward. Also the forward
+    kernels at B=128 beside SDPA's forward."""
     import torch
     b, h, n, d = TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM
     q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d,
                                       torch.bfloat16, False)
     lse = lse.reshape(b * h, n).contiguous()
+    # dK/dV timed alone reads delta: the values the dQ kernel writes
     delta = (do.float() * o.float()).sum(-1).reshape(b * h, n).contiguous()
     grads = [fa._empty_bhnd(q, torch.bfloat16, True) for _ in range(3)]
     plain_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
@@ -721,7 +789,7 @@ def _time_backward(fa, dev, g, errs, launches) -> list:
             before = fa.launch_counts()
             ms = graph_ms(lambda: fa._launch_bwd(
                 q, k, v, do, lse, delta, *grads, d ** -0.5, False, hpc,
-                kernels=kernels))
+                kernels=kernels, o=o))
             after = fa.launch_counts()
             check(all(after[x] > before[x] for x in names),
                   f"{names} launched")
@@ -1013,6 +1081,7 @@ def _check_nms_kernels(nms_ops, dev, g) -> int:
     first images of each case), exactly. Returns the mismatching slots over
     every case (0, or the run has failed)."""
     import torch
+    from deeplearning_tpu_torch.ops.nms_bench import past_shared_memory
     inf = float("inf")
     cases = []      # name, boxes, scores, classes, th, st, max_out, greedy
     for ci, (th, st, mo) in enumerate(NMS_CONFIGS):
@@ -1037,6 +1106,20 @@ def _check_nms_kernels(nms_ops, dev, g) -> int:
         cases.append((f"N={n} max_out={mo}", b, s, None, 0.5, -inf, mo, 8))
     b, s = _nms_boxes(dev, g, 1, 20_000)
     cases.append(("N=20000", b, s, None, 0.5, -inf, 100, 1))
+    # max_out >= n_live, and each image's live count another (a per-image
+    # score cut; -inf and NaN scores among them)
+    b, s = _nms_boxes(dev, g, 8, 3000, span=400.0, wh_max=12.0,
+                      nan_frac=0.01)
+    s[1, :50] = -inf
+    cut = torch.linspace(0.0, 0.9, 8, device=dev)[:, None]
+    s = torch.where(s < cut, torch.full_like(s, -inf), s)  # NaN stays NaN
+    cases.append(("max_out >= n_live, live counts differ", b, s, None, 0.5,
+                  -inf, 3000, 2))
+    # 12 000 keeps an image, past the kept boxes shared memory holds, and
+    # copies that only those past it suppress
+    b, s = past_shared_memory(g, 2)
+    cases.append(("kept list past shared memory", b, s, None, 0.5, -inf,
+                  b.shape[1], 1))
 
     total = 0
     for name, b, s, cls, th, st, mo, n_greedy in cases:
@@ -1052,15 +1135,19 @@ def _check_nms_kernels(nms_ops, dev, g) -> int:
         bad_greedy = _keep_mismatches(greedy, tuple(x[:k] for x in got))
         torch.cuda.synchronize()
         kept = got[1].sum(dim=1)
+        live = (s > st).sum(dim=1)
         log(f"kernel-vs-plain nms {name}: B={b.shape[0]} N={b.shape[1]} "
-            f"th={th} score>{st} max_out={mo}: alive "
-            f"{int((s > st).sum())}, kept {int(kept.sum())} (per image "
-            f"{int(kept.min())}-{int(kept.max())}), mismatching slots vs "
-            f"blocked {bad}, vs greedy on {k} images {bad_greedy}")
+            f"th={th} score>{st} max_out={mo}: alive {int(live.sum())} "
+            f"(per image {int(live.min())}-{int(live.max())}), kept "
+            f"{int(kept.sum())} (per image {int(kept.min())}-"
+            f"{int(kept.max())}), mismatching slots vs blocked {bad}, vs "
+            f"greedy on {k} images {bad_greedy}")
         check(bad == 0 and bad_greedy == 0,
-              f"nms kernels disagree with the plain version ({name})")
+              f"nms kernel disagrees with the plain version ({name})")
         if name == "identical boxes":
             check(bool((kept == 1).all()), "identical boxes keep one")
+        if name == "kept list past shared memory":
+            check(bool((kept == 12_000).all()), "12 000 keeps an image")
         total += bad + bad_greedy
         del b, s, got, greedy
     torch.cuda.empty_cache()
@@ -1089,8 +1176,8 @@ def _yolox_counts(nms_ops, raw, centers, strides, max_det):
 
 
 def _serve_yolox(nms_ops, dev, seed):
-    """Phase 13: YOLOX-S served through the batcher with K3. Returns each
-    K3 kernel's launches and what phase 14 measures on."""
+    """Phase 13: YOLOX-S served through the batcher with K3. Returns K3's
+    launches and what phase 14 measures on."""
     import torch
     from deeplearning_tpu_torch import hub
     from deeplearning_tpu_torch.models.detection.yolox import (
@@ -1136,7 +1223,7 @@ def _serve_yolox(nms_ops, dev, seed):
     check(len(rows) == 64, "every answer arrives")
     check(batches > 0 and all(counts[k] == batches
                               for k in nms_ops.KERNEL_NAMES),
-          "each K3 kernel launches once a batch dispatched")
+          "K3 launches once a batch dispatched")
     for row in rows:
         check(row["boxes"].shape == (YOLOX_MAX_DET, 4)
               and row["valid"].shape == (YOLOX_MAX_DET,)
@@ -1203,12 +1290,17 @@ def _serve_yolox(nms_ops, dev, seed):
 
 def _time_nms(nms_ops, dev, g, served, err, launches) -> list:
     """Phase 14b: K3 at YOLOX-S's served batch (32 x 8 400, its class-offset
-    boxes) and at 1 x 20 000 (overlap-heavy): each kernel, the sweep and
-    the whole call against the plain version, the bound and torchvision's
-    batched_nms where it imports. Returns the kernels-line entries (at the
+    boxes), at 1 x 20 000 overlap-heavy boxes and in its worst case (1 x
+    20 000 boxes that overlap nowhere, max_out 20 000: every candidate
+    kept, each tested against every box kept before it): the kernel alone
+    (a CUDA graph's replay), the sweep and the whole call against the
+    plain version, the bound (greedy's own need) and torchvision's
+    batched_nms where it imports. Returns the kernels-line entry (at the
     served batch)."""
     import torch
     from deeplearning_tpu_torch.models.detection.yolox import decode_outputs
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    from deeplearning_tpu_torch.ops.nms_bench import disjoint_boxes
     try:
         import torchvision
         tv_nms = torchvision.ops.batched_nms
@@ -1221,47 +1313,49 @@ def _time_nms(nms_ops, dev, g, served, err, launches) -> list:
     dec = decode_outputs(served["raw"], served["centers"], served["strides"])
     score_all = torch.sigmoid(dec[..., 4:5]) * torch.sigmoid(dec[..., 5:])
     best, label = score_all.amax(dim=-1), score_all.argmax(dim=-1)
+    inf = float("inf")
     workloads = [
         ("YOLOX-S served batch", nms_ops.class_offset_boxes(dec[..., :4],
                                                              label),
          best, 0.0, YOLOX_NMS_TH, YOLOX_MAX_DET, label),
-        ("overlap-heavy", *_nms_boxes(dev, g, 1, 20_000), float("-inf"), 0.5,
-         100, None)]
+        ("overlap-heavy", *_nms_boxes(dev, g, 1, 20_000), -inf, 0.5, 100,
+         None),
+        ("worst case, no overlaps", disjoint_boxes(g, 1, 20_000),
+         torch.rand(1, 20_000, device=dev, generator=g), -inf, 0.5, 20_000,
+         None)]
     lib = nms_ops._lib()
-    stream = torch.cuda.current_stream().cuda_stream
     entries = []
     for name, boxes, scores, st, th, mo, classes in workloads:
         b, n = scores.shape
+        worst = mo >= n
         sboxes, alive0, order, _ = nms_ops.sort_pad_candidates(
             boxes, scores, st, nms_ops.WORD)
         npad = sboxes.shape[1]
-        words = npad // nms_ops.WORD
         n_live = nms_ops.live_counts(alive0)
         live_t = torch.tensor(n_live, dtype=torch.int32, device=dev)
-        mask = torch.empty((b, words, npad), dtype=torch.int64, device=dev)
         out = torch.empty((b, npad), dtype=torch.bool, device=dev)
+        cap = max(0, min(mo, npad) - nms_ops.KEPT_SMEM)
+        spill = torch.empty((b, max(cap, 1), 4), device=dev)
         th32 = float(torch.tensor(th, dtype=torch.float32))
         rc = [0]
 
-        def mask_call():
-            rc[0] |= lib.nms_iou_mask(sboxes.data_ptr(), live_t.data_ptr(),
-                                      mask.data_ptr(), b, npad, words, th32,
-                                      stream)
-
-        def scan_call():
-            rc[0] |= lib.nms_scan(mask.data_ptr(), alive0.data_ptr(),
-                                  live_t.data_ptr(), out.data_ptr(), b, npad,
-                                  mo, stream)
-        ms = {"mask": _time_ms(mask_call), "scan": _time_ms(scan_call),
+        def kernel_call():
+            rc[0] |= lib.nms_greedy_sweep(
+                sboxes.data_ptr(), alive0.data_ptr(), live_t.data_ptr(),
+                spill.data_ptr(), out.data_ptr(), b, npad, cap, mo, th32,
+                torch.cuda.current_stream().cuda_stream)
+        reps = dict(calls=2, replays=3) if worst else {}
+        iters = dict(iters=3, warmup=1) if worst else {}
+        ms = {"kernel": graph_ms(kernel_call, **reps),
               "sweep": _time_ms(lambda: nms_ops.nms_sweep(sboxes, alive0,
-                                                          th, mo)),
+                                                          th, mo), **iters),
               "call": _time_ms(lambda: nms_ops.nms(boxes, scores, th, mo, st,
-                                                   impl="auto"))}
+                                                   impl="auto"), **iters)}
         check(rc[0] == 0, "the timed K3 launches succeeded")
         plain_ms = _time_ms(lambda: nms_ops.nms_sweep_plain(
-            sboxes, alive0, th, mo, nms_ops.WORD), iters=5, warmup=1)
+            sboxes, alive0, th, mo, nms_ops.WORD), iters=2, warmup=1)
         plain_call_ms = _time_ms(lambda: nms_ops.nms(
-            boxes, scores, th, mo, st, impl="blocked"), iters=5, warmup=1)
+            boxes, scores, th, mo, st, impl="blocked"), iters=2, warmup=1)
         library_ms = None
         if tv_nms is not None:
             flat = boxes.reshape(-1, 4)
@@ -1271,51 +1365,46 @@ def _time_nms(nms_ops, dev, g, served, err, launches) -> list:
                 flat = dec[..., :4].reshape(-1, 4)
                 idxs = idxs * YOLOX_CLASSES + classes.reshape(-1)
             library_ms = _time_ms(lambda: tv_nms(flat, scores.reshape(-1),
-                                                 idxs, th), iters=20,
-                                  warmup=3)
+                                                 idxs, th), iters=5,
+                                  warmup=1)
         alive = nms_ops.nms_sweep(sboxes, alive0, th, mo)
         torch.cuda.synchronize()
-        mask_ops = nms_ops.iou_flops(n_live)
-        mask_bytes = nms_ops.mask_bytes(npad, n_live)
-        scan_bytes = nms_ops.scan_bytes(alive, n_live)
-        greedy_ops = nms_ops.greedy_ious(alive, alive0, mo) * \
-            nms_ops.OPS_PER_IOU
+        check(torch.equal(out, alive), "the timed kernel's keeps == the "
+                                       "sweep's")
+        ious = nms_ops.greedy_ious(alive, alive0, mo)
+        nbytes = nms_ops.sweep_bytes(alive, alive0, mo)
         call_bytes = b * n * 20 + b * mo * 9      # boxes + scores, idx + valid
         bound = {
-            "nms_iou_mask": (mask_bytes / HBM_BYTES_PER_S * 1e3,
-                             mask_ops / PEAK_FLOPS["float32"] * 1e3),
-            "nms_scan": (scan_bytes / HBM_BYTES_PER_S * 1e3, 0.0),
+            "nms_greedy_sweep": (nbytes / HBM_BYTES_PER_S * 1e3,
+                                 ious * nms_ops.OPS_PER_IOU
+                                 / PEAK_FLOPS["float32"] * 1e3),
             "call": (call_bytes / HBM_BYTES_PER_S * 1e3,
-                     greedy_ops / PEAK_FLOPS["float32"] * 1e3)}
-        tri_ms = b * n * (n - 1) / 2 * nms_ops.OPS_PER_IOU / \
-            PEAK_FLOPS["float32"] * 1e3
+                     ious * nms_ops.OPS_PER_IOU
+                     / PEAK_FLOPS["float32"] * 1e3)}
         lib_txt = "null" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"timing nms {name} B={b} N={n} (Npad {npad}, live "
             f"{min(n_live)}-{max(n_live)}) th={th} max_out={mo}: "
-            f"nms_iou_mask {ms['mask']:.4f} ms, nms_scan {ms['scan']:.4f} "
-            f"ms, sweep {ms['sweep']:.4f} ms, whole call {ms['call']:.4f} "
-            f"ms; plain sweep {plain_ms:.4f} ms, plain call "
-            f"{plain_call_ms:.4f} ms; torchvision batched_nms {lib_txt}; "
-            f"kept {int(alive.sum())}")
+            f"nms_greedy_sweep {ms['kernel']:.4f} ms (graph replay), sweep "
+            f"{ms['sweep']:.4f} ms, whole call {ms['call']:.4f} ms; plain "
+            f"sweep {plain_ms:.4f} ms, plain call {plain_call_ms:.4f} ms; "
+            f"torchvision batched_nms {lib_txt}; kept {int(alive.sum())}, "
+            f"greedy IoUs {ious}")
         for key, (bytes_ms, ops_ms) in bound.items():
             log(f"  bound {key}: {max(bytes_ms, ops_ms):.5f} ms (bytes "
                 f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: "
                 f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
-        log(f"  the full triangle, N(N-1)/2 IoUs an image x "
-            f"{nms_ops.OPS_PER_IOU} ops at 67 TFLOP/s: {tri_ms:.4f} ms; the "
-            f"mask kernel reaches {mask_ops / ms['mask'] / 1e9:.1f} TFLOP/s")
         if not entries:                   # the kernels line: served batch
-            for kname, key in (("nms_iou_mask", "mask"),
-                               ("nms_scan", "scan")):
-                bytes_ms, ops_ms = bound[kname]
-                entries.append({
-                    "name": kname, "route": "cuda", "source": NMS_SOURCE,
-                    "replaces": REPLACES[kname], "launches": launches[kname],
-                    "max_abs_err": float(err), "ms": ms[key],
-                    "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", "library_ms": library_ms})
-        del mask, out, alive
+            bytes_ms, ops_ms = bound["nms_greedy_sweep"]
+            entries.append({
+                "name": "nms_greedy_sweep", "route": "cuda",
+                "source": NMS_SOURCE,
+                "replaces": REPLACES["nms_greedy_sweep"],
+                "launches": launches["nms_greedy_sweep"],
+                "max_abs_err": float(err), "ms": ms["kernel"],
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms})
+        del out, alive, spill
     torch.cuda.empty_cache()
     return entries
 

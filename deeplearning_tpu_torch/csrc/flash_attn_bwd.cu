@@ -20,8 +20,11 @@
 //   dK    = sum over query tiles of dS^T Q         -- bwd_dkv kernel
 // Two kernels, as on the TPU: each output element is owned by one CTA and
 // summed in registers, so there are no atomics and the gradients are
-// deterministic. LSE and delta are plain (B*H, N) float32 arrays; delta is
-// computed outside the kernels, as the TPU code does.
+// deterministic. LSE and delta are plain (B*H, N) float32 arrays. The bf16
+// dQ kernel, launched first, computes delta itself from O and dO and
+// writes it for the dK/dV kernel (the TPU code computes it outside its
+// kernels); given no O (ring attention passes a global delta), and on the
+// float32 path, it reads delta instead.
 //
 // Design against the TPU original:
 //   - The Pallas grid padded N to a block multiple (zero rows of dO made the
@@ -29,46 +32,51 @@
 //     key columns >= N, and the dK/dV kernel masks query columns >= N
 //     (P = 0 there, and no LSE or delta row past N is ever read; Q and dO
 //     rows past N arrive as zeros from the copy engine).
-//   - dQ, bf16 (bwd_dq_bf16_mma): every product is mma.sync.m16n8k16 (bf16
-//     in, f32 accumulate). Each warp owns 16 query rows; S and dP leave
-//     their products in the accumulator layout, dS is formed in registers
-//     and repacked as the A operand of dS K (as the forward repacks P).
-//     Each head's warps synchronise on their own named barrier (ids
-//     1..HPC): the heads of a CTA share no shared memory.
-//   - dK/dV, bf16 (bwd_dkv_bf16_wgmma), built for Hopper like the forward
-//     (helpers in hopper.cuh):
-//       * 160 threads: one consumer warpgroup that owns the CTA's 64 key
-//         rows (warp w keys 16w..16w+15) and one producer warp.
-//       * The head's K and V tiles are TMA-loaded once into one of 2 slots
-//         (the next head's arrive under this one's products) and read by
-//         the tensor cores straight from shared memory: never reloaded.
-//       * Q and dO tiles of 64 queries stream through a ring of 2 stages:
-//         lane 0 of the producer warp issues their TMA loads, and the whole
-//         warp stages the tile's LSE (times log2 e) and delta beside them;
-//         a stage's "full" mbarrier waits for both (one arrival carrying
-//         the copies' bytes, plus 32), its "empty" one for the consumers.
-//       * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both
-//         operands in shared memory (K-major descriptors); P^T and dS^T
-//         come out in the accumulator layout with keys as rows, are
-//         rounded to bf16 in registers and are the A operands of
-//         dV += P^T dO and dK += dS^T Q, wgmma m64nDk16 with dO and Q read
-//         through the descriptor's transpose (MN-major) mode.
-//       * The two 64 x D float32 accumulators stay in registers for the
-//         whole query loop (2 x D/2 a thread; ptxas reports no spills at any
-//         D, 229 registers at D = 128). Causal: the walk starts at the
-//         query tile of the block's first key.
+//   - The grid is (B*H / HPC, row blocks), the head groups on grid.x so no
+//     batch overflows it (hopper::grid_tile). D is 16, 32, 64 or 128; the
+//     Python wrapper zero-pads any other D <= 128 (exact: zero columns add
+//     nothing to Q K^T, dO V^T or rowsum(dO o O)).
+//   - bf16, both kernels built for Hopper alike (helpers in hopper.cuh):
+//       * 160 threads: one consumer warpgroup that owns the CTA's 64 rows
+//         (warp w rows 16w..16w+15: query rows in dQ, key rows in dK/dV)
+//         and one producer warp whose lane 0 issues the TMA loads.
+//       * The tiles the CTA's rows own are loaded once per head into one
+//         of 2 slots (the next head's arrive under this one's products);
+//         the other operand's 64-row tiles stream through a ring of 2
+//         stages. "full" mbarriers wait for the copies, "empty" ones for
+//         the 128 consumers.
+//       * dQ (bwd_dq_bf16_wgmma): Q and dO are the CTA's tiles, K and V
+//         stream. S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both
+//         operands in shared memory (K-major descriptors); dS is formed in
+//         registers, rounded to bf16 and is the register A operand of
+//         dQ += dS K, wgmma m64nDk16 with K read through the descriptor's
+//         transpose (MN-major) mode. The head's O tile is loaded beside dO
+//         into one slot of its own, released as soon as delta is summed:
+//         TMA's swizzle permutes 16-byte chunks within a row, the same way
+//         in both tiles, so a row's dO o O products are summed in place.
+//         One 64 x D float32 accumulator; causal: the walk stops at the
+//         key tile past the block's last row.
+//       * dK/dV (bwd_dkv_bf16_wgmma): K and V are the CTA's tiles; Q, dO
+//         and the tile's LSE (times log2 e) and delta stream (the producer
+//         warp's lanes stage the statistics beside the copies, so a
+//         stage's "full" mbarrier counts one arrival carrying the copies'
+//         bytes plus 32). S^T = K Q^T and dP^T = V dO^T come out with keys
+//         as rows, are rounded to bf16 in registers and are the A operands
+//         of dV += P^T dO and dK += dS^T Q, with dO and Q read through the
+//         transpose mode. Two 64 x D float32 accumulators. Causal: the walk
+//         starts at the query tile of the block's first key.
 //       * Swizzle (128/64/32-byte), tiles on 1024-byte boundaries, tensor
 //         maps and heads_per_cta (heads walked in sequence by one CTA, not
-//         more threads) as in the forward.
+//         more threads) as in the forward. ptxas reports no spills.
 //   - float32: scalar FMA; a group of 4 (D <= 64) or 8 (D = 128) threads
 //     shares one row and splits the head dimension, reducing each dot product
 //     with shuffles.
 //
 // Bound at the ViT-B/16 training shape (B = 128, H = 12, N = 197, D = 64,
 // bf16): one (B*H*N*D) bf16 tensor is 38.73 MB, LSE or delta 1.21 MB.
-//   dQ:    reads q, k, v, dO, LSE, delta, writes dQ  = 196.1 MB -> 58.5 us at
-//          3.35 TB/s; products 3 x 7.63 GFLOP -> 23.1 us at 989 TFLOP/s.
-//   dK/dV: reads the same, writes dK, dV            = 234.8 MB -> 70.1 us;
+//   dQ:    reads q, k, v, dO, O, LSE, writes dQ, delta = 234.8 MB -> 70.1 us
+//          at 3.35 TB/s; products 3 x 7.63 GFLOP -> 23.1 us at 989 TFLOP/s.
+//   dK/dV: reads q, k, v, dO, LSE, delta, writes dK, dV = 234.8 MB -> 70.1 us;
 //          products 4 x 7.63 GFLOP -> 30.9 us.
 // Both are memory-bound (H100 SXM data sheet, 700 W).
 //
@@ -98,18 +106,21 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;       // bf16 dQ only: O, from which it computes delta; or null
   const float* lse;    // (B*H, N), natural log, from the forward
-  const float* delta;  // (B*H, N), rowsum(dO * O)
+  float* delta;        // (B*H, N), rowsum(dO * O): written by dQ given O, else read
   void* dq;
   void* dk;
   void* dv;
   int B, H, N;
-  Strides q_st, k_st, v_st, do_st, dq_st, dk_st, dv_st;
+  Strides q_st, k_st, v_st, do_st, o_st, dq_st, dk_st, dv_st;
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e): P is recomputed in base 2
   int causal;
 };
 
+// Barrier over one head's threads only (ids 1..HPC; 0 is __syncthreads):
+// the float32 kernels' heads share no shared memory.
 __device__ __forceinline__ void head_barrier(int head, int nthreads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(head + 1), "r"(nthreads) : "memory");
 }
@@ -130,194 +141,232 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 
 // ---------------------------------------------------------------- bf16 path
 
-// rows [row0, row0 + rows) of one head into shared memory; rows >= n are
-// zero, so a masked row contributes exactly 0 to every product.
-template <int D, int STRIDE>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
-                                               long long sn, int row0,
-                                               int rows, int n, int tid,
-                                               int nthreads) {
-  constexpr int kVec = 8;  // 16 bytes
-  constexpr int kPerRow = D / kVec;
-  for (int i = tid; i < rows * kPerRow; i += nthreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sn + c);
-    *reinterpret_cast<uint4*>(dst + r * STRIDE + c) = val;
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[nb] (16 x 8 each) += A(16 x K) * B^T where A is the warp's 16-row
-// strip `aw` and B is `rows` rows of `bw`, both row-major in shared memory
-// with row stride S: the dQ kernel's products S = Q K^T and dP = dO V^T.
-template <int K, int NB, int S>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* aw,
-                                        const bf16* bw, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const uint32_t a0 = ld32(aw + g * S + c);
-    const uint32_t a1 = ld32(aw + (g + 8) * S + c);
-    const uint32_t a2 = ld32(aw + g * S + c + 8);
-    const uint32_t a3 = ld32(aw + (g + 8) * S + c + 8);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const bf16* br = bw + (nb * 8 + g) * S + c;
-      mma_bf16(acc[nb], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// out[db] (16 x 8 each, D / 8 of them) += X(16 x 16*KS) * B, where X sits in
-// registers in the accumulator layout (x[nb], 8 columns each) and B is
-// 16*KS rows of `bw` (row-major, stride S): dQ += dS K. Two adjacent
-// 8-column blocks of X are one A operand.
-template <int D, int KS, int S>
-__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4],
-                                       const float (&x)[2 * KS][4],
-                                       const bf16* bw, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t a0 = hopper::pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = hopper::pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = hopper::pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = hopper::pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const unsigned short* br =
-        reinterpret_cast<const unsigned short*>(bw + (kk * 16 + 2 * t) * S);
-#pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      const int col = db * 8 + g;
-      const uint32_t b0 = uint32_t(br[col]) | (uint32_t(br[S + col]) << 16);
-      const uint32_t b1 =
-          uint32_t(br[8 * S + col]) | (uint32_t(br[9 * S + col]) << 16);
-      mma_bf16(out[db], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-template <int D, int HPC>
-struct DqCfg {
-  static constexpr int kWarpsPerHead = 4;
-  static constexpr int kBlockM = 16 * kWarpsPerHead;  // query rows per head
-  static constexpr int kBlockN = D <= 32 ? 64 : 32;   // keys per K/V tile
-  static constexpr int kStride = D + 8;               // padded smem row
-  static constexpr int kHeadThreads = 32 * kWarpsPerHead;
-  static constexpr int kThreads = kHeadThreads * HPC;
-  static constexpr size_t kSmem =
-      size_t(HPC) * (2 * kBlockM + 2 * kBlockN) * kStride * sizeof(bf16);
+struct BwdMaps {  // TMA tensor maps of the q, k, v, dO and (dQ) O views
+  CUtensorMap q, k, v, dout, o;
 };
+
+template <int D>
+struct DqCfg {
+  using T = hopper::Tile<D>;
+  static constexpr int kBlock = 64;      // query rows; keys a K/V tile
+  static constexpr int kStages = 2;      // K/V ring depth
+  static constexpr int kQSlots = 2;      // this head's Q/dO, the next's
+  static constexpr int kThreads = 160;   // consumer warpgroup + producer warp
+  // CTAs an SM the registers must allow: 2 at D <= 64 (ptxas takes 146, no
+  // spill; held to 3 CTAs' 128 it spilled, and ran no faster), 1 at
+  // D = 128 (shared memory allows 3 and 1: 73 and 145 kB a CTA)
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+  // Q and dO in each slot, one O tile, K and V in each stage
+  static constexpr size_t kTileBytes =
+      size_t(2 * kQSlots + 1 + 2 * kStages) * T::kBytes;
+  static constexpr size_t kSmem =
+      1024 + kTileBytes + 2 * (kQSlots + 1 + kStages) * sizeof(uint64_t);
+};
+
+// rowsum(dO o O) of row `row` of two tiles, over the 4 lanes (t = 0..3)
+// that share the row. TMA's swizzle permutes the 16-byte chunks within each
+// 32/64/128-byte panel row (the row is the swizzle's whole span) and does
+// so alike in both tiles, so the row's products are summed where they lie.
+template <int D>
+__device__ __forceinline__ float tile_row_dot(const unsigned char* a,
+                                              const unsigned char* b, int row,
+                                              int t) {
+  using T = hopper::Tile<D>;
+  float acc = 0.f;
+#pragma unroll
+  for (int pn = 0; pn < T::kPanels; ++pn)
+#pragma unroll
+    for (int j = 0; j < T::kRowBytes / 16; ++j) {
+      const int off = pn * T::kPanelBytes + row * T::kRowBytes + 4 * (4 * j + t);
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + off));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + off));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
 
 template <int D, int HPC, typename OutT>
-__global__ void __launch_bounds__(DqCfg<D, HPC>::kThreads)
-    bwd_dq_bf16_mma(const Params p) {
-  using Cfg = DqCfg<D, HPC>;
-  constexpr int BM = Cfg::kBlockM, BN = Cfg::kBlockN, S = Cfg::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // HPC x BM x S
-  bf16* do_s = q_s + HPC * BM * S;                // HPC x BM x S
-  bf16* k_s = do_s + HPC * BM * S;                // HPC x BN x S
-  bf16* v_s = k_s + HPC * BN * S;                 // HPC x BN x S
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
+    bwd_dq_bf16_wgmma(const __grid_constant__ BwdMaps maps, const Params p) {
+  using Cfg = DqCfg<D>;
+  using T = hopper::Tile<D>;
+  constexpr int BM = Cfg::kBlock, NS = Cfg::kStages, NQ = Cfg::kQSlots;
+  extern __shared__ __align__(128) unsigned char smem_tma[];
+  const uint32_t raw = hopper::smem_addr(smem_tma);
+  unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
+  unsigned char* q_s = base;                         // NQ tiles
+  unsigned char* do_s = q_s + NQ * T::kBytes;        // NQ tiles
+  unsigned char* o_s = do_s + NQ * T::kBytes;        // 1 tile
+  unsigned char* k_s = o_s + T::kBytes;              // NS tiles
+  unsigned char* v_s = k_s + NS * T::kBytes;         // NS tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Cfg::kTileBytes);
+  uint64_t* q_empty = q_full + NQ;
+  uint64_t* o_full = q_empty + NQ;
+  uint64_t* o_empty = o_full + 1;
+  uint64_t* kv_full = o_empty + 1;
+  uint64_t* kv_empty = kv_full + NS;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hh = warp / Cfg::kWarpsPerHead;         // head within the CTA
-  const int m0 = (warp % Cfg::kWarpsPerHead) * 16;  // warp's 16-row strip
-  const int g = lane >> 2, t = lane & 3;            // mma fragment coords
-  const int htid = tid % Cfg::kHeadThreads;
-  const int q_block = blockIdx.x * BM;
-  const int bh = blockIdx.y * HPC + hh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NQ; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 128);
+    }
+    hopper::mbar_init(o_full, 1);
+    hopper::mbar_init(o_empty, 128);
+    for (int i = 0; i < NS; ++i) {
+      hopper::mbar_init(&kv_full[i], 1);
+      hopper::mbar_init(&kv_empty[i], 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + head_offset(p, bh, p.q_st);
-  const bf16* kg = static_cast<const bf16*>(p.k) + head_offset(p, bh, p.k_st);
-  const bf16* vg = static_cast<const bf16*>(p.v) + head_offset(p, bh, p.v_st);
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + head_offset(p, bh, p.do_st);
-  load_rows_bf16<D, S>(q_s + hh * BM * S, qg, p.q_st.n, q_block, BM, p.N, htid,
-                       Cfg::kHeadThreads);
-  load_rows_bf16<D, S>(do_s + hh * BM * S, dog, p.do_st.n, q_block, BM, p.N,
-                       htid, Cfg::kHeadThreads);
-
-  const int row_a = q_block + m0 + g, row_b = row_a + 8;
-  const float* lse = p.lse + (long long)bh * p.N;
-  const float* delta = p.delta + (long long)bh * p.N;
-  const float lse2[2] = {row_a < p.N ? lse[row_a] * kLog2e : 0.f,
-                         row_b < p.N ? lse[row_b] * kLog2e : 0.f};
-  const float dlt[2] = {row_a < p.N ? delta[row_a] : 0.f,
-                        row_b < p.N ? delta[row_b] : 0.f};
-
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int q_block = cta.row * BM;
   // causal: keys past the block's last row never contribute
   const int n_kv = p.causal ? min(p.N, q_block + BM) : p.N;
-  const int n_tiles = (n_kv + BN - 1) / BN;
-  const bf16* qw = q_s + hh * BM * S + m0 * S;
-  const bf16* dow = do_s + hh * BM * S + m0 * S;
-  const bf16* kw = k_s + hh * BN * S;
-  const bf16* vw = v_s + hh * BN * S;
+  const int n_tiles = (n_kv + BM - 1) / BM;
+  const bool fold = p.o != nullptr;  // delta from O here, else read
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[db][e] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * BN;
-    head_barrier(hh, Cfg::kHeadThreads);  // previous tile consumed, Q/dO stored
-    load_rows_bf16<D, S>(k_s + hh * BN * S, kg, p.k_st.n, kv0, BN, p.N, htid,
-                         Cfg::kHeadThreads);
-    load_rows_bf16<D, S>(v_s + hh * BN * S, vg, p.v_st.n, kv0, BN, p.N, htid,
-                         Cfg::kHeadThreads);
-    head_barrier(hh, Cfg::kHeadThreads);
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-    mma_abt<D, BN / 8, S>(s, qw, kw, g, t);    // S  = Q K^T
-    mma_abt<D, BN / 8, S>(dp, dow, vw, g, t);  // dP = dO V^T
-
-    // element e of s[nb] sits at row (e < 2 ? row_a : row_b), key
-    // kv0 + nb*8 + 2t + (e & 1); s[nb][e] becomes dS there
-#pragma unroll
-    for (int nb = 0; nb < BN / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nb * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool keep = col < p.N && (!p.causal || col <= row);
-        const float pr = keep ? exp2f(s[nb][e] * p.scale_log2 - lse2[e >> 1]) : 0.f;
-        s[nb][e] = pr * (dp[nb][e] - dlt[e >> 1]) * p.scale;
+  if (warp == 4) {  // ---- producer: one thread keeps the copies in flight
+    if (lane == 0) {
+      hopper::tma_prefetch(&maps.q);
+      hopper::tma_prefetch(&maps.k);
+      hopper::tma_prefetch(&maps.v);
+      hopper::tma_prefetch(&maps.dout);
+      if (fold) hopper::tma_prefetch(&maps.o);
+      hopper::Ring qr, orr, kr;
+      for (int hh = 0; hh < HPC; ++hh) {
+        const int bh = cta.group * HPC + hh, b = bh / p.H, h = bh % p.H;
+        hopper::mbar_wait(&q_empty[qr.slot], qr.phase ^ 1);
+        hopper::mbar_arrive_expect_tx(&q_full[qr.slot], 2 * T::kBytes);
+        hopper::tma_load_tile<D>(q_s + qr.slot * T::kBytes, &maps.q,
+                                 &q_full[qr.slot], q_block, h, b);
+        hopper::tma_load_tile<D>(do_s + qr.slot * T::kBytes, &maps.dout,
+                                 &q_full[qr.slot], q_block, h, b);
+        qr.advance(NQ);
+        if (fold) {
+          hopper::mbar_wait(o_empty, orr.phase ^ 1);
+          hopper::mbar_arrive_expect_tx(o_full, T::kBytes);
+          hopper::tma_load_tile<D>(o_s, &maps.o, o_full, q_block, h, b);
+          orr.advance(1);
+        }
+        for (int tile = 0; tile < n_tiles; ++tile) {
+          hopper::mbar_wait(&kv_empty[kr.slot], kr.phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], 2 * T::kBytes);
+          hopper::tma_load_tile<D>(k_s + kr.slot * T::kBytes, &maps.k,
+                                   &kv_full[kr.slot], tile * BM, h, b);
+          hopper::tma_load_tile<D>(v_s + kr.slot * T::kBytes, &maps.v,
+                                   &kv_full[kr.slot], tile * BM, h, b);
+          kr.advance(NS);
+        }
       }
-    mma_xb<D, BN / 16, S>(dq, s, kw, g, t);  // dQ += dS K
+    }
+    return;
   }
 
-  OutT* dqg = static_cast<OutT*>(p.dq) + head_offset(p, bh, p.dq_st);
+  // ---- consumer warpgroup: warp w owns query rows 16w .. 16w + 15
+  const int g = lane >> 2, t = lane & 3;
+  const int r_a = warp * 16 + g, r_b = r_a + 8;   // rows within the tile
+  const int row_a = q_block + r_a, row_b = q_block + r_b;
+  hopper::Ring qr, orr, kr;
+  for (int hh = 0; hh < HPC; ++hh) {
+    const int bh = cta.group * HPC + hh;
+    hopper::mbar_wait(&q_full[qr.slot], qr.phase);
+    const uint32_t q_tile = hopper::smem_addr(q_s + qr.slot * T::kBytes);
+    const uint32_t do_tile = hopper::smem_addr(do_s + qr.slot * T::kBytes);
+
+    const float* lse = p.lse + (long long)bh * p.N;
+    float* delta = p.delta + (long long)bh * p.N;
+    const float lse2[2] = {row_a < p.N ? lse[row_a] * kLog2e : 0.f,
+                           row_b < p.N ? lse[row_b] * kLog2e : 0.f};
+    float dlt[2];
+    if (fold) {  // rows past N are zeros in both tiles: delta 0, not stored
+      hopper::mbar_wait(o_full, orr.phase);
+      const unsigned char* dw = do_s + qr.slot * T::kBytes;
+      dlt[0] = tile_row_dot<D>(dw, o_s, r_a, t);
+      dlt[1] = tile_row_dot<D>(dw, o_s, r_b, t);
+      hopper::mbar_arrive(o_empty);
+      orr.advance(1);
+      if (t == 0) {
+        if (row_a < p.N) delta[row_a] = dlt[0];
+        if (row_b < p.N) delta[row_b] = dlt[1];
+      }
+    } else {
+      dlt[0] = row_a < p.N ? delta[row_a] : 0.f;
+      dlt[1] = row_b < p.N ? delta[row_b] : 0.f;
+    }
+
+    float dq[D / 2];
 #pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    const int col = db * 8 + 2 * t;
-    if (row_a < p.N) store2(dqg + (long long)row_a * p.dq_st.n + col, dq[db][0], dq[db][1]);
-    if (row_b < p.N) store2(dqg + (long long)row_b * p.dq_st.n + col, dq[db][2], dq[db][3]);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int kv0 = tile * BM;
+      hopper::mbar_wait(&kv_full[kr.slot], kr.phase);
+      const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
+      const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
+
+      // S = Q K^T and dP = dO V^T (64 queries x 64 keys each)
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+      hopper::wgmma_abt<D>(s, q_tile, k_tile);
+      hopper::wgmma_abt<D>(dp, do_tile, v_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      if (tile == n_tiles - 1) hopper::mbar_arrive(&q_empty[qr.slot]);
+
+      // element 4 nb + e sits at row (e < 2 ? row_a : row_b), key
+      // kv0 + 8 nb + 2t + (e & 1); s becomes dS there (0 for masked keys)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + nb * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          const bool keep = col < p.N && (!p.causal || col <= row);
+          const int i = 4 * nb + e;
+          const float pr =
+              keep ? exp2f(s[i] * p.scale_log2 - lse2[e >> 1]) : 0.f;
+          s[i] = pr * (dp[i] - dlt[e >> 1]) * p.scale;
+        }
+
+      // dQ += dS K: dS from registers, K through the transpose mode
+      uint32_t da[4][4];
+      hopper::pack_a(s, da);
+      hopper::fence_regs(dq);
+      hopper::wgmma_fence();
+      hopper::wgmma_xb<D>(dq, da, k_tile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(dq);
+      hopper::fence_a(da);
+      hopper::mbar_arrive(&kv_empty[kr.slot]);
+      kr.advance(NS);
+    }
+    qr.advance(NQ);
+
+    OutT* dqg = static_cast<OutT*>(p.dq) + head_offset(p, bh, p.dq_st);
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db) {
+      const int col = db * 8 + 2 * t;
+      if (row_a < p.N)
+        store2(dqg + (long long)row_a * p.dq_st.n + col, dq[4 * db], dq[4 * db + 1]);
+      if (row_b < p.N)
+        store2(dqg + (long long)row_b * p.dq_st.n + col, dq[4 * db + 2], dq[4 * db + 3]);
+    }
   }
 }
-
-struct BwdMaps {  // TMA tensor maps of the q, k, v and dO views
-  CUtensorMap q, k, v, dout;
-};
 
 template <int D>
 struct DkvCfg {
@@ -367,7 +416,8 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
   }
   __syncthreads();
 
-  const int k_block = blockIdx.x * BN;
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int k_block = cta.row * BN;
   // causal: query tiles before the block's first key never see it
   const int q_start = p.causal ? k_block : 0;
 
@@ -380,7 +430,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
     }
     hopper::Ring kr, rr;
     for (int hh = 0; hh < HPC; ++hh) {
-      const int bh = blockIdx.y * HPC + hh, b = bh / p.H, h = bh % p.H;
+      const int bh = cta.group * HPC + hh, b = bh / p.H, h = bh % p.H;
       if (lane == 0) {
         hopper::mbar_wait(&kv_empty[kr.slot], kr.phase ^ 1);
         hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], 2 * T::kBytes);
@@ -418,7 +468,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
   const int key_a = k_block + warp * 16 + g, key_b = key_a + 8;
   hopper::Ring kr, rr;
   for (int hh = 0; hh < HPC; ++hh) {
-    const int bh = blockIdx.y * HPC + hh;
+    const int bh = cta.group * HPC + hh;
     hopper::mbar_wait(&kv_full[kr.slot], kr.phase);
     const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
     const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
@@ -553,9 +603,10 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   const int hh = tid / Cfg::kHeadThreads;
   const int htid = tid % Cfg::kHeadThreads;
   const int part = htid % TPR;  // this thread owns dims part + TPR * i
-  const int q_block = blockIdx.x * Cfg::kRows;
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int q_block = cta.row * Cfg::kRows;
   const int row = q_block + htid / TPR;
-  const int bh = blockIdx.y * HPC + hh;
+  const int bh = cta.group * HPC + hh;
 
   const float* kg = static_cast<const float*>(p.k) + head_offset(p, bh, p.k_st);
   const float* vg = static_cast<const float*>(p.v) + head_offset(p, bh, p.v_st);
@@ -625,9 +676,10 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   const int hh = tid / Cfg::kHeadThreads;
   const int htid = tid % Cfg::kHeadThreads;
   const int part = htid % TPR;
-  const int k_block = blockIdx.x * Cfg::kRows;
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int k_block = cta.row * Cfg::kRows;
   const int key = k_block + htid / TPR;
-  const int bh = blockIdx.y * HPC + hh;
+  const int bh = cta.group * HPC + hh;
 
   const float* qg = static_cast<const float*>(p.q) + head_offset(p, bh, p.q_st);
   const float* dog = static_cast<const float*>(p.dout) + head_offset(p, bh, p.do_st);
@@ -711,37 +763,55 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// The tensor maps of the first `count` of q, k, v, dO, O.
+template <int D>
+cudaError_t encode_maps(const Params& p, int count, BwdMaps* maps) {
+  const void* src[5] = {p.q, p.k, p.v, p.dout, p.o};
+  const Strides st[5] = {p.q_st, p.k_st, p.v_st, p.do_st, p.o_st};
+  CUtensorMap* dst[5] = {&maps->q, &maps->k, &maps->v, &maps->dout, &maps->o};
+  const cudaError_t bound = hopper::bind_context();
+  if (bound != cudaSuccess) return bound;
+  for (int i = 0; i < count; ++i) {
+    const cudaError_t err = hopper::encode_bhnd(dst[i], src[i], p.B, p.H, p.N, D,
+                                                st[i].b, st[i].h, st[i].n);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int D, int HPC, typename OutT>
+cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t s) {
+  using C = DqCfg<D>;
+  BwdMaps maps = {};
+  cudaError_t err = encode_maps<D>(p, p.o ? 5 : 4, &maps);
+  if (err != cudaSuccess) return err;
+  err = hopper::allow_smem<bwd_dq_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
+  bwd_dq_bf16_wgmma<D, HPC, OutT><<<grid, C::kThreads, C::kSmem, s>>>(maps, p);
+  return cudaGetLastError();
+}
+
 template <int D, int HPC>
 cudaError_t run_dq(const Params& p, int bf16_in, int bf16_out, cudaStream_t s) {
-  if (bf16_in) {
-    using C = DqCfg<D, HPC>;
-    const dim3 grid((p.N + C::kBlockM - 1) / C::kBlockM, p.B * p.H / HPC);
-    if (bf16_out)
-      return launch(bwd_dq_bf16_mma<D, HPC, bf16>, grid, C::kThreads, C::kSmem, s, p);
-    return launch(bwd_dq_bf16_mma<D, HPC, float>, grid, C::kThreads, C::kSmem, s, p);
-  }
-  if (bf16_out) return cudaErrorInvalidValue;
+  if (bf16_in)
+    return bf16_out ? launch_dq_wgmma<D, HPC, bf16>(p, s)
+                    : launch_dq_wgmma<D, HPC, float>(p, s);
+  if (bf16_out || p.o) return cudaErrorInvalidValue;  // float32 reads delta
   using C = SimtCfg<D, HPC>;
-  const dim3 grid((p.N + C::kRows - 1) / C::kRows, p.B * p.H / HPC);
+  const dim3 grid(p.B * p.H / HPC, (p.N + C::kRows - 1) / C::kRows);
   return launch(bwd_dq_f32_simt<D, HPC>, grid, C::kThreads, C::kSmem, s, p);
 }
 
 template <int D, int HPC, typename OutT>
 cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t s) {
   using C = DkvCfg<D>;
-  BwdMaps maps;
-  const void* src[4] = {p.q, p.k, p.v, p.dout};
-  const Strides st[4] = {p.q_st, p.k_st, p.v_st, p.do_st};
-  CUtensorMap* dst[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = hopper::encode_bhnd(dst[i], src[i], p.B, p.H, p.N, D,
-                                                st[i].b, st[i].h, st[i].n);
-    if (err != cudaSuccess) return err;
-  }
-  const cudaError_t err =
-      hopper::allow_smem<bwd_dkv_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
+  BwdMaps maps = {};
+  cudaError_t err = encode_maps<D>(p, 4, &maps);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + C::kBlock - 1) / C::kBlock, p.B * p.H / HPC);
+  err = hopper::allow_smem<bwd_dkv_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
   bwd_dkv_bf16_wgmma<D, HPC, OutT><<<grid, C::kThreads, C::kSmem, s>>>(maps, p);
   return cudaGetLastError();
 }
@@ -753,7 +823,7 @@ cudaError_t run_dkv(const Params& p, int bf16_in, int bf16_out, cudaStream_t s) 
                     : launch_dkv_wgmma<D, HPC, float>(p, s);
   if (bf16_out) return cudaErrorInvalidValue;
   using C = SimtCfg<D, HPC>;
-  const dim3 grid((p.N + C::kRows - 1) / C::kRows, p.B * p.H / HPC);
+  const dim3 grid(p.B * p.H / HPC, (p.N + C::kRows - 1) / C::kRows);
   return launch(bwd_dkv_f32_simt<D, HPC>, grid, C::kThreads,
                 C::kSmem + size_t(HPC) * 2 * C::kTile * sizeof(float), s, p);
 }
@@ -791,38 +861,43 @@ Strides strides_at(const long long* src) { return Strides{src[0], src[1], src[2]
 
 extern "C" {
 
-// q, k, v, dout, dq: (B, H, N, D) with element strides (batch, head, row)
-// and a contiguous last dim; every pointer 16-byte aligned and every stride
-// a multiple of 16 bytes (the Python wrapper checks). lse, delta: (B*H, N)
-// float32. strides: q, k, v, dout, dq, 3 each (15 values).
-// dtype (inputs) and out_dtype (dq): 0 = float32, 1 = bfloat16; float32
-// inputs take float32 gradients only. heads_per_cta in {1, 2, 4} divides H.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q, k, v, dout, o, dq: (B, H, N, D) with element strides (batch, head,
+// row) and a contiguous last dim; every pointer 16-byte aligned and every
+// stride a multiple of 16 bytes (the Python wrapper checks). lse, delta:
+// (B*H, N) float32, contiguous. o: bf16 inputs only, or null: given O, the
+// kernel computes delta = rowsum(dO * O) and writes it to `delta` (for the
+// dK/dV kernel); given null, it reads `delta`. strides: q, k, v, dout, o
+// (ignored when null), dq, 3 each (18 values). dtype (inputs) and out_dtype
+// (dq): 0 = float32, 1 = bfloat16; float32 inputs take float32 gradients
+// only. heads_per_cta in {1, 2, 4} divides H. Returns cudaGetLastError()
+// after the launch (0 on success).
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int N, int D,
+                      const void* dout, const void* o, const void* lse,
+                      void* delta, void* dq, int B, int H, int N, int D,
                       const long long* strides, float sm_scale, int causal,
                       int heads_per_cta, int dtype, int out_dtype,
                       void* stream) {
   Params p = {};
-  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.o = o;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.dq = dq;
   p.B = B; p.H = H; p.N = N;
   p.q_st = strides_at(strides + 0);
   p.k_st = strides_at(strides + 3);
   p.v_st = strides_at(strides + 6);
   p.do_st = strides_at(strides + 9);
-  p.dq_st = strides_at(strides + 12);
+  p.o_st = strides_at(strides + 12);
+  p.dq_st = strides_at(strides + 15);
   p.scale = sm_scale;
   p.scale_log2 = sm_scale * kLog2e;
   p.causal = causal;
   return run(p, D, 0, heads_per_cta, dtype, out_dtype, stream);
 }
 
-// As flash_attn_bwd_dq, writing dk and dv (same dtype, out_dtype).
-// strides: q, k, v, dout, dk, dv, 3 each (18 values).
+// As flash_attn_bwd_dq with no O (delta is read: launch dQ first), writing
+// dk and dv (same dtype, out_dtype). strides: q, k, v, dout, dk, dv, 3 each
+// (18 values).
 int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int N, int D,
@@ -832,7 +907,7 @@ int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(const_cast<void*>(delta));
   p.dk = dk; p.dv = dv;
   p.B = B; p.H = H; p.N = N;
   p.q_st = strides_at(strides + 0);

@@ -16,9 +16,13 @@
 // Design against the TPU original:
 //   - The Pallas grid walked K/V blocks sequentially on one core with N
 //     padded to a power-of-two block multiple (_blocks_and_pad). Here the
-//     grid is (query tiles, B*H / HPC); a loop inside the CTA walks the
-//     K/V tiles and the ragged edge (rows or keys >= N) is masked in the
-//     kernel, so no padded copy of q/k/v is ever made.
+//     grid is (B*H / HPC, query tiles), the head groups on grid.x so no
+//     batch overflows the grid (hopper::grid_tile); a loop inside the CTA
+//     walks the K/V tiles and the ragged edge (rows or keys >= N) is
+//     masked in the kernel, so no padded copy of q/k/v is ever made. D is
+//     16, 32, 64 or 128 here; the Python wrapper zero-pads any other
+//     D <= 128 up to the next of them (exact: zero columns add nothing to
+//     Q K^T, and the padded output columns are dropped).
 //   - The running max m, the running sum l and the O accumulator stay in
 //     float32 registers for the whole loop; only O and LSE are written.
 //   - bf16 (fwd_bf16_wgmma), built for Hopper (helpers in hopper.cuh):
@@ -158,7 +162,8 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
   }
   __syncthreads();
 
-  const int q_block = blockIdx.x * BM;
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int q_block = cta.row * BM;
   // causal: keys past the block's last row never contribute
   const int n_kv = p.causal ? min(p.N, q_block + BM) : p.N;
   const int n_tiles = (n_kv + BM - 1) / BM;
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
       hopper::tma_prefetch(&maps.v);
       hopper::Ring qr, kr;
       for (int hh = 0; hh < HPC; ++hh) {
-        const int bh = blockIdx.y * HPC + hh, b = bh / p.H, h = bh % p.H;
+        const int bh = cta.group * HPC + hh, b = bh / p.H, h = bh % p.H;
         hopper::mbar_wait(&q_empty[qr.slot], qr.phase ^ 1);
         hopper::mbar_arrive_expect_tx(&q_full[qr.slot], T::kBytes);
         hopper::tma_load_tile<D>(q_s + qr.slot * T::kBytes, &maps.q,
@@ -195,7 +200,7 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
   const int row_a = q_block + warp * 16 + g, row_b = row_a + 8;
   hopper::Ring qr, kr;
   for (int hh = 0; hh < HPC; ++hh) {
-    const int bh = blockIdx.y * HPC + hh;
+    const int bh = cta.group * HPC + hh;
     hopper::mbar_wait(&q_full[qr.slot], qr.phase);
     const uint32_t q_tile = hopper::smem_addr(q_s + qr.slot * T::kBytes);
 
@@ -342,9 +347,10 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   const int htid = tid % Cfg::kHeadThreads;  // thread within its head
   const int r = htid / TPR;
   const int part = tid % TPR;  // this thread owns dims part + TPR * i
-  const int q_block = blockIdx.x * BM;
+  const hopper::GridTile cta = hopper::grid_tile();
+  const int q_block = cta.row * BM;
   const int row = q_block + r;
-  const int bh = blockIdx.y * HPC + hh;
+  const int bh = cta.group * HPC + hh;
 
   const float* kg = static_cast<const float*>(p.k) +
                     head_offset(p, bh, p.k_sb, p.k_sh);
@@ -436,7 +442,7 @@ cudaError_t run(const Params& p, int bf16, cudaStream_t stream) {
   if (bf16) {
     using C = WgmmaCfg<D>;
     FwdMaps maps;
-    cudaError_t err = cudaSuccess;
+    cudaError_t err = hopper::bind_context();
     const void* src[3] = {p.q, p.k, p.v};
     const long long st[3][3] = {{p.q_sb, p.q_sh, p.q_sn},
                                 {p.k_sb, p.k_sh, p.k_sn},
@@ -448,12 +454,12 @@ cudaError_t run(const Params& p, int bf16, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     err = hopper::allow_smem<fwd_bf16_wgmma<D, HPC>>(C::kSmem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + C::kBlock - 1) / C::kBlock, p.B * p.H / HPC);
+    const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
     fwd_bf16_wgmma<D, HPC><<<grid, C::kThreads, C::kSmem, stream>>>(maps, p);
     return cudaGetLastError();
   }
   using C = SimtCfg<D, HPC>;
-  const dim3 grid((p.N + C::kBlockM - 1) / C::kBlockM, p.B * p.H / HPC);
+  const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlockM - 1) / C::kBlockM);
   return launch(fwd_f32_simt<D, HPC>, grid, C::kThreads, C::kSmem, stream, p);
 }
 

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the flash-attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads through
-// a tensor map, the wgmma shared-memory descriptor, and the wgmma products
-// those kernels issue. sm_90a only (wgmma does not exist on plain sm_90).
+// a tensor map, the wgmma shared-memory descriptor, the wgmma products
+// those kernels issue, and their grid's coordinates; and, for every
+// kernel, the host call that lets it use more than 48 kB of dynamic shared
+// memory. sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Tiles. Every bf16 operand tile is 64 rows of a (rows, D) head slice, as
 // one TMA load per panel lands it in shared memory: D is cut into panels
@@ -310,6 +312,24 @@ __device__ __forceinline__ void wgmma_xb(float (&o)[D / 2], const uint32_t (&a)[
   for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(o, a[kk], desc_mn<D>(b_tile, kk));
 }
 
+// ------------------------------------------------------------------ grid
+// The flash-attention grids are (B * H / heads_per_cta, row blocks): the
+// head groups go on grid.x, whose limit is 2^31 - 1, so no batch size can
+// overflow it (grid.y stops at 65535). The CTA's coordinates are taken
+// from its linear index with the row block counted fastest, the order a
+// (row blocks, head groups) grid would run in: the row blocks of one head
+// run together and share that head's K/V (or Q/dO) tiles through L2.
+struct GridTile {
+  int row;    // row block: query rows (or keys) 64 * row ...
+  int group;  // head group: heads group * heads_per_cta ...
+};
+
+__device__ __forceinline__ GridTile grid_tile() {
+  const unsigned long long linear =
+      (unsigned long long)blockIdx.y * gridDim.x + blockIdx.x;
+  return {int(linear % gridDim.y), int(linear / gridDim.y)};
+}
+
 // ------------------------------------------------------------ host: launch
 // Lets Kernel use `bytes` of dynamic shared memory on the current device.
 // Set once a device (not on every launch), so a launch inside a CUDA-graph
@@ -327,6 +347,23 @@ inline cudaError_t allow_smem(size_t bytes) {
 }
 
 // ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled, a driver call, needs a context current on the
+// calling thread, and a thread that has run no CUDA work through the
+// runtime yet (autograd's worker before its first kernel, a server's
+// dispatch thread) has none: it then fails with "invalid argument". So the
+// first launch from each thread makes the current device's primary context
+// current, as a runtime launch would lazily (once a thread: never inside a
+// CUDA-graph capture, which replays warmed-up calls).
+inline cudaError_t bind_context() {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,
                                   const cuuint32_t*, const cuuint32_t*,

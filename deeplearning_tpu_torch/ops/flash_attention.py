@@ -8,8 +8,9 @@ Entry points keep the JAX signatures and the (B, H, N, D) layout:
 and ``attention_bnhd`` are differentiable through one
 ``torch.autograd.Function`` (the counterpart of the JAX ``custom_vjp``):
 its forward launches the forward kernel and saves the row log-sum-exp the
-kernel writes, its backward computes ``delta = rowsum(dO * O)`` and
-launches the dQ and dK/dV kernels. ``flash_attention_with_lse`` is
+kernel writes, its backward launches the dQ kernel (which, for bf16,
+computes ``delta = rowsum(dO * O)`` from O and writes it) and then the
+dK/dV kernel, which reads that delta. ``flash_attention_with_lse`` is
 forward-only, as in JAX; ``flash_chunk_grads`` (ring attention's
 backward) reaches the same backward kernels with caller-supplied global
 statistics. The kernels are ``csrc/flash_attn_fwd.cu`` and
@@ -21,6 +22,12 @@ launch error, a shape the kernel does not take); a CPU tensor takes the
 plain PyTorch versions, ``flash_attention_reference`` and
 ``flash_attention_bwd_reference``. There is no fallback from one to the
 other.
+
+The kernels are instantiated for D in ``HEAD_DIMS``; any other D up to
+128 (ViT-H/14's 80) is zero-padded to the next of them on the card, with
+``sm_scale`` taken from the true D, and the outputs and gradients are
+sliced back. The pad is exact: zero columns add nothing to Q Kᵀ, dO Vᵀ or
+rowsum(dO · O). D above 128 raises.
 
 ``block_q`` / ``block_k`` are accepted so calls written against the JAX
 entry points run unchanged; they set the TPU kernel's tiling and do not
@@ -171,7 +178,7 @@ def _bwd_lib():
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             strides = ctypes.POINTER(ctypes.c_longlong)
             lib.flash_attn_bwd_dq.argtypes = (
-                [vp] * 7 + [i32] * 4 + [strides, ctypes.c_float]
+                [vp] * 8 + [i32] * 4 + [strides, ctypes.c_float]
                 + [i32] * 4 + [vp])
             lib.flash_attn_bwd_dkv.argtypes = (
                 [vp] * 8 + [i32] * 4 + [strides, ctypes.c_float]
@@ -206,9 +213,26 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _kernel_head_dim(d: int) -> int:
+    """The instantiated head dim a D runs at: the smallest of
+    ``HEAD_DIMS`` that holds it. Raises above 128."""
+    for dk in HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"the flash-attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d}")
+
+
+def _pad_head_dim(xs, d: int) -> tuple:
+    """Each tensor (or None) with its last dim zero-padded to ``d``."""
+    return tuple(None if x is None else
+                 torch.nn.functional.pad(x, (0, d - x.shape[-1]))
+                 for x in xs)
+
+
 def _check_launch(name: str, q: torch.Tensor, heads_per_cta: int) -> None:
     """What every kernel of this module takes; raises on anything else."""
-    b, h, n, d = q.shape
+    h, d = q.shape[1], q.shape[3]
     _check_card(q.device)
     if d not in HEAD_DIMS:
         raise ValueError(f"{name} takes head dim in {HEAD_DIMS}, got {d}")
@@ -217,9 +241,6 @@ def _check_launch(name: str, q: torch.Tensor, heads_per_cta: int) -> None:
     if heads_per_cta not in HEADS_PER_CTA or h % heads_per_cta:
         raise ValueError(f"heads_per_cta={heads_per_cta} must be in "
                          f"{HEADS_PER_CTA} and divide H={h}")
-    if b * h // heads_per_cta > 65535:
-        raise ValueError(f"B*H/heads_per_cta = {b * h // heads_per_cta} "
-                         f"exceeds the grid's 65535 rows")
 
 
 def _check_out(*outs: torch.Tensor) -> None:
@@ -256,12 +277,16 @@ def _launch(q, k, v, out, sm_scale: float, causal: bool,
 
 def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, sm_scale: float,
                 causal: bool, heads_per_cta: int,
-                kernels: Tuple[str, ...] = ("dq", "dkv")) -> None:
+                kernels: Tuple[str, ...] = ("dq", "dkv"),
+                o: Optional[torch.Tensor] = None) -> None:
     """Run the dQ kernel, then the dK/dV kernel, on CUDA tensors: q, k, v,
-    do and the outputs dq, dk, dv are (B, H, N, D) with any strides; lse
+    do, o and the outputs dq, dk, dv are (B, H, N, D) with any strides; lse
     and delta are (B*H, N) float32. The outputs share one dtype: q's, or
-    float32. ``kernels`` picks one of the two (a timing harness times
-    each alone)."""
+    float32. Given ``o`` (bf16 only), the dQ kernel computes
+    delta = rowsum(dO * O) from it and writes it into ``delta``, a
+    contiguous (B*H, N) float32 buffer, which the dK/dV kernel then reads;
+    without, both read ``delta``. ``kernels`` picks one of the two (a
+    timing harness times each alone)."""
     b, h, n, d = q.shape
     _check_launch("flash_attn_bwd", q, heads_per_cta)
     if not (dq.dtype == dk.dtype == dv.dtype) or (
@@ -271,21 +296,42 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, sm_scale: float,
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     _check_out(dq, dk, dv)
     lse = lse.to(torch.float32).reshape(b * h, n).contiguous()
-    delta = delta.to(torch.float32).reshape(b * h, n).contiguous()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
+    if o is None:
+        delta = delta.to(torch.float32).reshape(b * h, n).contiguous()
+    else:
+        if q.dtype != torch.bfloat16 or o.shape != q.shape \
+                or o.dtype != q.dtype:
+            raise ValueError("the dQ kernel computes delta from a bf16 O "
+                             "of q's shape only")
+        if delta.dtype != torch.float32 or not delta.is_contiguous() \
+                or delta.numel() != b * h * n:
+            raise ValueError("delta must be a contiguous (B*H, N) float32 "
+                             "buffer for the dQ kernel to write")
+        o = _aligned(o)
+    o_ptr = None if o is None else o.data_ptr()
+    o_strides = (0, 0, 0) if o is None else o.stride()[:3]
     codes = (float(sm_scale), int(bool(causal)), heads_per_cta,
              _DTYPE_CODE[q.dtype], _DTYPE_CODE[dq.dtype])
-    calls = [c for c in (("dq", (dq,)), ("dkv", (dk, dv))) if c[0] in kernels]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         lib = _bwd_lib()
-        for which, outs in calls:
-            strides = (ctypes.c_longlong * (3 * (4 + len(outs))))(
-                *(s for t in (q, k, v, do, *outs) for s in t.stride()[:3]))
+        for which in ("dq", "dkv"):
+            if which not in kernels:
+                continue
+            if which == "dq":
+                ptrs = (o_ptr, lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr())
+                st = (*(x for t in (q, k, v, do) for x in t.stride()[:3]),
+                      *o_strides, *dq.stride()[:3])
+            else:
+                ptrs = (lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr())
+                st = tuple(x for t in (q, k, v, do, dk, dv)
+                           for x in t.stride()[:3])
+            strides = (ctypes.c_longlong * len(st))(*st)
             fn = getattr(lib, f"flash_attn_bwd_{which}")
-            rc = fn(*args, *(o.data_ptr() for o in outs), b, h, n, d,
-                    strides, *codes, stream)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    *ptrs, b, h, n, d, strides, *codes, stream)
             if rc != 0:
                 raise RuntimeError(
                     f"flash_attn_bwd_{which} launch failed ({rc}): "
@@ -312,6 +358,7 @@ def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
     ``out``: an optional (B, H, N, D) view to write the result into."""
     _check_qkv(q, k, v)
     b, h, n, d = q.shape
+    # the scale of the true D, never of a padded one
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     if q.device.type == "cpu":
         o, lse = flash_attention_reference(q, k, v, sm_scale=scale,
@@ -320,6 +367,15 @@ def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
             out.copy_(o)
             o = out
         return o, lse
+    d_kernel = _kernel_head_dim(d)
+    if d_kernel != d:
+        o, lse = _attention(*_pad_head_dim((q, k, v), d_kernel),
+                            sm_scale=scale, causal=causal,
+                            heads_per_cta=heads_per_cta)
+        if out is None:
+            return o[..., :d], lse
+        out.copy_(o[..., :d])
+        return out, lse
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if n == 0 or b * h == 0:
@@ -345,22 +401,34 @@ def _attention_bwd(q, k, v, o, lse, do, *, sm_scale, causal, heads_per_cta,
                    out_dtype=None, delta=None, bnhd=False):
     """(dq, dk, dv) of attention for (B, H, N, D) operands: the plain
     version on the CPU, the two backward kernels on the card. ``delta``
-    (B, H, N) defaults to rowsum(dO * O), computed in float32 as the JAX
+    (B, H, N) defaults to rowsum(dO * O): for bf16 the dQ kernel computes
+    it from ``o``; for float32 it is computed here in float32, as the JAX
     code does outside its kernels."""
     b, h, n, d = q.shape
+    # the scale of the true D, never of a padded one
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, o, lse, do, sm_scale=scale, causal=causal,
             out_dtype=dtype, delta=delta)
+    d_kernel = _kernel_head_dim(d)
+    if d_kernel != d:
+        grads = _attention_bwd(
+            *_pad_head_dim((q, k, v, o), d_kernel), lse,
+            *_pad_head_dim((do,), d_kernel), sm_scale=scale, causal=causal,
+            heads_per_cta=heads_per_cta, out_dtype=dtype, delta=delta)
+        return tuple(g[..., :d] for g in grads)
     grads = tuple(_empty_bhnd(x, dtype, bnhd) for x in (q, k, v))
     if n == 0 or b * h == 0:
         return grads
-    if delta is None:
+    fold = delta is None and q.dtype == torch.bfloat16
+    if fold:
+        delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    elif delta is None:
         delta = (do.float() * o.float()).sum(-1)
     _launch_bwd(q, k, v, do, lse, delta, *grads, scale, causal,
-                heads_per_cta)
+                heads_per_cta, o=o if fold else None)
     return grads
 
 
@@ -500,7 +568,11 @@ def min_bytes(b: int, h: int, n: int, d: int, itemsize: int) -> int:
 # (N x N x D) products each backward kernel does: dQ recomputes S and dP
 # and forms dS K; dK/dV recomputes S and dP and forms P^T dO and dS^T Q
 _BWD_PRODUCTS = {"dq": 3, "dkv": 4, None: 5}
-_BWD_OUTPUTS = {"dq": 1, "dkv": 2, None: 3}
+# (B, H, N, D) operands read and written, and (B, H, N) float32 rows moved:
+# the bf16 dQ kernel reads q, k, v, dO and O, reads LSE and writes delta
+# and dQ; dK/dV reads q, k, v, dO, LSE and delta and writes dK and dV; the
+# whole backward reads q, k, v, dO, O and LSE and writes the three
+_BWD_IO = {"dq": (5, 1, 2), "dkv": (4, 2, 2), None: (5, 3, 1)}
 
 
 def bwd_flops(b: int, h: int, n: int, d: int, causal: bool = False,
@@ -515,8 +587,12 @@ def bwd_flops(b: int, h: int, n: int, d: int, causal: bool = False,
 def bwd_min_bytes(b: int, h: int, n: int, d: int, itemsize: int,
                   kernel: Optional[str] = None,
                   out_itemsize: Optional[int] = None) -> int:
-    """q, k, v, dO, LSE and delta (float32) read once, the kernel's
-    gradients ("dq": dQ, "dkv": dK and dV, None: all three) written once."""
+    """Each input read once and each output written once, for the bf16
+    kernels: "dq" reads q, k, v, dO, O and LSE and writes dQ and delta;
+    "dkv" reads q, k, v, dO, LSE and delta and writes dK and dV; None, the
+    whole backward, reads q, k, v, dO, O and LSE and writes dQ, dK, dV.
+    LSE and delta are float32."""
     t = b * h * n * d
-    return (4 * t * itemsize + 2 * b * h * n * 4
-            + _BWD_OUTPUTS[kernel] * t * (out_itemsize or itemsize))
+    reads, writes, rows = _BWD_IO[kernel]
+    return (reads * t * itemsize + rows * b * h * n * 4
+            + writes * t * (out_itemsize or itemsize))

@@ -14,7 +14,9 @@ the ViT adapter hands them over (H=12, N=197, D=64):
   (the training batch), beside ``scaled_dot_product_attention`` on the
   same views (a library yardstick the port never calls);
 - the dQ and the dK/dV kernel alone at batch 128, and the pair, beside
-  SDPA's whole backward through autograd;
+  SDPA's whole backward through autograd. dQ runs as the training step
+  runs it: given O, it computes delta = rowsum(dO * O) and writes it for
+  dK/dV (which, timed alone, reads the same values, computed once here);
 - the host time of one forward call at batch 1 (enqueue only, no
   synchronise: argument checks, tensor-map encoding, launch).
 
@@ -131,6 +133,7 @@ def _backward(g: torch.Generator) -> List[dict]:
     do = torch.randn(b, n, h, d, device="cuda", generator=g).to(
         torch.bfloat16).transpose(1, 2)
     lse = lse.reshape(b * h, n).contiguous()
+    # dK/dV alone reads delta: the dQ kernel's values, computed once here
     delta = (do.float() * o.float()).sum(-1).reshape(b * h, n).contiguous()
     grads = [torch.empty(b, n, h, d, device="cuda", dtype=torch.bfloat16
                          ).transpose(1, 2) for _ in range(3)]
@@ -144,7 +147,7 @@ def _backward(g: torch.Generator) -> List[dict]:
             kernels = (which,) if which else ("dq", "dkv")
             def fn():
                 fa._launch_bwd(q, k, v, do, lse, delta, *grads, d ** -0.5,
-                               False, hpc, kernels=kernels)
+                               False, hpc, kernels=kernels, o=o)
             bound = _bound_ms(fa.bwd_min_bytes(b, h, n, d, 2, kernel=which),
                               fa.bwd_flops(b, h, n, d, kernel=which))
             name = fa.BWD_KERNEL_NAMES[which][hpc] if which else \

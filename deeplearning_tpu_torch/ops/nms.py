@@ -19,13 +19,13 @@ oracle):
   of its strictly upper-triangular IoU > threshold relation, and one
   (block, N) IoU tile then kills every later candidate a kept box
   overlaps. Stops once ``max_out`` keeps are in.
-- the K3 kernels, ``csrc/nms_sweep.cu``: the same sort and padding around
-  two launches a batch. ``nms_iou_mask`` writes the suppression bitmask
-  (bit j of word u of row i: IoU(i, 64u + j) > threshold, for j > i) in
-  parallel; ``nms_scan`` (one CTA an image) walks the rows in score order
-  with a "removed" bitmask in shared memory and stops at ``max_out``
+- the K3 kernel, ``csrc/nms_sweep.cu``: the same sort and padding around
+  one launch a batch. ``nms_greedy_sweep`` (one CTA an image) walks the
+  candidates in score order, 64 at a time: each is tested against the
+  boxes kept so far, the block's own keeps are resolved in greedy order
+  from its 64 x 64 IoU > threshold bits, and the walk stops at ``max_out``
   keeps. Candidates sort into a prefix of live ones (NaN and -inf scores
-  last), so both kernels stop at the last live candidate.
+  last), so it also stops at the last live candidate.
 
 Dispatch (``nms(impl=...)``), by where the tensors lie: on the card,
 "auto" and "pallas" launch K3 at every N (the JAX 1 024 threshold was the
@@ -56,14 +56,16 @@ __all__ = ["DEFAULT_BLOCK_SIZE", "KERNEL_NAMES", "WORD", "set_default_nms_impl",
            "get_default_nms_impl", "nms_reference", "sort_pad_candidates",
            "nms_blocked", "nms_sweep", "nms_sweep_plain", "nms", "batched_nms",
            "class_offset_boxes", "gather_nms_outputs", "launch_counts", "reset_launch_counts",
-           "live_counts", "iou_flops", "greedy_ious", "mask_bytes",
-           "scan_bytes", "OPS_PER_IOU"]
+           "live_counts", "greedy_ious", "sweep_bytes", "OPS_PER_IOU"]
 
 # Tile width of the plain blocked sweep (the JAX default)
 DEFAULT_BLOCK_SIZE = 256
-# K3 pads candidates to whole 64-bit mask words
+# K3 pads candidates to whole 64-candidate blocks (one 64-bit word each)
 WORD = 64
-KERNEL_NAMES = ("nms_iou_mask", "nms_scan")
+KERNEL_NAMES = ("nms_greedy_sweep",)
+# kept boxes the kernel holds in shared memory; past them, a global list
+# (csrc/nms_sweep.cu kMaxKeptSmem)
+KEPT_SMEM = 10240
 # float32 operations of one IoU (max, max, min, min, sub, sub, clamp,
 # clamp, mul, add, sub, max, div) and its threshold compare
 OPS_PER_IOU = 14
@@ -287,11 +289,9 @@ def _lib():
             from .kernels import build
             lib = build.load("nms_sweep")
             vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.nms_iou_mask.argtypes = [vp, vp, vp, i32, i32, i32,
-                                         ctypes.c_float, vp]
-            lib.nms_iou_mask.restype = i32
-            lib.nms_scan.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
-            lib.nms_scan.restype = i32
+            lib.nms_greedy_sweep.argtypes = [vp] * 5 + [i32] * 4 + [
+                ctypes.c_float, vp]
+            lib.nms_greedy_sweep.restype = i32
             lib.nms_error_string.argtypes = [i32]
             lib.nms_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -319,49 +319,39 @@ def _launched(rc: int, name: str, lib) -> None:
         _LAUNCHES[name] += 1
 
 
-# the scan keeps one 64-bit "removed" word per 64 candidates in static
-# shared memory (csrc/nms_sweep.cu kMaxWords)
-MAX_WORDS = 4096
-
-
 def _sweep_kernel(sboxes: torch.Tensor, alive0: torch.Tensor,
                   iou_threshold: float, max_out: int) -> torch.Tensor:
     b, npad = alive0.shape
     _check_card(sboxes.device)
     if sboxes.dtype != torch.float32:
-        raise ValueError(f"the NMS kernels take float32 boxes, got "
+        raise ValueError(f"the NMS kernel takes float32 boxes, got "
                          f"{sboxes.dtype}")
     if npad % WORD:
-        raise ValueError(f"the NMS kernels take candidates padded to a "
+        raise ValueError(f"the NMS kernel takes candidates padded to a "
                          f"multiple of {WORD}, got {npad}")
-    words = npad // WORD
-    if words > MAX_WORDS or b > 65535:
-        raise ValueError(f"the NMS kernels take at most {MAX_WORDS * WORD} "
-                         f"candidates and 65535 images, got {npad} x {b}")
     out = torch.empty((b, npad), dtype=torch.bool, device=alive0.device)
     if b == 0 or max_out <= 0:
         return out.zero_()
     sboxes = sboxes.contiguous()
-    if sboxes.data_ptr() % 16:          # the mask kernel reads float4s
+    if sboxes.data_ptr() % 16:          # the kernel reads float4s
         sboxes = sboxes.clone()
     alive0 = alive0.contiguous()
-    # one past the last live candidate of each image: the kernels stop there
+    # one past the last live candidate of each image: the walk stops there
     pos = torch.arange(1, npad + 1, dtype=torch.int32, device=alive0.device)
     n_live = torch.where(alive0, pos, torch.zeros_like(pos)).amax(dim=1)
     n_live = n_live.to(torch.int32).contiguous()
-    # word-major (B, words, Npad): the mask kernel's stores coalesce
-    mask = torch.empty((b, words, npad), dtype=torch.int64,
-                       device=alive0.device)
+    # kept boxes past the shared-memory list, when max_out can reach them
+    spill_cap = max(0, min(max_out, npad) - KEPT_SMEM)
+    spill = torch.empty((b, spill_cap, 4), dtype=torch.float32,
+                        device=alive0.device) if spill_cap else None
     th = float(torch.tensor(iou_threshold, dtype=torch.float32))
     with torch.cuda.device(alive0.device):
         stream = torch.cuda.current_stream(alive0.device).cuda_stream
         lib = _lib()
-        _launched(lib.nms_iou_mask(sboxes.data_ptr(), n_live.data_ptr(),
-                                   mask.data_ptr(), b, npad, words, th,
-                                   stream), KERNEL_NAMES[0], lib)
-        _launched(lib.nms_scan(mask.data_ptr(), alive0.data_ptr(),
-                               n_live.data_ptr(), out.data_ptr(), b, npad,
-                               int(max_out), stream), KERNEL_NAMES[1], lib)
+        _launched(lib.nms_greedy_sweep(
+            sboxes.data_ptr(), alive0.data_ptr(), n_live.data_ptr(),
+            None if spill is None else spill.data_ptr(), out.data_ptr(), b,
+            npad, spill_cap, int(max_out), th, stream), KERNEL_NAMES[0], lib)
     return out
 
 
@@ -370,10 +360,10 @@ def nms_sweep(sboxes: torch.Tensor, alive0: torch.Tensor,
     """K3's function: sorted candidates padded to a multiple of 64,
     (B, Npad, 4) float32, and their alive mask (B, Npad) → an alive mask
     whose first ``max_out`` set positions are the greedy keeps. A CUDA
-    tensor launches the two kernels or raises; a CPU tensor takes the
-    plain sweep in 64-wide blocks. The kernels clear every position past
-    the ``max_out``-th keep; the plain sweep may leave later ones set,
-    which ``_emit_from_alive`` drops."""
+    tensor launches the kernel or raises; a CPU tensor takes the plain
+    sweep in 64-wide blocks. The kernel clears every position past the
+    ``max_out``-th keep; the plain sweep may leave later ones set, which
+    ``_emit_from_alive`` drops."""
     if sboxes.dim() != 3 or sboxes.shape[-1] != 4 or \
             tuple(alive0.shape) != tuple(sboxes.shape[:2]):
         raise ValueError(f"sboxes must be (B, Npad, 4) with alive0 "
@@ -385,7 +375,7 @@ def nms_sweep(sboxes: torch.Tensor, alive0: torch.Tensor,
         raise ValueError(f"alive0 must be bool, got {alive0.dtype}")
     if sboxes.device.type == "cpu":
         if sboxes.shape[1] % WORD:
-            raise ValueError(f"the NMS kernels take candidates padded to a "
+            raise ValueError(f"the NMS kernel takes candidates padded to a "
                              f"multiple of {WORD}, got {sboxes.shape[1]}")
         return nms_sweep_plain(sboxes, alive0, iou_threshold, max_out, WORD)
     if sboxes.device.type != "cuda":
@@ -483,17 +473,24 @@ def gather_nms_outputs(idx: torch.Tensor, valid: torch.Tensor,
 
 # ------------------------------------------------------------- the bound
 def live_counts(alive0: torch.Tensor) -> list:
-    """One past each image's last live candidate (what the kernels stop
-    at), from a (B, Npad) live mask."""
+    """One past each image's last live candidate (where the kernel's walk
+    stops), from a (B, Npad) live mask."""
     pos = torch.arange(1, alive0.shape[1] + 1, device=alive0.device)
     return torch.where(alive0, pos, torch.zeros_like(pos)).amax(dim=1) \
         .tolist()
 
 
-def iou_flops(n_live: Sequence[int]) -> float:
-    """Operations of the upper-triangular IoU mask over each image's live
-    candidates: n(n-1)/2 IoUs, ``OPS_PER_IOU`` float32 operations each."""
-    return float(sum(n * (n - 1) / 2 for n in n_live)) * OPS_PER_IOU
+def _seen(alive: torch.Tensor, alive0: torch.Tensor,
+          max_out: int) -> torch.Tensor:
+    """(B, Npad) bool: the positions a greedy sweep looks at, every
+    position up to the ``max_out``-th keep (all of them in an image that
+    ran out of candidates first)."""
+    keeps = alive.long()
+    pos = torch.arange(alive.shape[1], device=alive.device)[None]
+    last = torch.where(alive, pos, torch.full_like(pos, -1)).amax(dim=1)
+    stop = torch.where(keeps.sum(dim=1) >= max_out, last,
+                       torch.full_like(last, alive.shape[1]))
+    return pos <= stop[:, None]
 
 
 def greedy_ious(alive: torch.Tensor, alive0: torch.Tensor,
@@ -504,34 +501,17 @@ def greedy_ious(alive: torch.Tensor, alive0: torch.Tensor,
     the live mask."""
     keeps = alive.long()
     kept_before = torch.cumsum(keeps, dim=1) - keeps
-    pos = torch.arange(alive.shape[1], device=alive.device)[None]
-    last = torch.where(alive, pos, torch.full_like(pos, -1)).amax(dim=1)
-    # an image that ran out of candidates before max_out tested every one
-    stop = torch.where(keeps.sum(dim=1) >= max_out, last,
-                       torch.full_like(last, alive.shape[1]))
-    seen = alive0 & (pos <= stop[:, None])
+    seen = alive0 & _seen(alive, alive0, max_out)
     return int((kept_before * seen.long()).sum())
 
 
-def mask_bytes(npad: int, n_live: Sequence[int]) -> int:
-    """The mask kernel's bytes: each image's live float32 boxes read once,
-    its live count, and its upper-triangular live mask words written
-    once."""
-    total = 0
-    for n in n_live:
-        words = -(-n // WORD)
-        total += n * 16 + 4 + words * (words + 1) // 2 * WORD * 8
-    return total
-
-
-def scan_bytes(alive: torch.Tensor, n_live: Sequence[int]) -> int:
-    """The scan kernel's bytes over this run's data: for each kept row, its
-    mask words from its own to the last live one, plus alive0 read and the
-    output written (one byte a candidate) and the live counts."""
+def sweep_bytes(alive: torch.Tensor, alive0: torch.Tensor,
+                max_out: int) -> int:
+    """The sweep's bytes over this run's data, each moved once: the live
+    flag (one byte) of every position it looks at and the float32 box of
+    every live one, each image's live count, and the (B, Npad) output (one
+    byte a candidate) written."""
+    seen = _seen(alive, alive0, max_out)
     b, npad = alive.shape
-    total = 2 * b * npad + 4 * b
-    for i in range(b):
-        live_words = -(-n_live[i] // WORD)
-        rows = torch.nonzero(alive[i]).flatten().tolist()
-        total += 8 * sum(max(live_words - r // WORD, 0) for r in rows)
-    return total
+    return int(seen.sum()) + 16 * int((seen & alive0).sum()) + 4 * b \
+        + b * npad

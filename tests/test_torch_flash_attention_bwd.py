@@ -101,7 +101,7 @@ def test_gradcheck_float64(entry, causal):
     assert torch.autograd.gradcheck(fn, (q, k, v))
 
 
-@pytest.mark.parametrize("n,d", [(49, 32), (17, 16)])
+@pytest.mark.parametrize("n,d", [(49, 32), (17, 16), (17, 80)])
 def test_chunk_grads_match_jax(n, d):
     """Ring attention's building block: global LSE/delta given, float32
     gradients."""
@@ -115,6 +115,38 @@ def test_chunk_grads_match_jax(n, d):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_pad_is_exact_with_the_true_scale(causal):
+    """The card runs D = 80 (ViT-H/14) zero-padded to the 128 kernel: the
+    plain version on padded operands, with sm_scale from the true D, equals
+    the unpadded plain version in the output, the LSE and the gradients.
+    The padded D's own default scale would not."""
+    assert [tfa._kernel_head_dim(d) for d in (16, 17, 64, 80, 128)] == [
+        16, 32, 64, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa._kernel_head_dim(160)
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _arrays((2, 2, 19, 80), 4, seed=80 + causal))
+    qp, kp, vp, dop = tfa._pad_head_dim((q, k, v, do), 128)
+    assert qp.shape == (2, 2, 19, 128) and not qp[..., 80:].any()
+    scale = 80 ** -0.5
+    o, lse = tfa.flash_attention_reference(q, k, v, causal=causal)
+    op, lsep = tfa.flash_attention_reference(qp, kp, vp, sm_scale=scale,
+                                             causal=causal)
+    torch.testing.assert_close(op[..., :80], o, atol=1e-6, rtol=1e-6)
+    assert not op[..., 80:].any()
+    torch.testing.assert_close(lsep, lse, atol=1e-6, rtol=1e-6)
+    wrong, _ = tfa.flash_attention_reference(qp, kp, vp, causal=causal)
+    assert (wrong[..., :80] - o).abs().max() > 1e-2
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal)
+    got = tfa.flash_attention_bwd_reference(qp, kp, vp, op, lsep, dop,
+                                            sm_scale=scale, causal=causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[..., :80], w, atol=1e-5, rtol=1e-5)
+        assert not g[..., 80:].any()
 
 
 def test_chunk_grads_need_equal_chunks():
@@ -186,17 +218,24 @@ def test_nvcc_builds_the_backward_source():
     for kernel in ("_bwd_dq_kernel", "_bwd_dkv_kernel", "_bwd_dq_kernel_hb",
                    "_bwd_dkv_kernel_hb"):
         assert kernel in text          # the TPU kernels it replaces
-    assert "mma.sync.aligned.m16n8k16" in text
+    # dQ and dK/dV are both wgmma kernels; no mma.sync design is left
+    assert "bwd_dq_bf16_wgmma" in text and "bwd_dkv_bf16_wgmma" in text
+    assert "mma.sync" not in text
     assert build.library_path(src).name.startswith("libflash_attn_bwd-")
 
 
 def test_bwd_bound_helpers():
     # ViT-B/16 training shape: one (B*H*N*D) bf16 tensor is 38.73 MB
     b, h, n, d = 128, 12, 197, 64
-    assert tfa.bwd_min_bytes(b, h, n, d, 2, "dq") == pytest.approx(196.1e6,
+    # dQ reads q, k, v, dO, O and LSE, writes dQ and delta; dK/dV reads
+    # q, k, v, dO, LSE and delta, writes dK and dV: 6 tensors, 2 rows each
+    assert tfa.bwd_min_bytes(b, h, n, d, 2, "dq") == pytest.approx(234.8e6,
                                                                    rel=1e-3)
     assert tfa.bwd_min_bytes(b, h, n, d, 2, "dkv") == pytest.approx(
         234.8e6, rel=1e-3)
+    # the whole backward: q, k, v, dO, O, LSE in; dQ, dK, dV out
+    assert tfa.bwd_min_bytes(b, h, n, d, 2) == pytest.approx(311.05e6,
+                                                             rel=1e-3)
     unit = 2.0 * b * h * n * n * d
     assert unit == pytest.approx(7.63e9, rel=1e-3)
     assert tfa.bwd_flops(b, h, n, d, kernel="dq") == 3 * unit

@@ -8,6 +8,8 @@ This file imports only torch and the port (no JAX), so it runs where the
 JAX package is not installed.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -85,13 +87,65 @@ def test_vit_adapter_reads_strided_qkv_and_raises_on_bad_input(cuda_device):
     assert out.shape == (4, 197, 12, 64)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
-    with pytest.raises(ValueError):          # head dim the kernel lacks
-        fa.flash_attention(*(torch.zeros(1, 2, 8, 48, device=cuda_device)
+    with pytest.raises(ValueError):          # head dim past the kernels'
+        fa.flash_attention(*(torch.zeros(1, 2, 8, 160, device=cuda_device)
                              for _ in range(3)))
     with pytest.raises(ValueError):          # dtype the kernel lacks
         fa.flash_attention(*(torch.zeros(1, 2, 8, 64, device=cuda_device,
                                          dtype=torch.float16)
                              for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+def test_flash_attn_fwd_head_dim_80(cuda_device, n, causal, hpc, dtype, tol):
+    """ViT-H/14's D = 80 runs zero-padded to the D = 128 kernel, with the
+    scale of D = 80, from fused-qkv views into a (B, N, H, D) output."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    qkv = torch.randn(2, n, 3, 4, 80, device=cuda_device,
+                      generator=g).to(dtype)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    before = fa.launch_counts()[fa.KERNEL_NAMES[hpc]]
+    out = fa.attention_bnhd(*qkv.unbind(2), heads_per_cta=hpc,
+                            causal=causal)
+    _, lse = fa._attention(q, k, v, sm_scale=None, causal=causal,
+                           heads_per_cta=hpc)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()[fa.KERNEL_NAMES[hpc]] == before + 2
+    assert out.shape == (2, n, 4, 80)
+    torch.testing.assert_close(out.transpose(1, 2).float(), ref.float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hpc", [1, 4])
+def test_flash_attn_grid_past_65535_head_groups(cuda_device, hpc):
+    """B*H/heads_per_cta = 65 536: the head groups are on grid.x, so the
+    grid takes them; forward and both backward kernels match the plain
+    version on every head (the last ones included)."""
+    b, h, n, d = 65536 * hpc // 16, 16, 17, 16
+    g = torch.Generator(device=cuda_device).manual_seed(hpc)
+    q, k, v, do = (torch.randn(b, h, n, d, device=cuda_device,
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa._attention(q, k, v, sm_scale=None, causal=False,
+                             heads_per_cta=hpc)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    got = fa._attention_bwd(q, k, v, ref, ref_lse, do, sm_scale=None,
+                            causal=False, heads_per_cta=hpc)
+    want = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do)
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        assert _close(x, w) and _close(x[-1], w[-1])
 
 
 def _bwd_inputs(device, b, h, n, d, dtype, causal, seed=0):
@@ -145,6 +199,47 @@ def test_flash_attn_bwd_matches_plain(cuda_device, n, d, causal, hpc, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+def test_flash_attn_bwd_head_dim_80(cuda_device, n, causal, hpc, dtype):
+    """D = 80 through the D = 128 backward kernels, zero-padded, with the
+    scale of D = 80 (bf16: the dQ kernel computes delta from the padded
+    O), from fused-qkv views, as test_flash_attn_bwd_matches_plain."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, 80, dtype,
+                                      causal, seed=n)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                            causal=causal)
+    got = fa._attention_bwd(q, k, v, o, lse, do, sm_scale=None,
+                            causal=causal, heads_per_cta=hpc)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert _close(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hpc", [1, 4])
+def test_dq_kernel_writes_delta(cuda_device, hpc):
+    """Given O, the bf16 dQ kernel writes rowsum(dO * O) for the dK/dV
+    kernel; rows past N are left alone."""
+    b, h, n, d = 2, 4, 197, 64
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, b, h, n, d,
+                                      torch.bfloat16, False, seed=7)
+    delta = torch.full((b * h, n), float("nan"), device=cuda_device)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    fa._launch_bwd(q, k, v, do, lse, delta, *grads, d ** -0.5, False, hpc,
+                   kernels=("dq",), o=o)
+    want = (do.float() * o.float()).sum(-1).reshape(b * h, n)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("n", [1, 49, 64, 65, 197])
 def test_flash_chunk_grads_float32_out(cuda_device, n, d, dtype):
@@ -187,6 +282,39 @@ def test_vit_adapter_trains_through_the_kernels(cuda_device):
     (want,) = torch.autograd.grad(ref, qkv, dout.float())
     torch.cuda.synchronize()
     assert _close(grad, want)
+
+
+@pytest.mark.cuda
+def test_k1_launches_from_a_fresh_thread(cuda_device):
+    """The first K1 launch of a thread that has run no CUDA work yet (as
+    autograd's worker, before its first kernel) still encodes its tensor
+    maps: the forward and both backward kernels, from fresh threads."""
+    import threading
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 12, 197, 64,
+                                      torch.bfloat16, False, seed=9)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    ref = fa.flash_attention_reference(q, k, v)[0]
+    got, errors = {}, []
+
+    def run(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {exc}")
+    for name, fn in (
+            ("fwd", lambda: fa._attention(q, k, v, sm_scale=None,
+                                          causal=False, heads_per_cta=4)[0]),
+            ("bwd", lambda: fa._attention_bwd(q, k, v, o, lse, do,
+                                              sm_scale=None, causal=False,
+                                              heads_per_cta=4))):
+        t = threading.Thread(target=run, args=(name, fn))
+        t.start()
+        t.join()
+    assert not errors, errors
+    torch.testing.assert_close(got["fwd"].float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert all(_close(g, w) for g, w in zip(got["bwd"], want))
 
 
 # ---------------------------------------------- fused window attention (K2)
@@ -322,6 +450,51 @@ def test_nms_kernels_match_plain(cuda_device, n, th, st, mo):
     if n == 200:
         assert _same_keeps(nms_ops.nms(boxes, scores, th, mo, st,
                                        impl="greedy"), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,mo,wh_max", [(0.5, 400, 12.0),
+                                          (0.7, 5000, 6.0)])
+def test_nms_kernel_max_out_past_n_live(cuda_device, th, mo, wh_max):
+    """max_out >= n_live, over a batch whose images have different live
+    counts (score thresholds cut each at another place), NaN and -inf
+    scores among them: the walk runs to each image's last live candidate
+    and the keep sets equal the plain sweep's and the greedy oracle's."""
+    boxes, scores = _nms_cases(cuda_device, 6, 3000, span=400.0,
+                               wh_max=wh_max, nan_frac=0.01, seed=mo)
+    scores[1, :50] = float("-inf")
+    cut = torch.linspace(0.0, 0.9, 6, device=cuda_device)[:, None]
+    scores = torch.where(scores < cut, torch.full_like(scores, -math.inf),
+                         scores)                  # NaN scores stay NaN
+    live = [int(x) for x in (scores > -math.inf).sum(dim=1)]
+    assert len(set(live)) == 6 and min(live) < mo
+    before = nms_ops.launch_counts()
+    got = nms_ops.nms(boxes, scores, th, mo, impl="auto")
+    plain = nms_ops.nms(boxes, scores, th, mo, impl="blocked",
+                        block_size=64)
+    torch.cuda.synchronize()
+    assert nms_ops.launch_counts()["nms_greedy_sweep"] == \
+        before["nms_greedy_sweep"] + 1
+    assert _same_keeps(plain, got)
+    assert _same_keeps(nms_ops.nms(boxes[:2], scores[:2], th, mo,
+                                   impl="greedy"),
+                       tuple(x[:2] for x in got))
+
+
+@pytest.mark.cuda
+def test_nms_kernel_kept_list_past_shared_memory(cuda_device):
+    """12 000 keeps an image, past the 10 240 kept boxes the kernel holds in
+    shared memory, and 1 000 copies that only boxes kept past it suppress:
+    keep sets equal the plain sweep's."""
+    from deeplearning_tpu_torch.ops.nms_bench import past_shared_memory
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    boxes, scores = past_shared_memory(g, 2)
+    mo = boxes.shape[1]
+    got = nms_ops.nms(boxes, scores, 0.5, mo, impl="auto")
+    plain = nms_ops.nms(boxes, scores, 0.5, mo, impl="blocked", block_size=64)
+    torch.cuda.synchronize()
+    assert got[1].sum(dim=1).tolist() == [12_000, 12_000]
+    assert _same_keeps(plain, got)
 
 
 @pytest.mark.cuda

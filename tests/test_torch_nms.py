@@ -285,6 +285,8 @@ def test_bound_counts():
     assert tnms.greedy_ious(alive, alive0, 3) == 0 + 1 + 1 + 2
     # max_out not reached: every live candidate (position 4 too) was seen
     assert tnms.greedy_ious(alive, alive0, 10) == 0 + 1 + 1 + 2 + 3
-    assert tnms.iou_flops([5, 1]) == 10 * tnms.OPS_PER_IOU
-    assert tnms.mask_bytes(64, [5]) == 5 * 16 + 4 + 64 * 8
-    assert tnms.scan_bytes(alive, [5]) == 2 * 64 + 4 + 3 * 8
+    # positions 0-3 looked at (flag each, box each: all four live), the
+    # live count, and the 64-byte output row
+    assert tnms.sweep_bytes(alive, alive0, 3) == 4 + 4 * 16 + 4 + 64
+    # max_out not reached: all 64 flags, the 5 live boxes
+    assert tnms.sweep_bytes(alive, alive0, 10) == 64 + 5 * 16 + 4 + 64

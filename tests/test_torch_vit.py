@@ -74,6 +74,27 @@ def test_logits_match_jax(jax_variables, attn, exact):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
 
 
+def test_head_dim_80_matches_jax():
+    """ViT-H/14's head dim (1 280 wide, 16 heads: D = 80) at small width:
+    two heads of 80 in a 160-wide, one-block ViT through flash_hb, against
+    the JAX model on the same weights. On the card the kernels run it
+    zero-padded to D = 128 (tests/test_torch_kernels_card.py)."""
+    cfg = dict(TINY, embed_dim=160, num_heads=2, depth=1)
+    jmodel = jvit.VisionTransformer(**cfg, dtype=jnp.float32,
+                                    attn_fn=j_get_attn_fn("flash_hb"))
+    x = _images(2, seed=3)
+    variables = jmodel.init(jax.random.key(1), jnp.zeros((1, 32, 32, 3)),
+                            train=False)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    model = tvit.VisionTransformer(**cfg, dtype=torch.float32,
+                                   attn_fn=t_get_attn_fn("flash_hb"))
+    model.load_state_dict(from_flax_params(variables))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x))
+    assert got.shape == (2, 10)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
 def test_gelu_modes_differ_and_restore():
     x = torch.linspace(-4, 4, 101)
     fast = tnumerics.gelu(x)
