@@ -12,8 +12,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    at the ViT-B/16 shape (B=32, H=12, N=197, D=64; bf16 tolerance 2e-2,
    float32 1e-4), a Swin-window shape (N=49, D=32), a causal case, N=1,
    D=16, D=128, ViT-H/14's D=80 (N=257, run zero-padded to the D=128
-   kernel; plain and causal) and B*H = 262 144 (N=17, D=16: 65 536 head
-   groups at four heads per CTA, past the 65 535 of a grid's y);
+   kernel; plain and causal), D=256 (N=257: two column blocks a row
+   block) and D=160 (N=65, causal, zero-padded to D=256), and B*H =
+   262 144 (N=17, D=16: 65 536 head groups at four heads per CTA, past the
+   65 535 of a grid's y);
 3. serve ViT-B/16 at full width (224², 12 layers, 768 wide, 1000
    classes, weights from ``--seed``) through ``InferenceEngine`` (buckets
    1/8/32) and ``MicroBatcher``: 64 requests from 8 submitting threads
@@ -40,9 +42,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 5. hold the four flash-attention backward kernels (dQ and dK/dV, one and
    four heads per CTA) against their plain version on the card: dQ, dK
    and dV at the training shape (B=128, H=12, N=197, D=64), N=49/D=32,
-   causal, N=1, D=16, D=128 and D=80 (N=257, plain and causal), bf16
-   (where the dQ kernel computes delta from O) and float32, q/k/v as
-   strided
+   causal, N=1, D=16, D=128, D=80 (N=257, plain and causal), D=256
+   (N=257) and D=160 (N=65, causal), bf16 (where the dQ kernel computes
+   delta from O) and float32, q/k/v as strided
    fused-qkv slices (bf16: norm-relative error 1e-2 with an RMS floor of
    1e-4; float32: max abs 1e-4), and ``flash_chunk_grads`` (float32
    gradients) the same way;
@@ -69,8 +71,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    against its plain PyTorch version on the card, bf16 (2e-2) and float32
    (1e-4), with qkv as strided slices of one (B·nW, N, 3·C) projection: the
    four Swin-T stage shapes at batch 32 (masked with nW = 64, 16, 4, then
-   unmasked), N = 9 and 16, d = 16 and 64, nW not a multiple of
-   ``windows_per_block``, and a mask of whole rows of -1e9 but the diagonal;
+   unmasked), N = 9 and 16, d = 16, 64 and 128, d = 24 (zero-padded to
+   32), N = 144 (window 12: two 64-row tiles, two passes over the keys) at
+   d = 24 and d = 128, nW not a multiple of ``windows_per_block``, a
+   number of images that is not a multiple of it (nW = 64), and a mask of
+   whole rows of -1e9 but the diagonal;
 9. serve Swin-T at full width (224², patch 4, depths 2/2/6/2, heads
    3/6/12/24, embed 96, 1000 classes, weights from ``--seed``) through
    ``InferenceEngine`` (buckets 1/8/32) and ``MicroBatcher`` with the fused
@@ -87,9 +92,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    lower the loss;
 11. measure: Swin-T per-bucket served latency and its train step (time,
    images/s, MFU), fused and unfused in turns, the ``train/bench.py`` line
-   for both, and K2 at the four Swin-T stage shapes at batch 128 against
-   its plain version, ``scaled_dot_product_attention`` with the combined
-   additive mask (a yardstick only) and its bound;
+   for both, and K2 at the four Swin-T stage shapes at batch 128 (masked
+   as Swin-T's shifted blocks are) against its plain version,
+   ``scaled_dot_product_attention`` with the combined additive mask (a
+   yardstick only) and its bound, all three by CUDA-graph replay;
 12. hold the NMS kernel (K3, ``csrc/nms_sweep.cu``: one greedy sweep, a
    CTA an image) against its plain version on the card, exactly (equal
    ``valid``, equal ``idx`` on valid slots): 32 images of N = 8 400
@@ -230,6 +236,7 @@ def main() -> int:
              (4, 12, 197, 64, True), (8, 12, 1, 64, False),
              (2, 8, 300, 128, False), (2, 4, 17, 16, True),
              (4, 16, 257, 80, False), (2, 16, 257, 80, True),
+             (2, 4, 257, 256, False), (2, 4, 65, 160, True),
              (16384, 16, 17, 16, False)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for b, h, n, d, causal in cases:
@@ -509,7 +516,7 @@ def _ptxas_summary(report: str) -> list:
             base = re.search(r"(?:(?:fwd|bwd)_(?:dq_|dkv_)?|win_)"
                              r"(?:bf16_mma|bf16_wgmma|f32_simt)|"
                              r"nms_greedy_sweep_kernel", mangled)
-            args = re.findall(r"Li(\d+)E", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
             out_t = ",f32" if "EfE" in mangled else (
                 ",bf16" if "bfloat16" in mangled else "")
             name = f"{base.group(0) if base else mangled}<{','.join(args)}" \
@@ -530,7 +537,8 @@ BWD_CASES = [(TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM, False),
              (8, 4, 49, 32, False), (4, 12, 197, 64, True),
              (8, 12, 1, 64, False), (2, 4, 17, 16, True),
              (2, 8, 300, 128, False), (4, 16, 257, 80, False),
-             (2, 16, 257, 80, True)]
+             (2, 16, 257, 80, True), (2, 4, 257, 256, False),
+             (2, 4, 65, 160, True)]
 
 
 def _bwd_inputs(fa, dev, g, b, h, n, d, dtype, causal):
@@ -839,7 +847,11 @@ WIN_CASES = [  # BW, N, heads, d, nW (0: no mask), windows_per_block, diag
     (24, 9, 4, 32, 4, 8, False), (16, 16, 4, 32, 4, 8, False),
     (64, 49, 4, 16, 4, 8, False), (64, 49, 2, 64, 16, 8, False),
     (36, 49, 3, 32, 6, 4, False),               # nW not a multiple of wb
-    (16, 49, 3, 32, 8, 8, True)]                # whole rows masked
+    (16, 49, 3, 32, 8, 8, True),                # whole rows masked
+    (64, 49, 2, 128, 4, 8, False), (32, 49, 3, 24, 4, 8, False),
+    (8, 144, 2, 24, 4, 4, False),               # window 12, d padded
+    (8, 144, 2, 128, 4, 3, False),
+    (320, 49, 3, 32, 64, 3, False)]             # 5 images, 3 a CTA
 
 
 def _window_inputs(dev, g, bw, n, heads, d, dtype, nw, diag=False):
@@ -1009,24 +1021,27 @@ def _time_window_kernel(wa, dev, g, err, launches) -> dict:
     """Phase 11c: K2 at the four Swin-T stage shapes at the training batch
     (bf16, masks as the shifted blocks have them), against the plain
     version, SDPA with the combined additive mask (a yardstick) and the
-    bound. Returns the kernels-line entry, at stage 1."""
+    bound; device time by CUDA-graph replay (the eager call time beside
+    the kernel's). Returns the kernels-line entry, at stage 1."""
     import torch
     import torch.nn.functional as F
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
     entry = None
     for stage, (wins, heads, nw) in enumerate(SWIN_STAGES, 1):
         bw, n, d = TRAIN_BATCH * wins, WIN_TOKENS, WIN_HEAD_DIM
         qkv, bias, mask = _window_inputs(dev, g, bw, n, heads, d,
                                          torch.bfloat16, nw)
-        ms = _time_ms(lambda: wa.window_attention(qkv, bias, mask))
-        plain_ms = _time_ms(lambda: wa.window_attention_plain(qkv, bias,
-                                                               mask),
-                            iters=10, warmup=2)
+        ms = graph_ms(lambda: wa.window_attention(qkv, bias, mask))
+        call_ms = _time_ms(lambda: wa.window_attention(qkv, bias, mask))
+        plain_ms = graph_ms(lambda: wa.window_attention_plain(qkv, bias,
+                                                              mask),
+                            calls=5, replays=3)
         # SDPA over (B, nW, heads, N, d) views with a (nW, heads, N, N) mask
         q, k, v = (x.transpose(1, 2).unflatten(0, (TRAIN_BATCH, wins))
                    for x in qkv.unbind(2))
         comb = bias[None] if mask is None else bias[None] + mask[:, None]
         comb = comb.to(torch.bfloat16)
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=comb))
         nbytes = wa.min_bytes(bw, n, heads, d, 2, nw)
         flops = wa.flops(bw, n, heads, d)
@@ -1034,7 +1049,8 @@ def _time_window_kernel(wa, dev, g, err, launches) -> dict:
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
         bound = max(bytes_ms, ops_ms)
         log(f"timing window_attn_fwd stage {stage} BW={bw} N={n} "
-            f"heads={heads} d={d} nW={nw} bf16: kernel {ms:.4f} ms, plain "
+            f"heads={heads} d={d} nW={nw} bf16: kernel {ms:.4f} ms (graph "
+            f"replay; eager calls {call_ms:.4f}), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
             f"GFLOP; {nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} "

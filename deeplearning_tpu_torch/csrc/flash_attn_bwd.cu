@@ -32,10 +32,17 @@
 //     key columns >= N, and the dK/dV kernel masks query columns >= N
 //     (P = 0 there, and no LSE or delta row past N is ever read; Q and dO
 //     rows past N arrive as zeros from the copy engine).
-//   - The grid is (B*H / HPC, row blocks), the head groups on grid.x so no
-//     batch overflows it (hopper::grid_tile). D is 16, 32, 64 or 128; the
-//     Python wrapper zero-pads any other D <= 128 (exact: zero columns add
-//     nothing to Q K^T, dO V^T or rowsum(dO o O)).
+//   - The grid is (B*H / HPC, row blocks x column blocks), the head groups
+//     on grid.x so no batch overflows it (hopper::grid_tile). D is 16, 32,
+//     64, 128 or 256; the Python wrapper zero-pads any other D <= 256
+//     (exact: zero columns add nothing to Q K^T, dO V^T or rowsum(dO o O)).
+//   - D = 256 is split by output columns, as in the forward: each CTA
+//     recomputes S and dP over all 256 columns but accumulates only 128
+//     columns of dQ (of dK and dV), so its accumulators keep the D = 128
+//     registers; it reads its half of K (of dO and Q) in place, as a
+//     Tile<128> two panels into the D = 256 tile. To fit 227 kB, dQ keeps
+//     one Q/dO slot (not two) and dK/dV one K/V slot. Column block 0
+//     writes delta.
 //   - bf16, both kernels built for Hopper alike (helpers in hopper.cuh):
 //       * 160 threads: one consumer warpgroup that owns the CTA's 64 rows
 //         (warp w rows 16w..16w+15: query rows in dQ, key rows in dK/dV)
@@ -68,9 +75,9 @@
 //       * Swizzle (128/64/32-byte), tiles on 1024-byte boundaries, tensor
 //         maps and heads_per_cta (heads walked in sequence by one CTA, not
 //         more threads) as in the forward. ptxas reports no spills.
-//   - float32: scalar FMA; a group of 4 (D <= 64) or 8 (D = 128) threads
-//     shares one row and splits the head dimension, reducing each dot product
-//     with shuffles.
+//   - float32: scalar FMA; a group of 4 (D <= 64), 8 (D = 128) or 16
+//     (D = 256) threads shares one row and splits the head dimension,
+//     reducing each dot product with shuffles.
 //
 // Bound at the ViT-B/16 training shape (B = 128, H = 12, N = 197, D = 64,
 // bf16): one (B*H*N*D) bf16 tensor is 38.73 MB, LSE or delta 1.21 MB.
@@ -119,12 +126,6 @@ struct Params {
   int causal;
 };
 
-// Barrier over one head's threads only (ids 1..HPC; 0 is __syncthreads):
-// the float32 kernels' heads share no shared memory.
-__device__ __forceinline__ void head_barrier(int head, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(head + 1), "r"(nthreads) : "memory");
-}
-
 // offset of (batch, head) = divmod(bh, H) in an operand with strides st
 __device__ __forceinline__ long long head_offset(const Params& p, int bh,
                                                  const Strides& st) {
@@ -146,15 +147,15 @@ struct BwdMaps {  // TMA tensor maps of the q, k, v, dO and (dQ) O views
 };
 
 template <int D>
-struct DqCfg {
+struct DqCfg : hopper::ColSplit<D> {
   using T = hopper::Tile<D>;
   static constexpr int kBlock = 64;      // query rows; keys a K/V tile
   static constexpr int kStages = 2;      // K/V ring depth
-  static constexpr int kQSlots = 2;      // this head's Q/dO, the next's
+  static constexpr int kQSlots = D > 128 ? 1 : 2;  // this head's Q/dO (, the next's)
   static constexpr int kThreads = 160;   // consumer warpgroup + producer warp
   // CTAs an SM the registers must allow: 2 at D <= 64 (ptxas takes 146, no
   // spill; held to 3 CTAs' 128 it spilled, and ran no faster), 1 at
-  // D = 128 (shared memory allows 3 and 1: 73 and 145 kB a CTA)
+  // D >= 128 (shared memory allows 3, 1 and 1: 73, 145 and 225 kB a CTA)
   static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
   // Q and dO in each slot, one O tile, K and V in each stage
   static constexpr size_t kTileBytes =
@@ -193,7 +194,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
     bwd_dq_bf16_wgmma(const __grid_constant__ BwdMaps maps, const Params p) {
   using Cfg = DqCfg<D>;
   using T = hopper::Tile<D>;
+  using TO = typename Cfg::TO;
   constexpr int BM = Cfg::kBlock, NS = Cfg::kStages, NQ = Cfg::kQSlots;
+  constexpr int DO = Cfg::kCols;
   extern __shared__ __align__(128) unsigned char smem_tma[];
   const uint32_t raw = hopper::smem_addr(smem_tma);
   unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
@@ -225,7 +228,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
   }
   __syncthreads();
 
-  const hopper::GridTile cta = hopper::grid_tile();
+  const hopper::GridTile cta = hopper::grid_tile(Cfg::kColBlocks);
   const int q_block = cta.row * BM;
   // causal: keys past the block's last row never contribute
   const int n_kv = p.causal ? min(p.N, q_block + BM) : p.N;
@@ -292,7 +295,7 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
       dlt[1] = tile_row_dot<D>(dw, o_s, r_b, t);
       hopper::mbar_arrive(o_empty);
       orr.advance(1);
-      if (t == 0) {
+      if (t == 0 && cta.col == 0) {
         if (row_a < p.N) delta[row_a] = dlt[0];
         if (row_b < p.N) delta[row_b] = dlt[1];
       }
@@ -301,9 +304,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
       dlt[1] = row_b < p.N ? delta[row_b] : 0.f;
     }
 
-    float dq[D / 2];
+    float dq[DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < DO / 2; ++i) dq[i] = 0.f;
 
     for (int tile = 0; tile < n_tiles; ++tile) {
       const int kv0 = tile * BM;
@@ -341,12 +344,13 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
           s[i] = pr * (dp[i] - dlt[e >> 1]) * p.scale;
         }
 
-      // dQ += dS K: dS from registers, K through the transpose mode
+      // dQ += dS K: dS from registers, K (the CTA's columns) through the
+      // transpose mode
       uint32_t da[4][4];
       hopper::pack_a(s, da);
       hopper::fence_regs(dq);
       hopper::wgmma_fence();
-      hopper::wgmma_xb<D>(dq, da, k_tile);
+      hopper::wgmma_xb<DO>(dq, da, k_tile + cta.col * TO::kBytes);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(dq);
@@ -356,9 +360,10 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
     }
     qr.advance(NQ);
 
-    OutT* dqg = static_cast<OutT*>(p.dq) + head_offset(p, bh, p.dq_st);
+    OutT* dqg = static_cast<OutT*>(p.dq) + head_offset(p, bh, p.dq_st) +
+                cta.col * DO;
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
+    for (int db = 0; db < DO / 8; ++db) {
       const int col = db * 8 + 2 * t;
       if (row_a < p.N)
         store2(dqg + (long long)row_a * p.dq_st.n + col, dq[4 * db], dq[4 * db + 1]);
@@ -369,11 +374,11 @@ __global__ void __launch_bounds__(DqCfg<D>::kThreads, DqCfg<D>::kMinBlocks)
 }
 
 template <int D>
-struct DkvCfg {
+struct DkvCfg : hopper::ColSplit<D> {
   using T = hopper::Tile<D>;
   static constexpr int kBlock = 64;                 // key rows; queries a tile
   static constexpr int kStages = 2;                 // Q/dO/LSE/delta ring depth
-  static constexpr int kKvSlots = 2;                // this head's K/V, the next's
+  static constexpr int kKvSlots = D > 128 ? 1 : 2;  // this head's K/V (, the next's)
   static constexpr int kThreads = 160;              // consumer warpgroup + producer warp
   static constexpr size_t kTileBytes =
       size_t(2 * kKvSlots + 2 * kStages) * T::kBytes;
@@ -387,7 +392,9 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
     bwd_dkv_bf16_wgmma(const __grid_constant__ BwdMaps maps, const Params p) {
   using Cfg = DkvCfg<D>;
   using T = hopper::Tile<D>;
+  using TO = typename Cfg::TO;
   constexpr int BN = Cfg::kBlock, NS = Cfg::kStages, NK = Cfg::kKvSlots;
+  constexpr int DO = Cfg::kCols;
   extern __shared__ __align__(128) unsigned char smem_tma[];
   const uint32_t raw = hopper::smem_addr(smem_tma);
   unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
@@ -416,7 +423,7 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
   }
   __syncthreads();
 
-  const hopper::GridTile cta = hopper::grid_tile();
+  const hopper::GridTile cta = hopper::grid_tile(Cfg::kColBlocks);
   const int k_block = cta.row * BN;
   // causal: query tiles before the block's first key never see it
   const int q_start = p.causal ? k_block : 0;
@@ -473,9 +480,9 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
     const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
     const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
 
-    float dk[D / 2], dv[D / 2];
+    float dk[DO / 2], dv[DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
 
     for (int q0 = q_start; q0 < p.N; q0 += BN) {
       hopper::mbar_wait(&rg_full[rr.slot], rr.phase);
@@ -515,16 +522,16 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
           dp[i] = pr * (dp[i] - dw[cl]) * p.scale;
         }
 
-      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q through
-      // the transpose mode
+      // dV += P^T dO and dK += dS^T Q: A from registers, dO and Q (the
+      // CTA's columns) through the transpose mode
       uint32_t pa[4][4], da[4][4];
       hopper::pack_a(s, pa);
       hopper::pack_a(dp, da);
       hopper::fence_regs(dv);
       hopper::fence_regs(dk);
       hopper::wgmma_fence();
-      hopper::wgmma_xb<D>(dv, pa, do_tile);
-      hopper::wgmma_xb<D>(dk, da, q_tile);
+      hopper::wgmma_xb<DO>(dv, pa, do_tile + cta.col * TO::kBytes);
+      hopper::wgmma_xb<DO>(dk, da, q_tile + cta.col * TO::kBytes);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(dv);
@@ -537,10 +544,12 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
     hopper::mbar_arrive(&kv_empty[kr.slot]);
     kr.advance(NK);
 
-    OutT* dkg = static_cast<OutT*>(p.dk) + head_offset(p, bh, p.dk_st);
-    OutT* dvg = static_cast<OutT*>(p.dv) + head_offset(p, bh, p.dv_st);
+    OutT* dkg = static_cast<OutT*>(p.dk) + head_offset(p, bh, p.dk_st) +
+                cta.col * DO;
+    OutT* dvg = static_cast<OutT*>(p.dv) + head_offset(p, bh, p.dv_st) +
+                cta.col * DO;
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
+    for (int db = 0; db < DO / 8; ++db) {
       const int col = db * 8 + 2 * t;
       if (key_a < p.N) {
         store2(dkg + (long long)key_a * p.dk_st.n + col, dk[4 * db], dk[4 * db + 1]);
@@ -558,11 +567,11 @@ __global__ void __launch_bounds__(DkvCfg<D>::kThreads)
 
 template <int D, int HPC>
 struct SimtCfg {
-  static constexpr int kTPR = D <= 64 ? 4 : 8;  // threads sharing one row
+  static constexpr int kTPR = D <= 64 ? 4 : D <= 128 ? 8 : 16;  // threads sharing one row
   static constexpr int kPer = D / kTPR;         // head dims per thread
   static constexpr int kHeadThreads = 128;
   static constexpr int kRows = kHeadThreads / kTPR;  // rows a head owns
-  static constexpr int kTile = 32;  // rows of the other operand per tile
+  static constexpr int kTile = D <= 128 ? 32 : 16;  // rows of the other operand per tile
   static constexpr int kThreads = kHeadThreads * HPC;
   static constexpr size_t kSmem = size_t(HPC) * 2 * kTile * D * sizeof(float);
 };
@@ -629,12 +638,12 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   const float* vw = v_s + hh * T * D;
 
   for (int kv0 = 0; kv0 < n_kv; kv0 += T) {
-    head_barrier(hh, Cfg::kHeadThreads);
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
     load_rows_f32<D>(k_s + hh * T * D, kg, p.k_st.n, kv0, T, p.N, htid,
                      Cfg::kHeadThreads);
     load_rows_f32<D>(v_s + hh * T * D, vg, p.v_st.n, kv0, T, p.N, htid,
                      Cfg::kHeadThreads);
-    head_barrier(hh, Cfg::kHeadThreads);
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
 #pragma unroll 4
     for (int j = 0; j < T; ++j) {
       float s = 0.f, dp = 0.f;
@@ -704,7 +713,7 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
 
   const int q_start = p.causal ? (k_block / T) * T : 0;
   for (int q0 = q_start; q0 < p.N; q0 += T) {
-    head_barrier(hh, Cfg::kHeadThreads);
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
     load_rows_f32<D>(q_s + hh * T * D, qg, p.q_st.n, q0, T, p.N, htid,
                      Cfg::kHeadThreads);
     load_rows_f32<D>(do_s + hh * T * D, dog, p.do_st.n, q0, T, p.N, htid,
@@ -714,7 +723,7 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
       lse_s[hh * T + i] = qin ? lse[q0 + i] * kLog2e : 0.f;
       dl_s[hh * T + i] = qin ? delta[q0 + i] : 0.f;
     }
-    head_barrier(hh, Cfg::kHeadThreads);
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
 #pragma unroll 4
     for (int j = 0; j < T; ++j) {
       float s = 0.f, dp = 0.f;
@@ -787,7 +796,8 @@ cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   err = hopper::allow_smem<bwd_dq_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
+  const dim3 grid(p.B * p.H / HPC,
+                  (p.N + C::kBlock - 1) / C::kBlock * C::kColBlocks);
   bwd_dq_bf16_wgmma<D, HPC, OutT><<<grid, C::kThreads, C::kSmem, s>>>(maps, p);
   return cudaGetLastError();
 }
@@ -811,7 +821,8 @@ cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   err = hopper::allow_smem<bwd_dkv_bf16_wgmma<D, HPC, OutT>>(C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
+  const dim3 grid(p.B * p.H / HPC,
+                  (p.N + C::kBlock - 1) / C::kBlock * C::kColBlocks);
   bwd_dkv_bf16_wgmma<D, HPC, OutT><<<grid, C::kThreads, C::kSmem, s>>>(maps, p);
   return cudaGetLastError();
 }
@@ -836,6 +847,7 @@ cudaError_t run_hpc(const Params& p, int d, int which, int bf16_in,
     case 32: return which ? run_dkv<32, HPC>(p, bf16_in, bf16_out, s) : run_dq<32, HPC>(p, bf16_in, bf16_out, s);
     case 64: return which ? run_dkv<64, HPC>(p, bf16_in, bf16_out, s) : run_dq<64, HPC>(p, bf16_in, bf16_out, s);
     case 128: return which ? run_dkv<128, HPC>(p, bf16_in, bf16_out, s) : run_dq<128, HPC>(p, bf16_in, bf16_out, s);
+    case 256: return which ? run_dkv<256, HPC>(p, bf16_in, bf16_out, s) : run_dq<256, HPC>(p, bf16_in, bf16_out, s);
     default: return cudaErrorInvalidValue;
   }
 }

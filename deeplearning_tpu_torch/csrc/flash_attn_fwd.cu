@@ -20,9 +20,16 @@
 //     batch overflows the grid (hopper::grid_tile); a loop inside the CTA
 //     walks the K/V tiles and the ragged edge (rows or keys >= N) is
 //     masked in the kernel, so no padded copy of q/k/v is ever made. D is
-//     16, 32, 64 or 128 here; the Python wrapper zero-pads any other
-//     D <= 128 up to the next of them (exact: zero columns add nothing to
+//     16, 32, 64, 128 or 256 here; the Python wrapper zero-pads any other
+//     D <= 256 up to the next of them (exact: zero columns add nothing to
 //     Q K^T, and the padded output columns are dropped).
+//   - D = 256 is split by output columns: a CTA computes S = Q K^T over all
+//     256 columns (its wgmma k-loop walks the four panels) but loads and
+//     owns only 128 columns of V and O, so its O accumulator has the
+//     D = 128 registers; the grid gains a column coordinate
+//     (hopper::grid_tile), and the two CTAs of a row block each recompute
+//     S, the price of keeping one warpgroup's registers. The CTA of
+//     column block 0 writes the LSE.
 //   - The running max m, the running sum l and the O accumulator stay in
 //     float32 registers for the whole loop; only O and LSE are written.
 //   - bf16 (fwd_bf16_wgmma), built for Hopper (helpers in hopper.cuh):
@@ -96,14 +103,6 @@ struct Params {
   int causal;
 };
 
-// Barrier over one head's threads only (ids 1..HPC; 0 is __syncthreads):
-// the heads of a CTA share no shared memory, so each group loads its own
-// tiles and runs at its own pace, and one head's loads overlap another's
-// products instead of the whole CTA stalling on every tile.
-__device__ __forceinline__ void head_barrier(int head, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(head + 1), "r"(nthreads) : "memory");
-}
-
 __device__ __forceinline__ long long head_offset(const Params& p, int bh,
                                                  long long sb, long long sh) {
   return (long long)(bh / p.H) * sb + (long long)(bh % p.H) * sh;
@@ -116,17 +115,19 @@ struct FwdMaps {  // TMA tensor maps of the q, k and v views
 };
 
 template <int D>
-struct WgmmaCfg {
+struct WgmmaCfg : hopper::ColSplit<D> {              // V and O: the CTA's columns
   using T = hopper::Tile<D>;
+  using TV = typename hopper::ColSplit<D>::TO;
   static constexpr int kBlock = 64;                 // query rows, keys a tile
   static constexpr int kStages = 2;                 // K/V ring depth
   static constexpr int kQSlots = 2;                 // this head's Q, the next's
   static constexpr int kThreads = 160;              // consumer warpgroup + producer warp
   // CTAs an SM the registers must allow: 4 at D <= 64 (<= 102 a thread;
-  // shared memory allows 4 too), 2 at D = 128
-  static constexpr int kMinBlocks = D <= 64 ? 4 : 2;
+  // shared memory allows 4 too), 2 at D = 128, 1 at D = 256 (161 kB of
+  // shared memory a CTA)
+  static constexpr int kMinBlocks = D <= 64 ? 4 : D <= 128 ? 2 : 1;
   static constexpr size_t kTileBytes =
-      size_t(kQSlots + 2 * kStages) * T::kBytes;
+      size_t(kQSlots + kStages) * T::kBytes + size_t(kStages) * TV::kBytes;
   static constexpr size_t kSmem =
       1024 + kTileBytes + 2 * (kQSlots + kStages) * sizeof(uint64_t);
 };
@@ -136,13 +137,15 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
     fwd_bf16_wgmma(const __grid_constant__ FwdMaps maps, const Params p) {
   using Cfg = WgmmaCfg<D>;
   using T = hopper::Tile<D>;
+  using TV = typename Cfg::TV;
   constexpr int BM = Cfg::kBlock, NS = Cfg::kStages, NQ = Cfg::kQSlots;
+  constexpr int DO = Cfg::kCols;
   extern __shared__ __align__(128) unsigned char smem_tma[];
   const uint32_t raw = hopper::smem_addr(smem_tma);
   unsigned char* base = smem_tma + ((1024 - (raw & 1023)) & 1023);
   unsigned char* q_s = base;                         // NQ tiles
   unsigned char* k_s = q_s + NQ * T::kBytes;         // NS tiles
-  unsigned char* v_s = k_s + NS * T::kBytes;         // NS tiles
+  unsigned char* v_s = k_s + NS * T::kBytes;         // NS tiles of DO columns
   uint64_t* q_full = reinterpret_cast<uint64_t*>(base + Cfg::kTileBytes);
   uint64_t* q_empty = q_full + NQ;
   uint64_t* kv_full = q_empty + NQ;
@@ -162,8 +165,9 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
   }
   __syncthreads();
 
-  const hopper::GridTile cta = hopper::grid_tile();
+  const hopper::GridTile cta = hopper::grid_tile(Cfg::kColBlocks);
   const int q_block = cta.row * BM;
+  const int col0 = cta.col * DO;  // the CTA's first V and O column
   // causal: keys past the block's last row never contribute
   const int n_kv = p.causal ? min(p.N, q_block + BM) : p.N;
   const int n_tiles = (n_kv + BM - 1) / BM;
@@ -183,11 +187,11 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
         qr.advance(NQ);
         for (int tile = 0; tile < n_tiles; ++tile) {
           hopper::mbar_wait(&kv_empty[kr.slot], kr.phase ^ 1);
-          hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], 2 * T::kBytes);
+          hopper::mbar_arrive_expect_tx(&kv_full[kr.slot], T::kBytes + TV::kBytes);
           hopper::tma_load_tile<D>(k_s + kr.slot * T::kBytes, &maps.k,
                                    &kv_full[kr.slot], tile * BM, h, b);
-          hopper::tma_load_tile<D>(v_s + kr.slot * T::kBytes, &maps.v,
-                                   &kv_full[kr.slot], tile * BM, h, b);
+          hopper::tma_load_tile<DO>(v_s + kr.slot * TV::kBytes, &maps.v,
+                                    &kv_full[kr.slot], tile * BM, h, b, col0);
           kr.advance(NS);
         }
       }
@@ -204,16 +208,16 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
     hopper::mbar_wait(&q_full[qr.slot], qr.phase);
     const uint32_t q_tile = hopper::smem_addr(q_s + qr.slot * T::kBytes);
 
-    float o[D / 2];
+    float o[DO / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
     float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
     for (int tile = 0; tile < n_tiles; ++tile) {
       const int kv0 = tile * BM;
       hopper::mbar_wait(&kv_full[kr.slot], kr.phase);
       const uint32_t k_tile = hopper::smem_addr(k_s + kr.slot * T::kBytes);
-      const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * T::kBytes);
+      const uint32_t v_tile = hopper::smem_addr(v_s + kr.slot * TV::kBytes);
 
       // S = Q K^T (64 x 64), both operands from shared memory
       float s[32];
@@ -261,14 +265,14 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
         l_r[r] = l_r[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DO / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
       // O += P V: P from registers, V through the transpose mode
       uint32_t pa[4][4];
       hopper::pack_a(s, pa);
       hopper::fence_regs(o);
       hopper::wgmma_fence();
-      hopper::wgmma_xb<D>(o, pa, v_tile);
+      hopper::wgmma_xb<DO>(o, pa, v_tile);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(o);
@@ -279,7 +283,7 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
     qr.advance(NQ);
 
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
-                        head_offset(p, bh, p.o_sb, p.o_sh);
+                        head_offset(p, bh, p.o_sb, p.o_sh) + col0;
     float l_safe[2], inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -287,7 +291,7 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
       inv[r] = 1.f / l_safe[r];
     }
 #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
+    for (int db = 0; db < DO / 8; ++db) {
       const int col = db * 8 + 2 * t;
       if (row_a < p.N)
         *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_a * p.o_sn + col) =
@@ -296,7 +300,7 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
         *reinterpret_cast<__nv_bfloat162*>(og + (long long)row_b * p.o_sn + col) =
             __floats2bfloat162_rn(o[4 * db + 2] * inv[1], o[4 * db + 3] * inv[1]);
     }
-    if (t == 0) {
+    if (t == 0 && cta.col == 0) {
       float* lse = p.lse + (long long)bh * p.N;
       if (row_a < p.N) lse[row_a] = (m_r[0] + log2f(l_safe[0])) * kLn2;
       if (row_b < p.N) lse[row_b] = (m_r[1] + log2f(l_safe[1])) * kLn2;
@@ -308,8 +312,8 @@ __global__ void __launch_bounds__(WgmmaCfg<D>::kThreads, WgmmaCfg<D>::kMinBlocks
 
 template <int D, int HPC>
 struct SimtCfg {
-  static constexpr int kTPR = 4;      // threads sharing one query row
-  static constexpr int kBlockM = 32;  // query rows per head
+  static constexpr int kTPR = D <= 128 ? 4 : 8;       // threads sharing one query row
+  static constexpr int kBlockM = 128 / kTPR;          // query rows per head
   static constexpr int kBlockN = 2048 / D < 64 ? 2048 / D : 64;
   static constexpr int kPer = D / kTPR;  // head dims per thread
   static constexpr int kHeadThreads = kBlockM * kTPR;
@@ -373,12 +377,15 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int kv0 = tile * BN;
-    head_barrier(hh, Cfg::kHeadThreads);
+    // a barrier over this head's threads only (ids 1..HPC; 0 is
+    // __syncthreads): the heads share no shared memory, so each group
+    // runs at its own pace and one head's loads overlap another's products
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
     load_rows_f32<D>(k_s + hh * BN * D, kg, p.k_sn, kv0, BN, p.N, htid,
                      Cfg::kHeadThreads);
     load_rows_f32<D>(v_s + hh * BN * D, vg, p.v_sn, kv0, BN, p.N, htid,
                      Cfg::kHeadThreads);
-    head_barrier(hh, Cfg::kHeadThreads);
+    hopper::named_barrier(hh + 1, Cfg::kHeadThreads);
 
     float s[BN];
     float mx = m;
@@ -387,8 +394,8 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
       float x = 0.f;
 #pragma unroll
       for (int i = 0; i < PER; ++i) x = fmaf(q[i], kw[j * D + part + TPR * i], x);
-      x += __shfl_xor_sync(0xffffffffu, x, 1);
-      x += __shfl_xor_sync(0xffffffffu, x, 2);
+#pragma unroll
+      for (int sh = 1; sh < TPR; sh <<= 1) x += __shfl_xor_sync(0xffffffffu, x, sh);
       const int col = kv0 + j;
       const bool keep = col < p.N && (!p.causal || col <= row);
       s[j] = keep ? x * p.scale_log2 : kNegInf;
@@ -454,7 +461,8 @@ cudaError_t run(const Params& p, int bf16, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     err = hopper::allow_smem<fwd_bf16_wgmma<D, HPC>>(C::kSmem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(p.B * p.H / HPC, (p.N + C::kBlock - 1) / C::kBlock);
+    const dim3 grid(p.B * p.H / HPC,
+                    (p.N + C::kBlock - 1) / C::kBlock * C::kColBlocks);
     fwd_bf16_wgmma<D, HPC><<<grid, C::kThreads, C::kSmem, stream>>>(maps, p);
     return cudaGetLastError();
   }
@@ -470,6 +478,7 @@ cudaError_t run_d(const Params& p, int d, int bf16, cudaStream_t stream) {
     case 32: return run<32, HPC>(p, bf16, stream);
     case 64: return run<64, HPC>(p, bf16, stream);
     case 128: return run<128, HPC>(p, bf16, stream);
+    case 256: return run<256, HPC>(p, bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }

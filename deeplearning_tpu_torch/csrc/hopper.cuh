@@ -1,14 +1,18 @@
-// Hopper building blocks shared by the flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): mbarriers, TMA tile loads through
-// a tensor map, the wgmma shared-memory descriptor, the wgmma products
-// those kernels issue, and their grid's coordinates; and, for every
-// kernel, the host call that lets it use more than 48 kB of dynamic shared
-// memory. sm_90a only (wgmma does not exist on plain sm_90).
+// Hopper building blocks shared by the attention kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, window_attn_fwd.cu): mbarriers, TMA tile loads and
+// stores through a tensor map, the wgmma shared-memory descriptor, the
+// wgmma products those kernels issue, and their grid's coordinates; and,
+// for every kernel, the host call that lets it use more than 48 kB of
+// dynamic shared memory. sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Tiles. Every bf16 operand tile is 64 rows of a (rows, D) head slice, as
 // one TMA load per panel lands it in shared memory: D is cut into panels
 // of min(D, 64) columns, and each panel is 64 rows of 32, 64 or 128 bytes
-// stored with the TMA swizzle of that span (32B, 64B or 128B). The wgmma
+// stored with the TMA swizzle of that span (32B, 64B or 128B). A tile of
+// D = 256 is four 64-column panels, and its columns 128c .. 128c + 127
+// (panels 2c, 2c + 1) are laid out exactly as a whole D = 128 tile: a
+// kernel that owns only those output columns reads them as Tile<128> at
+// byte offset 2c * kPanelBytes. The wgmma
 // descriptors below name the same swizzle, so the tensor cores read the
 // tile exactly as the copy engine wrote it:
 //   K-major (the reduction runs along D: Q and K in S = Q K^T, K and Q in
@@ -49,6 +53,16 @@ struct Tile {
   // descriptor layout code: 1 = 128B swizzle, 2 = 64B, 3 = 32B
   static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static_assert(kBytes % 1024 == 0, "tiles keep 1024-byte alignment");
+};
+
+// The output columns a flash-attention CTA owns: all of D, or 128 of
+// D = 256 (kColBlocks CTAs a row block), read as a Tile<128> at byte
+// offset col * TO::kBytes of a D = 256 tile.
+template <int D>
+struct ColSplit {
+  static constexpr int kCols = D > 128 ? 128 : D;
+  static constexpr int kColBlocks = D / kCols;
+  using TO = Tile<kCols>;
 };
 
 // ---------------------------------------------------------------- mbarrier
@@ -124,16 +138,52 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// a whole 64-row tile of D columns: one box per panel
+// a whole 64-row tile of D columns, columns col0 .. col0 + D - 1 of the
+// map's rows: one box per panel
 template <int D>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int row, int head,
-                                              int batch) {
+                                              int batch, int col0 = 0) {
   using T = Tile<D>;
 #pragma unroll
   for (int pn = 0; pn < T::kPanels; ++pn)
     tma_load_4d(static_cast<char*>(dst) + pn * T::kPanelBytes, map, bar,
-                pn * T::kPanelCols, row, head, batch);
+                col0 + pn * T::kPanelCols, row, head, batch);
+}
+
+// one box of a rank-4 map from shared memory at src to device memory; rows
+// past the map's N are not written. Completes in the issuing thread's bulk
+// group: commit it with bulk_commit, and wait with bulk_wait_read before src
+// is written again (or the CTA exits).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int col, int row,
+                                             int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed stores still read shared
+// memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's plain shared-memory writes visible to the copy engine
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier over `nthreads` threads on named barrier `id` (0 is __syncthreads)
+__device__ __forceinline__ void named_barrier(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -313,21 +363,25 @@ __device__ __forceinline__ void wgmma_xb(float (&o)[D / 2], const uint32_t (&a)[
 }
 
 // ------------------------------------------------------------------ grid
-// The flash-attention grids are (B * H / heads_per_cta, row blocks): the
-// head groups go on grid.x, whose limit is 2^31 - 1, so no batch size can
-// overflow it (grid.y stops at 65535). The CTA's coordinates are taken
-// from its linear index with the row block counted fastest, the order a
-// (row blocks, head groups) grid would run in: the row blocks of one head
-// run together and share that head's K/V (or Q/dO) tiles through L2.
+// The flash-attention grids are (B * H / heads_per_cta, row blocks *
+// column blocks): the head groups go on grid.x, whose limit is 2^31 - 1,
+// so no batch size can overflow it (grid.y stops at 65535). The CTA's
+// coordinates are taken from its linear index with the column block
+// counted fastest, then the row block, the order a (column blocks, row
+// blocks, head groups) grid would run in: the CTAs of one head run together
+// and share that head's tiles through L2. A column block is the 128
+// output columns a CTA owns at D = 256 (n_col = 2); below that n_col is 1.
 struct GridTile {
   int row;    // row block: query rows (or keys) 64 * row ...
   int group;  // head group: heads group * heads_per_cta ...
+  int col;    // column block: output columns 128 * col ...
 };
 
-__device__ __forceinline__ GridTile grid_tile() {
+__device__ __forceinline__ GridTile grid_tile(int n_col = 1) {
   const unsigned long long linear =
       (unsigned long long)blockIdx.y * gridDim.x + blockIdx.x;
-  return {int(linear % gridDim.y), int(linear / gridDim.y)};
+  const int rc = int(linear % gridDim.y);
+  return {rc / n_col, int(linear / gridDim.y), rc % n_col};
 }
 
 // ------------------------------------------------------------ host: launch
@@ -392,12 +446,14 @@ inline EncodeTiledFn encode_tiled() {
 // The tensor map of a bf16 (B, H, N, D) view with element strides
 // (sb, sh, sn) and a contiguous last dim, cut in 64-row boxes of one panel
 // (min(D, 64) columns) with the panel's swizzle. Rows past N read as 0.
+// swizzled = false: boxes of all D columns (D <= 256), stored row after row
+// with no swizzle, the layout of an output staged for tma_store_4d.
 inline cudaError_t encode_bhnd(CUtensorMap* map, const void* base, int B, int H,
                                int N, int D, long long sb, long long sh,
-                               long long sn) {
+                               long long sn, bool swizzled = true) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int panel = D < 64 ? D : 64;
+  const int panel = !swizzled ? D : D < 64 ? D : 64;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(N), cuuint64_t(H),
                               cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(sn) * 2, cuuint64_t(sh) * 2,
@@ -405,9 +461,10 @@ inline cudaError_t encode_bhnd(CUtensorMap* map, const void* base, int B, int H,
   const cuuint32_t box[4] = {cuuint32_t(panel), 64u, 1u, 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   const CUtensorMapSwizzle swizzle =
-      panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : panel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_32B;
+      !swizzled ? CU_TENSOR_MAP_SWIZZLE_NONE
+      : panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : panel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult rc =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

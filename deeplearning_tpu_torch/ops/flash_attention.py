@@ -24,10 +24,12 @@ plain PyTorch versions, ``flash_attention_reference`` and
 other.
 
 The kernels are instantiated for D in ``HEAD_DIMS``; any other D up to
-128 (ViT-H/14's 80) is zero-padded to the next of them on the card, with
-``sm_scale`` taken from the true D, and the outputs and gradients are
-sliced back. The pad is exact: zero columns add nothing to Q Kᵀ, dO Vᵀ or
-rowsum(dO · O). D above 128 raises.
+256 (ViT-H/14's 80, or 160) is zero-padded to the next of them on the
+card, with ``sm_scale`` taken from the true D, and the outputs and
+gradients are sliced back. The pad is exact: zero columns add nothing to
+Q Kᵀ, dO Vᵀ or rowsum(dO · O). At D = 256 each kernel splits its output
+columns over two CTAs (each recomputes the scores), so its registers stay
+those of D = 128. D above 256 raises.
 
 ``block_q`` / ``block_k`` are accepted so calls written against the JAX
 entry points run unchanged; they set the TPU kernel's tiling and do not
@@ -42,6 +44,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .kernels import kernel_head_dim
+
 __all__ = ["flash_attention", "flash_attention_hb", "flash_attention_with_lse",
            "flash_attention_bnhd", "flash_attention_reference",
            "flash_attention_bwd_reference", "flash_chunk_grads",
@@ -51,7 +55,7 @@ __all__ = ["flash_attention", "flash_attention_hb", "flash_attention_with_lse",
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 HEADS_PER_CTA = (1, 2, 4)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -214,13 +218,8 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_head_dim(d: int) -> int:
-    """The instantiated head dim a D runs at: the smallest of
-    ``HEAD_DIMS`` that holds it. Raises above 128."""
-    for dk in HEAD_DIMS:
-        if d <= dk:
-            return dk
-    raise ValueError(f"the flash-attention kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {d}")
+    """The instantiated head dim a D runs at. Raises above 256."""
+    return kernel_head_dim(d, HEAD_DIMS, "flash_attn")
 
 
 def _pad_head_dim(xs, d: int) -> tuple:

@@ -11,11 +11,20 @@ accumulation: the TPU kernel's numerics (which scale after the product,
 where the unfused reference scales q before it).
 
 The kernel is ``csrc/window_attn_fwd.cu``, built with nvcc at first use.
-It reads q, k and v straight from the strided qkv view (no transposes or
-padded copies), masks keys ≥ N in place, adds bias and mask inside the
-kernel and writes the (BW, N, heads·d) layout the output projection
-consumes. ``windows_per_block`` is the number of windows one CTA takes
-(of one head); the result does not depend on it.
+It reads q, k and v straight from the strided qkv view through TMA (no
+transposes or padded copies), masks keys ≥ N in place, adds bias and mask
+inside the kernel and writes the (BW, N, heads·d) layout the output
+projection consumes. A CTA owns one head and one window position
+j = w mod nW (nW = 1 unmasked) and forms that pair's additive term once;
+``windows_per_block`` is the number of images it takes, window
+w = img·nW + j of each. The result does not depend on it.
+
+Any N runs (64-row query and key tiles; above 64, two passes over the key
+tiles, so P is still normalised before its cast). The kernel is
+instantiated for d in ``HEAD_DIMS``; any other d up to 128 is zero-padded
+to the next of them on the card, with the scale of the true d (exact: zero
+columns add nothing to QKᵀ, and the padded output columns are dropped).
+d above 128 raises.
 
 Dispatch is by where the tensors lie, nothing else: a CUDA tensor
 launches the kernel or raises (a card below sm_90, a build failure, a
@@ -39,15 +48,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .kernels import kernel_head_dim
 from .window_utils import windowed_attention_reference
 
 __all__ = ["window_attention", "window_attention_checkpointed",
            "window_attention_plain", "launch_counts", "reset_launch_counts",
-           "flops", "min_bytes", "KERNEL_NAME", "HEAD_DIMS", "MAX_TOKENS"]
+           "flops", "min_bytes", "KERNEL_NAME", "HEAD_DIMS"]
 
 KERNEL_NAME = "window_attn_fwd"
-HEAD_DIMS = (16, 32, 64)
-MAX_TOKENS = 64                      # a window of at most 8 x 8
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # bumped right after a successful launch, nowhere else: a run proves it
@@ -71,16 +80,18 @@ def reset_launch_counts() -> None:
 
 # ---------------------------------------------------------- plain version
 def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
-                           mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           mask: Optional[torch.Tensor] = None, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """What the kernel computes, in plain PyTorch on any device: the CPU
     path of ``window_attention`` and the yardstick the kernel is held
     against on the card. Products take their operands to float32 (bf16
-    products are exact there), as the kernel's float32 accumulation does."""
+    products are exact there), as the kernel's float32 accumulation does.
+    ``scale`` defaults to d^-½."""
     bw, n, _, heads, d = qkv.shape
+    scale = d ** -0.5 if scale is None else float(scale)
     ct = torch.float64 if qkv.dtype == torch.float64 else torch.float32
     q, k, v = qkv.unbind(2)                               # (BW, N, heads, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
     s = s + bias.to(ct)[None]
     if mask is not None:
         nw = mask.shape[0]
@@ -130,22 +141,41 @@ def _aligned(qkv: torch.Tensor) -> torch.Tensor:
     return qkv
 
 
+def _kernel_head_dim(d: int) -> int:
+    """The instantiated head dim a d runs at. Raises above 128."""
+    return kernel_head_dim(d, HEAD_DIMS, KERNEL_NAME)
+
+
 def _launch(qkv: torch.Tensor, bias: torch.Tensor,
             mask: Optional[torch.Tensor],
             windows_per_block: int) -> torch.Tensor:
-    bw, n, _, heads, d = qkv.shape
-    _check_card(qkv.device)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"window_attn_fwd takes head dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if not 1 <= n <= MAX_TOKENS:
-        raise ValueError(f"window_attn_fwd takes 1 <= N <= {MAX_TOKENS} "
-                         f"tokens a window, got {n}")
+    """Run the kernel on CUDA tensors; qkv's d zero-padded to the next
+    instantiated head dim, with the scale of the true d."""
     if qkv.dtype not in _DTYPE_CODE:
         raise ValueError(f"window_attn_fwd takes float32 or bfloat16, got "
                          f"{qkv.dtype}")
-    if heads > 65535:
-        raise ValueError(f"{heads} heads exceed the grid's 65535 rows")
+    _check_card(qkv.device)
+    wpb = max(int(windows_per_block), 1)
+    return _at_kernel_head_dim(
+        qkv, lambda x, scale: _launch_kernel(x, bias, mask, wpb, scale))
+
+
+def _at_kernel_head_dim(qkv: torch.Tensor, run) -> torch.Tensor:
+    """``run(x, scale)`` on qkv with d zero-padded to the kernel's head dim
+    (x is qkv itself where d is instantiated) and the scale of the true d,
+    never the padded one's; its (BW, N, heads·d_kernel) result sliced back
+    to (BW, N, heads·d)."""
+    bw, n, _, heads, d = qkv.shape
+    d_kernel = _kernel_head_dim(d)
+    if d_kernel == d:
+        return run(qkv, d ** -0.5)
+    out = run(torch.nn.functional.pad(qkv, (0, d_kernel - d)), d ** -0.5)
+    return out.view(bw, n, heads, d_kernel)[..., :d].reshape(bw, n,
+                                                             heads * d)
+
+
+def _launch_kernel(qkv, bias, mask, wpb: int, scale: float) -> torch.Tensor:
+    bw, n, _, heads, d = qkv.shape
     qkv = _aligned(qkv)
     bias = bias.detach().to(torch.float32).contiguous()
     nw = 1
@@ -161,9 +191,9 @@ def _launch(qkv: torch.Tensor, bias: torch.Tensor,
         rc = lib.window_attn_fwd(
             qkv.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            bw, n, heads, d, nw, max(int(windows_per_block), 1),
+            bw, n, heads, d, nw, wpb,
             *qkv.stride()[:4], out.stride(0), out.stride(1),
-            float(d ** -0.5), _DTYPE_CODE[qkv.dtype], stream)
+            float(scale), _DTYPE_CODE[qkv.dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"window_attn_fwd launch failed ({rc}): "

@@ -1,19 +1,27 @@
-"""Window-attention benchmark on the card: the port of
+"""Window-attention (K2) benchmark on the card: the port of
 ``tools/window_bench.py``. Prints JSON lines and writes no file.
 
-    python -m deeplearning_tpu_torch.ops.window_bench            # wpb 8
-    python -m deeplearning_tpu_torch.ops.window_bench --wpb 4
+    python -m deeplearning_tpu_torch.ops.window_bench [--tag new] [--wpb 8]
 
-At the reference's five shapes (Swin-T stages 1-3 at batch 128, Swin-B
-stages 1 and 3 at batch 64; bf16, unmasked, as there) it times the fused
-kernel (``window_attention``), its plain version, the unfused reference
-the model runs with ``use_pallas=False``, and
-``scaled_dot_product_attention`` with the bias as its additive mask (a
-library yardstick the port never calls), beside the kernel's bound
-(H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16, at a 700 W power
-limit). Then it times a Swin-T forward at batch 64 with ``use_pallas``
-off and on. Times are CUDA-event means after a warmup; every line names
-the card. It needs the card: without one it raises.
+It uses only the public functions of ``ops/window_attention.py``
+(``window_attention``, ``window_attention_plain``, ``min_bytes``,
+``flops``), of ``ops/window_utils.py`` and ``ops/flash_bench.graph_ms``,
+so the same file, copied into another checkout's
+``deeplearning_tpu_torch/ops/`` and run there, times that checkout's K2
+design on the same inputs: two designs compare in one call, in turns.
+
+At the reference's shapes (Swin-T's four stages at batch 128, Swin-B's
+stages 1 and 3 at batch 64; N = 49, d = 32), masked as the models' shifted
+blocks are (nW = 64, 16, 4 in stages 1-3; the last stage unmasked), bf16
+qkv as strided views of one (BW, N, 3C) projection, made on the card from
+``--seed``, it times the kernel, its plain version, the unfused reference
+the model runs with ``use_pallas=False`` and ``scaled_dot_product_attention``
+with the combined additive mask (a library yardstick the port never
+calls), each by CUDA-graph replay (``graph_ms``: device time, no host),
+beside the kernel's bound (H100 SXM data sheet: 3.35 TB/s, 989 TFLOP/s
+bf16, at a 700 W power limit). Every line names the card. It needs the
+card: without one it raises. A whole Swin-T forward, fused and unfused,
+is timed by ``chip_smoke.py`` and ``serve/profile.py``, not here.
 """
 
 from __future__ import annotations
@@ -22,42 +30,27 @@ import argparse
 import json
 import subprocess
 import sys
-from typing import Callable, List, Optional
+from typing import List, Optional
 
-import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from .flash_bench import graph_ms
 
-__all__ = ["main", "SHAPES", "time_ms"]
+__all__ = ["main", "SHAPES"]
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-# (BW, N, heads, d): tools/window_bench.py:39-45
+TOKENS, HEAD_DIM, WINDOW = 49, 32, 7
+# (model and stage, batch, windows an image, heads, shift-mask windows or 0
+# for none): tools/window_bench.py:39-45, with the models' masks
 SHAPES = [
-    (128 * 64, 49, 3, 32),    # Swin-T stage 1, batch 128
-    (128 * 16, 49, 6, 32),    # stage 2
-    (128 * 4, 49, 12, 32),    # stage 3
-    (64 * 64, 49, 4, 32),     # Swin-B stage 1, batch 64
-    (64 * 4, 49, 16, 32),     # Swin-B stage 3
+    ("swin_t.1", 128, 64, 3, 64),
+    ("swin_t.2", 128, 16, 6, 16),
+    ("swin_t.3", 128, 4, 12, 4),
+    ("swin_t.4", 128, 1, 24, 0),
+    ("swin_b.1", 64, 64, 4, 64),
+    ("swin_b.3", 64, 4, 16, 4),
 ]
-
-
-def time_ms(fn: Callable[[], object], iters: int = 50,
-            warmup: int = 5) -> float:
-    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
-    back-to-back calls, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _card() -> dict:
@@ -69,61 +62,71 @@ def _card() -> dict:
             if smi.returncode == 0 and smi.stdout.strip() else None}
 
 
+def stage_inputs(g: torch.Generator, batch: int, wins: int, heads: int,
+                 nw: int):
+    """qkv (BW, N, 3, heads, d) as a view of one bf16 projection, the bias
+    (heads, N, N) and the stage's shift mask (nW, N, N) or None."""
+    from .window_utils import shift_window_mask
+    bw, c = batch * wins, heads * HEAD_DIM
+    qkv = torch.randn(bw, TOKENS, 3 * c, device="cuda", generator=g).to(
+        torch.bfloat16).view(bw, TOKENS, 3, heads, HEAD_DIM)
+    bias = torch.randn(heads, TOKENS, TOKENS, device="cuda", generator=g)
+    mask = None
+    if nw:
+        side = int(round(nw ** 0.5)) * WINDOW
+        mask = torch.from_numpy(shift_window_mask(
+            side, side, WINDOW, WINDOW // 2)).cuda()
+    return qkv, bias, mask
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--wpb", type=int, default=8, help="windows per block")
+    ap.add_argument("--wpb", type=int, default=8,
+                    help="windows_per_block (the kernel's images a CTA)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=64,
-                    help="batch of the Swin-T forward")
+    ap.add_argument("--tag", default="", help="label of this checkout")
     args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("window_bench needs a CUDA card")
 
-    from .. import hub
     from . import window_attention as wa
     from .window_utils import windowed_attention_reference
 
-    dev = resolve_device(None)
     card = _card()
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    for bw, n, heads, d in SHAPES:
-        qkv = torch.randn(bw, n, 3 * heads * d, device=dev, generator=g).to(
-            torch.bfloat16).view(bw, n, 3, heads, d)
-        bias = torch.randn(heads, n, n, device=dev, generator=g)
-        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
-        add = bias.to(torch.bfloat16)[None]
-        nbytes = wa.min_bytes(bw, n, heads, d, 2)
-        flops = wa.flops(bw, n, heads, d)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    for stage, batch, wins, heads, nw in SHAPES:
+        qkv, bias, mask = stage_inputs(g, batch, wins, heads, nw)
+        bw = qkv.shape[0]
+        q, k, v = (x.transpose(1, 2).unflatten(0, (batch, wins))
+                   for x in qkv.unbind(2))
+        comb = (bias[None] if mask is None
+                else bias[None] + mask[:, None]).to(torch.bfloat16)
+        out = wa.window_attention(qkv, bias, mask, windows_per_block=args.wpb)
+        ref = wa.window_attention_plain(qkv, bias, mask)
+        err = (out.float() - ref.float()).abs().max().item()
+        nbytes = wa.min_bytes(bw, TOKENS, heads, HEAD_DIM, 2, nw)
+        flops = wa.flops(bw, TOKENS, heads, HEAD_DIM)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        kernel_ms = graph_ms(lambda: wa.window_attention(
+            qkv, bias, mask, windows_per_block=args.wpb))
         rec = {
-            "shape": [bw, n, heads, d], "wpb": args.wpb,
-            "kernel_ms": time_ms(lambda: wa.window_attention(
-                qkv, bias, windows_per_block=args.wpb)),
-            "plain_ms": time_ms(lambda: wa.window_attention_plain(qkv, bias),
-                                iters=10),
-            "reference_ms": time_ms(
-                lambda: windowed_attention_reference(qkv, bias, None),
-                iters=10),
-            "sdpa_ms": time_ms(lambda: torch.nn.functional
-                               .scaled_dot_product_attention(
-                                   q, k, v, attn_mask=add)),
-            "bound_ms": bound,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / PEAK_BF16_FLOPS else "operations"),
-            **card}
+            "tag": args.tag, "stage": stage,
+            "shape": [bw, TOKENS, heads, HEAD_DIM], "nW": nw,
+            "wpb": args.wpb, "kernel_ms": kernel_ms,
+            "plain_ms": graph_ms(lambda: wa.window_attention_plain(
+                qkv, bias, mask), calls=5, replays=3),
+            "reference_ms": graph_ms(lambda: windowed_attention_reference(
+                qkv, bias, mask), calls=5, replays=3),
+            "sdpa_ms": graph_ms(lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    q, k, v, attn_mask=comb)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "x_bound": kernel_ms / max(bytes_ms, ops_ms),
+            "max_abs_err_vs_plain": err, **card}
         print(json.dumps(rec), flush=True)
-        del qkv, bias, q, k, v, add
-
-    x = torch.from_numpy(np.random.default_rng(args.seed).normal(
-        size=(args.batch, 224, 224, 3)).astype(np.float32)).to(dev)
-    for use_pallas in (False, True):
-        model, _ = hub.load("swin_tiny_patch4_window7_224", seed=args.seed,
-                            device=dev, use_pallas=use_pallas)
-        with torch.no_grad():
-            ms = time_ms(lambda: model(x), iters=10, warmup=3)
-        print(json.dumps({"model": "swin_tiny_patch4_window7_224",
-                          "use_pallas": use_pallas, "batch": args.batch,
-                          "fwd_ms": ms, "img_per_s": args.batch / ms * 1e3,
-                          **card}), flush=True)
-        del model
+        del qkv, bias, mask, q, k, v, comb, out, ref
     return 0
 
 

@@ -30,7 +30,7 @@ from ..serve.profile import _device_us
 # kind of kernel, by substrings of its name (first match wins)
 KINDS = (("flash attention", ("bwd_dq_", "bwd_dkv_", "fwd_bf16_",
                               "fwd_f32_simt")),
-         ("window attention", ("win_bf16_mma", "win_f32_simt")),
+         ("window attention", ("win_bf16_", "win_f32_simt")),
          ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_")),
          ("optimizer", ("multi_tensor", "foreach")),
          ("softmax", ("softmax",)),

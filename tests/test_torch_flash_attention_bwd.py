@@ -119,34 +119,50 @@ def test_chunk_grads_match_jax(n, d):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_pad_is_exact_with_the_true_scale(causal):
-    """The card runs D = 80 (ViT-H/14) zero-padded to the 128 kernel: the
-    plain version on padded operands, with sm_scale from the true D, equals
-    the unpadded plain version in the output, the LSE and the gradients.
-    The padded D's own default scale would not."""
-    assert [tfa._kernel_head_dim(d) for d in (16, 17, 64, 80, 128)] == [
-        16, 32, 64, 128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa._kernel_head_dim(160)
-    q, k, v, do = (torch.from_numpy(x) for x in
-                   _arrays((2, 2, 19, 80), 4, seed=80 + causal))
-    qp, kp, vp, dop = tfa._pad_head_dim((q, k, v, do), 128)
-    assert qp.shape == (2, 2, 19, 128) and not qp[..., 80:].any()
-    scale = 80 ** -0.5
-    o, lse = tfa.flash_attention_reference(q, k, v, causal=causal)
-    op, lsep = tfa.flash_attention_reference(qp, kp, vp, sm_scale=scale,
-                                             causal=causal)
-    torch.testing.assert_close(op[..., :80], o, atol=1e-6, rtol=1e-6)
-    assert not op[..., 80:].any()
-    torch.testing.assert_close(lsep, lse, atol=1e-6, rtol=1e-6)
-    wrong, _ = tfa.flash_attention_reference(qp, kp, vp, causal=causal)
-    assert (wrong[..., :80] - o).abs().max() > 1e-2
-    want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                             causal=causal)
-    got = tfa.flash_attention_bwd_reference(qp, kp, vp, op, lsep, dop,
-                                            sm_scale=scale, causal=causal)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g[..., :80], w, atol=1e-5, rtol=1e-5)
-        assert not g[..., 80:].any()
+    """The card runs D = 80 (ViT-H/14) zero-padded to the 128 kernel and
+    D = 160 to the 256 one: the plain version on padded operands, with
+    sm_scale from the true D, equals the unpadded plain version in the
+    output, the LSE and the gradients. The padded D's own default scale
+    would not. D above 256 raises, before any card is needed."""
+    assert [tfa._kernel_head_dim(d) for d in (16, 17, 64, 80, 128, 129,
+                                              160, 256)] == [
+        16, 32, 64, 128, 128, 256, 256, 256]
+    with pytest.raises(ValueError, match="up to 256"):
+        tfa._kernel_head_dim(257)
+    for d, d_kernel in ((80, 128), (160, 256)):
+        q, k, v, do = (torch.from_numpy(x) for x in
+                       _arrays((2, 2, 19, d), 4, seed=d + causal))
+        qp, kp, vp, dop = tfa._pad_head_dim((q, k, v, do), d_kernel)
+        assert qp.shape == (2, 2, 19, d_kernel) and not qp[..., d:].any()
+        scale = d ** -0.5
+        o, lse = tfa.flash_attention_reference(q, k, v, causal=causal)
+        op, lsep = tfa.flash_attention_reference(qp, kp, vp, sm_scale=scale,
+                                                 causal=causal)
+        torch.testing.assert_close(op[..., :d], o, atol=1e-6, rtol=1e-6)
+        assert not op[..., d:].any()
+        torch.testing.assert_close(lsep, lse, atol=1e-6, rtol=1e-6)
+        wrong, _ = tfa.flash_attention_reference(qp, kp, vp, causal=causal)
+        assert (wrong[..., :d] - o).abs().max() > 1e-2
+        want = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                 causal=causal)
+        got = tfa.flash_attention_bwd_reference(qp, kp, vp, op, lsep, dop,
+                                                sm_scale=scale,
+                                                causal=causal)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[..., :d], w, atol=1e-5, rtol=1e-5)
+            assert not g[..., d:].any()
+
+
+def test_head_dim_256_matches_jax():
+    """The widest instantiated head dim, forward and gradients, against
+    the JAX kernels (interpret mode) at a small N."""
+    q, k, v, do = _arrays((1, 2, 9, 256), 4, seed=256)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)))
+    got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for g, w in zip(_torch_grads(tfa.flash_attention, q, k, v, do),
+                    _jax_grads(jfa.flash_attention, q, k, v, do)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
 def test_chunk_grads_need_equal_chunks():

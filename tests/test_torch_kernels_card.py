@@ -87,8 +87,8 @@ def test_vit_adapter_reads_strided_qkv_and_raises_on_bad_input(cuda_device):
     assert out.shape == (4, 197, 12, 64)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
-    with pytest.raises(ValueError):          # head dim past the kernels'
-        fa.flash_attention(*(torch.zeros(1, 2, 8, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 256"):  # past the kernels'
+        fa.flash_attention(*(torch.zeros(1, 2, 8, 320, device=cuda_device)
                              for _ in range(3)))
     with pytest.raises(ValueError):          # dtype the kernel lacks
         fa.flash_attention(*(torch.zeros(1, 2, 8, 64, device=cuda_device,
@@ -105,8 +105,25 @@ def test_vit_adapter_reads_strided_qkv_and_raises_on_bad_input(cuda_device):
 def test_flash_attn_fwd_head_dim_80(cuda_device, n, causal, hpc, dtype, tol):
     """ViT-H/14's D = 80 runs zero-padded to the D = 128 kernel, with the
     scale of D = 80, from fused-qkv views into a (B, N, H, D) output."""
+    _check_padded_fwd(cuda_device, 80, n, causal, hpc, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+def test_flash_attn_fwd_head_dim_160(cuda_device, n, causal, hpc, dtype,
+                                     tol):
+    """D = 160 runs zero-padded to the D = 256 kernel (two column CTAs a
+    row block), with the scale of D = 160."""
+    _check_padded_fwd(cuda_device, 160, n, causal, hpc, dtype, tol)
+
+
+def _check_padded_fwd(cuda_device, d, n, causal, hpc, dtype, tol):
     g = torch.Generator(device=cuda_device).manual_seed(n)
-    qkv = torch.randn(2, n, 3, 4, 80, device=cuda_device,
+    qkv = torch.randn(2, n, 3, 4, d, device=cuda_device,
                       generator=g).to(dtype)
     q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
     before = fa.launch_counts()[fa.KERNEL_NAMES[hpc]]
@@ -117,7 +134,7 @@ def test_flash_attn_fwd_head_dim_80(cuda_device, n, causal, hpc, dtype, tol):
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launch_counts()[fa.KERNEL_NAMES[hpc]] == before + 2
-    assert out.shape == (2, n, 4, 80)
+    assert out.shape == (2, n, 4, d)
     torch.testing.assert_close(out.transpose(1, 2).float(), ref.float(),
                                atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
@@ -206,7 +223,22 @@ def test_flash_attn_bwd_head_dim_80(cuda_device, n, causal, hpc, dtype):
     """D = 80 through the D = 128 backward kernels, zero-padded, with the
     scale of D = 80 (bf16: the dQ kernel computes delta from the padded
     O), from fused-qkv views, as test_flash_attn_bwd_matches_plain."""
-    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, 80, dtype,
+    _check_padded_bwd(cuda_device, 80, n, causal, hpc, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+def test_flash_attn_bwd_head_dim_160(cuda_device, n, causal, hpc, dtype):
+    """D = 160 through the D = 256 backward kernels (two column CTAs a
+    row block), zero-padded, with the scale of D = 160."""
+    _check_padded_bwd(cuda_device, 160, n, causal, hpc, dtype)
+
+
+def _check_padded_bwd(cuda_device, d, n, causal, hpc, dtype):
+    q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, d, dtype,
                                       causal, seed=n)
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                             causal=causal)
@@ -353,6 +385,13 @@ WINDOW_CASES = [  # bw, n, heads, d, nW, windows_per_block, diagonal mask
     (36, 49, 3, 32, 6, 4, False),        # nW not a multiple of wb
     (16, 49, 3, 32, 8, 8, True),         # whole rows masked but the diagonal
     (10, 64, 2, 32, 0, 3, False),        # an 8x8 window, ragged last block
+    (64, 49, 2, 128, 4, 8, False),       # d = 128
+    (32, 49, 3, 24, 4, 8, False),        # d = 24, padded to 32
+    (8, 144, 2, 24, 4, 4, False),        # window 12: N = 144, two tiles
+    (8, 144, 2, 128, 4, 3, False),       # N = 144, d = 128
+    (8, 144, 3, 32, 4, 8, True),         # N = 144, rows masked but diagonal
+    (4, 81, 2, 48, 0, 2, False),         # window 9, unmasked, d = 48
+    (320, 49, 3, 32, 64, 3, False),      # nW = 64, 5 images, 3 a CTA
 ]
 
 
@@ -398,12 +437,61 @@ def test_window_attn_raises_on_what_the_kernel_does_not_take(cuda_device):
         qkv = torch.zeros(4, n, 3, 2, d, device=cuda_device, dtype=dtype)
         return wa.window_attention(qkv, torch.zeros(2, n, n,
                                                     device=cuda_device))
-    with pytest.raises(ValueError, match="head dim"):
-        call(d=48)
-    with pytest.raises(ValueError, match="N <="):
-        call(n=81)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        call(d=160)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         call(dtype=torch.float16)
+    assert call(n=81, d=48).shape == (4, 81, 96)   # any N, a padded d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_window_attn_reads_strided_qkv_slices(cuda_device, dtype, tol):
+    """qkv as a slice of a wider projection (rows 3C + 32 apart) and every
+    second window of it; the result does not depend on windows_per_block
+    (bitwise)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    bw, n, heads, d = 64, 49, 3, 32
+    proj = torch.randn(2 * bw, n, 3 * heads * d + 32, device=cuda_device,
+                       generator=g).to(dtype)
+    qkv = proj[::2, :, :3 * heads * d].unflatten(-1, (3, heads, d))
+    assert not qkv.is_contiguous()
+    bias = torch.randn(heads, n, n, device=cuda_device, generator=g)
+    mask = torch.from_numpy(wu.shift_window_mask(28, 28, 7, 3)).to(
+        cuda_device)
+    ref = wa.window_attention_plain(qkv, bias, mask)
+    outs = [wa.window_attention(qkv, bias, mask, windows_per_block=wpb)
+            for wpb in (1, 3, 16)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0].float(), ref.float(), atol=tol,
+                               rtol=tol)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.cuda
+def test_window_attn_launches_from_a_fresh_thread(cuda_device):
+    """K2's first launch from a thread that has run no CUDA work yet still
+    encodes its tensor maps (as test_k1_launches_from_a_fresh_thread)."""
+    import threading
+    qkv, bias, mask = _window_inputs(cuda_device, 128, 49, 3, 32,
+                                     torch.bfloat16, 4, seed=6)
+    ref = wa.window_attention_plain(qkv, bias, mask)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(wa.window_attention(qkv, bias, mask))
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(str(exc))
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors, errors
+    torch.testing.assert_close(got[0].float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 # ----------------------------------------------------- blocked NMS (K3)

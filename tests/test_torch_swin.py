@@ -258,5 +258,8 @@ def test_profile_sorts_the_window_kernel_by_kind():
     from deeplearning_tpu_torch.train.profile import kind_of
     assert kind_of("void (anonymous namespace)::win_bf16_mma<32, 4>"
                    "((anonymous namespace)::Params)") == "window attention"
+    assert kind_of("void (anonymous namespace)::win_bf16_wgmma<32, true>"
+                   "((anonymous namespace)::WinMaps, (anonymous namespace)"
+                   "::Params)") == "window attention"
     assert kind_of("void (anonymous namespace)::fwd_bf16_mma<64, 4>"
                    "((anonymous namespace)::Params)") == "flash attention"

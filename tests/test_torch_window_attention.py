@@ -96,6 +96,7 @@ def test_unfused_reference_matches_jax(mask):
     (12, 49, 3, 32, (14, 21, 7, 3), 4),    # nW = 6 not a multiple of wb
     (8, 9, 4, 16, (6, 6, 3, 1), 8),        # N = 9
     (6, 16, 2, 64, None, 2),               # N = 16, d = 64
+    (8, 144, 2, 24, (24, 24, 12, 6), 4),   # window 12 (N = 144), d = 24
 ])
 def test_plain_version_matches_jax_fused_kernel(bw, n, heads, d, mask, wb):
     qkv, bias, m = _inputs(bw, n, heads, d, mask, seed=bw + n)
@@ -147,6 +148,35 @@ def test_checkpointed_gradients_match_jax():
                                    rtol=5e-5)
 
 
+@pytest.mark.parametrize("d,d_kernel", [(24, 32), (48, 64), (80, 128)])
+def test_head_dim_pad_is_exact_with_the_true_scale(d, d_kernel):
+    """The card runs a d the kernel lacks zero-padded to the next one it
+    has: the wrapper's pad-and-slice around the plain version, with the
+    true d's scale, equals the plain version on the unpadded qkv. The
+    padded d's own default scale would not. d above 128 raises, before
+    any card is needed."""
+    assert [twa._kernel_head_dim(x) for x in (1, 16, 17, 33, 64, 65, 128)] \
+        == [16, 16, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        twa._kernel_head_dim(129)
+    qkv, bias, m = (_t(x) for x in _inputs(bw=8, heads=2, d=d, seed=d))
+    seen = []
+
+    def run(x, scale):
+        seen.append((x.shape[-1], scale))
+        assert not x[..., d:].any()
+        return twa.window_attention_plain(x, bias, m, scale=scale)
+
+    got = twa._at_kernel_head_dim(qkv, run)
+    assert seen == [(d_kernel, d ** -0.5)] and got.shape == (8, 49, 2 * d)
+    want = twa.window_attention_plain(qkv, bias, m)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    padded = torch.nn.functional.pad(qkv, (0, d_kernel - d))
+    wrong = twa.window_attention_plain(padded, bias, m)
+    assert (wrong.view(8, 49, 2, d_kernel)[..., :d].reshape(8, 49, 2 * d)
+            - want).abs().max() > 1e-3
+
+
 def test_bad_arguments_raise():
     qkv, bias, m = (_t(x) for x in _inputs(bw=8))
     with pytest.raises(ValueError, match="bias"):
@@ -157,6 +187,20 @@ def test_bad_arguments_raise():
         twa.window_attention(qkv[:, :, :2], bias, m)
     with pytest.raises(TypeError):
         twa.window_attention_checkpointed(qkv, bias, m, block=4)
+
+
+def test_nvcc_builds_the_window_source():
+    """K2 is one source of a wgmma kernel fed by TMA (the hopper.cuh
+    helpers) and a float32 SIMT kernel; no mma.sync design is left."""
+    from deeplearning_tpu_torch.ops.kernels import build
+    src = build.CSRC_DIR / "window_attn_fwd.cu"
+    assert src in build.sources()
+    text = src.read_text()
+    assert "_attn_kernel" in text      # the TPU kernel it replaces
+    assert '#include "hopper.cuh"' in text
+    assert "win_bf16_wgmma" in text and "win_f32_simt" in text
+    assert "mma.sync" not in text and "win_bf16_mma" not in text
+    assert build.library_path(src).name.startswith("libwindow_attn_fwd-")
 
 
 def test_bound_of_swin_t_stage_1_at_batch_128():
