@@ -13,9 +13,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    float32 1e-4), a Swin-window shape (N=49, D=32), a causal case, N=1,
    D=16, D=128, ViT-H/14's D=80 (N=257, run zero-padded to the D=128
    kernel; plain and causal), D=256 (N=257: two column blocks a row
-   block) and D=160 (N=65, causal, zero-padded to D=256), and B*H =
+   block) and D=160 (N=65, causal, zero-padded to D=256), B*H =
    262 144 (N=17, D=16: 65 536 head groups at four heads per CTA, past the
-   65 535 of a grid's y);
+   65 535 of a grid's y), and past the tensor-core kernels, on the wide
+   SIMT kernel: D=320 (N=65), D=300 (N=257, causal, zero-padded to 320)
+   and D=512 (N=129);
 3. serve ViT-B/16 at full width (224², 12 layers, 768 wide, 1000
    classes, weights from ``--seed``) through ``InferenceEngine`` (buckets
    1/8/32) and ``MicroBatcher``: 64 requests from 8 submitting threads
@@ -43,7 +45,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    four heads per CTA) against their plain version on the card: dQ, dK
    and dV at the training shape (B=128, H=12, N=197, D=64), N=49/D=32,
    causal, N=1, D=16, D=128, D=80 (N=257, plain and causal), D=256
-   (N=257) and D=160 (N=65, causal), bf16 (where the dQ kernel computes
+   (N=257), D=160 (N=65, causal), and the wide SIMT kernels' D=320
+   (N=65), D=300 (N=257, causal) and D=512 (N=129), bf16 (where the dQ
+   kernel computes
    delta from O) and float32, q/k/v as strided
    fused-qkv slices (bf16: norm-relative error 1e-2 with an RMS floor of
    1e-4; float32: max abs 1e-4), and ``flash_chunk_grads`` (float32
@@ -74,8 +78,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    unmasked), N = 9 and 16, d = 16, 64 and 128, d = 24 (zero-padded to
    32), N = 144 (window 12: two 64-row tiles, two passes over the keys) at
    d = 24 and d = 128, nW not a multiple of ``windows_per_block``, a
-   number of images that is not a multiple of it (nW = 64), and a mask of
-   whole rows of -1e9 but the diagonal;
+   number of images that is not a multiple of it (nW = 64), a mask of
+   whole rows of -1e9 but the diagonal, and past the tensor-core kernel,
+   on the wide SIMT kernel: d = 160 and 256 at N = 49 and N = 144; then
+   the wide kernels' device times (graph replay, bf16): K1 forward and
+   backward at B=8, H=12, N=197, D=320, and K2 at Swin-T stage 1's
+   windows of batch 8 with d = 160, beside the plain versions and bounds;
 9. serve Swin-T at full width (224², patch 4, depths 2/2/6/2, heads
    3/6/12/24, embed 96, 1000 classes, weights from ``--seed``) through
    ``InferenceEngine`` (buckets 1/8/32) and ``MicroBatcher`` with the fused
@@ -127,7 +135,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    its worst case (1 x 20 000 boxes that overlap nowhere, max_out 20 000)
    against the plain version, its bound (greedy's own need) and
    ``torchvision.ops.batched_nms`` where torchvision imports (a yardstick
-   only; torch has no NMS call).
+   only; torch has no NMS call);
+15. hold K3 against its plain version and the greedy oracle, exactly, at
+   the candidate sets of the other detectors: 32 x 25 200 class-aware (80
+   classes at 640², YOLOv5-S's candidates), Faster R-CNN's RPN (8 x 4 507,
+   IoU 0.7, 256 kept, score floor -1e8) and its box stage (8 x 5 120, 20
+   classes, a tenth of the rows padded with -inf);
+16. serve at full width and depth, weights a flax tree drawn from
+   ``--seed`` with nonzero scales, carried in by the converter, and
+   BatchNorm statistics calibrated on seeded images: Faster R-CNN R50-FPN at 800² (20 classes plus background,
+   ``post_nms_top_n`` 256, score 0.05, buckets 1/8; two K3 launches a
+   batch, proposals and detections), RetinaNet R50-FPN and FCOS R50-FPN
+   at 512² (20 classes) and YOLOv5-S at 640² (80 classes), each of those
+   at bucket 8 and score 0, one K3 launch a batch. Each through
+   ``MicroBatcher``: 16 requests from 8 threads, the K3 counter zeroed just
+   before and read just after; every answer ``max_det`` (100) rows with
+   class -1 exactly on the invalid ones and equal to ``engine.infer`` of
+   the same image at the bucket it was served in; on one batch of the
+   largest bucket, the proposals and detections through K3 equal those
+   through the plain blocked sweep on one forward;
+17. measure: each detector's per-bucket served latency, K3 and plain
+   engines in turns, and K3 at each candidate set one batch of it served
+   (recorded from the NMS calls: the kernel by graph replay, the whole
+   call, the plain sweep and call) beside its bound.
+
+The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
+14); its launches are the sum over the five served detection paths
+(phases 13 and 16), each counted from zero just before its run.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -176,6 +210,16 @@ WIN_TOKENS, WIN_HEAD_DIM = 49, 32
 YOLOX, YOLOX_SIZE, YOLOX_CLASSES = "yolox_s", 640, 80
 YOLOX_ANCHORS = 80 * 80 + 40 * 40 + 20 * 20          # 8 400 candidates
 YOLOX_MAX_DET, YOLOX_NMS_TH = 100, 0.65
+# the rest of detection, served at full width and depth: (registry name,
+# image size, buckets, K3 launches a batch). Classes and score threshold are
+# serve/profile.detector_defaults': Faster R-CNN keeps its default 0.05, the
+# one-stage heads serve at 0, as YOLOX-S does, so every candidate reaches K3.
+DETECTORS = [("fasterrcnn_resnet50_fpn", 800, (1, 8), 2),
+             ("retinanet_resnet50_fpn", 512, (8,), 1),
+             ("fcos_resnet50_fpn", 512, (8,), 1),
+             ("yolov5s", 640, (8,), 1)]
+DET_MAX = 100
+DET_REQUESTS = 16
 # (iou_thresh, score_thresh, max_out): tests/test_blocked_nms.py's regimes
 NMS_CONFIGS = [(0.5, float("-inf"), 64), (0.3, 0.25, 32), (0.7, 0.5, 16),
                (0.45, 0.05, 100)]
@@ -237,7 +281,8 @@ def main() -> int:
              (2, 8, 300, 128, False), (2, 4, 17, 16, True),
              (4, 16, 257, 80, False), (2, 16, 257, 80, True),
              (2, 4, 257, 256, False), (2, 4, 65, 160, True),
-             (16384, 16, 17, 16, False)]
+             (16384, 16, 17, 16, False), (2, 4, 65, 320, False),
+             (2, 4, 257, 300, True), (1, 4, 129, 512, False)]
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for b, h, n, d, causal in cases:
             # the serve path's layout: strided slices of one fused qkv
@@ -384,6 +429,8 @@ def main() -> int:
     from deeplearning_tpu_torch.ops import window_attention as wa
     win_err = _check_window_kernel(wa, dev, g)
 
+    _time_wide_kernels(fa, wa, dev, g)
+
     # ------------------------------------------ 9. serve Swin-T (fused)
     phase(9, started)
     win_launches, swin_engines = _serve_swin(wa, dev, args.seed)
@@ -416,7 +463,31 @@ def main() -> int:
     kernels += _time_nms(nms_ops, dev, g, served, nms_err, nms_launches)
     del served
     torch.cuda.empty_cache()
-    log(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f}s")
+
+    # ----------------- 15. K3 vs plain at the other detectors' shapes
+    phase(15, started)
+    kernels[-1]["max_abs_err"] += _check_nms_detection_shapes(nms_ops, dev,
+                                                              g)
+
+    # ------------- 16. serve Faster R-CNN, RetinaNet, FCOS, YOLOv5-s
+    phase(16, started)
+    detectors = {}
+    for spec in DETECTORS:
+        launched, detectors[spec[0]] = _serve_detector(nms_ops, dev,
+                                                       args.seed, *spec)
+        # the kernels line counts K3 over every served detection path
+        kernels[-1]["launches"] += launched["nms_greedy_sweep"]
+
+    # ------------------------------------------------------ 17. measure
+    phase(17, started)
+    for name, size, *_ in DETECTORS:
+        _bucket_latency(detectors[name].pop("engines"), ("blocked", "auto"),
+                        name, size=size)
+        torch.cuda.empty_cache()
+    _time_detection_nms(nms_ops, detectors)
+    del detectors
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -464,16 +535,26 @@ def _serve_vit_huge(fa, dev, seed) -> None:
     from deeplearning_tpu_torch import hub
     from deeplearning_tpu_torch.ops.attention import get_attn_fn
     from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    import copy
     engines = {}
-    for attn in ("flash_hb", "naive"):
-        t0 = time.perf_counter()
-        model, _ = hub.load(HUGE, num_classes=1000, seed=seed, device=dev,
-                            attn_fn=get_attn_fn(attn))
-        engines[attn] = InferenceEngine(HUGE, model=model, batch_buckets=(1,),
+    t0 = time.perf_counter()
+    model, _ = hub.load(HUGE, num_classes=1000, seed=seed, device=dev,
+                        attn_fn=get_attn_fn("flash_hb"))
+    # the naive engine serves a copy of the same weights with its attention
+    # swapped (building a second 632M-parameter model from the seed on the
+    # host would take ~9 s more); that it launches no K1 is checked below
+    naive = copy.deepcopy(model)
+    for m in naive.modules():
+        if hasattr(m, "attn_fn"):
+            m.attn_fn = get_attn_fn("naive")
+    for attn, mdl in (("flash_hb", model), ("naive", naive)):
+        engines[attn] = InferenceEngine(HUGE, model=mdl, batch_buckets=(1,),
                                         device=dev)
         log(f"engine {HUGE} {attn}: built and warmed in "
             f"{time.perf_counter() - t0:.2f}s; "
             f"{json.dumps(engines[attn].stats())}")
+        t0 = time.perf_counter()
+    del model, naive
     images = np.random.default_rng(seed + 3).normal(
         size=(4, 224, 224, 3)).astype(np.float32)
     engine, name = engines["flash_hb"], fa.KERNEL_NAMES[4]
@@ -497,7 +578,12 @@ def _serve_vit_huge(fa, dev, seed) -> None:
           "answers are finite (n, 1000) probabilities")
     single = np.concatenate([engine.infer(img) for img in images])
     _compare(served, single, f"{HUGE}: served vs engine.infer")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
     naive = np.concatenate([engines["naive"].infer(img) for img in images])
+    torch.cuda.synchronize()
+    check(not any(fa.launch_counts().values()),
+          f"{HUGE}: the naive engine launches no K1 kernel")
     _compare(single, naive, f"{HUGE}: flash_hb engine vs naive engine")
     del engines, engine
     torch.cuda.empty_cache()
@@ -538,7 +624,8 @@ BWD_CASES = [(TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM, False),
              (8, 12, 1, 64, False), (2, 4, 17, 16, True),
              (2, 8, 300, 128, False), (4, 16, 257, 80, False),
              (2, 16, 257, 80, True), (2, 4, 257, 256, False),
-             (2, 4, 65, 160, True)]
+             (2, 4, 65, 160, True), (2, 4, 65, 320, False),
+             (2, 4, 257, 300, True), (1, 4, 129, 512, False)]
 
 
 def _bwd_inputs(fa, dev, g, b, h, n, d, dtype, causal):
@@ -851,7 +938,10 @@ WIN_CASES = [  # BW, N, heads, d, nW (0: no mask), windows_per_block, diag
     (64, 49, 2, 128, 4, 8, False), (32, 49, 3, 24, 4, 8, False),
     (8, 144, 2, 24, 4, 4, False),               # window 12, d padded
     (8, 144, 2, 128, 4, 3, False),
-    (320, 49, 3, 32, 64, 3, False)]             # 5 images, 3 a CTA
+    (320, 49, 3, 32, 64, 3, False),             # 5 images, 3 a CTA
+    (32, 49, 3, 160, 4, 8, False),              # d > 128: the wide kernel
+    (16, 49, 2, 256, 4, 3, True), (8, 144, 2, 160, 4, 4, False),
+    (8, 144, 3, 256, 0, 2, False)]
 
 
 def _window_inputs(dev, g, bw, n, heads, d, dtype, nw, diag=False):
@@ -898,6 +988,65 @@ def _check_window_kernel(wa, dev, g) -> float:
             if dtype == torch.bfloat16 and i < len(SWIN_STAGES):
                 err_main = max(err_main, err)
     return err_main
+
+
+def _time_wide_kernels(fa, wa, dev, g) -> None:
+    """Phase 8, last: the wide SIMT kernels' device time (CUDA-graph
+    replay), bf16: K1 at ViT-B/16's 197 tokens and 12 heads with D = 320
+    at batch 8 (forward; dQ and dK/dV), K2 at Swin-T stage 1's windows
+    (batch 8: BW 512, N 49, 3 heads, nW 64) with d = 160 (run at 192).
+    Each beside its plain version, SDPA where it takes the shape (a
+    yardstick), and its bound."""
+    import torch
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    rep = dict(calls=3, replays=3)
+    b, h, n, d = 8, HEADS, TOKENS, 320
+    qkv = torch.randn(b, n, 3, h, d, device=dev, generator=g).to(
+        torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    o, lse = fa.flash_attention_reference(q, k, v)
+    do = torch.randn_like(o)
+    rows = {
+        "forward": (lambda: fa._attention(q, k, v, sm_scale=None,
+                                          causal=False, heads_per_cta=1),
+                    lambda: fa.flash_attention_reference(q, k, v),
+                    fa.min_bytes(b, h, n, d, 2), fa.flops(b, h, n, d)),
+        "dq + dkv": (lambda: fa._attention_bwd(
+            q, k, v, o, lse, do, sm_scale=None, causal=False,
+            heads_per_cta=1),
+            lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do),
+            fa.bwd_min_bytes(b, h, n, d, 2), fa.bwd_flops(b, h, n, d))}
+    for what, (fn, plain, nbytes, flops) in rows.items():
+        ms, plain_ms = graph_ms(fn, **rep), _time_ms(plain, iters=3,
+                                                     warmup=1)
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    flops / PEAK_FLOPS["bfloat16"]) * 1e3
+        log(f"timing wide K1 {what} B={b} H={h} N={n} D={d} bf16: kernel "
+            f"{ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            f"GFLOP; {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+    try:
+        qt, kt, vt = q.contiguous(), k.contiguous(), v.contiguous()
+        sdpa_ms = graph_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(qt, kt, vt), **rep)
+        log(f"timing wide K1 forward: sdpa {sdpa_ms:.4f} ms (a yardstick)")
+    except RuntimeError as exc:
+        log(f"timing wide K1 forward: sdpa does not take D={d} ({exc})")
+    bw, wn, heads, wd, nw = 8 * 64, WIN_TOKENS, 3, 160, 64
+    wqkv, bias, mask = _window_inputs(dev, g, bw, wn, heads, wd,
+                                      torch.bfloat16, nw)
+    ms = graph_ms(lambda: wa.window_attention(wqkv, bias, mask), **rep)
+    plain_ms = _time_ms(lambda: wa.window_attention_plain(wqkv, bias, mask),
+                        iters=3, warmup=1)
+    nbytes = wa.min_bytes(bw, wn, heads, wd, 2, nw)
+    flops = wa.flops(bw, wn, heads, wd)
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    log(f"timing wide K2 BW={bw} N={wn} heads={heads} d={wd} nW={nw} bf16: "
+        f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s achieved)")
+    del qkv, q, k, v, o, lse, do, wqkv
+    torch.cuda.empty_cache()
 
 
 def _serve_swin(wa, dev, seed):
@@ -1423,6 +1572,291 @@ def _time_nms(nms_ops, dev, g, served, err, launches) -> list:
         del out, alive, spill
     torch.cuda.empty_cache()
     return entries
+
+
+def _check_nms_detection_shapes(nms_ops, dev, g) -> int:
+    """Phase 15: K3 against its plain version and the greedy oracle,
+    exactly, at the candidate sets the other detectors serve: YOLOv5-S's
+    25 200 an image (32 images, 80 classes offset at 640², past the 20 000
+    phase 12 holds), Faster R-CNN's RPN (8 x 4 507, class-agnostic, IoU
+    0.7, 256 kept, score floor -1e8) and its box stage (8 x 5 120, 20
+    classes, a tenth of the proposals padded with -inf scores). Returns the
+    mismatching slots (0, or the run has failed)."""
+    import torch
+    from deeplearning_tpu_torch.serve.profile import detector_defaults
+    inf = float("inf")
+    box_score = detector_defaults("fasterrcnn_resnet50_fpn")[1]
+    b, s = _nms_boxes(dev, g, 32, 25_200, span=640.0, wh_max=160.0)
+    cls = torch.randint(0, 80, (32, 25_200), device=dev, generator=g)
+    rpn_b, rpn_s = _nms_boxes(dev, g, 8, 4_507, span=800.0, wh_max=300.0)
+    box_b, box_s = _nms_boxes(dev, g, 8, 5_120, span=800.0, wh_max=300.0)
+    box_s = torch.where(torch.arange(5_120, device=dev) >= 4_608,
+                        torch.full_like(box_s, -inf), box_s * 0.3)
+    box_cls = torch.arange(5_120, device=dev).remainder(20)[None].expand(
+        8, -1)
+    cases = [("YOLOv5-S 32 x 25 200, 80 classes", b, s, cls, 0.45, 0.05,
+              DET_MAX, 1),
+             ("Faster R-CNN RPN 8 x 4 507", rpn_b, rpn_s, None, 0.7, -1e8,
+              256, 2),
+             ("Faster R-CNN boxes 8 x 5 120, 20 classes", box_b, box_s,
+              box_cls, 0.5, box_score, DET_MAX, 2)]
+    total = 0
+    for name, b, s, cls, th, st, mo, k in cases:
+        def call(impl, b=b, s=s, cls=cls):
+            if cls is None:
+                return nms_ops.nms(b, s, th, mo, st, impl=impl)
+            return nms_ops.batched_nms(b, s, cls, th, mo, st, impl=impl)
+        nms_ops.reset_launch_counts()
+        got = call("auto")
+        check(nms_ops.launch_counts()["nms_greedy_sweep"] == 1,
+              "one K3 launch a batch")
+        bad = _keep_mismatches(call("blocked"), got)
+        greedy = call("greedy", b[:k], s[:k], None if cls is None
+                      else cls[:k])
+        bad_greedy = _keep_mismatches(greedy, tuple(x[:k] for x in got))
+        torch.cuda.synchronize()
+        kept = got[1].sum(dim=1)
+        log(f"kernel-vs-plain nms {name}: th={th} score>{st} max_out={mo}: "
+            f"alive {int((s > st).sum())}, kept {int(kept.sum())} (per image "
+            f"{int(kept.min())}-{int(kept.max())}), mismatching slots vs "
+            f"blocked {bad}, vs greedy on {k} images {bad_greedy}")
+        check(bad == 0 and bad_greedy == 0 and int(kept.min()) > 0,
+              f"nms kernel disagrees with the plain version ({name})")
+        total += bad + bad_greedy
+        del got, greedy
+    torch.cuda.empty_cache()
+    return total
+
+
+def _record_nms(nms_ops, fn):
+    """``fn()`` with every ``ops/nms.nms`` call's candidates recorded:
+    (boxes, scores, iou_threshold, max_out, score_threshold) a call, the
+    boxes class-offset where the call was class-aware."""
+    calls, inner = [], nms_ops.nms
+
+    def recording(boxes, scores, iou_threshold, max_out,
+                  score_threshold=float("-inf"), **kw):
+        calls.append((boxes.clone(), scores.clone(), iou_threshold, max_out,
+                      score_threshold))
+        return inner(boxes, scores, iou_threshold, max_out, score_threshold,
+                     **kw)
+    nms_ops.nms = recording
+    try:
+        out = fn()
+    finally:
+        nms_ops.nms = inner
+    return out, calls
+
+
+def _both_impls(name, model, x, size, score):
+    """One batch's detections through K3 and through the plain blocked
+    sweep on ONE forward (Faster R-CNN: its proposals too, then one RoI
+    stage on them); returns (K3's, plain's, candidates alive)."""
+    import torch
+    from deeplearning_tpu_torch.models.detection import (
+        faster_rcnn, fcos, retinanet, yolov5)
+    hw, dev = (size, size), x.device
+    dets = {}
+    with torch.no_grad():
+        out = model(x)
+        if name.startswith("fasterrcnn"):
+            anchors = torch.from_numpy(faster_rcnn.fasterrcnn_anchors(
+                hw)).to(dev)
+            props = {impl: faster_rcnn.generate_proposals(
+                out, anchors, hw, nms_impl=impl) for impl in ("auto",
+                                                              "blocked")}
+            check(all(torch.equal(a, b) for a, b in zip(
+                props["auto"], props["blocked"])),
+                f"{name}: proposals through K3 == through the plain sweep")
+            p, pv = props["auto"]
+            out2 = model(x, proposals=p, pyramid=out["pyramid"])
+            for impl in ("auto", "blocked"):
+                dets[impl] = faster_rcnn.fasterrcnn_postprocess(
+                    out2["roi_scores"], out2["roi_deltas"], p, hw,
+                    prop_valid=pv, score_thresh=score, max_det=DET_MAX,
+                    nms_impl=impl)
+            alive = int((torch.softmax(out2["roi_scores"], -1)[..., 1:]
+                         > score).sum())
+        else:
+            for impl in ("auto", "blocked"):
+                kw = dict(score_thresh=score, max_det=DET_MAX,
+                          nms_impl=impl)
+                if name.startswith("retinanet"):
+                    dets[impl] = retinanet.retinanet_postprocess(
+                        out, torch.from_numpy(retinanet.retinanet_anchors(
+                            hw)).to(dev), hw, **kw)
+                elif name.startswith("fcos"):
+                    dets[impl] = fcos.fcos_postprocess(
+                        out, torch.from_numpy(fcos.fcos_locations(hw)[0]).to(
+                            dev), hw, **kw)
+                else:
+                    grid = {k: torch.from_numpy(v).to(dev) for k, v in
+                            yolov5.yolov5_grid(hw).items()}
+                    dets[impl] = yolov5.yolov5_postprocess(out, grid, **kw)
+            alive = -1
+    torch.cuda.synchronize()
+    return dets["auto"], dets["blocked"], alive
+
+
+def _serve_detector(nms_ops, dev, seed, name, size, buckets, per_batch):
+    """Phase 16: one detector served at full width and depth through the
+    batcher with K3: DET_REQUESTS requests from 8 threads, the K3 counter
+    zeroed just before and read just after (``per_batch`` launches a batch
+    dispatched), every answer ``DET_MAX`` rows with class -1 exactly on the
+    invalid ones and equal to ``engine.infer`` of the same image at the
+    bucket it was served in; on one batch of the largest bucket, the
+    detections through K3 equal those through the plain sweep. Returns
+    K3's launches and what phase 17 measures on."""
+    import torch
+    from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    from deeplearning_tpu_torch.serve.profile import (detector_defaults,
+                                                      seeded_detector)
+    t0 = time.perf_counter()
+    classes, score = detector_defaults(name)
+    # a flax tree drawn from the seed through the converter, with nonzero
+    # scales (a fresh ResNet's zero residual scales would leave its 3x3
+    # convolutions out of every answer), statistics calibrated on seeded
+    # images
+    model = seeded_detector(name, classes, seed, size, dev)
+    engines = {impl: InferenceEngine(
+        name, model=model, num_classes=classes, image_size=size,
+        batch_buckets=buckets, device=dev, score_thresh=score,
+        max_det=DET_MAX, nms_impl=impl) for impl in ("auto", "blocked")}
+    log(f"engine {name} (K3 and plain): built, seeded, calibrated and "
+        f"warmed in {time.perf_counter() - t0:.2f}s; "
+        f"{json.dumps(engines['auto'].stats())}")
+    rng = np.random.default_rng(seed + 5)
+    images = rng.normal(size=(DET_REQUESTS, size, size, 3)).astype(
+        np.float32)
+    engine = engines["auto"]
+    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+        torch.cuda.synchronize()
+        nms_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+
+        def client(part):
+            handles = [mb.submit(img) for img in part]
+            return [h.result(timeout=300.0) for h in handles]
+
+        with ThreadPoolExecutor(8) as pool:
+            rows = [r for part in pool.map(client, np.array_split(images, 8))
+                    for r in part]
+        served_ms = (time.perf_counter() - t0) * 1e3
+        counts = nms_ops.launch_counts()
+        batches = mb.dispatched
+    log(f"served {len(rows)}/{DET_REQUESTS} {name} requests at {size}² "
+        f"through K3 in {served_ms:.1f} ms "
+        f"({DET_REQUESTS / served_ms * 1e3:.1f} img/s): {batches} batches, "
+        f"launches {json.dumps(counts)}")
+    check(len(rows) == DET_REQUESTS, "every answer arrives")
+    check(batches > 0 and counts["nms_greedy_sweep"] == per_batch * batches,
+          f"{name}: K3 launches {per_batch} x batches dispatched")
+    for row in rows:
+        check(row["boxes"].shape == (DET_MAX, 4)
+              and row["valid"].shape == (DET_MAX,)
+              and np.isfinite(row["boxes"]).all()
+              and bool(((row["labels"] == -1) == ~row["valid"]).all())
+              and bool((row["labels"] < classes).all()),
+              f"{name}: max_det rows, class -1 exactly on invalid rows")
+    refs = {}
+    for bucket in engine.buckets:
+        parts = [engine.infer(images[i:i + bucket])
+                 for i in range(0, len(images), bucket)]
+        refs[bucket] = {k: np.concatenate([p[k] for p in parts])
+                        for k in parts[0]}
+    equal_at = []
+    for i, row in enumerate(rows):
+        hit = [b for b, ref in refs.items()
+               if all(np.array_equal(row[k], ref[k][i]) for k in row)]
+        equal_at.append(hit[0] if hit else None)
+    valid = sum(int(r["valid"].sum()) for r in rows)
+    log(f"{name} served vs engine.infer of the same image: equal at bucket "
+        f"{json.dumps({str(b): equal_at.count(b) for b in engine.buckets})}"
+        f", equal at none {equal_at.count(None)}; valid rows {valid}/"
+        f"{DET_REQUESTS * DET_MAX}")
+    check(None not in equal_at, f"{name}: every served answer == "
+                                f"engine.infer")
+    check(valid > 0, f"{name}: some detection passes score {score}")
+
+    top = max(buckets)
+    x = torch.from_numpy(images[:top]).to(dev)
+    k3, plain, alive = _both_impls(name, model, x, size, score)
+    check(all(torch.equal(k3[k], plain[k]) for k in k3),
+          f"{name}: detections through K3 == through the plain sweep")
+    log(f"{name} bucket-{top} batch: K3 == plain sweep (proposals and "
+        f"detections); valid {int(k3['valid'].sum())}"
+        + (f", candidates alive {alive}" if alive >= 0 else ""))
+    _, calls = _record_nms(nms_ops, lambda: engine.run(top, images[:top]))
+    torch.cuda.synchronize()
+    return counts, {"engines": engines, "calls": calls}
+
+
+def _time_detection_nms(nms_ops, detectors) -> None:
+    """Phase 17b: K3 at each served candidate set (recorded from one
+    largest-bucket batch of each detector): the kernel by CUDA-graph
+    replay, the whole call, the plain sweep and call, and the bound."""
+    for name, rec in detectors.items():
+        for i, (boxes, scores, th, mo, st) in enumerate(rec["calls"]):
+            ms, plain, bound, kept, ious = _time_k3(nms_ops, boxes, scores,
+                                                    st, th, mo)
+            bytes_ms, ops_ms = bound
+            b, n = scores.shape
+            log(f"timing nms {name} call {i} B={b} N={n} th={th} "
+                f"max_out={mo} score>{st}: nms_greedy_sweep "
+                f"{ms['kernel']:.4f} ms (graph replay), whole call "
+                f"{ms['call']:.4f} ms; plain sweep {plain['sweep']:.4f} ms, "
+                f"plain call {plain['call']:.4f} ms; bound "
+                f"{max(bytes_ms, ops_ms):.5f} ms ("
+                f"{'bytes' if bytes_ms >= ops_ms else 'operations'}); kept "
+                f"{kept}, greedy IoUs {ious}")
+
+
+def _time_k3(nms_ops, boxes, scores, st, th, mo):
+    """K3 at one candidate set: ({kernel (graph replay), sweep, call} ms,
+    {sweep, call} ms of the plain version, (bytes ms, operations ms) of
+    the bound, kept, greedy's IoUs)."""
+    import torch
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    dev = boxes.device
+    b, n = scores.shape
+    sboxes, alive0, _, _ = nms_ops.sort_pad_candidates(boxes, scores, st,
+                                                       nms_ops.WORD)
+    npad = sboxes.shape[1]
+    live_t = torch.tensor(nms_ops.live_counts(alive0), dtype=torch.int32,
+                          device=dev)
+    out = torch.empty((b, npad), dtype=torch.bool, device=dev)
+    cap = max(0, min(mo, npad) - nms_ops.KEPT_SMEM)
+    spill = torch.empty((b, max(cap, 1), 4), device=dev)
+    th32 = float(torch.tensor(th, dtype=torch.float32))
+    lib, rc = nms_ops._lib(), [0]
+
+    def kernel_call():
+        rc[0] |= lib.nms_greedy_sweep(
+            sboxes.data_ptr(), alive0.data_ptr(), live_t.data_ptr(),
+            spill.data_ptr(), out.data_ptr(), b, npad, cap, mo, th32,
+            torch.cuda.current_stream().cuda_stream)
+    worst = mo >= n
+    reps = dict(calls=2, replays=3) if worst else {}
+    iters = dict(iters=3, warmup=1) if worst else {}
+    ms = {"kernel": graph_ms(kernel_call, **reps),
+          "sweep": _time_ms(lambda: nms_ops.nms_sweep(sboxes, alive0, th,
+                                                      mo), **iters),
+          "call": _time_ms(lambda: nms_ops.nms(boxes, scores, th, mo, st,
+                                               impl="auto"), **iters)}
+    check(rc[0] == 0, "the timed K3 launches succeeded")
+    plain = {"sweep": _time_ms(lambda: nms_ops.nms_sweep_plain(
+                 sboxes, alive0, th, mo, nms_ops.WORD), iters=2, warmup=1),
+             "call": _time_ms(lambda: nms_ops.nms(
+                 boxes, scores, th, mo, st, impl="blocked"), iters=2,
+                 warmup=1)}
+    alive = nms_ops.nms_sweep(sboxes, alive0, th, mo)
+    torch.cuda.synchronize()
+    check(torch.equal(out, alive), "the timed kernel's keeps == the sweep's")
+    ious = nms_ops.greedy_ious(alive, alive0, mo)
+    nbytes = nms_ops.sweep_bytes(alive, alive0, mo)
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3,
+             ious * nms_ops.OPS_PER_IOU / PEAK_FLOPS["float32"] * 1e3)
+    return ms, plain, bound, int(alive.sum()), ious
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

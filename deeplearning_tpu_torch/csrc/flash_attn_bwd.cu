@@ -34,8 +34,10 @@
 //     rows past N arrive as zeros from the copy engine).
 //   - The grid is (B*H / HPC, row blocks x column blocks), the head groups
 //     on grid.x so no batch overflows it (hopper::grid_tile). D is 16, 32,
-//     64, 128 or 256; the Python wrapper zero-pads any other D <= 256
-//     (exact: zero columns add nothing to Q K^T, dO V^T or rowsum(dO o O)).
+//     64, 128 or 256, or a multiple of 64 above 256 (the wide SIMT kernels,
+//     bwd_dq_wide_simt and bwd_dkv_wide_simt, one head a CTA); the Python
+//     wrapper zero-pads any other D (exact: zero columns add nothing to
+//     Q K^T, dO V^T or rowsum(dO o O)).
 //   - D = 256 is split by output columns, as in the forward: each CTA
 //     recomputes S and dP over all 256 columns but accumulates only 128
 //     columns of dQ (of dK and dV), so its accumulators keep the D = 128
@@ -96,6 +98,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wide_attn.cuh"
 
 namespace {
 
@@ -758,6 +761,172 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   }
 }
 
+// ------------------------------------------------- wide path: D above 256
+
+// One CTA a (head, 64 rows, 128 gradient columns), either dtype; see
+// wide_attn.cuh. dQ: the CTA's rows are queries; it sums delta over all D
+// from O when given O (column block 0 writes it), else reads it. dK/dV:
+// the CTA's rows are keys, S^T = K Q^T and dP^T = V dO^T are recomputed
+// per query tile. P and dS are rounded to T before the products, as the
+// wgmma kernels round their A operands.
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(wide::kThreads)
+    bwd_dq_wide_simt(const Params p, int D) {
+  using namespace wide;
+  extern __shared__ __align__(16) float wsm[];
+  float* as = wsm;
+  float* bs = as + kScoreTile;
+  float* ss = bs + kScoreTile;          // dS
+  float* ks = ss + kScoreTile;          // K's rows, the CTA's columns
+  float* lse_s = ks + kColTile;    // LSE * log2 e of the CTA's rows
+  float* dl_s = lse_s + kRows;     // delta of the CTA's rows
+
+  const int n_rb = (p.N + kRows - 1) / kRows;
+  const Share sh = share(n_rb, D);
+  const int bh = int(sh.rest);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qg = static_cast<const T*>(p.q) + head_offset(p, bh, p.q_st);
+  const T* kg = static_cast<const T*>(p.k) + head_offset(p, bh, p.k_st);
+  const T* vg = static_cast<const T*>(p.v) + head_offset(p, bh, p.v_st);
+  const T* dog = static_cast<const T*>(p.dout) + head_offset(p, bh, p.do_st);
+  {  // four threads a row
+    const int r = tid >> 2, row = sh.row0 + r;
+    const bool in = row < p.N;
+    float dlt = 0.f;
+    if (p.o) {
+      const T* orow = static_cast<const T*>(p.o) + head_offset(p, bh, p.o_st) +
+                      (long long)row * p.o_st.n;
+      const T* drow = dog + (long long)row * p.do_st.n;
+      if (in)
+        for (int c = tid & 3; c < D; c += 4) dlt = fmaf(to_f(drow[c]), to_f(orow[c]), dlt);
+      dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
+      dlt += __shfl_xor_sync(0xffffffffu, dlt, 2);
+      if (in && sh.col0 == 0 && (tid & 3) == 0) p.delta[(long long)bh * p.N + row] = dlt;
+    } else if (in) {
+      dlt = p.delta[(long long)bh * p.N + row];
+    }
+    if ((tid & 3) == 0) {
+      dl_s[r] = dlt;
+      lse_s[r] = in ? p.lse[(long long)bh * p.N + row] * kLog2e : 0.f;
+    }
+  }
+  float dq[4][8] = {};
+  const int n_kv = p.causal ? min(p.N, sh.row0 + kRows) : p.N;
+  for (int kv0 = 0; kv0 < n_kv; kv0 += kRows) {
+    float s[4][4] = {}, dp[4][4] = {};
+    dot_tile(s, qg, p.q_st.n, sh.row0, kg, p.k_st.n, kv0, p.N, D, as, bs);
+    dot_tile(dp, dog, p.do_st.n, sh.row0, vg, p.v_st.n, kv0, p.N, D, as, bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, row = sh.row0 + r, col = kv0 + tx + 16 * j;
+        const bool keep = col < p.N && (!p.causal || col <= row);
+        const float pr = keep ? exp2f(s[i][j] * p.scale_log2 - lse_s[r]) : 0.f;
+        ss[r * kLd + tx + 16 * j] = round_to<T>(pr * (dp[i][j] - dl_s[r]) * p.scale);
+      }
+    load_tile(ks, kCols, kg, p.k_st.n, kv0, p.N, sh.col0, sh.width);
+    __syncthreads();
+    pv_tile(dq, ss, ks);
+  }
+  OutT* out = static_cast<OutT*>(p.dq) + head_offset(p, bh, p.dq_st) + sh.col0;
+  store_rows(out, p.dq_st.n, sh.row0, p.N, sh.width, dq, nullptr);
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(wide::kThreads)
+    bwd_dkv_wide_simt(const Params p, int D) {
+  using namespace wide;
+  extern __shared__ __align__(16) float wsm[];
+  float* as = wsm;
+  float* bs = as + kScoreTile;
+  float* ps = bs + kScoreTile;          // P^T: keys as rows
+  float* dss = ps + kScoreTile;         // dS^T
+  float* qs = dss + kScoreTile;         // Q's rows, the CTA's columns
+  float* dos = qs + kColTile;      // dO's rows, the CTA's columns
+  float* lse_s = dos + kColTile;   // the query tile's LSE * log2 e
+  float* dl_s = lse_s + kRows;     // and delta
+
+  const int n_rb = (p.N + kRows - 1) / kRows;
+  const Share sh = share(n_rb, D);
+  const int bh = int(sh.rest);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qg = static_cast<const T*>(p.q) + head_offset(p, bh, p.q_st);
+  const T* kg = static_cast<const T*>(p.k) + head_offset(p, bh, p.k_st);
+  const T* vg = static_cast<const T*>(p.v) + head_offset(p, bh, p.v_st);
+  const T* dog = static_cast<const T*>(p.dout) + head_offset(p, bh, p.do_st);
+  const float* lse = p.lse + (long long)bh * p.N;
+  const float* delta = p.delta + (long long)bh * p.N;
+  float dk[4][8] = {}, dv[4][8] = {};
+  // causal: query tiles from the one of the block's first key (64-aligned)
+  for (int q0 = p.causal ? sh.row0 : 0; q0 < p.N; q0 += kRows) {
+    if (tid < kRows) {  // read after dot_tile's barriers
+      const bool in = q0 + tid < p.N;
+      lse_s[tid] = in ? lse[q0 + tid] * kLog2e : 0.f;
+      dl_s[tid] = in ? delta[q0 + tid] : 0.f;
+    }
+    float st[4][4] = {}, dpt[4][4] = {};
+    dot_tile(st, kg, p.k_st.n, sh.row0, qg, p.q_st.n, q0, p.N, D, as, bs);
+    dot_tile(dpt, vg, p.v_st.n, sh.row0, dog, p.do_st.n, q0, p.N, D, as, bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        const int key = sh.row0 + r, qrow = q0 + c;
+        const bool keep = qrow < p.N && (!p.causal || key <= qrow);
+        const float pr = keep ? exp2f(st[i][j] * p.scale_log2 - lse_s[c]) : 0.f;
+        ps[r * kLd + c] = round_to<T>(pr);
+        dss[r * kLd + c] = round_to<T>(pr * (dpt[i][j] - dl_s[c]) * p.scale);
+      }
+    load_tile(qs, kCols, qg, p.q_st.n, q0, p.N, sh.col0, sh.width);
+    load_tile(dos, kCols, dog, p.do_st.n, q0, p.N, sh.col0, sh.width);
+    __syncthreads();
+    pv_tile(dv, ps, dos);
+    pv_tile(dk, dss, qs);
+    __syncthreads();  // the next tile's statistics overwrite lse_s, dl_s
+  }
+  OutT* dkg = static_cast<OutT*>(p.dk) + head_offset(p, bh, p.dk_st) + sh.col0;
+  OutT* dvg = static_cast<OutT*>(p.dv) + head_offset(p, bh, p.dv_st) + sh.col0;
+  store_rows(dkg, p.dk_st.n, sh.row0, p.N, sh.width, dk, nullptr);
+  store_rows(dvg, p.dv_st.n, sh.row0, p.N, sh.width, dv, nullptr);
+}
+
+constexpr size_t kDqWideSmem =
+    (3 * wide::kScoreTile + wide::kColTile + 2 * wide::kRows) * sizeof(float);
+constexpr size_t kDkvWideSmem =
+    (4 * wide::kScoreTile + 2 * wide::kColTile + 2 * wide::kRows) * sizeof(float);
+
+template <typename T, typename OutT>
+cudaError_t launch_wide(const Params& p, int d, int which, cudaStream_t s) {
+  const long long ctas = wide::grid_ctas((long long)p.B * p.H, p.N, d);
+  if (ctas < 0) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(ctas));
+  cudaError_t err;
+  if (which) {
+    err = hopper::allow_smem<bwd_dkv_wide_simt<T, OutT>>(kDkvWideSmem);
+    if (err != cudaSuccess) return err;
+    bwd_dkv_wide_simt<T, OutT><<<grid, wide::kThreads, kDkvWideSmem, s>>>(p, d);
+  } else {
+    err = hopper::allow_smem<bwd_dq_wide_simt<T, OutT>>(kDqWideSmem);
+    if (err != cudaSuccess) return err;
+    bwd_dq_wide_simt<T, OutT><<<grid, wide::kThreads, kDqWideSmem, s>>>(p, d);
+  }
+  return cudaGetLastError();
+}
+
+// D a multiple of 64 above 256: one head a CTA, either dtype. float32
+// inputs take float32 gradients and read delta, as the SIMT kernels do.
+cudaError_t run_wide(const Params& p, int d, int which, int bf16_in,
+                     int bf16_out, cudaStream_t s) {
+  if (d <= 256 || d % wide::kChunk) return cudaErrorInvalidValue;
+  if (bf16_in)
+    return bf16_out ? launch_wide<bf16, bf16>(p, d, which, s)
+                    : launch_wide<bf16, float>(p, d, which, s);
+  if (bf16_out || (!which && p.o)) return cudaErrorInvalidValue;
+  return launch_wide<float, float>(p, d, which, s);
+}
+
 // ----------------------------------------------------------------- dispatch
 
 template <typename Kernel>
@@ -848,7 +1017,7 @@ cudaError_t run_hpc(const Params& p, int d, int which, int bf16_in,
     case 64: return which ? run_dkv<64, HPC>(p, bf16_in, bf16_out, s) : run_dq<64, HPC>(p, bf16_in, bf16_out, s);
     case 128: return which ? run_dkv<128, HPC>(p, bf16_in, bf16_out, s) : run_dq<128, HPC>(p, bf16_in, bf16_out, s);
     case 256: return which ? run_dkv<256, HPC>(p, bf16_in, bf16_out, s) : run_dq<256, HPC>(p, bf16_in, bf16_out, s);
-    default: return cudaErrorInvalidValue;
+    default: return run_wide(p, d, which, bf16_in, bf16_out, s);
   }
 }
 

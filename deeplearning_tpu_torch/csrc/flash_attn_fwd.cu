@@ -20,9 +20,10 @@
 //     batch overflows the grid (hopper::grid_tile); a loop inside the CTA
 //     walks the K/V tiles and the ragged edge (rows or keys >= N) is
 //     masked in the kernel, so no padded copy of q/k/v is ever made. D is
-//     16, 32, 64, 128 or 256 here; the Python wrapper zero-pads any other
-//     D <= 256 up to the next of them (exact: zero columns add nothing to
-//     Q K^T, and the padded output columns are dropped).
+//     16, 32, 64, 128 or 256 here, or a multiple of 64 above 256 (the wide
+//     SIMT kernel, fwd_wide_simt); the Python wrapper zero-pads any other
+//     D up to the next of them (exact: zero columns add nothing to Q K^T,
+//     and the padded output columns are dropped).
 //   - D = 256 is split by output columns: a CTA computes S = Q K^T over all
 //     256 columns (its wgmma k-loop walks the four panels) but loads and
 //     owns only 128 columns of V and O, so its O accumulator has the
@@ -82,6 +83,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wide_attn.cuh"
 
 namespace {
 
@@ -430,6 +432,111 @@ __global__ void __launch_bounds__(SimtCfg<D, HPC>::kThreads)
   }
 }
 
+// ------------------------------------------------- wide path: D above 256
+
+// One CTA a (head, 64 query rows, 128 output columns), either dtype; see
+// wide_attn.cuh. Online softmax in base 2 as above: the row max m, the sum
+// l and the rescale factor live in shared memory (four threads a row take
+// a score tile's statistics), P is rounded to T before P V, l sums P
+// unrounded, as fwd_bf16_wgmma does. The column block 0 CTA writes LSE.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+    fwd_wide_simt(const Params p, int D) {
+  using namespace wide;
+  extern __shared__ __align__(16) float wsm[];
+  float* as = wsm;
+  float* bs = as + kScoreTile;
+  float* ss = bs + kScoreTile;          // the score tile, then P
+  float* vs = ss + kScoreTile;          // V's rows, the CTA's columns
+  float* m_s = vs + kColTile;
+  float* l_s = m_s + kRows;
+  float* al_s = l_s + kRows;       // the rescale of this tile
+
+  const int n_rb = (p.N + kRows - 1) / kRows;
+  const Share sh = share(n_rb, D);
+  const int bh = int(sh.rest);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const T* qg = static_cast<const T*>(p.q) + head_offset(p, bh, p.q_sb, p.q_sh);
+  const T* kg = static_cast<const T*>(p.k) + head_offset(p, bh, p.k_sb, p.k_sh);
+  const T* vg = static_cast<const T*>(p.v) + head_offset(p, bh, p.v_sb, p.v_sh);
+  if (tid < kRows) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  float o[4][8] = {};
+  const int n_kv = p.causal ? min(p.N, sh.row0 + kRows) : p.N;
+  for (int kv0 = 0; kv0 < n_kv; kv0 += kRows) {
+    float s[4][4] = {};
+    dot_tile(s, qg, p.q_sn, sh.row0, kg, p.k_sn, kv0, p.N, D, as, bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = sh.row0 + ty + 16 * i, col = kv0 + tx + 16 * j;
+        const bool keep = col < p.N && (!p.causal || col <= row);
+        ss[(ty + 16 * i) * kLd + tx + 16 * j] = keep ? s[i][j] * p.scale_log2 : kNegInf;
+      }
+    __syncthreads();
+    {  // four threads a row: 16 scores each
+      const int r = tid >> 2, c0 = (tid & 3) * 16;
+      const float m_old = m_s[r];
+      float mx = m_old;
+      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, ss[r * kLd + c0 + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.f;
+      for (int c = 0; c < 16; ++c) {
+        const float e = exp2f(ss[r * kLd + c0 + c] - mx);
+        sum += e;
+        ss[r * kLd + c0 + c] = round_to<T>(e);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((tid & 3) == 0) {
+        const float alpha = exp2f(m_old - mx);
+        m_s[r] = mx;
+        l_s[r] = l_s[r] * alpha + sum;
+        al_s[r] = alpha;
+      }
+    }
+    load_tile(vs, kCols, vg, p.v_sn, kv0, p.N, sh.col0, sh.width);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i][j] *= al_s[ty + 16 * i];
+    pv_tile(o, ss, vs);
+  }
+  __syncthreads();
+  if (tid < kRows) al_s[tid] = 1.f / fmaxf(l_s[tid], 1e-30f);
+  __syncthreads();
+  T* og = static_cast<T*>(p.o) + head_offset(p, bh, p.o_sb, p.o_sh) + sh.col0;
+  store_rows(og, p.o_sn, sh.row0, p.N, sh.width, o, al_s);
+  if (sh.col0 == 0 && tid < kRows && sh.row0 + tid < p.N)
+    p.lse[(long long)bh * p.N + sh.row0 + tid] =
+        (m_s[tid] + log2f(fmaxf(l_s[tid], 1e-30f))) * kLn2;
+}
+
+constexpr size_t kWideSmem =
+    (3 * wide::kScoreTile + wide::kColTile + 3 * wide::kRows) * sizeof(float);
+
+cudaError_t run_wide(const Params& p, int d, int bf16, cudaStream_t stream) {
+  if (d % wide::kChunk) return cudaErrorInvalidValue;
+  const long long ctas = wide::grid_ctas((long long)p.B * p.H, p.N, d);
+  if (ctas < 0) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(ctas));
+  if (bf16) {
+    cudaError_t err = hopper::allow_smem<fwd_wide_simt<__nv_bfloat16>>(kWideSmem);
+    if (err != cudaSuccess) return err;
+    fwd_wide_simt<__nv_bfloat16><<<grid, wide::kThreads, kWideSmem, stream>>>(p, d);
+  } else {
+    cudaError_t err = hopper::allow_smem<fwd_wide_simt<float>>(kWideSmem);
+    if (err != cudaSuccess) return err;
+    fwd_wide_simt<float><<<grid, wide::kThreads, kWideSmem, stream>>>(p, d);
+  }
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- dispatch
 
 template <typename Kernel>
@@ -479,7 +586,8 @@ cudaError_t run_d(const Params& p, int d, int bf16, cudaStream_t stream) {
     case 64: return run<64, HPC>(p, bf16, stream);
     case 128: return run<128, HPC>(p, bf16, stream);
     case 256: return run<256, HPC>(p, bf16, stream);
-    default: return cudaErrorInvalidValue;
+    default:  // any multiple of 64 above 256, one head a CTA
+      return d > 256 ? run_wide(p, d, bf16, stream) : cudaErrorInvalidValue;
   }
 }
 
@@ -490,7 +598,8 @@ extern "C" {
 // q, k, v, o: (B, H, N, D) with element strides (batch, head, row) and a
 // contiguous last dim; every pointer 16-byte aligned and every stride a
 // multiple of 16 bytes (the Python wrapper checks). lse: (B*H, N) float32.
-// dtype: 0 = float32, 1 = bfloat16. heads_per_cta in {1, 2, 4} divides H.
+// dtype: 0 = float32, 1 = bfloat16. heads_per_cta in {1, 2, 4} divides H
+// (above D = 256 the wide kernel takes one head a CTA whatever it is).
 // Returns cudaGetLastError() after the launch (0 on success).
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int N, int D, long long q_sb,

@@ -12,8 +12,9 @@
 // written as O[w, n, h*d + c] in the input dtype: the (BW, N, heads*d)
 // layout the output projection consumes. The additive term is the same
 // float32 sum bias + mask the TPU code forms ahead of its call (comb, :84).
-// D is 16, 32, 64 or 128 here; the Python wrapper zero-pads any other
-// d <= 128 to the next of them, with the scale of the true d.
+// D is 16, 32, 64 or 128 here, or a multiple of 64 above 128 (the wide
+// SIMT kernel, win_wide_simt); the Python wrapper zero-pads any other d to
+// the next of them, with the scale of the true d.
 //
 // Design against the TPU original:
 //   - The Pallas call padded N = 49 to 56 with -1e9 keys, moved q/k/v to
@@ -77,12 +78,14 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "wide_attn.cuh"
 
 namespace {
 
 constexpr int kTile = 64;          // query rows, keys a tile
 constexpr float kMasked = -1e30f;  // keys past N
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kErrGrid = -1;       // more CTAs than the grid holds
 
 struct Params {
   const void* qkv;    // float32 path: q of window 0, row 0, head 0
@@ -485,6 +488,130 @@ __global__ void __launch_bounds__(SimtCfg<D>::kThreads) win_f32_simt(const Param
   }
 }
 
+// ------------------------------------------------- wide path: d above 128
+
+// One CTA a (head h, window position j, 64 query rows, 128 output columns)
+// walking its images, either dtype; see wide_attn.cuh. Two passes over the
+// 64-key tiles, as win_bf16_wgmma does above 64 tokens: the row max and
+// sum (online), then P normalised and rounded to T before P V, the TPU
+// kernel's rounding. One key tile (N <= 64): the additive tile is formed
+// once in shared memory for all the CTA's windows, and the second pass
+// reuses the first's scores; more tiles read it per score from L2.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+    win_wide_simt(const Params p, int D) {
+  using namespace wide;
+  extern __shared__ __align__(16) float wsm[];
+  float* as = wsm;
+  float* bs = as + kScoreTile;
+  float* ss = bs + kScoreTile;          // scores, then P
+  float* vs = ss + kScoreTile;          // V's rows, the CTA's columns
+  float* add_s = vs + kColTile;    // (bias + mask) * log2 e, one key tile
+  float* m_s = add_s + kScoreTile;
+  float* l_s = m_s + kRows;
+
+  const int n_rb = (p.N + kRows - 1) / kRows;
+  const Share sh = share(n_rb, D);
+  const int h = int(sh.rest % p.H);
+  const long long r = sh.rest / p.H;
+  const int j = int(r % p.nW);
+  const int img0 = int(r / p.nW) * p.wb;
+  const int img1 = min(p.n_img, img0 + p.wb);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int n_tiles = (p.N + kRows - 1) / kRows;
+  const float* bias_h = p.bias + (long long)h * p.N * p.N;
+  const float* mask_j = p.mask ? p.mask + (long long)j * p.N * p.N : nullptr;
+  if (n_tiles == 1)
+    for (int i = tid; i < kRows * kRows; i += kThreads)
+      add_s[(i / kRows) * kLd + i % kRows] =
+          additive(p, bias_h, mask_j, sh.row0 + i / kRows, i % kRows);
+
+  for (int img = img0; img < img1; ++img) {
+    const long long w = (long long)img * p.nW + j;
+    const T* qg = static_cast<const T*>(p.qkv) + w * p.s_w + h * p.s_h;
+    const T* kg = qg + p.s_3;
+    const T* vg = qg + 2 * p.s_3;
+    __syncthreads();  // the last window's reads of m_s, l_s are done
+    if (tid < kRows) {
+      m_s[tid] = kMasked;
+      l_s[tid] = 0.f;
+    }
+    // scores of key tile kv0 into ss: S * d^-1/2 * log2 e + the additive term
+    auto scores = [&](int kv0) {
+      float s[4][4] = {};
+      dot_tile(s, qg, p.s_n, sh.row0, kg, p.s_n, kv0, p.N, D, as, bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int rr = ty + 16 * i, cc = tx + 16 * jj;
+          const float a = n_tiles == 1 ? add_s[rr * kLd + cc]
+                                       : additive(p, bias_h, mask_j, sh.row0 + rr, kv0 + cc);
+          ss[rr * kLd + cc] = s[i][jj] * p.scale_log2 + a;
+        }
+      __syncthreads();
+    };
+    for (int kv0 = 0; kv0 < p.N; kv0 += kRows) {  // pass 1: row max and sum
+      scores(kv0);
+      const int rr = tid >> 2, c0 = (tid & 3) * 16;
+      const float m_old = m_s[rr];
+      float mx = m_old;
+      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, ss[rr * kLd + c0 + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.f;
+      for (int c = 0; c < 16; ++c) sum += exp2f(ss[rr * kLd + c0 + c] - mx);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if ((tid & 3) == 0) {
+        l_s[rr] = l_s[rr] * exp2f(m_old - mx) + sum;
+        m_s[rr] = mx;
+      }
+    }
+    float o[4][8] = {};
+    for (int kv0 = 0; kv0 < p.N; kv0 += kRows) {  // pass 2: P, normalised, V
+      if (n_tiles > 1) scores(kv0);
+      else __syncthreads();  // pass 1's statistics are in
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int rr = ty + 16 * i, cc = tx + 16 * jj;
+          const float e = exp2f(ss[rr * kLd + cc] - m_s[rr]);
+          ss[rr * kLd + cc] = round_to<T>(e / fmaxf(l_s[rr], 1e-30f));
+        }
+      load_tile(vs, kCols, vg, p.s_n, kv0, p.N, sh.col0, sh.width);
+      __syncthreads();
+      pv_tile(o, ss, vs);
+      __syncthreads();  // ss and vs are read; the next tile overwrites them
+    }
+    T* og = static_cast<T*>(p.o) + w * p.o_sw + (long long)h * D + sh.col0;
+    store_rows(og, p.o_sn, sh.row0, p.N, sh.width, o, nullptr);
+  }
+}
+
+constexpr size_t kWideSmem =
+    (4 * wide::kScoreTile + wide::kColTile + 2 * wide::kRows) * sizeof(float);
+
+cudaError_t run_wide(const Params& p, int d, int bf16, cudaStream_t stream) {
+  if (d <= 128 || d % wide::kChunk) return cudaErrorInvalidValue;
+  const long long chunks = (p.n_img + p.wb - 1) / p.wb;
+  const long long ctas = wide::grid_ctas(chunks * p.nW * p.H, p.N, d);
+  if (ctas < 0) return static_cast<cudaError_t>(kErrGrid);
+  const dim3 grid(static_cast<unsigned>(ctas));
+  cudaError_t err;
+  if (bf16) {
+    err = hopper::allow_smem<win_wide_simt<__nv_bfloat16>>(kWideSmem);
+    if (err != cudaSuccess) return err;
+    win_wide_simt<__nv_bfloat16><<<grid, wide::kThreads, kWideSmem, stream>>>(p, d);
+  } else {
+    err = hopper::allow_smem<win_wide_simt<float>>(kWideSmem);
+    if (err != cudaSuccess) return err;
+    win_wide_simt<float><<<grid, wide::kThreads, kWideSmem, stream>>>(p, d);
+  }
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- dispatch
 
 template <int D, bool kOne>
@@ -532,12 +659,12 @@ extern "C" {
 // of 16 bytes (the Python wrapper checks). bias: (H, N, N) float32,
 // contiguous. mask: (nW, N, N) float32, contiguous, or null (then nW is 1);
 // nW divides BW. o: (BW, N, H * D) in qkv's dtype with window stride o_sw
-// and row stride o_sn (bf16: both multiples of 8). D in {16, 32, 64, 128},
-// any N. dtype: 0 = float32, 1 = bfloat16. windows_per_block: images a CTA
-// takes (window w = img * nW + j of one position j and one head). Returns
+// and row stride o_sn (bf16: both multiples of 8). D in {16, 32, 64, 128}
+// or a multiple of 64 above 128, any N. dtype: 0 = float32, 1 = bfloat16.
+// windows_per_block: images a CTA takes (window w = img * nW + j of one
+// position j and one head). Returns
 // cudaGetLastError() after the launch, or kErrGrid when the grid would
 // need more CTAs than its x dimension holds.
-constexpr int kErrGrid = -1;
 
 int window_attn_fwd(const void* qkv, const void* bias, const void* mask,
                     void* o, int BW, int N, int H, int D, int nW,
@@ -569,7 +696,8 @@ int window_attn_fwd(const void* qkv, const void* bias, const void* mask,
     case 32: return run<32>(p, dtype, grid, s);
     case 64: return run<64>(p, dtype, grid, s);
     case 128: return run<128>(p, dtype, grid, s);
-    default: return cudaErrorInvalidValue;
+    default:  // any multiple of 64 above 128
+      return run_wide(p, D, dtype, s);
   }
 }
 

@@ -1,7 +1,9 @@
-"""Classification models of the port: the ViT and Swin families."""
+"""Classification models of the port: the ViT, Swin and ResNet
+families."""
 
-from . import swin, vit  # noqa: F401
+from . import resnet, swin, vit  # noqa: F401
+from .resnet import ResNet
 from .swin import SwinTransformer
 from .vit import VisionTransformer
 
-__all__ = ["SwinTransformer", "VisionTransformer"]
+__all__ = ["ResNet", "SwinTransformer", "VisionTransformer"]

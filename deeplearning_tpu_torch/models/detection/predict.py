@@ -5,28 +5,31 @@ of ``deeplearning_tpu/models/detection/predict.py``.
 ``predict_fn(images) -> {boxes, scores, labels, valid}``: the model's
 forward and its family's fixed-shape postprocess, ``max_det`` slots an
 image, padded slots carrying class −1 (never a real class). The image size
-is read off the batch, so each bucket builds its own anchor grid (cached
-per size and device, so a served batch uploads no grid). Every NMS call
-goes through ``ops/nms.py``: on the card, ``nms_impl="auto"`` launches the
-K3 kernels once a batch.
+is read off the batch, so each bucket builds its own anchors, grid or
+locations, cached per (size, device): a served batch uploads none. Every
+NMS call goes through ``ops/nms.py``: on the card, ``nms_impl="auto"``
+launches K3 once a batch (twice for Faster R-CNN: the proposals, then the
+detections).
 
-The YOLOX family is ported. RetinaNet, FCOS, Faster R-CNN and YOLOv5
-raise ``NotImplementedError``: they need a backbone, anchors or RoIAlign
-that come with the next detection slice, and so does every other name
-(the JAX builder raises ``ValueError`` for a name of no family).
+Families: RetinaNet, YOLOX, YOLOv5 (and ``yolov5_from_spec``), FCOS and
+Faster R-CNN. Faster R-CNN runs its RoI stage on the first call's pyramid
+(no backbone recompute) and returns 0-based foreground labels (its model
+classes are 1-based, 0 the background); its padded slots keep class −1
+(the JAX branch subtracts 1 from them too, giving −2). A name of no family
+raises ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["build_predict_fn", "is_detection_model", "require_ported",
+__all__ = ["build_predict_fn", "is_detection_model", "head_classes",
            "DETECTION_PREFIXES"]
 
 DETECTION_PREFIXES = ("retinanet", "yolox", "yolov5", "fcos", "fasterrcnn")
-_NEXT_SLICE = ("retinanet", "yolov5", "fcos", "fasterrcnn")
 
 
 def is_detection_model(name: str) -> bool:
@@ -35,19 +38,33 @@ def is_detection_model(name: str) -> bool:
     return name.startswith(DETECTION_PREFIXES)
 
 
-def require_ported(name: str) -> None:
-    """Raise ``NotImplementedError`` unless the port can postprocess
-    detector ``name`` (checked before a model is built)."""
-    if name.startswith("yolox"):
-        return
-    if name.startswith(_NEXT_SLICE):
-        raise NotImplementedError(
-            f"{name!r}: the port serves the YOLOX family; RetinaNet, FCOS, "
-            "Faster R-CNN and YOLOv5 (their backbones, anchors and "
-            "RoIAlign) come with the next detection slice")
-    raise NotImplementedError(
-        f"no detection predict path in the port for model {name!r} "
-        "(ported: yolox*)")
+def head_classes(name: str, num_classes: int) -> int:
+    """The classes a model's head is built with to answer ``num_classes``
+    foreground classes: Faster R-CNN's head carries class 0, the
+    background, besides them."""
+    return num_classes + (1 if name.startswith("fasterrcnn") else 0)
+
+
+def _cached(make: Callable):
+    """``get(hw, device)``: ``make(hw)``'s numpy arrays (a tuple, a dict or
+    one array) as tensors on ``device``, built once per (size, device)."""
+    cache: Dict[Tuple, object] = {}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def get(hw, device):
+        key = (hw, device)
+        if key not in cache:
+            made = make(hw)
+            if isinstance(made, dict):
+                cache[key] = {k: up(v).to(device) for k, v in made.items()}
+            elif isinstance(made, tuple):
+                cache[key] = tuple(up(v).to(device) for v in made)
+            else:
+                cache[key] = up(made).to(device)
+        return cache[key]
+    return get
 
 
 def build_predict_fn(model: torch.nn.Module, name: str, num_classes: int,
@@ -56,22 +73,75 @@ def build_predict_fn(model: torch.nn.Module, name: str, num_classes: int,
                      nms_impl: str = "auto") -> Callable:
     """``predict_fn(images (B, H, W, 3)) -> det dict`` for a registry
     detector in eval mode. ``post_nms_top_n`` sizes Faster R-CNN's proposal
-    stage and is accepted for every family; ``nms_impl`` selects the
-    suppression path (``ops/nms.nms``)."""
-    require_ported(name)                 # the YOLOX family, so far
-    from .yolox import yolox_grid, yolox_postprocess
-    grids: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+    stage; ``nms_impl`` selects the suppression path (``ops/nms.nms``) for
+    every family."""
+    kw = dict(max_det=max_det, score_thresh=score_thresh, nms_impl=nms_impl)
 
-    def predict_fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        hw = tuple(images.shape[1:3])
-        key = (hw, images.device)
-        if key not in grids:
-            grids[key] = tuple(torch.from_numpy(a).to(images.device)
-                               for a in yolox_grid(hw))
-        centers, strides = grids[key]
-        with torch.no_grad():
-            return yolox_postprocess(model(images), centers, strides,
-                                     max_det=max_det,
-                                     score_thresh=score_thresh,
-                                     nms_impl=nms_impl)
-    return predict_fn
+    if name.startswith("retinanet"):
+        from .retinanet import retinanet_anchors, retinanet_postprocess
+        anchors = _cached(retinanet_anchors)
+
+        def predict_fn(images):
+            hw = tuple(images.shape[1:3])
+            with torch.no_grad():
+                return retinanet_postprocess(
+                    model(images), anchors(hw, images.device), hw, **kw)
+        return predict_fn
+
+    if name.startswith("yolox"):
+        from .yolox import yolox_grid, yolox_postprocess
+        grids = _cached(yolox_grid)
+
+        def predict_fn(images):
+            centers, strides = grids(tuple(images.shape[1:3]), images.device)
+            with torch.no_grad():
+                return yolox_postprocess(model(images), centers, strides,
+                                         **kw)
+        return predict_fn
+
+    if name.startswith("yolov5"):
+        from .yolov5 import yolov5_grid, yolov5_postprocess
+        grids = _cached(yolov5_grid)
+
+        def predict_fn(images):
+            grid = grids(tuple(images.shape[1:3]), images.device)
+            with torch.no_grad():
+                return yolov5_postprocess(model(images), grid, **kw)
+        return predict_fn
+
+    if name.startswith("fcos"):
+        from .fcos import fcos_locations, fcos_postprocess
+        locations = _cached(lambda hw: fcos_locations(hw)[0])
+
+        def predict_fn(images):
+            hw = tuple(images.shape[1:3])
+            with torch.no_grad():
+                return fcos_postprocess(
+                    model(images), locations(hw, images.device), hw, **kw)
+        return predict_fn
+
+    if name.startswith("fasterrcnn"):
+        from .faster_rcnn import (fasterrcnn_anchors, fasterrcnn_postprocess,
+                                  generate_proposals)
+        anchors = _cached(fasterrcnn_anchors)
+
+        def predict_fn(images):
+            hw = tuple(images.shape[1:3])
+            with torch.no_grad():
+                out = model(images)
+                props, pvalid = generate_proposals(
+                    out, anchors(hw, images.device), hw,
+                    post_nms_top_n=post_nms_top_n, nms_impl=nms_impl)
+                out2 = model(images, proposals=props,
+                             pyramid=out["pyramid"])
+                det = fasterrcnn_postprocess(
+                    out2["roi_scores"], out2["roi_deltas"], props, hw,
+                    prop_valid=pvalid, **kw)
+            det["labels"] = torch.where(det["valid"], det["labels"] - 1,
+                                        det["labels"])
+            return det
+        return predict_fn
+
+    raise ValueError(f"no detection predict path for model {name!r} "
+                     "(expected retinanet*/fasterrcnn*/yolox*/yolov5*/"
+                     "fcos*)")

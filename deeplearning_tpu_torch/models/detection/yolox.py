@@ -38,6 +38,8 @@ import torch.nn.functional as F
 
 from ...core.registry import MODELS
 from ...ops import nms as nms_ops
+from ..layers import BatchNorm, calibrate_batchnorm, lecun_normal_
+from ..layers import conv as _conv
 
 __all__ = ["STRIDES", "ConvBnSiLU", "Bottleneck", "CSPLayer",
            "SPPBottleneck", "CSPDarknet", "PAFPN", "ResLayer", "Darknet53",
@@ -46,50 +48,6 @@ __all__ = ["STRIDES", "ConvBnSiLU", "Bottleneck", "CSPLayer",
 
 STRIDES = (8, 16, 32)
 _PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
-
-
-def _lecun_conv_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's default conv init (lecun_normal): truncated normal (±2σ) with
-    variance 1 / fan_in, fan_in = kh·kw·cin/groups, σ corrected for the
-    truncation."""
-    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
-
-
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
-          ) -> torch.Tensor:
-    """flax ``nn.Conv(dtype=...)``: input, kernel and bias in ``dtype``."""
-    bias = conv.bias.to(dtype) if conv.bias is not None else None
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
-
-
-class BatchNorm(nn.BatchNorm2d):
-    """flax ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)`` over NCHW:
-    y = (x − mean) · (rsqrt(var + eps) · scale) + bias in float32, cast to
-    ``dtype``. Training normalises with the biased batch variance and
-    moves the running statistics 3% toward it, as flax does."""
-
-    def __init__(self, features: int, dtype: torch.dtype):
-        super().__init__(features, eps=1e-3, momentum=0.03)
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked += 1
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        return y.to(self.dtype)
 
 
 class ConvBnSiLU(nn.Module):
@@ -101,7 +59,7 @@ class ConvBnSiLU(nn.Module):
         # stride 2 and shift the sampling centres)
         self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
-        self.bn = BatchNorm(features, dtype)
+        self.bn = BatchNorm(features, dtype, eps=1e-3, momentum=0.03)
         self.dtype, self.act = dtype, act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -394,7 +352,7 @@ class YOLOX(nn.Module):
         bias 0, mean 0, var 1."""
         for name, module in self.named_modules():
             if isinstance(module, nn.Conv2d):
-                _lecun_conv_(module.weight, generator)
+                lecun_normal_(module.weight, generator)
                 if module.bias is not None:
                     last = name.rsplit(".", 1)[-1]
                     nn.init.constant_(module.bias, _PRIOR_BIAS if
@@ -407,28 +365,6 @@ class YOLOX(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)           # NCHW view, channels-last
         return self.head(self.neck(self.backbone(x)))
-
-
-@torch.no_grad()
-def calibrate_batchnorm(model: nn.Module, images: torch.Tensor) -> None:
-    """Set every BatchNorm's running statistics to the batch statistics of
-    its input over ``images`` (one forward in train mode with momentum 1),
-    then put the model back in eval mode. A seed-initialised network has
-    mean 0 / var 1 statistics, under which its activations shrink layer by
-    layer (YOLOX-S's head outputs ~1e-4 at 640²: every box its grid cell,
-    every score 1.0e-4); calibrated, they keep unit scale, as a trained
-    network's do. The weights are left as they are."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    saved = [m.momentum for m in bns]
-    for m in bns:
-        m.momentum = 1.0
-    model.train()
-    try:
-        model(images)
-    finally:
-        for m, momentum in zip(bns, saved):
-            m.momentum = momentum
-        model.eval()
 
 
 # ------------------------------------------------------ decode + postprocess

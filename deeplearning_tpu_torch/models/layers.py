@@ -1,0 +1,118 @@
+"""Layers the port's convolutional models share: flax's ``nn.Conv`` /
+``nn.Dense`` compute-dtype semantics, flax's ``nn.BatchNorm`` over NCHW,
+flax's default initialisers, and the BatchNorm helpers that give a
+seed-initialised detector realistic statistics.
+
+The models run their convolutions in NCHW on a channels-last view of the
+NHWC input (no copy), so a permute back to NHWC before a reshape that
+enumerates positions is free.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+__all__ = ["BatchNorm", "conv", "dense", "lecun_normal_", "init_flax_",
+           "calibrate_batchnorm"]
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                  fan_in: Optional[int] = None) -> None:
+    """flax's default kernel init (lecun_normal): truncated normal (±2σ)
+    with variance 1 / fan_in (a conv's kh·kw·cin/groups, a dense layer's
+    inputs), σ corrected for the truncation."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's defaults over a module tree: lecun-normal conv and dense
+    kernels, zero biases, BatchNorm scale 1, bias 0, mean 0, var 1. A
+    model then sets its own exceptions (zero-initialised residual scales,
+    prior biases, normal(0.01) heads)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            lecun_normal_(m.weight, generator)
+        elif isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, generator, m.in_features)
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+
+
+def conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype
+         ) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=...)``: input, kernel and bias in ``dtype``."""
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride,
+                    layer.padding, layer.dilation, layer.groups)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=m, epsilon=eps)`` over NCHW:
+    y = (x − mean) · (rsqrt(var + eps) · scale) + bias in float32, cast to
+    ``dtype``. ``momentum`` is torch's (1 − flax's): YOLOX's flax 0.97 is
+    0.03 here, ResNet's 0.9 is 0.1. Training normalises with the biased
+    batch variance and moves the running statistics ``momentum`` toward
+    it, as flax does, unless ``frozen`` (FrozenBatchNorm2d: the statistics
+    stay fixed in train mode too)."""
+
+    def __init__(self, features: int, dtype: torch.dtype, eps: float = 1e-3,
+                 momentum: float = 0.03, frozen: bool = False):
+        super().__init__(features, eps=eps, momentum=momentum)
+        self.dtype, self.frozen = dtype, frozen
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training and not self.frozen:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: nn.Module, images: torch.Tensor) -> None:
+    """Set every BatchNorm's running statistics to the batch statistics of
+    its input over ``images`` (one forward in train mode with momentum 1),
+    then put the model back in eval mode. A seed-initialised network has
+    mean 0 / var 1 statistics, under which its activations shrink layer by
+    layer (YOLOX-S's head outputs ~1e-4 at 640²: every box its grid cell,
+    every score 1.0e-4); calibrated, they keep unit scale, as a trained
+    network's do. The weights are left as they are, and a frozen
+    BatchNorm's statistics too."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    try:
+        model(images)
+    finally:
+        for m, momentum in zip(bns, saved):
+            m.momentum = momentum
+        model.eval()

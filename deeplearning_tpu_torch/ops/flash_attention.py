@@ -23,13 +23,17 @@ plain PyTorch versions, ``flash_attention_reference`` and
 ``flash_attention_bwd_reference``. There is no fallback from one to the
 other.
 
-The kernels are instantiated for D in ``HEAD_DIMS``; any other D up to
-256 (ViT-H/14's 80, or 160) is zero-padded to the next of them on the
-card, with ``sm_scale`` taken from the true D, and the outputs and
-gradients are sliced back. The pad is exact: zero columns add nothing to
-Q Kᵀ, dO Vᵀ or rowsum(dO · O). At D = 256 each kernel splits its output
-columns over two CTAs (each recomputes the scores), so its registers stay
-those of D = 128. D above 256 raises.
+The tensor-core kernels are instantiated for D in ``HEAD_DIMS``; any
+other D up to 256 (ViT-H/14's 80, or 160) is zero-padded to the next of
+them on the card, with ``sm_scale`` taken from the true D, and the
+outputs and gradients are sliced back. The pad is exact: zero columns add
+nothing to Q Kᵀ, dO Vᵀ or rowsum(dO · O). At D = 256 each kernel splits
+its output columns over two CTAs (each recomputes the scores), so its
+registers stay those of D = 128. Above 256, D is zero-padded to a
+multiple of 64 and runs on SIMT kernels of the same sources (one head a
+CTA, 128 output columns a CTA, the scores summed over 64-column chunks
+streamed through shared memory: ``csrc/wide_attn.cuh``), in either dtype
+and direction, with the same rounding.
 
 ``block_q`` / ``block_k`` are accepted so calls written against the JAX
 entry points run unchanged; they set the TPU kernel's tiling and do not
@@ -44,7 +48,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .kernels import kernel_head_dim
+from .kernels import WIDE_GRANULE, kernel_head_dim
 
 __all__ = ["flash_attention", "flash_attention_hb", "flash_attention_with_lse",
            "flash_attention_bnhd", "flash_attention_reference",
@@ -218,7 +222,8 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_head_dim(d: int) -> int:
-    """The instantiated head dim a D runs at. Raises above 256."""
+    """The head dim a D runs at: an instantiated one up to 256, a
+    multiple of 64 above."""
     return kernel_head_dim(d, HEAD_DIMS, "flash_attn")
 
 
@@ -233,8 +238,9 @@ def _check_launch(name: str, q: torch.Tensor, heads_per_cta: int) -> None:
     """What every kernel of this module takes; raises on anything else."""
     h, d = q.shape[1], q.shape[3]
     _check_card(q.device)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} takes head dim in {HEAD_DIMS}, got {d}")
+    if _kernel_head_dim(d) != d:
+        raise ValueError(f"{name} takes head dim in {HEAD_DIMS} or a "
+                         f"multiple of {WIDE_GRANULE} above, got {d}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if heads_per_cta not in HEADS_PER_CTA or h % heads_per_cta:

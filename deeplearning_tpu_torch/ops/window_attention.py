@@ -20,11 +20,14 @@ j = w mod nW (nW = 1 unmasked) and forms that pair's additive term once;
 w = img·nW + j of each. The result does not depend on it.
 
 Any N runs (64-row query and key tiles; above 64, two passes over the key
-tiles, so P is still normalised before its cast). The kernel is
-instantiated for d in ``HEAD_DIMS``; any other d up to 128 is zero-padded
-to the next of them on the card, with the scale of the true d (exact: zero
-columns add nothing to QKᵀ, and the padded output columns are dropped).
-d above 128 raises.
+tiles, so P is still normalised before its cast). The tensor-core kernel
+is instantiated for d in ``HEAD_DIMS``; any other d up to 128 is
+zero-padded to the next of them on the card, with the scale of the true d
+(exact: zero columns add nothing to QKᵀ, and the padded output columns are
+dropped). Above 128, d is zero-padded to a multiple of 64 and runs on a
+SIMT kernel of the same source (``csrc/wide_attn.cuh``: 128 output
+columns a CTA, the scores summed over 64-column chunks), with the same
+CTA walk, additive-tile reuse and rounding.
 
 Dispatch is by where the tensors lie, nothing else: a CUDA tensor
 launches the kernel or raises (a card below sm_90, a build failure, a
@@ -142,7 +145,8 @@ def _aligned(qkv: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_head_dim(d: int) -> int:
-    """The instantiated head dim a d runs at. Raises above 128."""
+    """The head dim a d runs at: an instantiated one up to 128, a
+    multiple of 64 above."""
     return kernel_head_dim(d, HEAD_DIMS, KERNEL_NAME)
 
 

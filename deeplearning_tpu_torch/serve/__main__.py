@@ -7,6 +7,8 @@
       --model swin_tiny_patch4_window7_224
   echo img.npy | python -m deeplearning_tpu_torch.serve \\
       --model yolox_s --size 640 --score-thresh 0.3
+  echo img.npy | python -m deeplearning_tpu_torch.serve \\
+      --model fasterrcnn_resnet50_fpn --size 800 --num-classes 20
 
   # HTTP mode (stdlib): POST /predict with an .npy body, GET /healthz,
   # GET /stats
@@ -16,9 +18,11 @@
 Requests are model-ready float32 arrays (H, W, 3) or (n, H, W, 3): an
 ``.npy`` file, or an ``.npz`` with an ``images`` array. A classifier
 answers ``{"top": [[class, p], ...]}``; a detector (picked from the name,
-e.g. ``yolox_s``) answers ``{"detections": [{"box", "score", "label"},
-...]}`` with its valid rows only: the padded class −1 slots never leave
-the server. Every request
+e.g. ``yolox_s``, ``fasterrcnn_resnet50_fpn``) answers ``{"detections":
+[{"box", "score", "label"}, ...]}`` with its valid rows only: the padded
+class −1 slots never leave the server. Labels are 0-based foreground
+classes for every family (``--num-classes`` of them; Faster R-CNN's head
+is built with a background class besides). Every request
 path goes through ``MicroBatcher.submit()``, so concurrent clients batch
 together; a full queue answers 429 with ``retry_after_s`` and a request
 past its deadline 504 (``X-Deadline-Ms`` tightens the deadline).
@@ -239,14 +243,15 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .. import hub
-    from ..models.detection.predict import is_detection_model
+    from ..models.detection.predict import head_classes, is_detection_model
     from ..obs import threads as obs_threads
     from .batcher import MicroBatcher
     from .engine import InferenceEngine
 
     num_classes = args.num_classes or (
         80 if is_detection_model(args.model) else 1000)
-    model, _ = hub.load(args.model, num_classes=num_classes,
+    model, _ = hub.load(args.model,
+                        num_classes=head_classes(args.model, num_classes),
                         weights=args.weights, seed=args.seed,
                         device=args.device,
                         **hub.model_kwargs(args.model, args.attn, args.size))

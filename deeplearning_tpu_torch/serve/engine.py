@@ -22,8 +22,10 @@ A detection engine runs its family's postprocess
 (``models/detection/predict.build_predict_fn``) after the forward, so an
 answer is ``max_det`` rows of {boxes, scores, labels, valid}, never raw
 heads; padded slots carry label −1. Every NMS of a batch on the card is
-one launch of each K3 kernel (``ops/nms.py``). The YOLOX family is
-ported; another detection family raises ``NotImplementedError``.
+one K3 launch (``ops/nms.py``; Faster R-CNN makes two, proposals and
+detections). All five families are ported (RetinaNet, FCOS, Faster
+R-CNN, YOLOv5, YOLOX); ``task="detect"`` for a name of no family raises
+``ValueError``, as the JAX predict builder does.
 
 Outputs of ``run`` stay on the device (a tensor, or a dict of tensors for
 detection); callers materialise them (the batcher's dispatch thread never
@@ -80,8 +82,7 @@ class InferenceEngine:
                  precompile: bool = True,
                  weight_quant: str = "fp32",
                  device: Optional[Union[str, torch.device]] = None):
-        from ..models.detection.predict import (is_detection_model,
-                                                require_ported)
+        from ..models.detection.predict import is_detection_model
         if model is None and model_name is None:
             raise ValueError("pass model_name or a prebuilt model")
         if task not in ("auto", "classify", "detect"):
@@ -99,8 +100,9 @@ class InferenceEngine:
         self.name = model_name or type(model).__name__.lower()
         self.task = (("detect" if is_detection_model(self.name)
                       else "classify") if task == "auto" else task)
-        if self.task == "detect":
-            require_ported(self.name)
+        if self.task == "detect" and not is_detection_model(self.name):
+            raise ValueError(f"no detection predict path for model "
+                             f"{self.name!r}")
         self.score_thresh = score_thresh
         self.max_det = max_det
         self.nms_impl = nms_impl
@@ -116,7 +118,12 @@ class InferenceEngine:
 
         if model is None:
             from .. import hub
-            model, _ = hub.load(self.name, num_classes=num_classes,
+            from ..models.detection.predict import head_classes
+            # Faster R-CNN's head carries class 0 = background besides
+            # them (its predict shifts labels back to 0-based)
+            model, _ = hub.load(self.name,
+                                num_classes=head_classes(self.name,
+                                                         num_classes),
                                 weights=weights, seed=seed,
                                 device=self.device)
         elif variables is not None or weights is not None:

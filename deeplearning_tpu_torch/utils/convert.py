@@ -30,8 +30,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["from_flax_params", "load_npz", "as_state_dict", "flax_path",
-           "from_optax_state"]
+__all__ = ["from_flax_params", "load_npz",
+           "as_state_dict", "flax_path", "from_optax_state"]
 
 _INDEXED = re.compile(r"(.+)_(\d+)")
 

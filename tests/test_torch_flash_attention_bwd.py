@@ -123,13 +123,15 @@ def test_head_dim_pad_is_exact_with_the_true_scale(causal):
     D = 160 to the 256 one: the plain version on padded operands, with
     sm_scale from the true D, equals the unpadded plain version in the
     output, the LSE and the gradients. The padded D's own default scale
-    would not. D above 256 raises, before any card is needed."""
+    would not. Above 256, D runs on the wide SIMT kernels at the next
+    multiple of 64 (D = 300 at 320)."""
     assert [tfa._kernel_head_dim(d) for d in (16, 17, 64, 80, 128, 129,
-                                              160, 256)] == [
-        16, 32, 64, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="up to 256"):
-        tfa._kernel_head_dim(257)
-    for d, d_kernel in ((80, 128), (160, 256)):
+                                              160, 256, 257, 300, 320,
+                                              512)] == [
+        16, 32, 64, 128, 128, 256, 256, 256, 320, 320, 320, 512]
+    with pytest.raises(ValueError, match="1 or more"):
+        tfa._kernel_head_dim(0)
+    for d, d_kernel in ((80, 128), (160, 256), (300, 320)):
         q, k, v, do = (torch.from_numpy(x) for x in
                        _arrays((2, 2, 19, d), 4, seed=d + causal))
         qp, kp, vp, dop = tfa._pad_head_dim((q, k, v, do), d_kernel)

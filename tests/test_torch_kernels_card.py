@@ -87,9 +87,12 @@ def test_vit_adapter_reads_strided_qkv_and_raises_on_bad_input(cuda_device):
     assert out.shape == (4, 197, 12, 64)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
-    with pytest.raises(ValueError, match="up to 256"):  # past the kernels'
-        fa.flash_attention(*(torch.zeros(1, 2, 8, 320, device=cuda_device)
-                             for _ in range(3)))
+    # D = 320, past the tensor-core kernels: the wide SIMT kernel runs it
+    wide = torch.randn(1, 2, 8, 320, device=cuda_device, generator=g)
+    torch.testing.assert_close(fa.flash_attention(wide, wide, wide),
+                               fa.flash_attention_reference(wide, wide,
+                                                            wide)[0],
+                               atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError):          # dtype the kernel lacks
         fa.flash_attention(*(torch.zeros(1, 2, 8, 64, device=cuda_device,
                                          dtype=torch.float16)
@@ -119,6 +122,20 @@ def test_flash_attn_fwd_head_dim_160(cuda_device, n, causal, hpc, dtype,
     """D = 160 runs zero-padded to the D = 256 kernel (two column CTAs a
     row block), with the scale of D = 160."""
     _check_padded_fwd(cuda_device, 160, n, causal, hpc, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_flash_attn_fwd_wide_head_dim(cuda_device, d, n, causal, hpc, dtype,
+                                      tol):
+    """D above 256 runs on the wide SIMT kernel (D = 300 zero-padded to
+    320, with the scale of D = 300), from fused-qkv views."""
+    _check_padded_fwd(cuda_device, d, n, causal, hpc, dtype, tol)
 
 
 def _check_padded_fwd(cuda_device, d, n, causal, hpc, dtype, tol):
@@ -235,6 +252,18 @@ def test_flash_attn_bwd_head_dim_160(cuda_device, n, causal, hpc, dtype):
     """D = 160 through the D = 256 backward kernels (two column CTAs a
     row block), zero-padded, with the scale of D = 160."""
     _check_padded_bwd(cuda_device, 160, n, causal, hpc, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hpc", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 65, 257])
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_flash_attn_bwd_wide_head_dim(cuda_device, d, n, causal, hpc, dtype):
+    """dQ, dK, dV above D = 256 through the wide SIMT kernels (bf16: the
+    dQ kernel sums delta from O over all D columns)."""
+    _check_padded_bwd(cuda_device, d, n, causal, hpc, dtype)
 
 
 def _check_padded_bwd(cuda_device, d, n, causal, hpc, dtype):
@@ -392,6 +421,11 @@ WINDOW_CASES = [  # bw, n, heads, d, nW, windows_per_block, diagonal mask
     (8, 144, 3, 32, 4, 8, True),         # N = 144, rows masked but diagonal
     (4, 81, 2, 48, 0, 2, False),         # window 9, unmasked, d = 48
     (320, 49, 3, 32, 64, 3, False),      # nW = 64, 5 images, 3 a CTA
+    (8, 49, 2, 160, 4, 3, False),        # d = 160: the wide kernel at 192
+    (8, 49, 2, 256, 4, 8, False),        # d = 256, two column CTAs
+    (16, 49, 3, 160, 8, 8, True),        # wide, rows masked but diagonal
+    (8, 144, 2, 160, 4, 3, False),       # wide, N = 144: two key tiles
+    (8, 144, 3, 256, 0, 2, False),       # wide, N = 144, unmasked
 ]
 
 
@@ -437,8 +471,8 @@ def test_window_attn_raises_on_what_the_kernel_does_not_take(cuda_device):
         qkv = torch.zeros(4, n, 3, 2, d, device=cuda_device, dtype=dtype)
         return wa.window_attention(qkv, torch.zeros(2, n, n,
                                                     device=cuda_device))
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        call(d=160)
+    out = call(d=160)                     # the wide SIMT kernel
+    assert out.shape == (4, 49, 320) and not out.float().any()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         call(dtype=torch.float16)
     assert call(n=81, d=48).shape == (4, 81, 96)   # any N, a padded d
@@ -515,6 +549,37 @@ def _nms_cases(device, cases, n, span=64.0, wh_max=24.0, nan_frac=0.0,
 def _same_keeps(ref, got):
     (i1, v1), (i2, v2) = ref, got
     return torch.equal(v1, v2) and bool(((i1 == i2) | ~v1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,classes,th,st,mo", [
+    (8, 4_507, 0, 0.7, -1e8, 256),        # Faster R-CNN's RPN at 800²
+    (8, 5_120, 20, 0.5, 0.05, 100),       # its box stage, 20 classes
+    (4, 25_200, 80, 0.45, 0.0, 100),      # YOLOv5-S at 640², 80 classes
+    (8, 1_000, 20, 0.5, 0.0, 100)])       # RetinaNet / FCOS top-1 000
+def test_nms_kernel_at_the_detectors_shapes(cuda_device, b, n, classes, th,
+                                            st, mo):
+    """K3 at the served detectors' candidate sets, class-aware where they
+    are (offsets up to 80 × (max coordinate + 1)), against the plain
+    blocked sweep and, on the first image, the greedy oracle."""
+    boxes, scores = _nms_cases(cuda_device, b, n, span=640.0, wh_max=160.0,
+                               seed=n)
+    if classes:
+        cls = torch.arange(n, device=cuda_device).remainder(classes)[
+            None].expand(b, -1)
+        def call(impl, k=b):
+            return nms_ops.batched_nms(boxes[:k], scores[:k], cls[:k], th,
+                                       mo, st, impl=impl)
+    else:
+        def call(impl, k=b):
+            return nms_ops.nms(boxes[:k], scores[:k], th, mo, st, impl=impl)
+    before = nms_ops.launch_counts()["nms_greedy_sweep"]
+    got = call("auto")
+    torch.cuda.synchronize()
+    assert nms_ops.launch_counts()["nms_greedy_sweep"] == before + 1
+    assert _same_keeps(call("blocked"), got)
+    assert _same_keeps(call("greedy", 1), tuple(x[:1] for x in got))
+    assert int(got[1].sum(1).min()) > 0
 
 
 @pytest.mark.cuda

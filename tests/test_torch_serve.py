@@ -103,11 +103,15 @@ def test_microbatcher_demux_equals_infer(port_engine):
 
 def test_engine_rejects_unported_modes():
     model = tvit.VisionTransformer(**TINY, dtype=torch.float32)
-    for kw in ({"task": "detect"}, {"tta": True},
-               {"weight_quant": "int8"}):
+    for kw in ({"tta": True}, {"weight_quant": "int8"}):
         with pytest.raises(NotImplementedError):
             InferenceEngine(model=model, image_size=32, device="cpu",
                             precompile=False, **kw)
+    # every detection family is ported: a classifier named as a detector
+    # is refused as in JAX, with ValueError
+    with pytest.raises(ValueError, match="no detection predict path"):
+        InferenceEngine(model=model, image_size=32, device="cpu",
+                        precompile=False, task="detect")
 
 
 def test_entry_points_default_to_the_card():

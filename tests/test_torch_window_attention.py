@@ -148,17 +148,19 @@ def test_checkpointed_gradients_match_jax():
                                    rtol=5e-5)
 
 
-@pytest.mark.parametrize("d,d_kernel", [(24, 32), (48, 64), (80, 128)])
+@pytest.mark.parametrize("d,d_kernel", [(24, 32), (48, 64), (80, 128),
+                                        (160, 192)])
 def test_head_dim_pad_is_exact_with_the_true_scale(d, d_kernel):
     """The card runs a d the kernel lacks zero-padded to the next one it
     has: the wrapper's pad-and-slice around the plain version, with the
     true d's scale, equals the plain version on the unpadded qkv. The
-    padded d's own default scale would not. d above 128 raises, before
-    any card is needed."""
-    assert [twa._kernel_head_dim(x) for x in (1, 16, 17, 33, 64, 65, 128)] \
-        == [16, 16, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        twa._kernel_head_dim(129)
+    padded d's own default scale would not. Above 128, d runs on the wide
+    SIMT kernel at the next multiple of 64."""
+    assert [twa._kernel_head_dim(x) for x in (1, 16, 17, 33, 64, 65, 128,
+                                              129, 160, 192, 256, 300)] \
+        == [16, 16, 32, 64, 64, 128, 128, 192, 192, 192, 256, 320]
+    with pytest.raises(ValueError, match="1 or more"):
+        twa._kernel_head_dim(0)
     qkv, bias, m = (_t(x) for x in _inputs(bw=8, heads=2, d=d, seed=d))
     seen = []
 

@@ -203,12 +203,13 @@ def test_predict_fn_and_unported_families():
     assert tpredict.is_detection_model("yolox_s")
     assert not tpredict.is_detection_model("vit_base_patch16_224")
     for name in ("retinanet_resnet50_fpn", "fcos_resnet50_fpn",
-                 "fasterrcnn_resnet50_fpn", "yolov5s", "vit_tiny"):
-        with pytest.raises(NotImplementedError):
-            tpredict.build_predict_fn(model, name, 3)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine("retinanet_resnet50_fpn", device="cpu",
-                        precompile=False)
+                 "fasterrcnn_resnet50_fpn", "yolov5s", "yolov5_from_spec"):
+        assert callable(tpredict.build_predict_fn(model, name, 3))
+    with pytest.raises(ValueError, match="no detection predict path"):
+        tpredict.build_predict_fn(model, "vit_tiny", 3)
+    with pytest.raises(ValueError, match="no detection predict path"):
+        InferenceEngine("vit_tiny", model=model, task="detect",
+                        device="cpu", precompile=False)
     assert hub.model_kwargs("yolox_s", "flash_hb", 640) == {}
     assert {"yolox_nano", "yolox_tiny", "yolox_s", "yolox_m", "yolox_l",
             "yolox_x", "yolox_yolov3"} <= set(hub.list_models("yolox"))
