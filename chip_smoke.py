@@ -157,11 +157,38 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 17. measure: each detector's per-bucket served latency, K3 and plain
    engines in turns, and K3 at each candidate set one batch of it served
    (recorded from the NMS calls: the kernel by graph replay, the whole
-   call, the plain sweep and call) beside its bound.
+   call, the plain sweep and call) beside its bound;
+18. the feed: ``DevicePrefetcher(depth=2)`` over a ``DataLoader`` of 224²
+   uint8 images made float32 per sample, two epochs of 4 batches of 128
+   consumed under ``torch.cuda.set_sync_debug_mode("error")`` with the
+   main stream kept busy: every batch of epoch 0 bit-equal to its host
+   batch, every batch of epoch 1 (dropped after an exact digest, so the
+   allocator may reuse it) intact; a fetch that raises reaches the
+   consumer with its traceback; ``stats()`` printed;
+19. ViT-B/16 trained through the port's ``Trainer``, built by the train
+   CLI's ``build`` (phases 6-7's set-up: 224², batch 128, flash_hb, AdamW
+   wd 0.05 under warmup-cosine, label smoothing 0.1; the CLI's synthetic
+   data): 2 epochs of 4 steps, then one eval. K1 counted from zero just
+   before ``train()``: 12 forward launches a forward (8 steps + 4 eval
+   batches), 12 dQ and 12 dK/dV a step; every loss the Trainer logged
+   equal to a hand loop of ``make_train_step`` over the same loader's
+   batches (max difference printed; tolerance ``TRAINER_LOSS_TOL``);
+   every step under ``set_sync_debug_mode("error")``, lifted only inside
+   the lagged metric fetches;
+20. resume: a run stopped after epoch 1 (its checkpoint written) and
+   resumed ends with parameters bit-equal to phase 19's; a flipped byte
+   in the newest step makes the restore fall back to the step before;
+21. measure: the Trainer's step with the feed on (prefetch 2) and off
+   (prefetch 0), in turns, over 16-step epochs: the steady step (CUDA
+   events around steps 4-15), the epoch overhead, images/s, data-wait
+   share, kernel time a step (profiled epoch), idle share,
+   ``throughput()``, beside phase 7's bare step.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
-(phases 13 and 16), each counted from zero just before its run.
+(phases 13 and 16), each counted from zero just before its run. The
+flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
+phase 6's (dQ, dK/dV).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -199,6 +226,9 @@ REPLACES = {"flash_attn_fwd": f"{_PALLAS}:38",
 ATTN_FOR = {"flash_attn_fwd_hb": "flash_hb", "flash_attn_fwd": "flash"}
 HPC_FOR = {"flash_attn_fwd": 1, "flash_attn_fwd_hb": 4}
 LOGP_TOL = 0.05
+# the Trainer's losses vs a hand loop of make_train_step on the same batches
+# (the same kernels in the same order: aimed at 0)
+TRAINER_LOSS_TOL = 1e-6
 MODEL = "vit_base_patch16_224"
 DEPTH, HEADS, TOKENS, HEAD_DIM = 12, 12, 197, 64
 HUGE, HUGE_DEPTH = "vit_huge_patch14_224", 32     # 16 heads of D = 80
@@ -364,7 +394,14 @@ def main() -> int:
         _compare(served, single, f"{name}: served vs engine.infer")
 
     x = images[:32]
-    lp = {a: engines[a].infer(x) for a in ("flash_hb", "flash", "naive")}
+    lp = {a: engines[a].infer(x) for a in ("flash_hb", "flash")}
+    # the naive control must not reach K1: else K1 would meet itself
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    lp["naive"] = engines["naive"].infer(x)
+    torch.cuda.synchronize()
+    check(not any(fa.launch_counts().values()),
+          "the naive engine launches no K1 kernel")
     _compare(lp["flash_hb"], lp["naive"], "flash_hb engine vs naive engine")
     _compare(lp["flash"], lp["naive"], "flash engine vs naive engine")
     _serve_vit_huge(fa, dev, args.seed)
@@ -421,7 +458,7 @@ def main() -> int:
 
     # ------------------------------------------------------ 7. measure
     phase(7, started)
-    _measure_training(dev, args.seed)
+    bare_ms = _measure_training(dev, args.seed)
     kernels += _time_backward(fa, dev, g, bwd_errs, train_launches)
 
     # --------------------------------------- 8. K2 vs plain on the card
@@ -488,6 +525,34 @@ def main() -> int:
     del detectors
     torch.cuda.empty_cache()
     log(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f}s")
+
+    # ------------------------------------- 18. the feed: DevicePrefetcher
+    phase(18, started)
+    t18 = time.perf_counter()
+    _feed(dev, args.seed)
+
+    # ------------------------- 19. ViT-B/16 trained through the Trainer
+    phase(19, started)
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke_train")
+    trained = _train_through_trainer(fa, dev, args.seed, workdir)
+    by_name = {k["name"]: k for k in kernels}
+    for name, n in trained["launches"].items():
+        # the kernels line counts K1 over the served and trained paths
+        by_name[name]["launches"] += n
+
+    # ------------------------------------------------------ 20. resume
+    phase(20, started)
+    _resume(args.seed, workdir, trained["params"])
+    del trained
+
+    # ------------------------------------------------------ 21. measure
+    phase(21, started)
+    _measure_trainer(args.seed, bare_ms)
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"chip_smoke: phases 18-21 in {time.perf_counter() - t18:.1f}s; "
+        f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -817,10 +882,11 @@ def _train_path(fa, dev, seed) -> dict:
     return launches
 
 
-def _measure_training(dev, seed, name=MODEL) -> None:
+def _measure_training(dev, seed, name=MODEL) -> float:
     """Phases 7a and 11: step time, images/s and MFU of ``name`` for
     flash_hb (Swin: the fused kernel) and naive in turns (naive, flash_hb,
-    flash_hb, naive), then the bench lines."""
+    flash_hb, naive), then the bench lines. Returns flash_hb's step time
+    in ms."""
     import torch
     from deeplearning_tpu_torch.core.rng import root_key
     from deeplearning_tpu_torch.train import bench, make_train_step
@@ -841,6 +907,7 @@ def _measure_training(dev, seed, name=MODEL) -> None:
             state, _ = step(state, batch, key)
         torch.cuda.synchronize()
         times[attn].append((time.perf_counter() - t0) / 3)
+    step_ms = statistics.median(times["flash_hb"]) * 1e3
     for attn, ts in times.items():
         dt = statistics.median(ts)
         log(f"train step {name} {attn} batch {TRAIN_BATCH}: "
@@ -852,6 +919,7 @@ def _measure_training(dev, seed, name=MODEL) -> None:
         check(bench.main(["--model", name, "--attn", attn, "--steps", "10",
                           "--seed", str(seed)]) == 0, "train bench runs")
         torch.cuda.empty_cache()
+    return step_ms
 
 
 def _time_backward(fa, dev, g, errs, launches) -> list:
@@ -1857,6 +1925,427 @@ def _time_k3(nms_ops, boxes, scores, st, th, mo):
     bound = (nbytes / HBM_BYTES_PER_S * 1e3,
              ious * nms_ops.OPS_PER_IOU / PEAK_FLOPS["float32"] * 1e3)
     return ms, plain, bound, int(alive.sum()), ious
+
+
+# ------------------------------------------- phases 18-21: the train slice
+FEED_STEPS = 4            # batches an epoch of phase 18's feed
+TRAINER_STEPS = 4         # steps an epoch of phases 19-20 (2 epochs)
+MEASURE_STEPS = 16        # steps an epoch of phase 21
+STEADY_FROM = 4           # phase 21's steady step: steps 4 to 15
+
+
+def _feed(dev, seed) -> None:
+    """Phase 18: ``DevicePrefetcher(depth=2)`` over a ``DataLoader`` of
+    224² uint8 images made float32 per sample (4 fetch threads), two
+    epochs of 4 batches of 128, consumed under
+    ``set_sync_debug_mode("error")`` while the main stream is kept busy
+    (fp32 matmuls queued ahead of each read, so the side stream's copies
+    race the reads). Epoch 0 keeps every batch and holds it against its
+    host batch bit for bit (the copy event waited on); epoch 1 drops each
+    batch after queuing an exact digest of it (the int64 sum of its
+    float32 bit patterns), so the allocator may reuse its memory: equal
+    digests show the handed-over tensors were ``record_stream``-ed. A
+    fetch that raises reaches the consumer with its traceback."""
+    import traceback
+    import torch
+    from deeplearning_tpu_torch.data import (DataLoader, DevicePrefetcher,
+                                             MapSource)
+    from deeplearning_tpu_torch.train.__main__ import classification_source
+    n = TRAIN_BATCH * FEED_STEPS
+    rng = np.random.default_rng(seed + 18)
+    images = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, n).astype(np.int32)
+    source = classification_source(images, labels, 3)
+    check(isinstance(source, MapSource), "uint8 images convert per sample")
+    host = DataLoader(source, TRAIN_BATCH, seed=seed)
+    pf = DevicePrefetcher(DataLoader(source, TRAIN_BATCH, seed=seed,
+                                     device=dev, num_workers=4), depth=2)
+    busy = torch.randn(4096, 4096, device=dev)
+    kept, digests = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for epoch in (0, 1):
+            pf.set_epoch(epoch)
+            for batch in pf:
+                for _ in range(4):
+                    torch.mm(busy, busy)
+                digests.append(batch["image"].view(torch.int32)
+                               .to(torch.int64).sum())
+                if epoch == 0:
+                    kept.append(batch)
+                del batch
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = pf.stats()
+    same, digest_ok = 0, 0
+    for epoch in (0, 1):
+        host.set_epoch(epoch)
+        for i, hb in enumerate(host):
+            if epoch == 0:
+                same += int(all(torch.equal(kept[i][k].cpu(),
+                                            torch.from_numpy(hb[k]))
+                                for k in ("image", "label")))
+            want = int(hb["image"].view(np.int32).astype(np.int64).sum())
+            digest_ok += int(digests[epoch * FEED_STEPS + i].item() == want)
+    log(f"feed: 2 epochs of {FEED_STEPS} batches of {TRAIN_BATCH} x 224² "
+        f"uint8->float32 in {wall:.2f}s under sync debug mode 'error'; "
+        f"bit-equal batches {same}/{FEED_STEPS}, equal digests "
+        f"{digest_ok}/{2 * FEED_STEPS}; stats {json.dumps(stats)}")
+    check(same == FEED_STEPS, "every delivered batch equals its host batch")
+    check(digest_ok == 2 * FEED_STEPS,
+          "batches read after the allocator could reuse them are intact")
+    check(stats["batches_fed"] == 2 * FEED_STEPS, "every batch was fed")
+    alone = iter(pf.loader)
+    check(next(alone)["image"].device.type == "cuda",
+          "the wrapped loader, iterated alone, still moves its batches")
+    alone.close()
+
+    def unreadable(i):
+        if i == 2 * TRAIN_BATCH + 5:
+            raise ValueError(f"sample {i} is unreadable")
+        return source.fetch(i)
+    bad = DevicePrefetcher(DataLoader(MapSource(n, unreadable), TRAIN_BATCH,
+                                      shuffle=False, device=dev), depth=2)
+    fed = 0
+    try:
+        for _ in bad:
+            fed += 1
+        check(False, "a worker's exception reaches the consumer")
+    except ValueError as exc:
+        frames = [f.name for f in traceback.extract_tb(exc.__traceback__)]
+        log(f"feed: worker error relayed after {fed} batches: {exc!r}, "
+            f"traceback through {frames[-2:]}")
+        check(fed == 2 and "unreadable" in frames,
+              "the worker's error arrives in order, with its traceback")
+    del kept, busy
+    torch.cuda.empty_cache()
+
+
+def _smoke_cfg(workdir=None, steps=TRAINER_STEPS):
+    """Phases 6-7's training set-up through the train CLI's Config:
+    ViT-B/16 at 224², batch 128, flash_hb, AdamW (wd 0.05) under
+    warmup-cosine, label smoothing 0.1; the CLI's synthetic data (its
+    ``load_data``), 2 epochs of ``steps`` steps."""
+    from deeplearning_tpu_torch.train.__main__ import (Config, DataCfg,
+                                                       ModelCfg, OptimCfg,
+                                                       TrainCfg)
+    return Config(
+        model=ModelCfg(name=MODEL, num_classes=1000, attn="flash_hb"),
+        data=DataCfg(image_size=224, channels=3, global_batch=TRAIN_BATCH,
+                     n_train=TRAIN_BATCH * steps, prefetch=2),
+        optim=OptimCfg(name="adamw", lr=1e-3, weight_decay=0.05,
+                       schedule="warmup_cosine", warmup_steps=2),
+        train=TrainCfg(epochs=2, label_smoothing=0.1, workdir=workdir,
+                       device="cuda"))
+
+
+def _cli():
+    """The train CLI module, its synthetic data made once for every
+    build of phases 19-20 (the same seed gives the same arrays)."""
+    import functools
+    from deeplearning_tpu_torch.train import __main__ as cli
+    if not hasattr(cli.load_data, "cache_info"):
+        cli.load_data = functools.lru_cache(maxsize=1)(cli.load_data)
+    return cli
+
+
+class _NoSyncBetweenLogPoints:
+    """Arms ``torch.cuda.set_sync_debug_mode("error")`` from each epoch's
+    start to its end, and lifts it only inside the lagged metric fetches
+    (``deferred.poll`` / ``drain``: the one designed sync a log point, the
+    window JAX's ``strict="transfers"`` leaves out too). A sync anywhere
+    else between log points (the feed, the step, the optimizer, the
+    metrics push) raises where it happens."""
+
+    def __init__(self, trainer):
+        self.armed_steps = 0
+        self._armed = False
+        cb = trainer.callbacks
+        cb.register("before_epoch", lambda t: self._arm(True))
+        cb.register("after_epoch", lambda t: self._arm(False))
+        cb.register("after_iter", self._count)
+        d = trainer.deferred
+        for name in ("poll", "drain"):
+            setattr(d, name, self._unguarded(getattr(d, name)))
+
+    def _arm(self, on: bool) -> None:
+        import torch
+        self._armed = on
+        torch.cuda.set_sync_debug_mode("error" if on else 0)
+
+    def _count(self, trainer, metrics) -> None:
+        self.armed_steps += int(self._armed)
+
+    def _unguarded(self, fn):
+        def call():
+            import torch
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(
+                    "error" if self._armed else 0)
+        return call
+
+
+def _train_through_trainer(fa, dev, seed, workdir) -> dict:
+    """Phase 19: ViT-B/16 trained by the port's Trainer, built by the train
+    CLI's ``build``: 2 epochs of 4 steps, then one eval (every 2 epochs).
+    K1's launches counted from zero just before ``train()``; every loss
+    the Trainer logged (its flight record of each fetched step) against a
+    hand loop of ``make_train_step`` over the same loader's batches."""
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.obs import flight
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainer = cli.build(_smoke_cfg(workdir), eval_every_epochs=2)
+    guard = _NoSyncBetweenLogPoints(trainer)
+    log(f"trainer built in {time.perf_counter() - t0:.2f}s: log_every "
+        f"{trainer.log_every}, metrics_lag {trainer.metrics_lag}, feed "
+        f"{type(trainer.train_loader).__name__}(depth "
+        f"{trainer.train_loader.depth})")
+    flight.get_recorder().clear()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    steps = 2 * TRAINER_STEPS
+    forwards = steps + TRAINER_STEPS           # 8 train steps + 4 eval
+    logged = [e["metrics"]["loss"] for e in flight.get_recorder().events(
+        "step")]
+    log(f"Trainer: {steps} steps + 1 eval in {wall:.2f}s (incl. 3 "
+        f"checkpoint writes), {guard.armed_steps} steps under sync debug "
+        f"mode 'error', eval {json.dumps(trainer._last_eval)} "
+        f"({trainer.eval_fetches} host fetch), losses "
+        f"{[round(x, 5) for x in logged]}, launches {json.dumps(counts)}")
+    want = {fa.KERNEL_NAMES[4]: DEPTH * forwards,
+            fa.BWD_KERNEL_NAMES["dq"][4]: DEPTH * steps,
+            fa.BWD_KERNEL_NAMES["dkv"][4]: DEPTH * steps}
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launches == {n}")
+    check(sum(counts.values()) == sum(want.values()),
+          "the Trainer launched only flash_hb's kernels")
+    check(guard.armed_steps == steps, "every step ran under the guard")
+    check(trainer.eval_fetches == 1 and all(
+        np.isfinite(v) for v in trainer._last_eval.values()),
+        "one eval, one host fetch, finite results")
+    check(trainer.state.step == steps and len(logged) == steps
+          and all(np.isfinite(logged)), "every step logged a finite loss")
+    check(trainer.ckpt.latest_step() == steps and os.path.isdir(
+        os.path.join(workdir, "ckpt", "best")), "checkpoints with best")
+    final = {n: p.detach().clone() for n, p in trainer.state.params.items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    ref = cli.build(_smoke_cfg(None))
+    hand = []
+    for epoch in range(2):
+        ref.train_loader.set_epoch(epoch)
+        for batch in ref.train_loader:
+            ref.state, m = ref.train_step(ref.state, batch, ref.rng)
+            hand.append(m["loss"])
+    hand = [float(x) for x in hand]
+    diff = max(abs(a - b) for a, b in zip(logged, hand))
+    params_equal = all(torch.equal(p, final[n])
+                       for n, p in ref.state.params.items())
+    log(f"Trainer vs hand loop of make_train_step: max |dloss| {diff:.3e} "
+        f"(tol {TRAINER_LOSS_TOL}); final params bit-equal {params_equal}")
+    check(len(hand) == steps and diff <= TRAINER_LOSS_TOL,
+          "the Trainer's losses equal the hand loop's")
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": {n: counts[n] for n in want}, "params": final}
+
+
+def _resume(seed, workdir, final) -> None:
+    """Phase 20: a run stopped after its first epoch (its step-4
+    checkpoint written) and resumed by a fresh Trainer in the same workdir
+    ends with parameters bit-equal to phase 19's uninterrupted run; then a
+    flipped byte in the newest step (8) makes the restore fall back to
+    step 4, moving the corrupt step aside."""
+    import shutil
+    import torch
+    cli = _cli()
+    wd = workdir + "_resume"
+    shutil.rmtree(wd, ignore_errors=True)
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_first_save(trainer, step):
+        if step == TRAINER_STEPS:
+            raise Stop
+
+    first = cli.build(_smoke_cfg(wd), eval_every_epochs=2)
+    first.callbacks.register("on_checkpoint", stop_after_first_save)
+    try:
+        first.train()
+        check(False, "the first run stops after epoch 1")
+    except Stop:
+        pass
+    check(first.ckpt.all_steps() == [TRAINER_STEPS],
+          "the stopped run left its step-4 checkpoint")
+    del first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = cli.build(_smoke_cfg(wd), eval_every_epochs=2)
+    resumed.train()
+    torch.cuda.synchronize()
+    equal = sum(torch.equal(p, final[n])
+                for n, p in resumed.state.params.items())
+    log(f"resume: from step {TRAINER_STEPS} to {resumed.state.step} in "
+        f"{time.perf_counter() - t0:.2f}s; params bit-equal to the "
+        f"uninterrupted run: {equal}/{len(final)}")
+    check(resumed.state.step == 2 * TRAINER_STEPS and equal == len(final),
+          "the resumed run ends bit-equal to the uninterrupted one")
+
+    path = os.path.join(wd, "ckpt", str(2 * TRAINER_STEPS), "state.pt")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    _, step = resumed.ckpt.auto_resume(resumed.state)
+    moved = os.path.isdir(os.path.join(wd, "ckpt",
+                                       f"corrupt-{2 * TRAINER_STEPS}"))
+    older = any(not torch.equal(p, final[n])
+                for n, p in resumed.state.params.items())
+    log(f"resume with a flipped byte in step {2 * TRAINER_STEPS}: restored "
+        f"step {step} (state step {resumed.state.step}), corrupt step moved "
+        f"aside {moved}")
+    check(step == TRAINER_STEPS and resumed.state.step == TRAINER_STEPS
+          and moved and older, "a corrupt newest step falls back to step 4")
+    del resumed
+    shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _measure_trainer(seed, bare_ms) -> None:
+    """Phase 21: the Trainer's step with the feed on (prefetch 2: pinned
+    staging, side-stream copies) and off (prefetch 0: the loader copies
+    on the loop's thread), epochs of ``MEASURE_STEPS`` steps, in turns
+    (0, 2, 2, 0) twice on one state. The step is the steady one: CUDA
+    events on the loop's stream before step ``STEADY_FROM`` and after the
+    last step, so the feed's start-up and the epoch-end drain stay out;
+    the epoch's wall less its steps is reported apart as the epoch
+    overhead. Per route: the steady step (median over the four runs),
+    images/s, the share of the steady window's host time spent waiting
+    for batches (the Trainer's ``data_wait`` spans), the device time a
+    step from one profiled epoch (kernels only; copies apart) and the
+    idle share 1 - kernel time / steady step; then ``throughput()`` of
+    each. Beside phase 7's bare step on a resident batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning_tpu_torch.data import DataLoader
+    from deeplearning_tpu_torch.obs import spans
+    from deeplearning_tpu_torch.serve.profile import _device_us
+    from deeplearning_tpu_torch.train.trainer import Trainer
+    cli = _cli()
+    on = cli.build(_smoke_cfg(None, steps=MEASURE_STEPS),
+                   eval_every_epochs=10 ** 9)
+    loader = DataLoader(on.train_loader.loader.source, TRAIN_BATCH,
+                        seed=seed, device=on.train_loader.device)
+    off = Trainer(state=on.state, train_step=on.train_step,
+                  train_loader=loader, prefetch=0, seed=seed,
+                  log_every=on.log_every, epochs=0)
+    routes = {"prefetch=2": on, "prefetch=0": off}
+    marks, events = [], []
+
+    def before_iter(tr, batch):
+        if len(marks) == STEADY_FROM:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    def after_iter(tr, metrics):
+        marks.append(time.perf_counter())
+        if len(marks) == MEASURE_STEPS:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+    for t in routes.values():
+        t.callbacks.register("before_iter", before_iter)
+        t.callbacks.register("after_iter", after_iter)
+    tracer = spans.enable()
+    steady_n = MEASURE_STEPS - STEADY_FROM
+
+    def epoch(t):
+        t.epoch, t.epochs = t.epochs, t.epochs + 1
+        marks.clear()
+        events.clear()
+        tracer.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(marks) == MEASURE_STEPS and len(events) == 2,
+              "phase 21 ran every step of its epoch")
+        step = events[0].elapsed_time(events[1]) / 1e3 / steady_n
+        waits = [e["dur"] / 1e6 for e in tracer.events()
+                 if e.get("name") == "data_wait"]
+        host = marks[-1] - marks[STEADY_FROM - 1]
+        return wall, step, sum(waits[STEADY_FROM:MEASURE_STEPS]) / host
+
+    epoch(on)                                  # warm both routes
+    epoch(off)
+    rows = {name: {"walls": [], "steps": [], "waits": []} for name in routes}
+    for name in ("prefetch=0", "prefetch=2", "prefetch=2", "prefetch=0") * 2:
+        wall, step, wait = epoch(routes[name])
+        rows[name]["walls"].append(wall)
+        rows[name]["steps"].append(step)
+        rows[name]["waits"].append(wait)
+    for name, t in routes.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            epoch(t)
+        kernels = sum(_device_us(e) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith(("Memcpy", "Memset")))
+        copies = sum(_device_us(e) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.key.startswith("Memcpy"))
+        r = rows[name]
+        step = statistics.median(r["steps"])
+        kernel_ms = kernels / 1e3 / MEASURE_STEPS
+        r.update({
+            "step_ms": step * 1e3,
+            "runs_step_ms": [s * 1e3 for s in r.pop("steps")],
+            "epoch_ms": statistics.median(r["walls"]) * 1e3,
+            "epoch_overhead_ms": (statistics.median(r.pop("walls"))
+                                  - MEASURE_STEPS * step) * 1e3,
+            "images_per_sec": TRAIN_BATCH / step,
+            "data_wait_share": statistics.median(r.pop("waits")),
+            "kernel_ms_per_step": kernel_ms,
+            "copy_ms_per_step": copies / 1e3 / MEASURE_STEPS,
+            "idle_share": 1.0 - kernel_ms / (step * 1e3)})
+    spans.disable()
+    for name, t in routes.items():
+        rows[name]["throughput_images_per_sec"] = t.throughput(n_iters=8,
+                                                               lag=3)
+        rows[name]["throughput_stats"] = t.throughput_stats
+    for name, r in rows.items():
+        log(f"Trainer step {MODEL} {name} batch {TRAIN_BATCH}, epochs of "
+            f"{MEASURE_STEPS} steps, steady steps {STEADY_FROM}-"
+            f"{MEASURE_STEPS - 1}: {json.dumps(r)}")
+    log(f"bare step (phase 7, flash_hb, resident batch): {bare_ms:.3f} ms; "
+        f"steady Trainer step, prefetch=2: "
+        f"{rows['prefetch=2']['step_ms']:.3f} ms, prefetch=0: "
+        f"{rows['prefetch=0']['step_ms']:.3f} ms")
+    check(all(r["throughput_images_per_sec"] > 0 and
+              np.isfinite(r["step_ms"]) for r in rows.values()),
+          "both routes measured")
+    del on, off, routes
+    torch.cuda.empty_cache()
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -1,11 +1,13 @@
 """Training of the port: the counterpart of ``deeplearning_tpu/train``.
 
-This slice has the pieces of one ViT-B/16 training step: schedules,
-optimizers (``optim``), ``TrainState`` (``state``), the classification
-loss and metric functions (``classification``), ``make_train_step`` /
-``make_eval_step`` (``steps``) and the step benchmark
-(``python -m deeplearning_tpu_torch.train.bench``). The input feed, the
-Trainer, checkpoints and the train CLI come with the next slice.
+Schedules, optimizers (``optim``), ``TrainState`` (``state``), the
+classification loss and metric functions (``classification``),
+``make_train_step`` / ``make_eval_step`` (``steps``), lagged metrics
+(``async_metrics``), the ``Trainer`` (``trainer``), the train CLI
+(``python -m deeplearning_tpu_torch.train``), the step benchmark
+(``python -m deeplearning_tpu_torch.train.bench``) and profiler
+(``train.profile``). Divergence rollback, preemption and the LR finder
+come with ROADMAP Queue 1 item 5c.
 """
 
 from .state import TrainState

@@ -1,0 +1,288 @@
+"""Training CLI of the port — the counterpart of ``tools/train.py``.
+
+  python -m deeplearning_tpu_torch.train --cfg configs/vit_b16_imagenet.yaml
+  python -m deeplearning_tpu_torch.train model.name=vit_base_patch16_224 \\
+      model.num_classes=1000 data.image_size=224 data.channels=3 \\
+      data.global_batch=128 optim.name=adamw optim.lr=1e-3 train.epochs=2
+  # on the CPU, a tiny model
+  python -m deeplearning_tpu_torch.train train.device=cpu \\
+      model.name=vit_micro_patch4_56 data.image_size=56 data.channels=3 \\
+      data.n_train=16 data.global_batch=8 train.epochs=1
+
+The same ``Config`` sections and defaults as ``tools/train.py``, read the
+same way (``--cfg`` YAML file, then dotted overrides). Data is the synthetic set of ``load_data`` (the JAX CLI's,
+byte for byte) or an ``.npz`` of ``images`` / ``labels`` with its
+validation split. The model comes from the port's registry, initialised
+from ``train.seed``; ``model.attn`` picks the attention route as the
+serve CLI's ``--attn`` does (default ``flash_hb``, the hand-written K1
+kernels). Batches go to ``train.device`` (default ``cuda``, which raises
+without a card; the tests pass ``cpu``) through a ``DevicePrefetcher`` of
+depth ``data.prefetch``; the Trainer logs, evaluates, checkpoints into
+``train.workdir`` and resumes from it. Options of later slices raise a
+``ValueError`` naming the ROADMAP Queue 1 item that brings them; the
+port has no ``train.donate_batch`` (it updates the state in place).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    name: str = "mnist_cnn"
+    num_classes: int = 10
+    precision: str = "bf16"          # bf16 | f32
+    exact_gelu: bool = False         # erf GELU (torch.nn.GELU's)
+    attn: str = "flash_hb"           # ops.attention's names, as --attn
+
+
+@dataclasses.dataclass(frozen=True)
+class DataCfg:
+    folder: Optional[str] = None     # ImageFolder root: item 5c
+    npz: Optional[str] = None        # npz with images/labels arrays
+    synthetic: bool = True
+    image_size: int = 28
+    channels: int = 1
+    n_train: int = 512
+    global_batch: int = 64
+    val_rate: float = 0.2            # npz train/val split
+    num_workers: int = 8             # folder-mode decode threads: item 5c
+    augment: str = "imagenet"        # folder-mode augmentation: item 5c
+    prefetch: int = 2                # device-feed queue depth (0 = off)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimCfg:
+    name: str = "sgd"
+    lr: float = 0.05
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    schedule: str = "warmup_cosine"
+    warmup_steps: int = 10
+    clip_grad_norm: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCfg:
+    epochs: int = 3
+    seed: int = 0
+    label_smoothing: float = 0.0
+    ema: bool = False
+    workdir: Optional[str] = None
+    device: str = "cuda"             # cuda | cpu
+    mesh_model_axis: int = 1         # item 7
+    mesh_seq_axis: int = 1           # item 7
+    seq_parallel: str = "ring"       # item 7
+    accum_steps: int = 1             # gradient accumulation microbatches
+    mixup: bool = False              # mixup/cutmix soft targets
+    async_checkpoint: bool = False   # item 5c
+    pipeline_stages: int = 1         # item 7
+    microbatches: int = 0            # item 7
+    precompile: bool = True          # start the feed before the first step
+    recovery: str = "none"           # none|abort; rollback: item 5c
+    strict: str = ""                 # item 5c
+    weight_update: str = "replicated"  # zero1: item 7
+    grad_comm: str = "fp32"          # int8: item 7
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelCfg = dataclasses.field(default_factory=ModelCfg)
+    data: DataCfg = dataclasses.field(default_factory=DataCfg)
+    optim: OptimCfg = dataclasses.field(default_factory=OptimCfg)
+    train: TrainCfg = dataclasses.field(default_factory=TrainCfg)
+
+
+_ITEM_5C = "ROADMAP Queue 1 item 5c (the robust half of the input feed " \
+    "and Trainer)"
+_ITEM_7 = "ROADMAP Queue 1 item 7 (multi-GPU)"
+
+
+def check_slice(cfg: Config) -> None:
+    """Raise on an option whose mechanism comes with a later slice."""
+    d, t = cfg.data, cfg.train
+    later = [
+        ("data.folder", d.folder is not None, _ITEM_5C),
+        ("data.num_workers", d.num_workers != DataCfg.num_workers, _ITEM_5C),
+        ("data.augment", d.augment != DataCfg.augment, _ITEM_5C),
+        ("train.recovery", t.recovery not in ("none", "", "abort"),
+         _ITEM_5C),
+        ("train.strict", bool(t.strict), _ITEM_5C),
+        ("train.async_checkpoint", t.async_checkpoint, _ITEM_5C),
+        ("train.mesh_model_axis", t.mesh_model_axis > 1, _ITEM_7),
+        ("train.mesh_seq_axis", t.mesh_seq_axis > 1, _ITEM_7),
+        ("train.seq_parallel", t.seq_parallel != "ring", _ITEM_7),
+        ("train.pipeline_stages", t.pipeline_stages > 1, _ITEM_7),
+        ("train.microbatches", t.microbatches != 0, _ITEM_7),
+        ("train.weight_update=zero1", t.weight_update == "zero1", _ITEM_7),
+        ("train.grad_comm=int8", t.grad_comm == "int8", _ITEM_7),
+    ]
+    for name, is_set, item in later:
+        if is_set:
+            raise ValueError(f"{name} comes with {item}")
+    if t.weight_update not in ("replicated", "zero1"):
+        raise ValueError(f"train.weight_update={t.weight_update!r} "
+                         "(replicated | zero1)")
+    if t.grad_comm not in ("fp32", "int8"):
+        raise ValueError(f"train.grad_comm={t.grad_comm!r} (fp32 | int8)")
+    if d.global_batch % max(t.accum_steps, 1):
+        raise ValueError(
+            f"data.global_batch={d.global_batch} must be divisible by "
+            f"train.accum_steps={t.accum_steps}")
+
+
+def load_data(cfg: DataCfg, num_classes: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """``tools/train.py``'s data, byte for byte: the ``.npz``'s arrays as
+    stored, or a seeded synthetic set whose class shows as a bright column
+    stripe in channel 0."""
+    if cfg.npz:
+        blob = np.load(cfg.npz)
+        return blob["images"], blob["labels"]
+    rng = np.random.default_rng(0)
+    n, s, c = cfg.n_train, cfg.image_size, cfg.channels
+    labels = rng.integers(0, num_classes, n).astype(np.int32)
+    images = rng.normal(0, 0.1, (n, s, s, c)).astype(np.float32)
+    block = max(s // num_classes, 1)
+    for i, lab in enumerate(labels):
+        images[i, :, lab * block:(lab + 1) * block, 0] += 2.0
+    return images, labels
+
+
+def classification_source(imgs: np.ndarray, labs: np.ndarray,
+                          channels: int):
+    """The dataset over stored arrays: per-sample uint8 -> float32 in
+    [0, 1] and channel expansion, lazily, so the data stays in its
+    compact dtype in RAM (``tools/train.py``'s ``_cls_source``)."""
+    from ..data.loader import ArraySource, MapSource
+    if not (imgs.dtype == np.uint8 or imgs.ndim == 3
+            or imgs.shape[-1] != channels):
+        return ArraySource(image=imgs, label=labs)
+
+    def fetch(i):
+        img = imgs[i]
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] == 1 and channels == 3:
+            img = np.repeat(img, 3, axis=-1)
+        return {"image": np.asarray(img, np.float32), "label": labs[i]}
+    return MapSource(len(imgs), fetch)
+
+
+def _split(cfg: Config, images, labels):
+    """The npz validation split (before the schedule is sized), never
+    smaller than one eval batch; the synthetic set evaluates on itself."""
+    gb = cfg.data.global_batch
+    if cfg.data.npz and cfg.data.val_rate > 0 and len(images) >= 2 * gb:
+        order = np.random.default_rng(cfg.train.seed).permutation(
+            len(images))
+        n_val = min(max(int(len(images) * cfg.data.val_rate), gb),
+                    len(images) - gb)
+        return ((images[order[n_val:]], labels[order[n_val:]]),
+                (images[order[:n_val]], labels[order[:n_val]]))
+    return (images, labels), (images, labels)
+
+
+def build(cfg: Config, **trainer_kw: Any):
+    """The Trainer ``main`` runs, with its state, step, loaders and eval
+    step built from ``cfg``; ``trainer_kw`` go to ``Trainer``."""
+    from .. import hub, models  # noqa: F401  (registers the factories)
+    from ..core import numerics
+    from ..core import rng as rng_mod
+    from ..core.config import asdict
+    from ..core.device import resolve_device
+    from ..core.registry import MODELS
+    from ..data.loader import DataLoader
+    from ..data.mixup import mixup_cutmix
+    from .classification import make_loss_fn, make_metric_fn
+    from .optim import build_optimizer
+    from .schedules import build_schedule
+    from .state import TrainState
+    from .steps import make_eval_step, make_train_step
+    from .trainer import Trainer
+
+    check_slice(cfg)
+    if cfg.model.name not in MODELS:
+        raise ValueError(
+            f"model.name={cfg.model.name!r} is not in the port yet (the rest "
+            f"of the zoo, LeNet's mnist_cnn among it, is ROADMAP Queue 1 "
+            f"item 8); it has {', '.join(MODELS.keys())}")
+    dev = resolve_device(cfg.train.device)
+    images, labels = load_data(cfg.data, cfg.model.num_classes)
+    (tr_images, tr_labels), (ev_images, ev_labels) = _split(cfg, images,
+                                                           labels)
+    numerics.set_exact(cfg.model.exact_gelu)
+    model_kw = hub.model_kwargs(cfg.model.name, cfg.model.attn,
+                                images.shape[1])
+    if cfg.data.channels != 3:
+        model_kw["in_chans"] = cfg.data.channels
+    model = MODELS.build(
+        cfg.model.name, num_classes=cfg.model.num_classes,
+        dtype=torch.bfloat16 if cfg.model.precision == "bf16"
+        else torch.float32,
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        **model_kw).to(dev)
+    params = dict(model.named_parameters())
+    steps_per_epoch = len(tr_images) // cfg.data.global_batch
+    sched = build_schedule(cfg.optim.schedule, base_lr=cfg.optim.lr,
+                           total_steps=cfg.train.epochs * steps_per_epoch,
+                           warmup_steps=cfg.optim.warmup_steps)
+    tx = build_optimizer(cfg.optim.name, sched,
+                         clip_grad_norm=cfg.optim.clip_grad_norm or None,
+                         weight_decay=cfg.optim.weight_decay,
+                         momentum=cfg.optim.momentum, params=params)
+    has_bn = any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                 for m in model.modules())
+    state = TrainState.create(
+        model=model, tx=tx,
+        batch_stats=dict(model.named_buffers()) if has_bn else None,
+        use_ema=cfg.train.ema)
+    loader = DataLoader(
+        classification_source(tr_images, tr_labels, cfg.data.channels),
+        global_batch=cfg.data.global_batch, seed=cfg.train.seed, device=dev)
+    eval_loader = DataLoader(
+        classification_source(ev_images, ev_labels, cfg.data.channels),
+        global_batch=cfg.data.global_batch, shuffle=False, device=dev)
+    base_step = make_train_step(
+        make_loss_fn(cfg.train.label_smoothing, has_bn),
+        accum_steps=cfg.train.accum_steps, device=dev)
+    if cfg.train.mixup:
+        def train_step(s, batch, rng):
+            # the step's own augmentation stream, apart from its dropout
+            gen = rng_mod.step_key(rng_mod.fold_in(rng, 1), s.step, dev)
+            batch = mixup_cutmix(batch, gen, cfg.model.num_classes,
+                                 smoothing=cfg.train.label_smoothing)
+            return base_step(s, batch, rng)
+    else:
+        train_step = base_step
+    kw = dict(state=state, train_step=train_step, train_loader=loader,
+              eval_step=make_eval_step(make_metric_fn(), device=dev),
+              eval_loader=eval_loader, epochs=cfg.train.epochs,
+              seed=cfg.train.seed, workdir=cfg.train.workdir,
+              log_every=max(steps_per_epoch // 2, 1),
+              prefetch=cfg.data.prefetch, run_config=asdict(cfg))
+    kw.update(trainer_kw)
+    return Trainer(**kw)
+
+
+def main(argv=None) -> int:
+    from ..core.config import config_cli
+    cfg = config_cli(Config(), argv, description=__doc__.splitlines()[0])
+    trainer = build(cfg)
+    if cfg.train.precompile:
+        trainer.precompile()       # the feed fills while nothing waits
+    trainer.train()
+    results = trainer.evaluate()
+    print({k: round(v, 4) for k, v in results.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -8,7 +8,8 @@ EMA in place (no second copy of 86M parameters per step) and
 ``apply_gradients`` returns the same object.
 
 ``step`` is a host integer: the schedules and Adam's bias correction read
-it on the host, so a step never waits for the card.
+it on the host, so a step never waits for the card. ``state_dict()`` /
+``load_state_dict()`` are what ``core.checkpoint`` saves and restores.
 """
 
 from __future__ import annotations
@@ -90,3 +91,44 @@ class TrainState:
             self.batch_stats = new_batch_stats
         self.step += 1
         return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the step, the params, the model's
+        buffers (BN statistics: ``batch_stats`` are those buffers), the
+        optimizer state and the EMA. Tensors are the live ones; saving
+        copies them."""
+        return {"step": self.step,
+                "params": {n: p.detach() for n, p in self.params.items()},
+                "buffers": dict(self.model.named_buffers()),
+                "opt_state": self.opt_state,
+                "ema_params": self.ema_params}
+
+    def load_state_dict(self, tree: Dict[str, Any]) -> None:
+        """Restore a ``state_dict()`` in place: params, buffers and EMA
+        are copied into the live tensors (bit for bit), the optimizer
+        state is moved to the params' device."""
+        if (self.ema_params is None) != (tree["ema_params"] is None):
+            raise ValueError("the checkpoint and the state disagree on EMA")
+        with torch.no_grad():
+            for name, p in self.params.items():
+                p.copy_(tree["params"][name])
+            for name, b in self.model.named_buffers():
+                b.copy_(tree["buffers"][name])
+            if self.ema_params is not None:
+                for name, e in self.ema_params.items():
+                    e.copy_(tree["ema_params"][name])
+        dev = next(iter(self.params.values())).device
+        self.opt_state = _to(tree["opt_state"], dev)
+        self.step = int(tree["step"])
+        if self.batch_stats:
+            self.batch_stats = dict(self.model.named_buffers())
+
+
+def _to(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree

@@ -675,3 +675,155 @@ def test_nms_kernels_edge_cases(cuda_device):
         nms_ops.nms_sweep(b.half(), s > 0, 0.5, 10)
     with pytest.raises(ValueError, match="multiple of 64"):
         nms_ops.nms_sweep(b[:, :100], s[:, :100] > 0, 0.5, 10)
+
+
+# ------------------------------------------- the feed and the Trainer loop
+def _digest(x):
+    """Exact, order-free digest of a float32 tensor or array: the int64 sum
+    of its bit patterns."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int32).to(torch.int64).sum()
+    return int(x.view("int32").astype("int64").sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_prefetcher_hands_batches_over_safely(cuda_device, depth):
+    """Batches copied on the prefetcher's side stream are read on the
+    consumer's stream behind queued work, then dropped (the allocator may
+    reuse them): every read sees its host batch, under sync debug mode
+    "error" (the feed makes no synchronising call)."""
+    import numpy as np
+    from deeplearning_tpu_torch.data import (ArraySource, DataLoader,
+                                             DevicePrefetcher)
+    rng = np.random.default_rng(depth)
+    images = rng.normal(size=(96, 64, 64, 3)).astype(np.float32)
+    source = ArraySource(image=images,
+                         label=np.arange(96, dtype=np.int32))
+    pf = DevicePrefetcher(DataLoader(source, 16, seed=1, device=cuda_device),
+                          depth=depth)
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    digests, labels = [], []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in pf:
+            for _ in range(4):
+                torch.mm(busy, busy)
+            digests.append(_digest(batch["image"]))
+            labels.append(batch["label"].clone())
+            del batch
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = list(DataLoader(source, 16, seed=1))
+    assert [d.item() for d in digests] == [_digest(h["image"]) for h in host]
+    assert all(torch.equal(got.cpu(), torch.from_numpy(h["label"]))
+               for got, h in zip(labels, host))
+    assert pf.stats()["batches_fed"] == 6
+
+
+@pytest.mark.cuda
+def test_prefetch_to_device_equals_the_host_batches(cuda_device):
+    """``prefetch_to_device`` pins each host leaf and copies it without
+    blocking on the current stream, two batches ahead; read behind
+    queued work, every batch equals its host batch bit for bit."""
+    import numpy as np
+    from deeplearning_tpu_torch.data import (ArraySource, DataLoader,
+                                             prefetch_to_device)
+    rng = np.random.default_rng(7)
+    source = ArraySource(
+        image=rng.normal(size=(96, 64, 64, 3)).astype(np.float32),
+        label=np.arange(96, dtype=np.int32))
+    host = DataLoader(source, 16, seed=1)
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    got = []
+    for batch in prefetch_to_device(host, 2, device=cuda_device):
+        for _ in range(4):
+            torch.mm(busy, busy)
+        assert all(v.device.type == "cuda" for v in batch.values())
+        got.append({k: v.cpu() for k, v in batch.items()})
+    want = list(host)
+    assert len(got) == len(want) == 6
+    assert all(torch.equal(g[k], torch.from_numpy(h[k]))
+               for g, h in zip(got, want) for k in h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch_prob", [0.0, 1.0])
+def test_mixup_cutmix_stays_on_the_card(cuda_device, switch_prob):
+    """The train CLI's mixup path draws from a CUDA generator and makes no
+    synchronising call; one seed gives one batch, rows sum to 1."""
+    from deeplearning_tpu_torch.data.mixup import mixup_cutmix
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = {"image": torch.randn(8, 32, 32, 3, device=cuda_device,
+                                  generator=g),
+             "label": torch.randint(0, 10, (8,), device=cuda_device,
+                                    generator=g, dtype=torch.int32)}
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            outs.append(mixup_cutmix(
+                batch, torch.Generator(device=cuda_device).manual_seed(5),
+                10, switch_prob=switch_prob))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(outs[0]["image"], outs[1]["image"])
+    torch.testing.assert_close(outs[0]["label"].sum(-1),
+                               torch.ones(8, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_trainer_loop_makes_no_sync_between_log_points(cuda_device):
+    """A small ViT through the train CLI's ``build`` on the card: every step
+    of two epochs runs under sync debug mode "error", lifted only inside
+    the lagged metric fetches (the designed sync a log point); the
+    Trainer's losses equal a hand loop of its step over the same batches."""
+    import dataclasses
+    from deeplearning_tpu_torch.obs import flight
+    from deeplearning_tpu_torch.train import __main__ as cli
+    cfg = cli.Config(
+        model=cli.ModelCfg(name="vit_micro_patch4_56", num_classes=10),
+        data=cli.DataCfg(image_size=56, channels=3, n_train=64,
+                         global_batch=16),
+        optim=cli.OptimCfg(name="adamw", lr=1e-3, weight_decay=0.05),
+        train=cli.TrainCfg(epochs=2, label_smoothing=0.1))
+    trainer = cli.build(cfg, obs=True)
+    armed = {"on": False, "steps": 0}
+
+    def arm(on):
+        armed["on"] = on
+        torch.cuda.set_sync_debug_mode("error" if on else 0)
+
+    def unguarded(fn):
+        def call():
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("error" if armed["on"] else 0)
+        return call
+    trainer.callbacks.register("before_epoch", lambda t: arm(True))
+    trainer.callbacks.register("after_epoch", lambda t: arm(False))
+    trainer.callbacks.register(
+        "after_iter", lambda t, metrics: armed.__setitem__(
+            "steps", armed["steps"] + int(armed["on"])))
+    for name in ("poll", "drain"):
+        setattr(trainer.deferred, name,
+                unguarded(getattr(trainer.deferred, name)))
+    flight.get_recorder().clear()
+    try:
+        trainer.train()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert armed["steps"] == 8
+    logged = [e["metrics"]["loss"]
+              for e in flight.get_recorder().events("step")]
+    ref = cli.build(dataclasses.replace(cfg))
+    hand = []
+    for epoch in range(2):
+        ref.train_loader.set_epoch(epoch)
+        for batch in ref.train_loader:
+            ref.state, m = ref.train_step(ref.state, batch, ref.rng)
+            hand.append(m["loss"].item())
+    assert logged == hand

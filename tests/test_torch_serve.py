@@ -334,6 +334,13 @@ def test_port_imports_nothing_of_jax():
                                                "deeplearning_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20 and os.path.exists(files[0])
+    scanned = {os.path.relpath(f, os.path.join(REPO, "deeplearning_tpu_torch"))
+               for f in files}
+    assert {"core/config.py", "core/logging.py", "core/checkpoint.py",
+            "data/loader.py", "data/device_prefetch.py", "data/mixup.py",
+            "data/samplers.py", "data/transforms.py",
+            "train/async_metrics.py", "train/trainer.py",
+            "train/__main__.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as f:

@@ -1,0 +1,332 @@
+"""The port's Trainer, checkpoints and train CLI (deeplearning_tpu_torch/
+train/{trainer,__main__}, core/checkpoint, TrainState.state_dict) vs the
+JAX package, on the CPU.
+
+- A 2-layer, width-32 ViT (float32, JAX matmuls at the highest precision,
+  tests/conftest.py) converted with ``from_flax_params`` and trained for 2
+  epochs by the port's Trainer and by the JAX Trainer on the same numpy
+  batches: the same hooks in the same order, every logged loss and the
+  eval results within 1e-4 (relative; SGD with momentum, so differences of
+  float32 rounding stay that size over 8 steps).
+- The port's own contracts: ``FloatingPointError`` within
+  ``metrics_lag + log_every`` steps of a NaN batch; checkpoints with a
+  ``best`` copy; a run stopped after epoch 1 and resumed ends bit-equal to
+  an uninterrupted one; a flipped byte in the newest step falls back to
+  the one before; ``throughput() > 0`` (no assertion reads a clock); the
+  CLI trains on the CPU and names the slice of each later option.
+"""
+
+import dataclasses
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from deeplearning_tpu.data import ArraySource as JArraySource
+from deeplearning_tpu.data import DataLoader as JDataLoader
+from deeplearning_tpu.models.classification import vit as jvit
+from deeplearning_tpu.train import TrainState as JTrainState
+from deeplearning_tpu.train import classification as jcls
+from deeplearning_tpu.train import make_eval_step as j_make_eval_step
+from deeplearning_tpu.train import make_train_step as j_make_train_step
+from deeplearning_tpu.train.trainer import Trainer as JTrainer
+from deeplearning_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                    load_pytree, save_pytree)
+from deeplearning_tpu_torch.data import ArraySource, DataLoader
+from deeplearning_tpu_torch.models.classification import vit as tvit
+from deeplearning_tpu_torch.obs import flight as tflight
+from deeplearning_tpu_torch.ops.attention import get_attn_fn
+from deeplearning_tpu_torch.train import TrainState, make_eval_step
+from deeplearning_tpu_torch.train import make_train_step
+from deeplearning_tpu_torch.train import __main__ as cli
+from deeplearning_tpu_torch.train import classification as tcls
+from deeplearning_tpu_torch.train import optim as toptim
+from deeplearning_tpu_torch.train.trainer import HOOKS, Callbacks, Trainer
+from deeplearning_tpu_torch.utils.convert import from_flax_params
+
+TINY = dict(img_size=16, patch_size=4, num_classes=10, embed_dim=32,
+            depth=2, num_heads=2)
+N, BATCH = 32, 8
+BACKENDS = ("csv", "jsonl")           # no TensorBoard import in the tests
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    model = jvit.VisionTransformer(**TINY, dtype=jnp.float32)
+    return jax.tree.map(np.asarray, model.init(
+        jax.random.key(0), jnp.zeros((1, 16, 16, 3)), train=False)["params"])
+
+
+def _data(seed=0, nan_at=None):
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(N, 16, 16, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, N).astype(np.int32)
+    if nan_at is not None:
+        images[nan_at] = np.nan
+    return images, labels
+
+
+def _port_trainer(jparams, *, images=None, labels=None, attn="flash_hb",
+                  epochs=2, **kw):
+    if images is None:
+        images, labels = _data()
+    model = tvit.VisionTransformer(**TINY, dtype=torch.float32,
+                                   attn_fn=get_attn_fn(attn))
+    model.load_state_dict(from_flax_params(jparams))
+    tx = toptim.build_optimizer("sgd", 0.05, weight_decay=1e-4,
+                                params=dict(model.named_parameters()))
+    kw.setdefault("log_backends", BACKENDS)
+    return Trainer(
+        state=TrainState.create(model=model, tx=tx),
+        train_step=make_train_step(tcls.make_loss_fn(label_smoothing=0.1),
+                                   device="cpu"),
+        train_loader=DataLoader(ArraySource(image=images, label=labels),
+                                BATCH, seed=0),
+        eval_step=make_eval_step(tcls.make_metric_fn(), device="cpu"),
+        eval_loader=DataLoader(ArraySource(image=images, label=labels),
+                               BATCH, shuffle=False),
+        epochs=epochs, **kw)
+
+
+def _recorder(trainer, events):
+    cb = trainer.callbacks
+    for hook in HOOKS:
+        cb.register(hook, functools.partial(
+            lambda name, t, **kw: events.append(name), hook))
+
+
+def test_trainer_matches_the_jax_trainer(jparams):
+    images, labels = _data()
+    jtx = optax.chain(optax.add_decayed_weights(1e-4), optax.sgd(0.05, 0.9))
+    jstate = JTrainState.create(
+        apply_fn=jvit.VisionTransformer(**TINY, dtype=jnp.float32).apply,
+        params=jax.tree.map(jnp.asarray, jparams), tx=jtx)
+    jtrainer = JTrainer(
+        state=jstate,
+        train_step=j_make_train_step(jcls.make_loss_fn(label_smoothing=0.1),
+                                     donate=False),
+        train_loader=JDataLoader(JArraySource(image=images, label=labels),
+                                 BATCH, seed=0),
+        eval_step=j_make_eval_step(jcls.make_metric_fn()),
+        eval_loader=JDataLoader(JArraySource(image=images, label=labels),
+                                BATCH, shuffle=False),
+        epochs=2, log_every=2, obs=False, preemptible=False,
+        heartbeat=None, metrics_port=None, retrace_warn=False)
+    trainer = _port_trainer(jparams, log_every=2, obs=True)
+    jevents, tevents = [], []
+    _recorder(jtrainer, jevents)
+    _recorder(trainer, tevents)
+    jlosses = []
+    jtrainer.callbacks.register("after_iter", lambda t, metrics:
+                                jlosses.append(metrics["loss"]))
+    tflight.get_recorder().clear()
+    jtrainer.train()
+    trainer.train()
+    logged = [e["metrics"]["loss"]
+              for e in tflight.get_recorder().events("step")]
+    assert tevents == jevents and tevents[0] == "before_train"
+    assert len(logged) == len(jlosses) == 8
+    np.testing.assert_allclose(logged, [float(x) for x in jlosses],
+                               rtol=1e-4)
+    assert trainer.eval_fetches == jtrainer.eval_fetches == 2
+    assert set(trainer._last_eval) == set(jtrainer._last_eval)
+    for k, v in jtrainer._last_eval.items():
+        np.testing.assert_allclose(trainer._last_eval[k], v, rtol=1e-4,
+                                   err_msg=k)
+    assert trainer.best_value == pytest.approx(jtrainer.best_value)
+    assert trainer.state.step == int(jtrainer.state.step) == 8
+
+
+def test_nan_batch_aborts_within_the_lag(jparams):
+    """A NaN in batch 1 of epoch 0 (sequential order) raises within
+    metrics_lag + log_every steps of it."""
+    images, labels = _data(nan_at=BATCH + 1)
+    ran = []
+    trainer = _port_trainer(jparams, images=images, labels=labels,
+                            attn="naive", epochs=4, log_every=2,
+                            metrics_lag=1)
+    trainer.train_loader.shuffle = False
+    trainer.callbacks.register("after_iter",
+                               lambda t, metrics: ran.append(t.host_step))
+    with pytest.raises(FloatingPointError, match="non-finite loss"):
+        trainer.train()
+    assert 2 <= len(ran) <= 2 + 1 + 2
+
+
+def test_checkpoints_best_resume_and_corrupt_fallback(jparams, tmp_path):
+    full = _port_trainer(jparams, attn="naive", log_every=2,
+                         workdir=str(tmp_path / "full"))
+    full.train()
+    ckpt = tmp_path / "full" / "ckpt"
+    assert full.ckpt.all_steps() == [4, 8] and (ckpt / "best").is_dir()
+    assert (ckpt / "checksums.json").is_file()
+    assert (tmp_path / "full" / "trace.json").is_file()
+
+    class Stop(Exception):
+        pass
+
+    def stop(trainer, step):
+        if step == 4:
+            raise Stop
+
+    wd = str(tmp_path / "stopped")
+    first = _port_trainer(jparams, attn="naive", log_every=2, workdir=wd)
+    first.callbacks.register("on_checkpoint", stop)
+    with pytest.raises(Stop):
+        first.train()
+    assert first.ckpt.all_steps() == [4]
+    resumed = _port_trainer(jparams, attn="naive", log_every=2, workdir=wd)
+    resumed.train()
+    assert resumed.state.step == 8 and resumed.epoch == 1
+    for name, p in full.state.params.items():
+        assert torch.equal(resumed.state.params[name], p), name
+    # a flipped byte in the newest step: verified restore walks back
+    path = os.path.join(wd, "ckpt", "8", "state.pt")
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 2] ^= 0xFF
+    open(path, "wb").write(bytes(raw))
+    fresh = _port_trainer(jparams, attn="naive", workdir=wd)
+    state, step = fresh.ckpt.auto_resume(fresh.state)
+    assert step == 4 and state.step == 4
+    assert os.path.isdir(os.path.join(wd, "ckpt", "corrupt-8"))
+    assert fresh.ckpt.all_steps() == [4]
+
+
+def test_state_dict_round_trip_and_pytrees(tmp_path):
+    model = torch.nn.Sequential(torch.nn.Linear(3, 4),
+                                torch.nn.BatchNorm1d(4))
+    tx = toptim.build_optimizer("adamw", 0.1,
+                                params=dict(model.named_parameters()))
+    state = TrainState.create(model=model, tx=tx, use_ema=True,
+                              batch_stats=dict(model.named_buffers()))
+    model.train()
+    model(torch.randn(5, 3))               # moves the BN statistics
+    state.apply_gradients({n: torch.ones_like(p)
+                           for n, p in state.params.items()})
+    mgr = CheckpointManager(str(tmp_path / "ck"), max_to_keep=1)
+    mgr.save(1, state, metrics={"top1": 0.5})
+    mgr.save(2, state)
+    assert mgr.all_steps() == [2] and mgr.verify_step(2)
+    other = torch.nn.Sequential(torch.nn.Linear(3, 4),
+                                torch.nn.BatchNorm1d(4))
+    restored = TrainState.create(
+        model=other, tx=toptim.build_optimizer(
+            "adamw", 0.1, params=dict(other.named_parameters())),
+        use_ema=True, batch_stats=dict(other.named_buffers()))
+    assert mgr.restore(restored) is restored and restored.step == 1
+    for a, b in ((state.model.state_dict(), other.state_dict()),
+                 (state.ema_params, restored.ema_params)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert restored.opt_state[0]["count"] == 1
+    assert torch.equal(restored.opt_state[0]["mu"]["0.weight"],
+                       state.opt_state[0]["mu"]["0.weight"])
+    save_pytree(str(tmp_path / "tree"), {"w": torch.arange(3)})
+    assert torch.equal(load_pytree(str(tmp_path / "tree"))["w"],
+                       torch.arange(3))
+    assert load_pytree(str(tmp_path / "ck" / "2"))["step"] == 1
+    with pytest.raises(ValueError, match="EMA"):
+        TrainState.create(model=torch.nn.Sequential(
+            torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4)), tx=tx
+        ).load_state_dict(state.state_dict())
+
+
+def test_hooks_prefetch_precompile_and_throughput(jparams):
+    with pytest.raises(KeyError, match="Unknown hook"):
+        Callbacks().register("on_step", lambda t: None)
+    trainer = _port_trainer(jparams, attn="naive", prefetch=2)
+    # prefetch=2 wraps any loader; "auto" only one with a device
+    assert type(trainer.train_loader).__name__ == "DevicePrefetcher"
+    assert type(_port_trainer(jparams).train_loader).__name__ == "DataLoader"
+    assert trainer.precompile() is None
+    assert trainer.train_loader._active is not None
+    assert trainer.throughput(n_iters=3, lag=1) > 0
+    stats = trainer.throughput_stats
+    assert stats["batch"] == BATCH and stats["batches_fed"] > 0
+    with pytest.raises(ValueError):
+        trainer.throughput(n_iters=1)
+
+
+# ---------------------------------------------------------------- the CLI
+CLI_TINY = ["train.device=cpu", "model.name=vit_micro_patch4_56",
+            "data.image_size=16", "data.channels=3", "data.n_train=16",
+            "data.global_batch=8", "train.epochs=1", "model.precision=f32"]
+
+
+def test_cli_trains_two_steps_on_the_cpu(capsys, tmp_path):
+    assert cli.main(CLI_TINY + [f"train.workdir={tmp_path}",
+                                "train.ema=true", "train.mixup=true",
+                                "train.accum_steps=2"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    results = eval(out)                  # the JAX CLI's printed dict
+    assert set(results) == {"top1", "top5", "loss_sum"}
+    assert os.path.isdir(tmp_path / "ckpt" / "2")
+
+
+def test_cli_npz_source_and_its_validation_split(tmp_path):
+    """An .npz of uint8 single-channel images: the JAX CLI's split (a
+    seeded permutation, at least one eval batch) and per-sample uint8 ->
+    float32 in [0, 1] with the channel repeated to 3."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (40, 16, 16), dtype=np.uint8)
+    labels = rng.integers(0, 10, 40).astype(np.int32)
+    np.savez(tmp_path / "d.npz", images=images, labels=labels)
+    from deeplearning_tpu_torch.core.config import load_config
+    cfg = load_config(cli.Config(), opts=CLI_TINY + [
+        f"data.npz={tmp_path / 'd.npz'}", "data.val_rate=0.25"])
+    trainer = cli.build(cfg)
+    order = np.random.default_rng(0).permutation(40)
+    assert len(trainer.train_loader) == 3 and len(trainer.eval_loader) == 1
+    batch = next(iter(trainer.eval_loader))
+    want = np.repeat(images[order[:8], ..., None], 3, -1) / np.float32(255)
+    np.testing.assert_array_equal(batch["image"].numpy(), want)
+    np.testing.assert_array_equal(batch["label"].numpy(),
+                                  labels[order[:8]])
+    trainer.train()
+    assert trainer.state.step == 3
+
+
+def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
+    import importlib.util
+    import sys
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_cli", os.path.join(os.path.dirname(__file__), "..",
+                                      "tools", "train.py"))
+    jcli = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, spec.name, jcli)
+    spec.loader.exec_module(jcli)
+    for section in ("model", "data", "optim", "train"):
+        want = dataclasses.asdict(getattr(jcli.Config(), section))
+        got = dataclasses.asdict(getattr(cli.Config(), section))
+        extra = {"model": {"attn"}, "train": {"device"}}.get(section, set())
+        gone = {"train": {"donate_batch"}}.get(section, set())
+        assert set(got) - set(want) == extra and set(want) - set(got) == gone
+        assert all(got[k] == want[k] for k in set(got) & set(want))
+    cfg = cli.DataCfg(image_size=12, channels=3, n_train=20)
+    for a, b in zip(cli.load_data(cfg, 4), jcli.load_data(cfg, 4)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("opt,item", [
+    ("data.folder=/x", "5c"), ("data.num_workers=2", "5c"),
+    ("data.augment=light", "5c"), ("train.recovery=rollback", "5c"),
+    ("train.strict=transfers", "5c"), ("train.async_checkpoint=true", "5c"),
+    ("train.mesh_model_axis=2", "7"), ("train.mesh_seq_axis=2", "7"),
+    ("train.seq_parallel=ulysses", "7"), ("train.pipeline_stages=2", "7"),
+    ("train.microbatches=4", "7"), ("train.weight_update=zero1", "7"),
+    ("train.grad_comm=int8", "7")])
+def test_cli_later_slice_options_name_their_slice(opt, item):
+    with pytest.raises(ValueError, match=f"item {item}"):
+        cli.main(CLI_TINY + [opt])
+
+
+def test_cli_device_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([a for a in CLI_TINY if a != "train.device=cpu"])
+    with pytest.raises(ValueError, match="item 8"):
+        cli.main(["train.device=cpu"])       # mnist_cnn: not in the port

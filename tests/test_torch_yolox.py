@@ -220,9 +220,17 @@ def test_predict_fn_and_unported_families():
 def engine():
     """A CPU detection engine on yolox_nano at 64² with every box alive and
     more slots (100) than candidates (84), so no near-tie decides which
-    boxes make the cut."""
+    boxes make the cut. The class head's weights and biases come from a
+    seeded numpy tree drawn as ``_jax_variables`` draws them (a fresh
+    head's biases all sit at the prior, and its logits tie to the last
+    bit), so a margin far above float noise decides every label."""
     model = TMODELS.build("yolox_nano", num_classes=3, dtype=torch.float32,
                           generator=torch.Generator().manual_seed(0))
+    drawn = convert.from_flax_params(_jax_variables(JMODELS.build(
+        "yolox_nano", num_classes=3, dtype=jnp.float32), seed=5), like=model)
+    state = model.state_dict()
+    state.update({k: v for k, v in drawn.items() if ".cls_pred" in k})
+    model.load_state_dict(state)
     return InferenceEngine("yolox_nano", model=model, num_classes=3,
                            image_size=SIZE, batch_buckets=(1, 4),
                            device="cpu", score_thresh=0.0, max_det=100)
@@ -255,6 +263,14 @@ def _assert_same_rows(a, i, b, j):
 def test_engine_answers_a_batch_as_single_images(engine):
     assert engine.task == "detect" and engine.stats()["max_det"] == 100
     x = _images(3)
+    # labels are compared exactly, so none may be a tie: the smallest
+    # top-2 class-logit gap of the 84 candidates is above 1e-5, four orders
+    # of magnitude above the ~3e-10 between raw outputs of two batch sizes
+    with torch.no_grad():
+        raw = engine.model(torch.from_numpy(x))
+    top2 = torch.topk(raw[..., 5:], 2, dim=-1).values
+    assert raw.shape == (3, 84, 8)
+    assert (top2[..., 0] - top2[..., 1]).min().item() > 1e-5
     batched = engine.infer(x)
     assert batched["boxes"].shape == (3, 100, 4)
     assert batched["labels"].dtype == np.int64
