@@ -182,13 +182,48 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (prefetch 0), in turns, over 16-step epochs: the steady step (CUDA
    events around steps 4-15), the epoch overhead, images/s, data-wait
    share, kernel time a step (profiled epoch), idle share,
-   ``throughput()``, beside phase 7's bare step.
+   ``throughput()``, beside phase 7's bare step;
+22. Swin-T (full width and depth, 224², batch 128, random weights from
+   the seed) trained through the Trainer built by the train CLI's
+   ``build`` with ``model.attn=flash_hb`` (the fused K2) and
+   ``train.strict=transfers``, prefetch 2: 2 epochs of 4 steps and one
+   eval. K2 counted from zero just before ``train()``: 12 launches a
+   forward (8 steps + 4 eval batches); one strict section a step and no
+   sync outside the lagged fetches; the losses equal a hand loop of the
+   step over the same batches (``TRAINER_LOSS_TOL``); a deliberate
+   ``.item()`` inside a strict section raises; peak device memory;
+23. rollback: ``DLTPU_FAULTS=nan@step:6``, ``train.recovery=rollback``
+   with ``RecoveryPolicy(anchor_every=2)``: one rollback, a skipped window
+   ``[anchor, bad]`` with anchor < 6 <= bad <= 6 + metrics_lag +
+   log_every, a finished run with a finite last loss, ``flightrec.json``
+   'recovered', the peak device memory beside phase 22's;
+24. preemption: with ``DLTPU_HEARTBEAT`` set, a SIGTERM sent to the
+   process at step 5 raises ``Preempted`` at that step's boundary, the
+   checkpoint of step 5 verifies by CRC, ``flightrec.json`` says
+   'preempted', the heartbeat's step is >= 5; a fresh Trainer resumes at
+   step 5 with every tensor of the state bit-equal, then trains to the
+   end;
+25. async checkpoints: the same 8 steps with ``async_checkpoint`` on and
+   off, in turns, 3 runs each: the seconds the loop blocks in ``save``,
+   the step time of epoch 1 (beside the async write of epoch 0's
+   checkpoint); every written step verifies and restores bit-equal to the
+   state at its own step, though the parameters were updated in place
+   after it;
+26. folder data: 1 024 seeded uint8 ``.npy`` images of 256² in 8 class
+   folders, one corrupted; ``build_classification_loaders`` (8 threads,
+   imagenet augment, 224²) with ``quarantine=``: ``measure_throughput``
+   images/s over an epoch, then one Swin-T Trainer epoch from the folder
+   and its data-wait share; exactly one sample quarantined a pass and
+   every batch full; whether the native JPEG decode builds, and its
+   largest difference from PIL on JPEG copies of 64 images where PIL
+   imports.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
 (phases 13 and 16), each counted from zero just before its run. The
 flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
-phase 6's (dQ, dK/dV).
+phase 6's (dQ, dK/dV). The K2 entry adds the launches of phases 22-26 to
+phase 9's, each counted from zero just before its run.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -551,7 +586,35 @@ def main() -> int:
     _measure_trainer(args.seed, bare_ms)
     import shutil
     shutil.rmtree(workdir, ignore_errors=True)
-    log(f"chip_smoke: phases 18-21 in {time.perf_counter() - t18:.1f}s; "
+    log(f"chip_smoke: phases 18-21 in {time.perf_counter() - t18:.1f}s")
+
+    # ----------------- 22. Swin-T through the Trainer, strict=transfers
+    phase(22, started)
+    t22 = time.perf_counter()
+    win = by_name[wa.KERNEL_NAME]
+    # the kernels line counts K2 over every phase that runs it, each
+    # counted from zero just before its run
+    strict_run = _strict_swin(wa, dev, args.seed, workdir + "_swin")
+    win["launches"] += strict_run["launches"]
+
+    # ------------------------------------------- 23. divergence rollback
+    phase(23, started)
+    win["launches"] += _rollback_swin(wa, args.seed, workdir + "_rollback",
+                                      strict_run["peak"])
+
+    # ------------------------------------- 24. preemption and heartbeat
+    phase(24, started)
+    win["launches"] += _preempt_swin(wa, args.seed, workdir + "_preempt")
+
+    # ---------------------------------------------- 25. async checkpoints
+    phase(25, started)
+    win["launches"] += _async_checkpoints(wa, dev, args.seed,
+                                          workdir + "_async")
+
+    # --------------------------------------------------- 26. folder data
+    phase(26, started)
+    win["launches"] += _folder_feed(wa, dev, args.seed, workdir + "_folder")
+    log(f"chip_smoke: phases 22-26 in {time.perf_counter() - t22:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -2346,6 +2409,556 @@ def _measure_trainer(seed, bare_ms) -> None:
           "both routes measured")
     del on, off, routes
     torch.cuda.empty_cache()
+
+
+# ------------------------ phases 22-26: the robust half of the Trainer
+FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_SIZE = 1024, 8, 256
+JPEG_IMAGES = 64
+ASYNC_RUNS = (True, False, False, True, True, False)   # in turns, 3 each
+
+
+def _swin_cfg(workdir=None, steps=TRAINER_STEPS, **train):
+    """Phases 19-20's set-up with Swin-T (the fused K2 kernel through the
+    train CLI's ``model.attn=flash_hb``) and the given ``train.*``."""
+    import dataclasses
+    cfg = _smoke_cfg(workdir, steps)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, name=SWIN),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a ``TrainState`` (params, buffers, optimizer
+    moments, EMA) in a fixed order, cloned on the card."""
+    def walk(tree):
+        if hasattr(tree, "detach"):
+            return [tree.detach().clone()]
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in walk(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in walk(v)]
+        return []
+    return walk(state.state_dict())
+
+
+def _gib(n: int) -> float:
+    return n / 2 ** 30
+
+
+def _strict_swin(wa, dev, seed, workdir) -> dict:
+    """Phase 22: Swin-T trained by the Trainer with ``train.strict=
+    transfers`` and prefetch 2, 2 epochs of 4 steps and one eval. K2
+    counted from zero just before ``train()``: 12 launches a forward
+    (8 steps + 4 eval batches); one strict section a step; every epoch
+    also armed whole by ``_NoSyncBetweenLogPoints`` (lifted only in the
+    lagged fetches); the logged losses against a hand loop of the same
+    step over the same loader's batches; a deliberate ``.item()`` inside
+    a strict section raises."""
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.analysis import strict
+    from deeplearning_tpu_torch.obs import flight
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = cli.build(_swin_cfg(workdir, strict="transfers"),
+                        eval_every_epochs=2)
+    guard = _NoSyncBetweenLogPoints(trainer)
+    flight.get_recorder().clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wa.launch_counts()[wa.KERNEL_NAME]
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 * TRAINER_STEPS
+    forwards = steps + TRAINER_STEPS
+    logged = [e["metrics"]["loss"]
+              for e in flight.get_recorder().events("step")]
+    log(f"Swin-T Trainer (strict=transfers): {steps} steps + 1 eval in "
+        f"{wall:.2f}s, {trainer.strict_sections} strict sections, "
+        f"{guard.armed_steps} steps under the epoch guard, K2 launches "
+        f"{launches} (want {SWIN_BLOCKS} x {forwards}), eval "
+        f"{json.dumps(trainer._last_eval)}, losses "
+        f"{[round(x, 5) for x in logged]}, peak device memory "
+        f"{_gib(peak):.3f} GiB")
+    check(launches == SWIN_BLOCKS * forwards,
+          f"K2 launches == {SWIN_BLOCKS} x (steps + eval batches)")
+    check(trainer.strict_sections == steps and guard.armed_steps == steps,
+          "every step ran in a strict section")
+    check(trainer.state.step == steps and len(logged) == steps
+          and all(np.isfinite(logged)), "every step logged a finite loss")
+    x = torch.ones(4, device=dev)
+    try:
+        with strict.strict_section(frozenset({"transfers"})):
+            x.sum().item()
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc).splitlines()[0]
+    log(f"a deliberate .item() in a strict section: {raised!r}")
+    check(raised is not None and torch.cuda.get_sync_debug_mode() == 0,
+          "a fetch inside a strict section raises")
+    del trainer
+    torch.cuda.empty_cache()
+
+    ref = cli.build(_swin_cfg(None))
+    hand = []
+    for epoch in range(2):
+        ref.train_loader.set_epoch(epoch)
+        for batch in ref.train_loader:
+            ref.state, m = ref.train_step(ref.state, batch, ref.rng)
+            hand.append(m["loss"])
+    hand = [float(v) for v in hand]
+    diff = max(abs(a - b) for a, b in zip(logged, hand))
+    log(f"Swin-T Trainer vs hand loop: max |dloss| {diff:.3e} (tol "
+        f"{TRAINER_LOSS_TOL})")
+    check(len(hand) == steps and diff <= TRAINER_LOSS_TOL,
+          "the strict Trainer's losses equal the hand loop's")
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak": peak}
+
+
+def _rollback_swin(wa, seed, workdir, peak_22) -> int:
+    """Phase 23: ``DLTPU_FAULTS=nan@step:6`` with ``train.recovery=
+    rollback`` and ``RecoveryPolicy(anchor_every=2)``: the parameters
+    are poisoned after step 6, the lagged metrics surface the NaN, the
+    Trainer rolls back to the newest verified anchor, reseeds the loader,
+    damps a cooldown and finishes; the peak device memory (the pending
+    anchors and the anchor, ~0.34 GB each) beside phase 22's."""
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.elastic import faults
+    from deeplearning_tpu_torch.obs import flight
+    from deeplearning_tpu_torch.train.recovery import (RecoveryManager,
+                                                       RecoveryPolicy)
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.environ[faults.ENV_VAR] = "nan@step:6"
+    faults.reset()
+    try:
+        trainer = cli.build(
+            _swin_cfg(workdir, recovery="rollback"), eval_every_epochs=2,
+            recovery=RecoveryManager(RecoveryPolicy(anchor_every=2)))
+        flight.get_recorder().clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wa.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ[faults.ENV_VAR]
+        faults.reset()
+    launches = wa.launch_counts()[wa.KERNEL_NAME]
+    peak = torch.cuda.max_memory_allocated()
+    stats = trainer._recovery.stats()
+    logged = [e["metrics"]["loss"]
+              for e in flight.get_recorder().events("step")]
+    with open(os.path.join(workdir, "flightrec.json")) as f:
+        reason = json.load(f)["reason"]
+    window = trainer.metrics_lag + trainer.log_every
+    log(f"rollback: {json.dumps(stats)} in {wall:.2f}s, final step "
+        f"{trainer.state.step}, last loss {logged[-1]:.5f}, flightrec "
+        f"reason {reason!r}, K2 launches {launches}, peak device memory "
+        f"{_gib(peak):.3f} GiB (phase 22: {_gib(peak_22):.3f} GiB)")
+    check(stats["rollbacks"] == 1 and len(stats["skipped_windows"]) == 1,
+          "one rollback")
+    anchor, bad = stats["skipped_windows"][0]
+    check(anchor < 6 <= bad <= 6 + window,
+          f"skipped window [anchor, bad] with anchor < 6 <= bad <= "
+          f"6 + {window}")
+    # the rollback lands in epoch 1, which is replayed from the anchor
+    check(np.isfinite(logged[-1]) and all(np.isfinite(trainer._last_eval[k])
+                                          for k in trainer._last_eval)
+          and trainer.state.step == anchor + TRAINER_STEPS,
+          "the run finished from the anchor with a finite loss")
+    check(reason == "recovered", "flightrec.json says 'recovered'")
+    del trainer
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _preempt_swin(wa, seed, workdir) -> int:
+    """Phase 24: with ``DLTPU_HEARTBEAT`` set, an ``after_iter`` hook sends
+    SIGTERM to the process at step 5: ``Preempted`` at that step's
+    boundary, the checkpoint of step 5 verified by CRC, ``flightrec.json``
+    'preempted', the heartbeat's step >= 5; a fresh Trainer auto-resumes
+    at step 5 with every tensor of the state (params, buffers, moments)
+    bit-equal to the preempted one's, then trains to the end."""
+    import shutil
+    import signal
+    import torch
+    from deeplearning_tpu_torch.elastic import Preempted
+    from deeplearning_tpu_torch.elastic import heartbeat as hb
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    beat = os.path.join(workdir, "heartbeat.json")
+    os.environ[hb.ENV_VAR] = beat
+    sent = []
+
+    def sigterm_at_5(trainer, metrics):
+        if trainer.host_step == 5 and not sent:
+            sent.append(time.perf_counter())
+            os.kill(os.getpid(), signal.SIGTERM)
+    wa.reset_launch_counts()
+    try:
+        trainer = cli.build(_swin_cfg(workdir), eval_every_epochs=2)
+        trainer.callbacks.register("after_iter", sigterm_at_5)
+        try:
+            trainer.train()
+            check(False, "the SIGTERM preempts the run")
+        except Preempted as exc:
+            landed = time.perf_counter() - sent[0]
+            step = exc.step
+    finally:
+        del os.environ[hb.ENV_VAR]
+    before = _state_tensors(trainer.state)
+    ok = trainer.ckpt.verify_step(5)
+    with open(os.path.join(workdir, "flightrec.json")) as f:
+        reason = json.load(f)["reason"]
+    beat_step = hb.read_heartbeat(beat)["step"]
+    log(f"preempted at step {step} ({landed:.2f}s from the signal to a "
+        f"flushed checkpoint), steps on disk {trainer.ckpt.all_steps()}, "
+        f"step 5 verified {ok}, flightrec reason {reason!r}, heartbeat "
+        f"step {beat_step}")
+    check(step == 5 and trainer.ckpt.latest_step() == 5 and ok,
+          "Preempted at step 5 with its checkpoint verified")
+    check(reason == "preempted" and beat_step >= 5,
+          "flightrec 'preempted', heartbeat step >= 5")
+    del trainer
+    torch.cuda.empty_cache()
+    fresh = cli.build(_swin_cfg(workdir), eval_every_epochs=2)
+    equal = []
+    fresh.callbacks.register("before_train", lambda t: equal.append(sum(
+        torch.equal(a, b) for a, b in zip(_state_tensors(t.state), before))
+        if t.state.step == 5 else -1))
+    fresh.train()
+    launches = wa.launch_counts()[wa.KERNEL_NAME]
+    log(f"resume after preemption: {equal[0]}/{len(before)} tensors "
+        f"bit-equal at step 5, trained to step {fresh.state.step}")
+    check(equal == [len(before)], "the resumed state is bit-equal")
+    check(fresh.state.step == 5 + TRAINER_STEPS, "trained to the end")
+    del fresh, before
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _async_checkpoints(wa, dev, seed, workdir) -> int:
+    """Phase 25: the same 8 Swin-T steps (2 epochs of 4, a checkpoint at
+    each epoch's end) with ``async_checkpoint`` on and off, in turns, 3
+    runs each, on one state. Per run: the seconds the loop blocks in
+    ``save`` and in the Trainer's final ``wait_until_finished`` (which
+    joins the last async write), the step time of epoch 1 (CUDA events;
+    the async write of epoch 0's checkpoint runs beside it) and the host
+    seconds of each of its dispatches, and the writer's seconds in the
+    pinned copy and in ``torch.save``. The first async run allocates its
+    pinned staging; the later ones take over the previous manager's
+    buffers, as a run's second save does. Every written step verifies and
+    restores bit-equal to the state at its own step (cloned when its save
+    returned, before the next step was queued)."""
+    import shutil
+    import statistics
+    import torch
+    from deeplearning_tpu_torch.train.trainer import Trainer
+    cli = _cli()
+    base = cli.build(_swin_cfg(None))
+    loader = base.train_loader.loader
+    rows = {True: [], False: []}
+    warm = None
+    wa.reset_launch_counts()
+    for i, arm in enumerate(ASYNC_RUNS):
+        wd = f"{workdir}/{i}"
+        shutil.rmtree(wd, ignore_errors=True)
+        t = Trainer(state=base.state, train_step=base.train_step,
+                    train_loader=loader, prefetch=2, seed=seed, epochs=2,
+                    log_every=base.log_every, workdir=wd,
+                    async_checkpoint=arm, log_backends=("csv",))
+        staging = "none"
+        if arm:
+            staging = "cold" if warm is None else "warm"
+            if warm is not None:
+                t.ckpt._staging, t.ckpt._stream = warm._staging, warm._stream
+        blocked, final, refs, marks, overlap = [], [], {}, [], []
+        dispatch, host = [], {"to_host_s": [], "write_s": []}
+        inside = []
+        save, wait = t.ckpt.save, t.ckpt.wait_until_finished
+
+        def timed(*a, _save=save, **k):
+            inside.append(1)
+            t0 = time.perf_counter()
+            try:
+                _save(*a, **k)
+            finally:
+                inside.pop()
+            blocked.append(time.perf_counter() - t0)
+
+        def timed_wait(_wait=wait):
+            t0 = time.perf_counter()
+            _wait()
+            if not inside:
+                final.append(time.perf_counter() - t0)
+
+        def clocked(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                host[key].append(time.perf_counter() - t0)
+                return out
+            return run
+        t.ckpt.save, t.ckpt.wait_until_finished = timed, timed_wait
+        t.ckpt._to_host = clocked("to_host_s", t.ckpt._to_host)
+        t.ckpt._write_step = clocked("write_s", t.ckpt._write_step)
+
+        def on_ckpt(tr, step):
+            refs[step] = _state_tensors(tr.state)
+
+        def epoch_mark(tr):
+            if tr.epoch == 1:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                w = tr.ckpt._writer
+                overlap.append(w is not None and w.is_alive())
+
+        def iter_mark(tr, **_):
+            if tr.epoch == 1:
+                dispatch.append(time.perf_counter())
+        t.callbacks.register("on_checkpoint", on_ckpt)
+        t.callbacks.register("before_epoch", epoch_mark)
+        t.callbacks.register("after_epoch", epoch_mark)
+        t.callbacks.register("before_iter", iter_mark)
+        t.callbacks.register("after_iter", iter_mark)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = marks[0].elapsed_time(marks[1]) / TRAINER_STEPS
+        same = total = 0
+        for step, want in refs.items():
+            check(t.ckpt.verify_step(step), f"step {step} verifies")
+            got = torch.load(os.path.join(wd, "ckpt", str(step), "state.pt"),
+                             map_location=dev, weights_only=True)
+            have = []
+
+            def walk(tree):
+                if hasattr(tree, "detach"):
+                    have.append(tree)
+                elif isinstance(tree, dict):
+                    for k in sorted(tree):
+                        walk(tree[k])
+                elif isinstance(tree, (list, tuple)):
+                    for v in tree:
+                        walk(v)
+            walk(got)
+            total += len(want)
+            same += sum(torch.equal(a, b) for a, b in zip(have, want))
+            check(len(have) == len(want), "every tensor was written")
+        # host seconds of each epoch-1 dispatch (before_iter to after_iter)
+        dispatch_ms = [1e3 * (b - a)
+                       for a, b in zip(dispatch[::2], dispatch[1::2])]
+        rows[arm].append({"blocked_s": sum(blocked), "saves": len(blocked),
+                          "blocked_each_s": blocked,
+                          "final_wait_s": sum(final),
+                          "loop_blocked_s": sum(blocked) + sum(final),
+                          "step_ms": step_ms,
+                          "dispatch_ms": statistics.median(dispatch_ms),
+                          "wall_s": wall, "staging": staging, **host,
+                          "writer_busy_at_epoch_1": overlap[0],
+                          "equal": f"{same}/{total}"})
+        log(f"checkpoints {'async' if arm else 'sync'} run {i}: "
+            f"{json.dumps(rows[arm][-1])}")
+        check(same == total and len(refs) == 2,
+              "every written step restores bit-equal to its own step")
+        check(len(dispatch_ms) == TRAINER_STEPS, "every epoch-1 step timed")
+        if arm:
+            warm = t.ckpt
+        del refs, t
+        shutil.rmtree(wd, ignore_errors=True)
+    launches = wa.launch_counts()[wa.KERNEL_NAME]
+    for arm in (True, False):
+        r = rows[arm]
+
+        def med(key):
+            return (f"{statistics.median(x[key] for x in r):.4f} (runs "
+                    f"{[round(x[key], 4) for x in r]})")
+        log(f"checkpoints {'async' if arm else 'sync'} ({len(r)} runs of "
+            f"{2 * TRAINER_STEPS} steps, 2 saves each), medians: blocked "
+            f"in save {med('blocked_s')} s, final wait {med('final_wait_s')}"
+            f" s, loop blocked in all {med('loop_blocked_s')} s; epoch-1 "
+            f"step {med('step_ms')} ms, its host dispatch "
+            f"{med('dispatch_ms')} ms; staging "
+            f"{[x['staging'] for x in r]}")
+    del base, warm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _folder_feed(wa, dev, seed, workdir) -> int:
+    """Phase 26: 1 024 seeded uint8 ``.npy`` images of 256 x 256 x 3 in 8
+    class folders, one of epoch 0's training files overwritten with
+    garbage; ``build_classification_loaders`` (num_workers 8, augment
+    imagenet, 224², batch 128) with ``quarantine=``; ``measure_throughput``
+    over one epoch, then one Swin-T Trainer epoch from the folder (prefetch
+    2) with its data-wait share, split into the set-up before the epoch,
+    each step's host interval, data wait and dispatch, each step's device
+    time (CUDA events at ``before_iter``) and the drain after the last
+    step. Exactly one sample quarantined a pass,
+    every batch full. Then the native libjpeg decode against PIL on JPEG
+    copies of 64 of the images, where PIL imports."""
+    import io
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.data import native_decode
+    from deeplearning_tpu_torch.data.build import (
+        LoaderConfig, build_classification_loaders, measure_throughput)
+    from deeplearning_tpu_torch.data.datasets import read_split_data
+    from deeplearning_tpu_torch.data.loader import epoch_indices
+    from deeplearning_tpu_torch.data.quarantine import QuarantineLog
+    from deeplearning_tpu_torch.obs import spans
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.train.trainer import Trainer
+    shutil.rmtree(workdir, ignore_errors=True)
+    root = os.path.join(workdir, "images")
+    rng = np.random.default_rng(seed + 26)
+    t0 = time.perf_counter()
+    per_class = FOLDER_IMAGES // FOLDER_CLASSES
+    for c in range(FOLDER_CLASSES):
+        os.makedirs(os.path.join(root, f"class_{c}"))
+        for i in range(per_class):
+            np.save(os.path.join(root, f"class_{c}", f"{i:04d}.npy"),
+                    rng.integers(0, 256, (FOLDER_SIZE, FOLDER_SIZE, 3),
+                                 dtype=np.uint8))
+    written = time.perf_counter() - t0
+    cfg = LoaderConfig(global_batch=TRAIN_BATCH, image_size=224,
+                       num_workers=8, seed=seed, augment="imagenet")
+    split = read_split_data(root, cfg.val_rate, cfg.seed)
+    first = int(epoch_indices(len(split["train_paths"]), shuffle=True,
+                              seed=cfg.seed, epoch=0,
+                              drop_last_to=TRAIN_BATCH)[0])
+    bad_path = split["train_paths"][first]
+    with open(bad_path, "wb") as f:
+        f.write(b"not an array")
+    qlog = QuarantineLog(os.path.join(workdir, "quarantine.jsonl"))
+    train, val, classes = build_classification_loaders(
+        root, cfg, device=dev, quarantine=qlog)
+    n = len(train)
+    ips = measure_throughput(train, n_batches=n - 1, warmup=1)
+    after_measure = qlog.quarantined
+    log(f"folder: {FOLDER_IMAGES} x {FOLDER_SIZE}² uint8 .npy in "
+        f"{FOLDER_CLASSES} classes written in {written:.2f}s; "
+        f"{len(split['train_paths'])} train / {len(split['val_paths'])} "
+        f"val, {n} batches of {TRAIN_BATCH} an epoch; measure_throughput "
+        f"(8 threads, imagenet augment, 224², moved to the card) "
+        f"{ips:.1f} images/s; quarantined {after_measure}")
+    check(after_measure == 1, "one sample quarantined in the measured epoch")
+
+    state = _train_state("flash_hb", seed, dev, name=SWIN)
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    trainer = Trainer(state=state, train_step=step, train_loader=train,
+                      prefetch=2, seed=seed, epochs=1, log_every=n,
+                      log_backends=("csv",))
+    sizes, stamps = [], {}
+
+    def stamp(name):
+        def hook(t, **kw):
+            if "batch" in kw:
+                sizes.append(int(kw["batch"]["image"].shape[0]))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stamps.setdefault(name, []).append((time.perf_counter(), ev))
+        return hook
+    for name in ("before_epoch", "before_iter", "after_iter", "after_epoch"):
+        trainer.callbacks.register(name, stamp(name))
+    tracer = spans.enable()
+    tracer.clear()
+    wa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    launches = wa.launch_counts()[wa.KERNEL_NAME]
+    span_s = {}
+    for e in tracer.events():
+        if e.get("ph") == "X":
+            span_s.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    spans.disable()
+    waits = sum(span_s.get("data_wait", []))
+    (e0, _), = stamps["before_epoch"]
+    (e1, ev1), = stamps["after_epoch"]
+    bi, ai = stamps["before_iter"], stamps["after_iter"]
+    parts = {
+        "setup_s": e0 - t0,
+        "to_first_batch_s": bi[0][0] - e0,
+        "host_interval_ms": [1e3 * (b[0] - a[0]) for a, b in zip(bi, bi[1:])]
+        + [1e3 * (ai[-1][0] - bi[-1][0])],
+        "dispatch_ms": [1e3 * (b[0] - a[0]) for a, b in zip(bi, ai)],
+        "data_wait_ms": [1e3 * x for x in span_s.get("data_wait", [])],
+        "device_step_ms": [a[1].elapsed_time(b[1])
+                           for a, b in zip(bi, bi[1:])]
+        + [bi[-1][1].elapsed_time(ev1)],
+        "drain_s": e1 - ai[-1][0],
+        "after_epoch_s": t_end - e1,
+        "metrics_flush_s": sum(span_s.get("metrics_flush", [])),
+    }
+    with open(qlog.path) as f:
+        rows = [json.loads(line) for line in f]
+    log(f"folder: one Swin-T Trainer epoch of {len(sizes)} steps from the "
+        f"folder in {wall:.3f}s ({len(sizes) * TRAIN_BATCH / wall:.1f} "
+        f"images/s), data-wait share {waits / wall:.4f}, batch sizes "
+        f"{sizes}, K2 launches {launches}; quarantine rows "
+        f"{[(r['index'], r['error'][:40]) for r in rows]}; classes "
+        f"{len(classes)}, val batches {len(val)}")
+    log(f"folder epoch split: {json.dumps(parts)}")
+    check(sizes == [TRAIN_BATCH] * n, "every batch stays full")
+    check(qlog.quarantined == 2 and {r["index"] for r in rows} == {first},
+          "exactly one sample quarantined a pass, the corrupt one")
+    check(launches == SWIN_BLOCKS * n, "K2 runs every step of the epoch")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    native = native_decode.available()
+    log(f"native decode: g++ {shutil.which('g++')}, jpeglib.h "
+        f"{os.path.exists('/usr/include/jpeglib.h')}, built {native}")
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is None or not native:
+        log("JPEG: the native-against-PIL comparison did not run ("
+            + ("PIL does not import" if Image is None else
+               "the native decode did not build; single JPEGs decode "
+               "through PIL") + ")")
+    else:
+        worst, decoded = 0, 0
+        for path in split["val_paths"][:JPEG_IMAGES]:
+            buf = io.BytesIO()
+            Image.fromarray(np.load(path)).save(buf, format="JPEG",
+                                                quality=95)
+            blob = buf.getvalue()
+            ref = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+            got = native_decode.decode_jpeg(blob)
+            if got is None:
+                continue
+            check(got.shape == ref.shape, "native and PIL decode one shape")
+            decoded += 1
+            worst = max(worst, int(np.abs(got.astype(np.int16)
+                                          - ref.astype(np.int16)).max()))
+        log(f"JPEG: {decoded}/{JPEG_IMAGES} decoded natively, largest "
+            f"|native - PIL| {worst} (uint8 levels)")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -19,21 +19,38 @@ newest intact one; ``auto_resume`` is that walk on a fresh state.
 
 ``save`` and ``restore`` take any object with ``state_dict()`` /
 ``load_state_dict()`` (``train.TrainState``, an ``nn.Module``) or a plain
-dict of tensors. Asynchronous writes and the topology sidecar come with
-ROADMAP Queue 1 items 5c and 7, ``restore_variables`` with item 6.
+dict of tensors. A failed write is retried ``save_retries`` times, after
+a capped-exponential delay with jitter (the JAX manager's defaults), and
+each attempt is a ``ckpt_retry`` flight record. The topology sidecar
+comes with ROADMAP Queue 1 item 7, ``restore_variables`` with item 6.
+
+``async_save=True`` takes the write off the loop: ``save`` queues a
+device-side copy of every tensor on the caller's stream (so the next
+in-place optimizer step, queued after it, cannot change what is saved)
+and records an event; a writer thread then copies the snapshot into
+pinned host buffers on a side stream that waits on that event, polls the
+copy's own event (it never synchronises, so it runs under a strict
+section's sync guard), writes ``<step>.tmp``, renames it and records the
+checksums. A second ``save`` waits for the first to commit;
+``wait_until_finished`` / ``flush`` / ``close`` join the writer, re-raise
+its error and make the pending ``best`` copy.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import shutil
+import threading
+import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from ..obs import flight
+from ..obs import threads as obs_threads
 from .logging import create_logger
 
 __all__ = ["checksum_dir", "CheckpointManager", "save_pytree",
@@ -41,6 +58,11 @@ __all__ = ["checksum_dir", "CheckpointManager", "save_pytree",
 
 _STATE_FILE = "state.pt"
 _TREE_FILE = "tree.pt"
+_POLL_S = 1e-3
+# the retry delay before attempt a+1: min(0.25 * 2**(a-1), 4) s, times
+# 1 + 0.25 * U[0, 1) so that failing writers never retry in lockstep
+_RETRY_BASE_S, _RETRY_FACTOR = 0.25, 2.0
+_RETRY_MAX_S, _RETRY_JITTER = 4.0, 0.25
 
 
 def _file_crc(path: str) -> Tuple[int, int]:
@@ -81,6 +103,29 @@ def _load_into(obj: Any, tree: Any) -> Any:
     return tree
 
 
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a tree, in a fixed walk order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _replace_leaves(tree: Any, new: Iterator[torch.Tensor]) -> Any:
+    """``tree`` with its tensors, in ``_leaves`` order, drawn from the
+    iterator ``new``."""
+    if isinstance(tree, torch.Tensor):
+        return next(new)
+    if isinstance(tree, dict):
+        return {k: _replace_leaves(v, new) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_replace_leaves(v, new) for v in tree)
+    return tree
+
+
 def _map_location(obj: Any) -> Optional[torch.device]:
     """The device a restore lands on: that of ``obj``'s first tensor."""
     tree = _tree_of(obj)
@@ -97,14 +142,26 @@ def _map_location(obj: Any) -> Optional[torch.device]:
 
 
 class CheckpointManager:
-    """Step-numbered checkpoints + checksums + best copy + auto-resume."""
+    """Step-numbered checkpoints + checksums + best copy + auto-resume,
+    written on the caller's thread or (``async_save``) off it."""
 
     _CHECKSUM_KEEP = 32
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = False, save_retries: int = 2):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max(int(max_to_keep), 1)
+        self._async = bool(async_save)
+        self._save_retries = int(save_retries)
+        self._pending_best: Optional[int] = None
+        # the async writer: its thread, the step it writes, its error
+        self._writer: Optional[threading.Thread] = None
+        self._writing: Optional[int] = None
+        self._writer_error: Optional[BaseException] = None
+        # pinned host buffers of the last async write, reused by the next
+        self._staging: List[Optional[torch.Tensor]] = []
+        self._stream: Optional[torch.cuda.Stream] = None
         self._logger = create_logger()
 
     # ------------------------------------------------------------ steps
@@ -114,8 +171,11 @@ class CheckpointManager:
                           os.path.join(self.directory, n)))
 
     def latest_step(self) -> Optional[int]:
+        """The newest step, counting one an async write is landing."""
         steps = self.all_steps()
-        return steps[-1] if steps else None
+        if self._writing is not None:
+            steps.append(self._writing)
+        return max(steps) if steps else None
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -124,24 +184,160 @@ class CheckpointManager:
              is_best: bool = False) -> None:
         """Commit ``state`` as ``step`` (its ``metrics`` in
         ``metrics.json``), record its checksums, keep the newest
-        ``max_to_keep`` steps, and copy it to ``best/`` when ``is_best``."""
+        ``max_to_keep`` steps, and copy it to ``best/`` when ``is_best``.
+        Asynchronous: returns once the snapshot is queued on the card;
+        a previous write is waited for first. A step already committed is
+        not written again (Orbax's rule in the JAX manager)."""
+        # the previous write commits (and its best copy lands) BEFORE
+        # this save can garbage-collect it
+        self.wait_until_finished()
+        if is_best:
+            self._pending_best = int(step)
+        if int(step) in self.all_steps():
+            self._finish_pending_best()
+            return
+        tree = _tree_of(state)
+        if not self._async:
+            self._save_with_retry(step, tree, metrics)
+            self._commit(step)
+            self._finish_pending_best()
+            return
+        snapshot, event = self._device_snapshot(tree)
+        self._writing = int(step)
+        self._writer = obs_threads.spawn(
+            self._write_async, args=(int(step), snapshot, event, metrics),
+            name="checkpoint-writer", daemon=True)
+
+    def _device_snapshot(self, tree: Any) -> Tuple[Any, Any]:
+        """Clone every tensor where it lies, queued on the current stream
+        (so an in-place step queued later cannot reach the copy), and
+        record an event after the clones (None without card tensors)."""
+        leaves = _leaves(tree)
+        with torch.no_grad():
+            clones = [t.detach().clone() for t in leaves]
+        snapshot = _replace_leaves(tree, iter(clones))
+        cuda = [t for t in clones if t.is_cuda]
+        if not cuda:
+            return snapshot, None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(cuda[0].device))
+        return snapshot, event
+
+    def _to_host(self, snapshot: Any, event: Any) -> Any:
+        """The writer's side: copy the snapshot's card tensors into
+        pinned host buffers on a side stream that waits on ``event``, and
+        poll the copies' event (no synchronising call)."""
+        if event is None:
+            return snapshot
+        leaves = _leaves(snapshot)
+        dev = next(t.device for t in leaves if t.is_cuda)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        host: List[torch.Tensor] = []
+        staging: List[Optional[torch.Tensor]] = []
+        with torch.cuda.device(dev), torch.cuda.stream(self._stream):
+            self._stream.wait_event(event)
+            for i, t in enumerate(leaves):
+                buf = self._staging[i] if i < len(self._staging) else None
+                if not t.is_cuda:
+                    host.append(t)
+                    staging.append(buf)
+                    continue
+                if buf is None or buf.shape != t.shape or \
+                        buf.dtype != t.dtype:
+                    buf = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                host.append(buf)
+                staging.append(buf)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        while not done.query():
+            time.sleep(_POLL_S)
+        self._staging = staging
+        return _replace_leaves(snapshot, iter(host))
+
+    def _write_async(self, step: int, snapshot: Any, event: Any,
+                     metrics: Optional[Dict]) -> None:
+        try:
+            self._save_with_retry(step, self._to_host(snapshot, event),
+                                  metrics)
+            self._commit(step)
+        except BaseException as exc:  # noqa: BLE001 - re-raised on join
+            self._writer_error = exc
+
+    def wait_until_finished(self) -> None:
+        """Join the async writer (re-raising its error) and make the
+        pending best copy."""
+        writer = self._writer
+        if writer is not None:
+            writer.join()
+            self._writer = None
+            self._writing = None
+            err, self._writer_error = self._writer_error, None
+            if err is not None:
+                raise err
+        self._finish_pending_best()
+
+    def flush(self) -> None:
+        """Barrier: block until every in-flight write has committed. The
+        preemption guard calls it from the SIGTERM handler — after it
+        returns, the newest checkpoint on disk is complete."""
+        self.wait_until_finished()
+
+    def close(self) -> None:
+        self.wait_until_finished()
+
+    def _finish_pending_best(self) -> None:
+        if self._pending_best is None:
+            return
+        step, self._pending_best = self._pending_best, None
+        src, best = self._step_dir(step), os.path.join(self.directory,
+                                                       "best")
+        if os.path.isdir(src):
+            if os.path.isdir(best):
+                shutil.rmtree(best)
+            shutil.copytree(src, best)
+
+    def _write_step(self, step: int, tree: Any,
+                    metrics: Optional[Dict]) -> None:
         final = self._step_dir(step)
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_tree_of(state), os.path.join(tmp, _STATE_FILE))
+        torch.save(tree, os.path.join(tmp, _STATE_FILE))
         if metrics is not None:
             with open(os.path.join(tmp, "metrics.json"), "w") as f:
                 json.dump(metrics, f)
         if os.path.isdir(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
+
+    def _save_with_retry(self, step: int, tree: Any,
+                         metrics: Optional[Dict]) -> None:
+        """Write with capped-exponential-backoff retries; each attempt
+        starts from a clean ``<step>.tmp``."""
+        for attempt in range(1, self._save_retries + 2):
+            try:
+                self._write_step(step, tree, metrics)
+                return
+            except Exception as exc:  # noqa: BLE001 - retried or raised
+                flight.record("ckpt_retry", step=int(step),
+                              attempt=attempt, error=repr(exc))
+                if attempt > self._save_retries:
+                    raise
+                delay = min(_RETRY_BASE_S * _RETRY_FACTOR ** (attempt - 1),
+                            _RETRY_MAX_S)
+                delay *= 1.0 + _RETRY_JITTER * random.random()
+                self._logger.warning(
+                    f"checkpoint save step {step} failed "
+                    f"(attempt {attempt}/{self._save_retries + 1}): "
+                    f"{exc!r}; retrying in {delay:.2f}s")
+                time.sleep(delay)
+
+    def _commit(self, step: int) -> None:
+        """After the rename: the checksums, then the oldest steps go."""
         self._write_checksums(step)
-        if is_best:
-            best = os.path.join(self.directory, "best")
-            if os.path.isdir(best):
-                shutil.rmtree(best)
-            shutil.copytree(final, best)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
@@ -212,6 +408,7 @@ class CheckpointManager:
     def restore(self, state: Any, step: Optional[int] = None) -> Any:
         """Load ``step`` (default: the newest) into ``state``, unchecked;
         None when there is no step."""
+        self.wait_until_finished()
         step = self.latest_step() if step is None else step
         return None if step is None else self._load(step, state)
 
@@ -221,6 +418,7 @@ class CheckpointManager:
         checksums and load it; on a mismatch or a failed load, move it
         aside and walk back to the next-newest. Returns ``(None, 0)`` when
         nothing restorable remains."""
+        self.wait_until_finished()
         first: Optional[int] = None
         ceiling = step
         while True:

@@ -1,15 +1,19 @@
 """Input feed of the port: the counterpart of ``deeplearning_tpu/data``.
 
-This slice has the loader (``loader``), the threaded device feed
-(``device_prefetch``), the numpy transforms and samplers (copies of the
-JAX package's) and mixup / cutmix on tensors (``mixup``). Datasets,
-quarantine, the zip cache and native JPEG decode come with ROADMAP Queue
-1 item 5c; COCO, mosaic and the detection transforms with item 5b.
+The loader with its bad-sample quarantine (``loader``, ``quarantine``),
+the threaded device feed (``device_prefetch``), the numpy transforms and
+samplers (copies of the JAX package's), mixup / cutmix on tensors
+(``mixup``), class-folder datasets (``datasets``), the zip source and
+memmap cache (``zip_cache``), the native libjpeg decode
+(``native_decode``) and the folder-loader builder (``build``). COCO,
+mosaic and the detection transforms come with ROADMAP Queue 1 item 5b.
 """
 
 from .device_prefetch import DevicePrefetcher
 from .loader import (ArraySource, DataLoader, MapSource, epoch_indices,
                      prefetch_to_device)
+from .quarantine import PoisonedData, QuarantineLog, quarantinable
 
 __all__ = ["ArraySource", "MapSource", "DataLoader", "DevicePrefetcher",
-           "epoch_indices", "prefetch_to_device"]
+           "epoch_indices", "prefetch_to_device", "PoisonedData",
+           "QuarantineLog", "quarantinable"]

@@ -10,10 +10,16 @@ workers and drop-last batches (every batch has one shape).
 The JAX loader's ``mesh=`` is ``device=`` here: the device its batches
 are moved to (a ``torch.device`` or name), or None for host numpy
 batches. Per-process slicing of the global batch comes with the mesh
-(multi-GPU slice, ROADMAP Queue 1 item 7); the quarantine of failing
-samples with item 5c. Until then a failing fetch raises on the consumer
-thread with its original traceback, as the JAX loader does without a
-quarantine log.
+(multi-GPU slice, ROADMAP Queue 1 item 7).
+
+``quarantine=`` (a ``QuarantineLog`` or a manifest path) switches the
+fetch to one sample at a time: a sample whose fetch raises is logged and
+replaced by a good sample of the same batch, so every batch stays full;
+past the log's ``max_poisoned_frac`` it raises ``PoisonedData``. Without
+a log, or for a failure that is not a sample's fault (``MemoryError``,
+interrupts), the fetch error is re-raised on the consumer thread with
+its original traceback. The ``bad_sample@step:N`` fault
+(``DLTPU_FAULTS``) fails fetch number N through the same path.
 
 ``prefetch_to_device`` is the minimal generator form of the overlap;
 ``data/device_prefetch.DevicePrefetcher`` is the one the Trainer uses.
@@ -30,6 +36,9 @@ from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
 
 import numpy as np
 import torch
+
+from ..elastic import faults
+from .quarantine import PoisonedData, QuarantineLog, quarantinable
 
 __all__ = ["ArraySource", "MapSource", "epoch_indices", "ArraySpec",
            "DataLoader", "prefetch_to_device"]
@@ -122,7 +131,7 @@ class DataLoader:
                  seed: int = 0, device: Optional[Device] = None,
                  transform: Optional[Callable[[Dict], Dict]] = None,
                  infinite: bool = False, num_workers: int = 0,
-                 lookahead: int = 4):
+                 lookahead: int = 4, quarantine=None):
         self.source = source
         self.global_batch = global_batch
         self.shuffle = shuffle
@@ -134,8 +143,16 @@ class DataLoader:
         self.num_workers = num_workers
         self.lookahead = max(lookahead, 1)
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        # a QuarantineLog (or a manifest path to build one) switches the
+        # fetch to per-sample, so a failing sample is substituted and
+        # logged instead of killing the epoch; None keeps the batched read
+        self.quarantine: Optional[QuarantineLog] = (
+            QuarantineLog(quarantine) if isinstance(quarantine, str)
+            else quarantine)
+        self._fetch_counter = itertools.count(1)  # bad_sample fault site
+        self._last_good: Optional[Dict[str, Any]] = None
         # reseed(salt) perturbs the shuffle seed so a replayed window
-        # draws another permutation (divergence rollback, item 5c)
+        # draws another permutation (divergence rollback)
         self._seed_salt = 0
         # starvation telemetry (parallel path only): time the consumer
         # blocked on the last yielded batch's fetches, and the epoch's
@@ -186,20 +203,70 @@ class DataLoader:
                              np.asarray(v).dtype, self.device)
                 for k, v in sample.items()}
 
+    # ------------------------------------------------ per-sample fetch
+    def _fetch_one(self, i: int) -> Dict[str, np.ndarray]:
+        """One sample through the fault harness (``bad_sample@step:N``
+        counts FETCHES); exceptions propagate to the caller, since the
+        quarantine decision lives on the consumer thread."""
+        ordinal = next(self._fetch_counter)
+        if faults.consume("bad_sample", "step", step=ordinal):
+            raise faults.InjectedBadSample(
+                f"injected bad sample at fetch {ordinal} (index {i})")
+        return self.source[int(i)]
+
+    def _quarantine_or_raise(self, i: int, exc: BaseException) -> None:
+        """Quarantine a per-sample failure, or re-raise it on the
+        consumer thread with its original traceback when it is not a
+        sample's fault (interrupts, escalation, out of memory)."""
+        if self.quarantine is None or not quarantinable(exc):
+            raise exc
+        self.quarantine.record(int(i), exc, step=self.epoch)
+
+    def _assemble(self, local, samples) -> Dict[str, Any]:
+        """Stack per-sample dicts into one full batch, substituting
+        quarantined slots (None) with good samples of the batch. A batch
+        with NO survivors and none seen before is a hard error: there is
+        nothing honest to substitute."""
+        good = [s for s in samples if s is not None]
+        if good:
+            self._last_good = good[-1]
+            if self.quarantine is not None:
+                self.quarantine.note_ok(len(good))
+        elif self._last_good is not None:
+            good = [self._last_good]
+        else:
+            raise PoisonedData(
+                f"every sample in batch {list(map(int, local))} failed "
+                "with none seen before it — nothing to substitute")
+        samples = [s if s is not None else good[j % len(good)]
+                   for j, s in enumerate(samples)]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
     def _epoch_iter(self, epoch: int,
                     to_device: bool) -> Iterator[Dict[str, Any]]:
         if self.num_workers:
             yield from self._epoch_iter_parallel(epoch, to_device)
             return
         for local in self._batch_indices(epoch):
-            yield self._finalize(self.source[local], to_device)
+            if self.quarantine is None:
+                yield self._finalize(self.source[local], to_device)
+                continue
+            samples = []
+            for i in local:
+                try:
+                    samples.append(self._fetch_one(int(i)))
+                except BaseException as exc:  # noqa: BLE001 - re-raised
+                    self._quarantine_or_raise(int(i), exc)
+                    samples.append(None)
+            yield self._finalize(self._assemble(local, samples), to_device)
 
     def _epoch_iter_parallel(self, epoch: int,
                              to_device: bool) -> Iterator[Dict[str, Any]]:
         """Fetch samples on a thread pool (decode that releases the GIL
         overlaps), ``lookahead`` batches of futures in flight. A worker's
-        exception is re-raised here, on the consumer thread, with its
-        original traceback (``f.result()``)."""
+        exception surfaces here, on the consumer thread, with its
+        original traceback (``f.result()``): a quarantinable one is
+        substituted and logged, any other kills the epoch."""
         if self._pool is None:
             self._pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=self.num_workers,
@@ -209,23 +276,31 @@ class DataLoader:
         self.data_wait_total = 0.0
 
         def submit(local):
-            pending.append([self._pool.submit(self.source.__getitem__,
-                                              int(i)) for i in local])
+            pending.append((local, [self._pool.submit(self._fetch_one, i)
+                                    for i in local]))
         try:
             for local in itertools.islice(it, self.lookahead):
                 submit(local)
             while pending:
-                futs = pending.popleft()
+                local, futs = pending.popleft()
+                # blocking on not-yet-done futures is the starvation
+                # signal (done futures return at once)
                 t0 = time.perf_counter()
-                samples = [f.result() for f in futs]
+                samples = []
+                for i, f in zip(local, futs):
+                    try:
+                        samples.append(f.result())
+                    except BaseException as exc:  # noqa: BLE001
+                        self._quarantine_or_raise(int(i), exc)
+                        samples.append(None)
                 self.last_data_wait = time.perf_counter() - t0
                 self.data_wait_total += self.last_data_wait
-                yield self._finalize({k: np.stack([s[k] for s in samples])
-                                      for k in samples[0]}, to_device)
+                yield self._finalize(self._assemble(local, samples),
+                                     to_device)
                 for local in itertools.islice(it, 1):
                     submit(local)
         finally:
-            for futs in pending:
+            for _, futs in pending:
                 for f in futs:
                     f.cancel()
 

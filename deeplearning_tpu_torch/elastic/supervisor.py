@@ -2,8 +2,8 @@
 
 Only ``WedgeDetector`` is here: the serving health check
 (``serve/health.DispatchWatch``) classifies a frozen dispatch stream
-with it. The run supervisor itself (launch, heartbeat, requeue) comes
-with the elastic slice.
+with it. The run supervisor itself (launch, requeue) comes with ROADMAP
+Queue 1 item 8.
 """
 
 from __future__ import annotations

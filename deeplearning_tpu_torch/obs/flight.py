@@ -16,9 +16,11 @@ explicit ``dump(path=...)``. The default process-wide recorder is what
 the convenience ``record(kind, **data)`` feeds, so layers don't need a
 handle threaded through them.
 
-Port note: the JAX package's SIGTERM hooks (``install_signal_handler``,
-``flush_pending``) ride its ``elastic/signals.py`` registry and serve the
-Trainer; they come with the training slice.
+``install_signal_handler`` dumps the ring on SIGTERM through the
+``elastic/signals.py`` registry, so it coexists with the preemption
+guard; with a graceful owner subscribed the handler only marks the dump
+pending and the Trainer writes it at its next step boundary
+(``flush_pending``).
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ from __future__ import annotations
 import collections
 import json
 import os
+import signal
 import threading
 import time
 import traceback
 from typing import Any, Dict, List, Optional
 
 __all__ = ["FlightRecorder", "get_recorder", "record", "configure",
-           "dump", "memory_snapshot"]
+           "dump", "memory_snapshot", "install_signal_handler",
+           "flush_pending"]
 
 
 def _jsonable(obj: Any, depth: int = 0) -> Any:
@@ -182,3 +186,51 @@ def dump(reason: str = "manual", *,
          exception: Optional[BaseException] = None,
          path: Optional[str] = None) -> Optional[str]:
     return _RECORDER.dump(reason, exception=exception, path=path)
+
+
+_PENDING = threading.Event()
+_SIGNAL_INSTALLED = False
+
+
+def _sigterm_dump(signum: int, frame) -> None:
+    # Signal-handler discipline: mark the dump pending and get out. When
+    # a graceful subscriber owns this signal the process keeps running to
+    # its next step boundary, where flush_pending() does the open()/json
+    # work on the normal call stack.
+    _PENDING.set()
+    from ..elastic import signals
+    if any(graceful for _fn, graceful
+           in signals.subscribers(signal.SIGTERM)):
+        return
+    # Terminating chain: no graceful owner means the pre-registry handler
+    # / OS default kills the process right after this handler returns —
+    # there is no later flush point, so this dump is the only dump.
+    flush_pending()
+
+
+def flush_pending() -> Optional[str]:
+    """Write a dump the SIGTERM handler deferred; no-op when none is
+    pending. Called from the Trainer's step boundary (next to the
+    preemption poll)."""
+    if not _PENDING.is_set():
+        return None
+    _PENDING.clear()
+    return _RECORDER.dump("sigterm")
+
+
+def install_signal_handler() -> bool:
+    """Dump on SIGTERM (preemption / a scheduler's kill). Subscribes through
+    the elastic signal registry, so this hook COEXISTS with the
+    preemption guard: without a graceful subscriber the process still
+    terminates after the dump (the pre-registry handler or the OS default
+    is chained); with one, the handler only marks the dump pending and
+    the Trainer flushes it at the next step boundary. Main thread only;
+    returns False elsewhere."""
+    global _SIGNAL_INSTALLED
+    if _SIGNAL_INSTALLED:
+        return True
+    from ..elastic import signals      # lazy: flight must import light
+    if signals.subscribe(signal.SIGTERM, _sigterm_dump):
+        _SIGNAL_INSTALLED = True
+        return True
+    return False

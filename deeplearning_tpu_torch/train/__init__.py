@@ -6,11 +6,13 @@ classification loss and metric functions (``classification``),
 (``async_metrics``), the ``Trainer`` (``trainer``), the train CLI
 (``python -m deeplearning_tpu_torch.train``), the step benchmark
 (``python -m deeplearning_tpu_torch.train.bench``) and profiler
-(``train.profile``). Divergence rollback, preemption and the LR finder
-come with ROADMAP Queue 1 item 5c.
+(``train.profile``), divergence rollback (``recovery``) and the LR range
+test (``lr_finder``).
 """
 
+from .recovery import RecoveryExhausted, RecoveryManager, RecoveryPolicy
 from .state import TrainState
 from .steps import make_eval_step, make_train_step
 
-__all__ = ["TrainState", "make_train_step", "make_eval_step"]
+__all__ = ["TrainState", "make_train_step", "make_eval_step",
+           "RecoveryPolicy", "RecoveryManager", "RecoveryExhausted"]

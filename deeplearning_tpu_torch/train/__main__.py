@@ -8,24 +8,41 @@
   python -m deeplearning_tpu_torch.train train.device=cpu \\
       model.name=vit_micro_patch4_56 data.image_size=56 data.channels=3 \\
       data.n_train=16 data.global_batch=8 train.epochs=1
+  # a class-folder dataset, with rollback, strict mode, async checkpoints
+  python -m deeplearning_tpu_torch.train \\
+      model.name=swin_tiny_patch4_window7_224 model.num_classes=8 \\
+      data.folder=/data/imagefolder data.image_size=224 \\
+      data.global_batch=128 train.recovery=rollback \\
+      train.strict=transfers train.async_checkpoint=true \\
+      train.workdir=runs/swin
 
 The same ``Config`` sections and defaults as ``tools/train.py``, read the
-same way (``--cfg`` YAML file, then dotted overrides). Data is the synthetic set of ``load_data`` (the JAX CLI's,
-byte for byte) or an ``.npz`` of ``images`` / ``labels`` with its
-validation split. The model comes from the port's registry, initialised
-from ``train.seed``; ``model.attn`` picks the attention route as the
-serve CLI's ``--attn`` does (default ``flash_hb``, the hand-written K1
-kernels). Batches go to ``train.device`` (default ``cuda``, which raises
+same way (``--cfg`` YAML file, then dotted overrides). Data is the
+synthetic set of ``load_data`` (the JAX CLI's, byte for byte), an
+``.npz`` of ``images`` / ``labels`` with its validation split, or
+(``data.folder``) a root of class folders read by
+``data/build.build_classification_loaders`` (``data.num_workers`` decode
+threads, ``data.augment`` imagenet | light | none, the class indices
+written to ``train.workdir/class_indices.json``). The model comes from
+the port's registry, initialised from ``train.seed``; ``model.attn``
+picks the attention route as the serve CLI's ``--attn`` does (default
+``flash_hb``, the hand-written K1 kernels). Batches go to ``train.device`` (default ``cuda``, which raises
 without a card; the tests pass ``cpu``) through a ``DevicePrefetcher`` of
 depth ``data.prefetch``; the Trainer logs, evaluates, checkpoints into
-``train.workdir`` and resumes from it. Options of later slices raise a
-``ValueError`` naming the ROADMAP Queue 1 item that brings them; the
-port has no ``train.donate_batch`` (it updates the state in place).
+``train.workdir`` and resumes from it. ``train.recovery=rollback``,
+``train.strict=transfers|nans`` and ``train.async_checkpoint=true`` are
+the Trainer's ``recovery``, ``strict`` and ``async_checkpoint``. A run
+preempted by SIGTERM / SIGINT checkpoints and exits 75 (requeue me).
+Options of later slices raise a ``ValueError`` naming the ROADMAP Queue 1
+item that brings them (``train.strict=threads`` / ``all`` item 8, the
+mesh and sharding options item 7); the port has no
+``train.donate_batch`` (it updates the state in place).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -43,7 +60,7 @@ class ModelCfg:
 
 @dataclasses.dataclass(frozen=True)
 class DataCfg:
-    folder: Optional[str] = None     # ImageFolder root: item 5c
+    folder: Optional[str] = None     # ImageFolder root
     npz: Optional[str] = None        # npz with images/labels arrays
     synthetic: bool = True
     image_size: int = 28
@@ -51,8 +68,8 @@ class DataCfg:
     n_train: int = 512
     global_batch: int = 64
     val_rate: float = 0.2            # npz train/val split
-    num_workers: int = 8             # folder-mode decode threads: item 5c
-    augment: str = "imagenet"        # folder-mode augmentation: item 5c
+    num_workers: int = 8             # folder-mode decode threads
+    augment: str = "imagenet"        # folder-mode augmentation
     prefetch: int = 2                # device-feed queue depth (0 = off)
 
 
@@ -80,12 +97,12 @@ class TrainCfg:
     seq_parallel: str = "ring"       # item 7
     accum_steps: int = 1             # gradient accumulation microbatches
     mixup: bool = False              # mixup/cutmix soft targets
-    async_checkpoint: bool = False   # item 5c
+    async_checkpoint: bool = False   # writes off the loop
     pipeline_stages: int = 1         # item 7
     microbatches: int = 0            # item 7
     precompile: bool = True          # start the feed before the first step
-    recovery: str = "none"           # none|abort; rollback: item 5c
-    strict: str = ""                 # item 5c
+    recovery: str = "none"           # none|abort|rollback
+    strict: str = ""                 # transfers|nans (threads: item 8)
     weight_update: str = "replicated"  # zero1: item 7
     grad_comm: str = "fp32"          # int8: item 7
 
@@ -98,22 +115,13 @@ class Config:
     train: TrainCfg = dataclasses.field(default_factory=TrainCfg)
 
 
-_ITEM_5C = "ROADMAP Queue 1 item 5c (the robust half of the input feed " \
-    "and Trainer)"
 _ITEM_7 = "ROADMAP Queue 1 item 7 (multi-GPU)"
 
 
 def check_slice(cfg: Config) -> None:
     """Raise on an option whose mechanism comes with a later slice."""
-    d, t = cfg.data, cfg.train
+    t = cfg.train
     later = [
-        ("data.folder", d.folder is not None, _ITEM_5C),
-        ("data.num_workers", d.num_workers != DataCfg.num_workers, _ITEM_5C),
-        ("data.augment", d.augment != DataCfg.augment, _ITEM_5C),
-        ("train.recovery", t.recovery not in ("none", "", "abort"),
-         _ITEM_5C),
-        ("train.strict", bool(t.strict), _ITEM_5C),
-        ("train.async_checkpoint", t.async_checkpoint, _ITEM_5C),
         ("train.mesh_model_axis", t.mesh_model_axis > 1, _ITEM_7),
         ("train.mesh_seq_axis", t.mesh_seq_axis > 1, _ITEM_7),
         ("train.seq_parallel", t.seq_parallel != "ring", _ITEM_7),
@@ -125,15 +133,21 @@ def check_slice(cfg: Config) -> None:
     for name, is_set, item in later:
         if is_set:
             raise ValueError(f"{name} comes with {item}")
+    if t.strict:
+        from ..analysis import strict
+        strict.resolve(t.strict)     # threads / all: item 8
+    if t.recovery not in ("none", "", "abort", "rollback"):
+        raise ValueError(f"train.recovery={t.recovery!r} "
+                         "(none | abort | rollback)")
     if t.weight_update not in ("replicated", "zero1"):
         raise ValueError(f"train.weight_update={t.weight_update!r} "
                          "(replicated | zero1)")
     if t.grad_comm not in ("fp32", "int8"):
         raise ValueError(f"train.grad_comm={t.grad_comm!r} (fp32 | int8)")
-    if d.global_batch % max(t.accum_steps, 1):
+    if cfg.data.global_batch % max(t.accum_steps, 1):
         raise ValueError(
-            f"data.global_batch={d.global_batch} must be divisible by "
-            f"train.accum_steps={t.accum_steps}")
+            f"data.global_batch={cfg.data.global_batch} must be divisible "
+            f"by train.accum_steps={t.accum_steps}")
 
 
 def load_data(cfg: DataCfg, num_classes: int
@@ -215,14 +229,39 @@ def build(cfg: Config, **trainer_kw: Any):
             f"of the zoo, LeNet's mnist_cnn among it, is ROADMAP Queue 1 "
             f"item 8); it has {', '.join(MODELS.keys())}")
     dev = resolve_device(cfg.train.device)
-    images, labels = load_data(cfg.data, cfg.model.num_classes)
-    (tr_images, tr_labels), (ev_images, ev_labels) = _split(cfg, images,
-                                                           labels)
+    gb = cfg.data.global_batch
+    if cfg.data.folder:
+        from ..data.build import LoaderConfig, build_classification_loaders
+        lcfg = LoaderConfig(global_batch=gb, image_size=cfg.data.image_size,
+                            val_rate=cfg.data.val_rate,
+                            num_workers=cfg.data.num_workers,
+                            seed=cfg.train.seed, augment=cfg.data.augment)
+        loader, eval_loader, class_to_idx = build_classification_loaders(
+            cfg.data.folder, lcfg, device=dev,
+            class_indices_path=(os.path.join(cfg.train.workdir,
+                                             "class_indices.json")
+                                if cfg.train.workdir else None))
+        if len(class_to_idx) != cfg.model.num_classes:
+            raise ValueError(
+                f"model.num_classes={cfg.model.num_classes} but "
+                f"{cfg.data.folder} has {len(class_to_idx)} classes")
+        size, channels, n_train = cfg.data.image_size, 3, len(loader) * gb
+    else:
+        images, labels = load_data(cfg.data, cfg.model.num_classes)
+        (tr_images, tr_labels), (ev_images, ev_labels) = _split(
+            cfg, images, labels)
+        size, channels, n_train = (images.shape[1], cfg.data.channels,
+                                   len(tr_images))
+        loader = DataLoader(
+            classification_source(tr_images, tr_labels, channels),
+            global_batch=gb, seed=cfg.train.seed, device=dev)
+        eval_loader = DataLoader(
+            classification_source(ev_images, ev_labels, channels),
+            global_batch=gb, shuffle=False, device=dev)
     numerics.set_exact(cfg.model.exact_gelu)
-    model_kw = hub.model_kwargs(cfg.model.name, cfg.model.attn,
-                                images.shape[1])
-    if cfg.data.channels != 3:
-        model_kw["in_chans"] = cfg.data.channels
+    model_kw = hub.model_kwargs(cfg.model.name, cfg.model.attn, size)
+    if channels != 3:
+        model_kw["in_chans"] = channels
     model = MODELS.build(
         cfg.model.name, num_classes=cfg.model.num_classes,
         dtype=torch.bfloat16 if cfg.model.precision == "bf16"
@@ -230,7 +269,7 @@ def build(cfg: Config, **trainer_kw: Any):
         generator=torch.Generator().manual_seed(cfg.train.seed),
         **model_kw).to(dev)
     params = dict(model.named_parameters())
-    steps_per_epoch = len(tr_images) // cfg.data.global_batch
+    steps_per_epoch = n_train // gb
     sched = build_schedule(cfg.optim.schedule, base_lr=cfg.optim.lr,
                            total_steps=cfg.train.epochs * steps_per_epoch,
                            warmup_steps=cfg.optim.warmup_steps)
@@ -244,12 +283,6 @@ def build(cfg: Config, **trainer_kw: Any):
         model=model, tx=tx,
         batch_stats=dict(model.named_buffers()) if has_bn else None,
         use_ema=cfg.train.ema)
-    loader = DataLoader(
-        classification_source(tr_images, tr_labels, cfg.data.channels),
-        global_batch=cfg.data.global_batch, seed=cfg.train.seed, device=dev)
-    eval_loader = DataLoader(
-        classification_source(ev_images, ev_labels, cfg.data.channels),
-        global_batch=cfg.data.global_batch, shuffle=False, device=dev)
     base_step = make_train_step(
         make_loss_fn(cfg.train.label_smoothing, has_bn),
         accum_steps=cfg.train.accum_steps, device=dev)
@@ -267,7 +300,11 @@ def build(cfg: Config, **trainer_kw: Any):
               eval_loader=eval_loader, epochs=cfg.train.epochs,
               seed=cfg.train.seed, workdir=cfg.train.workdir,
               log_every=max(steps_per_epoch // 2, 1),
-              prefetch=cfg.data.prefetch, run_config=asdict(cfg))
+              prefetch=cfg.data.prefetch, run_config=asdict(cfg),
+              async_checkpoint=cfg.train.async_checkpoint,
+              recovery=(None if cfg.train.recovery in ("none", "")
+                        else cfg.train.recovery),
+              strict=cfg.train.strict or None)
     kw.update(trainer_kw)
     return Trainer(**kw)
 
@@ -275,10 +312,16 @@ def build(cfg: Config, **trainer_kw: Any):
 def main(argv=None) -> int:
     from ..core.config import config_cli
     cfg = config_cli(Config(), argv, description=__doc__.splitlines()[0])
+    from ..elastic import EXIT_PREEMPTED, Preempted
     trainer = build(cfg)
     if cfg.train.precompile:
         trainer.precompile()       # the feed fills while nothing waits
-    trainer.train()
+    try:
+        trainer.train()
+    except Preempted:
+        # the checkpoint and the flight ring are already flushed; 75 tells
+        # a supervisor "requeue me", not "I crashed"
+        return EXIT_PREEMPTED
     results = trainer.evaluate()
     print({k: round(v, 4) for k, v in results.items()})
     return 0

@@ -15,12 +15,27 @@ point; a non-finite loss surfaces there as ``FloatingPointError`` within
 in a ``DevicePrefetcher`` (``prefetch="auto"``), so the host-to-card copy
 runs on a side stream, off the loop.
 
+The robust half, as in JAX:
+- ``recovery``: ``"rollback"`` (or a ``RecoveryPolicy`` /
+  ``RecoveryManager``) keeps a device-side anchor of the state, rolls
+  back to it on a non-finite step, reseeds the loader (the skip) and
+  damps the updates of a cooldown; the abort comes only once the budget
+  is spent (``train/recovery.py``). The ``nan@step:N`` fault poisons the
+  parameters at step N so the whole path runs for real.
+- ``strict``: ``"transfers"`` wraps every step region in
+  ``torch.cuda.set_sync_debug_mode("error")`` (the lagged metrics fetch
+  stays outside it); ``"nans"`` arms NaN detection for the whole run
+  (``analysis/strict.py``).
+- ``preemptible``: SIGTERM / SIGINT flush the in-flight checkpoint, and
+  ``Preempted`` is raised at the next step boundary after the state is
+  checkpointed at the step rank 0 reports (``elastic/preempt.py``; the
+  CLI exits 75). ``heartbeat``: the step / activity watermark file
+  (``"auto"``: the path in ``DLTPU_HEARTBEAT``).
+- ``async_checkpoint``: ``CheckpointManager(async_save=True)``; the
+  ``ckpt_corrupt`` fault garbles a committed step.
+
 What the JAX Trainer takes and this one does not, and the slice that
 brings it (ROADMAP Queue 1):
-- ``recovery`` (divergence rollback), ``strict`` (the transfer guard: on
-  the card, ``torch.cuda.set_sync_debug_mode``), ``preemptible`` and
-  ``heartbeat`` (signals and the supervisor's heartbeat),
-  ``async_checkpoint``: item 5c;
 - ``metrics_port`` (the ``/metrics`` scrape server), ``hbm_sample_s`` and
   ``hbm_alert_frac`` (the device-memory sampler): item 6;
 - ``weight_update`` (ZeRO-1 and the topology sidecar): item 7.
@@ -39,20 +54,29 @@ step to compile.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..analysis import strict as strict_mod
 from ..core import rng as rng_mod
 from ..core.checkpoint import CheckpointManager
 from ..core.logging import LoggerHub, MetricLogger, create_logger
 from ..data.device_prefetch import DevicePrefetcher
+from ..elastic import faults
+from ..elastic import heartbeat as hb
+from ..elastic.preempt import (Preempted, PreemptionGuard,
+                               agree_preempt_step)
 from ..obs import flight, spans
 from ..obs.spans import span, step_span
+from . import recovery as recovery_mod
 from .async_metrics import DeferredMetrics, fetch_scalars
+from .recovery import RecoveryExhausted, RecoveryManager, RecoveryPolicy
 
 __all__ = ["HOOKS", "Callbacks", "Trainer"]
 
@@ -61,6 +85,17 @@ BEST_METRIC = "top1"
 
 HOOKS = ("before_train", "after_train", "before_epoch", "after_epoch",
          "before_iter", "after_iter", "on_evaluate", "on_checkpoint")
+
+
+class _DivergenceDetected(Exception):
+    """Internal control flow: a lagged metrics entry surfaced a
+    non-finite step. Carries the offending entry so the rollback path
+    can report it; never escapes the Trainer."""
+
+    def __init__(self, meta: Dict[str, Any], host: Dict[str, Any]):
+        super().__init__(f"divergence at step {meta.get('step')}")
+        self.meta = meta
+        self.host = host
 
 
 class Callbacks:
@@ -93,13 +128,49 @@ class Trainer:
         eval_every_epochs: int = 1,
         workdir: Optional[str] = None,
         callbacks: Optional[Callbacks] = None,
+        async_checkpoint: bool = False,
         log_backends=("tensorboard", "csv", "jsonl"),
         metrics_lag: Optional[int] = None,
         prefetch="auto",
         obs="auto",
         run_config: Optional[Dict] = None,
+        preemptible: bool = True,
+        heartbeat="auto",
+        recovery=None,
+        strict=None,
     ):
         self.state = state
+        # strict mode: "transfers" arms the sync guard around every step
+        # region, "nans" NaN detection for the whole run; None defers to
+        # DLTPU_STRICT in the environment
+        self.strict_modes = strict_mod.resolve(strict)
+        self.strict_sections = 0     # guard regions entered (test hook)
+        # self-healing policy: None/"abort" raises on the first bad step;
+        # "rollback" (or a RecoveryPolicy / RecoveryManager) rolls back
+        # to a device-side anchor, skips the bad data window and damps
+        # the updates of a cooldown, aborting once the budget is spent
+        if recovery is None or recovery == "abort":
+            self._recovery: Optional[RecoveryManager] = None
+        elif recovery == "rollback":
+            self._recovery = RecoveryManager(RecoveryPolicy())
+        elif isinstance(recovery, RecoveryPolicy):
+            self._recovery = (RecoveryManager(recovery)
+                              if recovery.mode == "rollback" else None)
+        elif isinstance(recovery, RecoveryManager):
+            self._recovery = recovery
+        else:
+            raise ValueError(f"recovery must be None|'abort'|'rollback'|"
+                             f"RecoveryPolicy|RecoveryManager, "
+                             f"got {recovery!r}")
+        # elastic wiring: preemptible installs the chained SIGTERM/SIGINT
+        # guard (flush checkpoint -> Preempted at the next step boundary
+        # -> exit 75); heartbeat "auto" writes the watermark file when
+        # DLTPU_HEARTBEAT names one (a path forces it, None disables)
+        self.preemptible = bool(preemptible)
+        self._heartbeat_opt = heartbeat
+        self.preempt_guard: Optional[PreemptionGuard] = None
+        self._beat: Optional[hb.Heartbeat] = None
+        self._beat_writer: Optional[hb.HeartbeatWriter] = None
         # observability: spans + flight recorder, "auto" = on whenever the
         # run has a workdir to dump trace.json / flightrec.json into
         self.obs_enabled = bool(workdir) if obs == "auto" else bool(obs)
@@ -135,7 +206,9 @@ class Trainer:
         self.deferred = DeferredMetrics(lag=self.metrics_lag,
                                         window=self.metrics_window)
         self.eval_fetches = 0        # host materializations by evaluate()
-        self.ckpt = CheckpointManager(f"{workdir}/ckpt") if workdir else None
+        self.ckpt = (CheckpointManager(f"{workdir}/ckpt",
+                                       async_save=async_checkpoint)
+                     if workdir else None)
 
     @property
     def host_step(self) -> int:
@@ -186,6 +259,7 @@ class Trainer:
         if self.workdir:
             flight.configure(os.path.join(self.workdir, "flightrec.json"),
                              config=self._obs_config())
+            flight.install_signal_handler()
 
     def _obs_finish(self) -> None:
         if not self.obs_enabled:
@@ -197,11 +271,87 @@ class Trainer:
             spans.disable()
         self._obs_started = False      # a second train() re-arms
 
+    # ---------------------------------------------------------- elastic
+    def _elastic_start(self) -> None:
+        """Arm the preemption guard and the heartbeat writer; idempotent
+        like ``_obs_start``."""
+        if self.preemptible and self.preempt_guard is None:
+            guard = PreemptionGuard()
+            if self.ckpt:
+                # in-handler flush: the in-flight async write commits even
+                # if the loop never reaches another step boundary
+                guard.add_flush(self.ckpt.flush)
+            if guard.install():
+                self.preempt_guard = guard
+        if self._beat_writer is None:
+            path = self._heartbeat_opt
+            if path == "auto":
+                path = os.environ.get(hb.ENV_VAR)
+            if path:
+                self._beat = hb.Heartbeat(step=self.host_step)
+                self._beat_writer = hb.HeartbeatWriter(
+                    str(path), self._beat).start()
+
+    def _elastic_finish(self) -> None:
+        if self._beat_writer is not None:
+            self._beat_writer.stop()
+            self._beat_writer = None
+        if self.preempt_guard is not None:
+            self.preempt_guard.uninstall()
+            self.preempt_guard = None
+
+    def _beat_touch(self, phase: str) -> None:
+        if self._beat is not None:
+            self._beat.touch(phase, step=self.host_step)
+
+    def _check_preempted(self) -> None:
+        """Step-boundary poll (one ``Event.is_set`` when armed). A
+        SIGTERM handler defers its flight dump to here: no file I/O on
+        the signal stack."""
+        if self.obs_enabled:
+            flight.flush_pending()
+        if self.preempt_guard is not None and \
+                self.preempt_guard.requested():
+            raise Preempted(
+                f"preemption signal at step {self.host_step}",
+                signum=self.preempt_guard.signum, step=self.host_step)
+
+    def _on_preempted(self, exc: Preempted) -> None:
+        """Land the final state: checkpoint the step rank 0 reports
+        (unless a save already wrote it), wait for the write, dump the
+        flight ring with the reason 'preempted'."""
+        if self.ckpt:
+            step = agree_preempt_step(int(self.state.step))
+            if self.ckpt.latest_step() != step:
+                self._save()
+            self.ckpt.flush()
+            self.logger.info(
+                f"preempted (signal {exc.signum}): checkpoint flushed at "
+                f"step {step}; exit with EXIT_PREEMPTED requeues")
+        if self.obs_enabled:
+            flight.dump("preempted", exception=exc)
+
     # ------------------------------------------------------------- train
+    def _strict_ctx(self):
+        """One hot-loop guard region (``analysis.strict``), counted so
+        tests can assert it wrapped every step."""
+        if "transfers" in self.strict_modes:
+            self.strict_sections += 1
+            return strict_mod.no_host_transfers()
+        return contextlib.nullcontext()
+
     def train(self) -> Any:
         self._obs_start()
+        self._elastic_start()
         try:
+            if "nans" in self.strict_modes:
+                # run-wide: the forward hooks and anomaly mode stay armed
+                with strict_mod.debug_nans(model=self.state.model):
+                    return self._train()
             return self._train()
+        except Preempted as exc:
+            self._on_preempted(exc)
+            raise
         except BaseException as exc:
             if self.obs_enabled:
                 reason = ("divergence" if isinstance(exc, FloatingPointError)
@@ -209,6 +359,7 @@ class Trainer:
                 flight.dump(reason, exception=exc)
             raise
         finally:
+            self._elastic_finish()
             self._obs_finish()
 
     def _train(self) -> Any:
@@ -217,24 +368,50 @@ class Trainer:
             if step:
                 self.state = restored
                 self.epoch = int(step) // max(len(self.train_loader), 1)
+        if self._recovery is not None:
+            # fresh init or a just-restored checkpoint: both known-clean
+            self._recovery.seed(self.host_step, self.state)
         self.callbacks.fire("before_train", self)
-        for epoch in range(self.epoch, self.epochs):
-            self.epoch = epoch
-            self.callbacks.fire("before_epoch", self)
-            self._epoch_pass(epoch)
-            self.callbacks.fire("after_epoch", self)
-            if self.eval_step and self.eval_loader is not None and \
-                    (epoch + 1) % self.eval_every == 0:
-                self.evaluate()
+        try:
+            for epoch in range(self.epoch, self.epochs):
+                self.epoch = epoch
+                self.callbacks.fire("before_epoch", self)
+                self._train_one_epoch(epoch)
+                self.callbacks.fire("after_epoch", self)
+                if self.eval_step and self.eval_loader is not None and \
+                        (epoch + 1) % self.eval_every == 0:
+                    self.evaluate()
+                if self.ckpt:
+                    self._save()
+        finally:
+            # land an in-flight async write and the pending best copy even
+            # on an abort, before hooks that might read the best copy
             if self.ckpt:
-                self._save()
+                self.ckpt.wait_until_finished()
         self.callbacks.fire("after_train", self)
+        if self._recovery is not None and self._recovery.rollbacks \
+                and self.obs_enabled:
+            # the run SURVIVED its divergences: land the evidence in
+            # flightrec.json though nothing crashed
+            flight.record("recovery_summary", **self._recovery.stats())
+            flight.dump("recovered")
         summary = {"epochs": self.epochs, **getattr(self, "_last_eval", {})}
         if self.best_value != float("-inf"):
             summary["best_" + BEST_METRIC] = self.best_value
         self.hub.summary(summary)
         self.hub.close()
         return self.state
+
+    def _train_one_epoch(self, epoch: int) -> None:
+        """One epoch, retried through divergence rollbacks: each
+        ``_DivergenceDetected`` rolls the state back to the anchor and
+        replays the epoch under a fresh loader permutation; the budget in
+        ``_rollback`` bounds the retries."""
+        while True:
+            try:
+                return self._epoch_pass(epoch)
+            except _DivergenceDetected as d:
+                self._rollback(d)
 
     def _epoch_pass(self, epoch: int) -> None:
         """Sync-free hot loop: the only host-card round trips are the
@@ -244,7 +421,8 @@ class Trainer:
         n_iter = len(self.train_loader)
         t_data = time.time()
         batches = iter(self.train_loader)
-        # an exception mid-epoch must not leave the feed thread running
+        # an exception mid-epoch (a rollback too) must not leave the feed
+        # thread running
         try:
             it = 0
             while True:
@@ -261,17 +439,52 @@ class Trainer:
                                       None)
                 data_time = (loader_wait if loader_wait is not None
                              else wall_wait)
-                self.callbacks.fire("before_iter", self, batch=batch)
-                with step_span("dispatch", self.host_step):
-                    self.state, metrics = self.train_step(
-                        self.state, batch, self.rng)
-                self.callbacks.fire("after_iter", self, metrics=metrics)
-                self.deferred.push(metrics, epoch=epoch, it=it,
-                                   step=self.host_step, n_iter=n_iter,
-                                   data_time=data_time)
+                # strict region: before_iter through the metrics push;
+                # the lagged poll below stays outside, it is the one
+                # designed sync a log point
+                with self._strict_ctx():
+                    self.callbacks.fire("before_iter", self, batch=batch)
+                    # recovery hooks, queued BEFORE the in-place step:
+                    # the periodic anchor snapshot, and inside a cooldown
+                    # a params copy for the damped update
+                    prev_params = cooldown = None
+                    if self._recovery is not None:
+                        self._recovery.maybe_snapshot(self.host_step,
+                                                      self.state)
+                        cooldown = self._recovery.cooldown_scale(
+                            self.host_step)
+                        if cooldown is not None:
+                            prev_params = recovery_mod.snapshot_state(
+                                self.state.params)
+                    with step_span("dispatch", self.host_step):
+                        self.state, metrics = self.train_step(
+                            self.state, batch, self.rng)
+                    if cooldown is not None:
+                        # shrink this step's param delta; the optimizer
+                        # moments keep their own schedule
+                        damped = recovery_mod.damp_update(
+                            prev_params, self.state.params, cooldown)
+                        with torch.no_grad():
+                            for name, p in self.state.params.items():
+                                p.copy_(damped[name])
+                    self.callbacks.fire("after_iter", self, metrics=metrics)
+                    self.deferred.push(metrics, epoch=epoch, it=it,
+                                       step=self.host_step, n_iter=n_iter,
+                                       data_time=data_time)
                 if it % self.log_every == 0:
                     with span("metrics_flush"):
                         self._consume(self.deferred.poll())
+                # step boundary: the heartbeat, the fault harness (a
+                # sigterm fault goes through the real handler chain),
+                # then a requested preemption lands while the state is
+                # whole
+                self._beat_touch("step")
+                faults.maybe_fire("step", step=self.host_step)
+                if faults.consume("nan", "step", step=self.host_step):
+                    # poison the params so the NEXT step's loss is NaN
+                    # through the real bad_step flag
+                    recovery_mod.poison_state(self.state)
+                self._check_preempted()
                 t_data = time.time()
                 it += 1
         finally:
@@ -279,7 +492,7 @@ class Trainer:
             if close is not None:
                 close()
         # epoch-end barrier: one bulk fetch lands every remaining entry,
-        # so short epochs still log and a NaN in the tail still aborts
+        # so short epochs still log and a NaN in the tail is still caught
         with span("metrics_flush", drain=True):
             self._consume(self.deferred.drain())
         feed_stats = getattr(self.train_loader, "stats", None)
@@ -304,21 +517,37 @@ class Trainer:
                               epoch=meta.get("epoch"), it=meta.get("it"),
                               data_time=meta.get("data_time"),
                               metrics=host)
-        for meta, host in entries:
+        bad_i = None
+        for i, (meta, host) in enumerate(entries):
             # bad_step is the step's isfinite(loss) flag; the loss check
             # covers custom steps that do not provide it
             if host.get("bad_step", 0) > 0 or not np.isfinite(
                     host.get("loss", 0.0)):
-                self.logger.error(
-                    f"Loss is {host.get('loss')}, stopping training "
-                    f"(epoch {meta['epoch']} it {meta['it']})")
-                if self.obs_enabled:
-                    flight.record("divergence", step=meta.get("step"),
-                                  epoch=meta["epoch"], it=meta["it"],
-                                  loss=host.get("loss"))
-                raise FloatingPointError(
-                    f"non-finite loss {host.get('loss')} at epoch "
-                    f"{meta['epoch']} it {meta['it']}")
+                bad_i = i
+                break
+        if self._recovery is not None and bad_i != 0:
+            # the newest verified-finite step vouches for every pending
+            # anchor snapshot strictly older than it
+            clean_meta = entries[len(entries) - 1 if bad_i is None
+                                 else bad_i - 1][0]
+            if clean_meta.get("step") is not None:
+                self._recovery.mark_verified(clean_meta["step"])
+        if bad_i is not None:
+            meta, host = entries[bad_i]
+            self.logger.error(
+                f"Loss is {host.get('loss')}, "
+                + ("recovering" if self._recovery is not None
+                   else "stopping training")
+                + f" (epoch {meta['epoch']} it {meta['it']})")
+            if self.obs_enabled:
+                flight.record("divergence", step=meta.get("step"),
+                              epoch=meta["epoch"], it=meta["it"],
+                              loss=host.get("loss"))
+            if self._recovery is not None:
+                raise _DivergenceDetected(meta, host)
+            raise FloatingPointError(
+                f"non-finite loss {host.get('loss')} at epoch "
+                f"{meta['epoch']} it {meta['it']}")
         meta, host = entries[-1]
         host = {k: v for k, v in host.items() if k != "bad_step"}
         host["data_time"] = meta["data_time"]
@@ -329,15 +558,62 @@ class Trainer:
         self.hub.scalars({f"train/{k}": v for k, v in host.items()},
                          meta["step"])
 
+    # ---------------------------------------------------------- recovery
+    def _rollback(self, d: _DivergenceDetected) -> None:
+        """Roll back to the anchor, skip the offending data window and
+        arm the cooldown; with the budget spent, fall through to the
+        abort (``FloatingPointError``, the same message)."""
+        meta, host = d.meta, d.host
+        bad_step = int(meta.get("step") or self.host_step)
+        try:
+            anchor_step, tree = self._recovery.on_divergence(bad_step)
+        except RecoveryExhausted as exc:
+            if self.obs_enabled:
+                flight.record("recovery_exhausted", step=bad_step,
+                              error=str(exc), **self._recovery.stats())
+            raise FloatingPointError(
+                f"non-finite loss {host.get('loss')} at epoch "
+                f"{meta['epoch']} it {meta['it']} ({exc})") from exc
+        self.state.load_state_dict(tree)
+        # in-flight entries were computed from the poisoned state: replace
+        # the ring instead of fetching them
+        self.deferred = DeferredMetrics(lag=self.metrics_lag,
+                                        window=self.metrics_window)
+        # the skip: a reseedable loader replays the epoch under a fresh
+        # permutation, so the poisonous batch order is never retraced
+        reseed = getattr(self.train_loader, "reseed", None)
+        if reseed is not None:
+            reseed(self._recovery.rollbacks)
+        pol = self._recovery.policy
+        self.logger.warning(
+            f"divergence at step {bad_step} (loss {host.get('loss')}): "
+            f"rolled back to step {anchor_step}, "
+            + ("reseeded loader, " if reseed is not None else "")
+            + f"lr x{pol.lr_decay} for {pol.cooldown_steps} steps "
+            f"({len(self._recovery.recovery_steps)}/{pol.max_recoveries} "
+            f"recoveries used)")
+        if self.obs_enabled:
+            flight.record("recovery", step=bad_step,
+                          anchor_step=anchor_step, loss=host.get("loss"),
+                          epoch=meta.get("epoch"),
+                          rollbacks=self._recovery.rollbacks,
+                          skipped=[anchor_step, bad_step],
+                          cooldown_steps=pol.cooldown_steps,
+                          lr_decay=pol.lr_decay,
+                          reseeded=reseed is not None)
+        self._beat_touch("recovery")
+
     # -------------------------------------------------------------- eval
     def evaluate(self) -> Dict[str, float]:
         """Every batch's count dict stays on the card while the loop runs;
         then ONE transfer lands them all. Totals are summed on the host in
         batch order, as the JAX Trainer sums them."""
+        self._beat_touch("eval")
         with span("eval", epoch=self.epoch):
             per_batch = [self.eval_step(self.state, batch)
                          for batch in self.eval_loader]
             host_counts = fetch_scalars(per_batch)
+        self._beat_touch("eval")
         self.eval_fetches += 1
         totals: Dict[str, float] = defaultdict(float)
         for counts in host_counts:
@@ -363,10 +639,21 @@ class Trainer:
 
     def _save(self, is_best: bool = False) -> None:
         step = self.host_step
+        self._beat_touch("checkpoint")
+        faults.maybe_fire("checkpoint", step=step)
         with span("checkpoint", step=step, best=is_best):
             self.ckpt.save(step, self.state,
                            metrics={BEST_METRIC: self.best_value},
                            is_best=is_best)
+        if faults.consume("ckpt_corrupt", "checkpoint", step=step):
+            # flush FIRST so the checksums record the intact files: the
+            # bit flip after the commit is the silent on-disk corruption
+            # the verified restore must catch
+            self.ckpt.flush()
+            hit = faults.corrupt_checkpoint(self.ckpt.directory, step)
+            self.logger.warning(
+                f"fault: corrupted checkpoint step {step} "
+                f"({len(hit)} file(s))")
         self.callbacks.fire("on_checkpoint", self, step=step)
 
     # -------------------------------------------------- throughput mode

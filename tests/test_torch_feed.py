@@ -14,10 +14,19 @@ and one seed gives one batch (bit for bit). The prefetcher's CUDA path
 (tests/test_torch_kernels_card.py); here its CPU pass-through keeps the
 loader protocol, relays a worker's error with its traceback and leaves no
 thread behind. No assertion reads a clock.
+
+The robust half of the feed, equal to JAX's: the quarantine (serial and
+threaded loaders substitute and fill the batch, escalate past
+``max_poisoned_frac``, route ``bad_sample`` through the log; the manifest
+rows equal JAX's but for the time), ``read_split_data``'s split, the
+folder loaders' batches with ``augment="none"``, the native JPEG decode
+bit for bit (both build the same source), and ``ZipImageSource`` on
+``.npy`` and PNG members.
 """
 
 import itertools
 import json
+import os
 import threading
 import traceback
 
@@ -31,7 +40,13 @@ from deeplearning_tpu.core import logging as jlogging
 from deeplearning_tpu.data import loader as jloader
 from deeplearning_tpu.data import mixup as jmixup
 from deeplearning_tpu.data import samplers as jsamplers
+from deeplearning_tpu.data import build as jbuild
+from deeplearning_tpu.data import datasets as jdatasets
+from deeplearning_tpu.data import native_decode as jnative
+from deeplearning_tpu.data import quarantine as jquarantine
 from deeplearning_tpu.data import transforms as jtransforms
+from deeplearning_tpu.data import zip_cache as jzip
+from deeplearning_tpu.elastic import faults as jfaults
 from deeplearning_tpu.train import async_metrics as jasync
 from deeplearning_tpu_torch.core import config as tconfig
 from deeplearning_tpu_torch.core import logging as tlogging
@@ -39,7 +54,13 @@ from deeplearning_tpu_torch.data import DevicePrefetcher
 from deeplearning_tpu_torch.data import loader as tloader
 from deeplearning_tpu_torch.data import mixup as tmixup
 from deeplearning_tpu_torch.data import samplers as tsamplers
+from deeplearning_tpu_torch.data import build as tbuild
+from deeplearning_tpu_torch.data import datasets as tdatasets
+from deeplearning_tpu_torch.data import native_decode as tnative
+from deeplearning_tpu_torch.data import quarantine as tquarantine
 from deeplearning_tpu_torch.data import transforms as ttransforms
+from deeplearning_tpu_torch.data import zip_cache as tzip
+from deeplearning_tpu_torch.elastic import faults as tfaults
 from deeplearning_tpu_torch.train import async_metrics as tasync
 
 
@@ -447,3 +468,189 @@ def test_logger_backends_write_as_jax(tmp_path):
         m_j.update(loss=v)
         m_t.update(loss=v)
     assert str(m_t) == str(m_j) and m_t.loss.avg == pytest.approx(7 / 3)
+
+
+# ------------------------------------------------------------ quarantine
+class _Flaky:
+    """A map source whose listed indices raise ``exc`` on every fetch."""
+
+    def __init__(self, n=64, bad=(), exc=ValueError):
+        arrays = _arrays(n)
+        self.images, self.labels = arrays["image"], arrays["label"]
+        self.bad, self.exc = set(bad), exc
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, np.integer)):
+            if int(idx) in self.bad:
+                raise self.exc(f"decode failed for sample {int(idx)}")
+            return {"image": self.images[idx], "label": self.labels[idx]}
+        samples = [self[int(i)] for i in idx]
+        return {k: np.stack([x[k] for x in samples]) for k in samples[0]}
+
+
+def _rows(path):
+    rows = [json.loads(line) for line in open(path)]
+    for r in rows:
+        r.pop("time")
+    return rows
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_quarantine_fills_batches_and_logs_as_jax(tmp_path, workers):
+    out = {}
+    for name, ld_mod, q_mod in (("jax", jloader, jquarantine),
+                                ("port", tloader, tquarantine)):
+        path = str(tmp_path / f"{name}.jsonl")
+        log = q_mod.QuarantineLog(path)
+        loader = ld_mod.DataLoader(_Flaky(bad=(3, 17, 40)), 8, seed=1,
+                                   num_workers=workers, quarantine=log)
+        out[name] = (list(loader), log.quarantined, _rows(path))
+    _assert_same_batches(out["port"][0], out["jax"][0])
+    assert all(b["image"].shape[0] == 8 for b in out["port"][0])
+    assert out["port"][1:] == out["jax"][1:]
+    assert sorted(r["index"] for r in out["port"][2]) == [3, 17, 40]
+
+
+def test_quarantine_escalates_and_reraises_what_is_not_a_sample(tmp_path):
+    log = tquarantine.QuarantineLog(str(tmp_path / "q.jsonl"),
+                                    max_poisoned_frac=0.05, min_samples=16)
+    loader = tloader.DataLoader(_Flaky(bad=set(range(0, 64, 4))), 8,
+                                shuffle=False, quarantine=log)
+    with pytest.raises(tquarantine.PoisonedData, match="poisoned"):
+        list(loader)
+    for workers in (0, 2):
+        loader = tloader.DataLoader(
+            _Flaky(n=32, bad=(9,), exc=MemoryError), 8, shuffle=False,
+            num_workers=workers,
+            quarantine=tquarantine.QuarantineLog(os.devnull))
+        with pytest.raises(MemoryError) as info:
+            list(loader)
+        frames = [f.name for f in
+                  traceback.extract_tb(info.value.__traceback__)]
+        assert "_fetch_one" in frames
+    for exc in (ValueError("x"), OSError("y")):
+        assert tquarantine.quarantinable(exc) == jquarantine.quarantinable(exc)
+    for exc in (MemoryError(), KeyboardInterrupt(),
+                tquarantine.PoisonedData("z")):
+        assert not tquarantine.quarantinable(exc)
+
+
+def test_bad_sample_fault_goes_through_the_quarantine(tmp_path, monkeypatch):
+    rows = {}
+    for name, ld_mod, q_mod, f_mod in (
+            ("jax", jloader, jquarantine, jfaults),
+            ("port", tloader, tquarantine, tfaults)):
+        monkeypatch.setenv(f_mod.ENV_VAR, "bad_sample@step:5")
+        f_mod.reset()
+        try:
+            path = str(tmp_path / f"{name}.jsonl")
+            log = q_mod.QuarantineLog(path)
+            batches = list(ld_mod.DataLoader(_Flaky(n=32), 8, shuffle=False,
+                                             quarantine=log))
+        finally:
+            monkeypatch.delenv(f_mod.ENV_VAR)
+            f_mod.reset()
+        assert len(batches) == 4 and log.quarantined == 1
+        rows[name] = _rows(path)
+    assert rows["port"] == rows["jax"]
+    assert "InjectedBadSample" in rows["port"][0]["error"]
+
+
+# ----------------------------------------------------------- folder data
+@pytest.fixture(scope="module")
+def image_folder(tmp_path_factory):
+    """3 class folders of seeded uint8 .npy images of 20 x 24 x 3."""
+    root = tmp_path_factory.mktemp("folder")
+    rng = np.random.default_rng(0)
+    for c, n in (("ant", 7), ("bee", 9), ("cat", 8)):
+        os.makedirs(root / c)
+        for i in range(n):
+            np.save(root / c / f"{i:02d}.npy",
+                    rng.integers(0, 256, (20, 24, 3), dtype=np.uint8))
+    (root / "cat" / "notes.txt").write_text("not an image")
+    return str(root)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_read_split_data_equals_jax(image_folder, seed, tmp_path):
+    got = tdatasets.read_split_data(image_folder, 0.25, seed)
+    want = jdatasets.read_split_data(image_folder, 0.25, seed)
+    assert set(got) == set(want)
+    for k in got:
+        np.testing.assert_array_equal(np.asarray(got[k], dtype=object),
+                                      np.asarray(want[k], dtype=object))
+    tdatasets.write_class_indices(got["class_to_idx"], str(tmp_path / "t"))
+    jdatasets.write_class_indices(want["class_to_idx"], str(tmp_path / "j"))
+    assert (tmp_path / "t").read_text() == (tmp_path / "j").read_text()
+
+
+def test_folder_loaders_equal_jax(image_folder, tmp_path):
+    cfg = dict(global_batch=4, image_size=16, val_rate=0.25, num_workers=2,
+               seed=1, augment="none")
+    t_train, t_val, t_idx = tbuild.build_classification_loaders(
+        image_folder, tbuild.LoaderConfig(**cfg),
+        class_indices_path=str(tmp_path / "classes.json"))
+    j_train, j_val, j_idx = jbuild.build_classification_loaders(
+        image_folder, jbuild.LoaderConfig(**cfg))
+    assert t_idx == j_idx and (len(t_train), len(t_val)) == (4, 1)
+    for epoch in (0, 1):
+        t_train.set_epoch(epoch)
+        j_train.set_epoch(epoch)
+        _assert_same_batches(t_train, j_train)
+    _assert_same_batches(t_val, j_val)
+    assert tbuild.measure_throughput(t_train, n_batches=3, warmup=1) > 0
+    pf = tbuild.device_iterator(t_train, tbuild.LoaderConfig(prefetch=3))
+    assert isinstance(pf, DevicePrefetcher) and pf.depth == 3
+
+
+def test_native_jpeg_decode_is_jaxs_bit_for_bit(tmp_path):
+    Image = pytest.importorskip("PIL.Image")
+    if not (tnative.available() and jnative.available()):
+        pytest.skip("g++ or libjpeg is absent: the native decode does not "
+                    "build here")
+    rng = np.random.default_rng(0)
+    blobs = []
+    for i, shape in enumerate(((32, 48, 3), (17, 9, 3))):
+        path = tmp_path / f"{i}.jpg"
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+            path, quality=90)
+        blobs.append(path.read_bytes())
+        got = tnative.decode_jpeg(blobs[-1])
+        np.testing.assert_array_equal(got, jnative.decode_jpeg(blobs[-1]))
+        np.testing.assert_array_equal(tdatasets.load_image(str(path)),
+                                      jdatasets.load_image(str(path)))
+    np.testing.assert_array_equal(
+        tnative.decode_resize_batch(blobs + [b"junk"], 12, 10),
+        jnative.decode_resize_batch(blobs + [b"junk"], 12, 10))
+    assert tnative.decode_jpeg(b"not a jpeg") is None
+
+
+def test_zip_source_and_memmap_cache_equal_jax(tmp_path):
+    import io
+    import zipfile
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / "images.zip")
+    with zipfile.ZipFile(path, "w") as z:
+        for i in range(3):
+            img = rng.integers(0, 256, (6, 5, 3), dtype=np.uint8)
+            buf = io.BytesIO()
+            np.save(buf, img)
+            z.writestr(f"train/{i}.npy", buf.getvalue())
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="PNG")
+            z.writestr(f"train/{i}.png", buf.getvalue())
+        z.writestr("train/readme.txt", "skip me")
+    got, want = tzip.ZipImageSource(path), jzip.ZipImageSource(path)
+    assert got.names == want.names and len(got) == 6
+    for i in range(len(got)):
+        np.testing.assert_array_equal(got.read_image(i), want.read_image(i))
+    cache = tzip.MemmapCache(str(tmp_path / "cache.bin"), (6, 6, 5, 3))
+    first = cache.get(2, got.read_image)
+    np.testing.assert_array_equal(first, got.read_image(2))
+    assert cache.fill_fraction == pytest.approx(1 / 6)
+    again = tzip.MemmapCache(str(tmp_path / "cache.bin"), (6, 6, 5, 3))
+    np.testing.assert_array_equal(again.get(2, lambda i: None), first)

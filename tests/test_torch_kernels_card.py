@@ -827,3 +827,86 @@ def test_trainer_loop_makes_no_sync_between_log_points(cuda_device):
             ref.state, m = ref.train_step(ref.state, batch, ref.rng)
             hand.append(m["loss"].item())
     assert logged == hand
+
+
+def _micro_trainer(strict, device="cuda", **kw):
+    from deeplearning_tpu_torch.train import __main__ as cli
+    cfg = cli.Config(
+        model=cli.ModelCfg(name="vit_micro_patch4_56", num_classes=10),
+        data=cli.DataCfg(image_size=56, channels=3, n_train=64,
+                         global_batch=16),
+        optim=cli.OptimCfg(name="adamw", lr=1e-3, weight_decay=0.05),
+        train=cli.TrainCfg(epochs=1, label_smoothing=0.1, strict=strict,
+                           device=device))
+    return cli.build(cfg, **kw)
+
+
+@pytest.mark.cuda
+def test_strict_section_raises_on_a_card_fetch_not_on_the_lagged_one(
+        cuda_device):
+    """Inside a strict section ``.item()`` of a card tensor raises; a
+    Trainer with ``strict="transfers"`` runs its epoch (the lagged fetch
+    sits outside the sections) with one section a step."""
+    from deeplearning_tpu_torch.analysis import strict
+    x = torch.ones(4, device=cuda_device)
+    assert strict.guard_enforced() and strict.guard_enforced(
+        "host_to_device")
+    with pytest.raises(RuntimeError):
+        with strict.strict_section(frozenset({"transfers"})):
+            x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0   # restored on exit
+    trainer = _micro_trainer("transfers")
+    trainer.train()
+    assert trainer.strict_sections == 4 and trainer.state.step == 4
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_async_snapshot_survives_the_next_in_place_step(cuda_device,
+                                                        tmp_path):
+    """``save`` queues the device copy before the next optimizer step is
+    queued: the written step equals the state at its own step, though the
+    parameters were updated in place while the writer ran; under the sync
+    guard nothing in ``save`` or the writer synchronises."""
+    from deeplearning_tpu_torch.core.checkpoint import CheckpointManager
+    trainer = _micro_trainer("")
+    state, step_fn = trainer.state, trainer.train_step
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in next(
+        iter(trainer.train_loader.loader.host_batches())).items()}
+    state, _ = step_fn(state, batch, trainer.rng)
+    want = {n: p.detach().clone() for n, p in state.params.items()}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mgr.save(state.step, state)
+        for _ in range(3):
+            state, _ = step_fn(state, batch, trainer.rng)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    mgr.close()
+    assert mgr.verify_step(1)
+    got = torch.load(str(tmp_path / "1" / "state.pt"))
+    assert got["step"] == 1 and set(got["params"]) == set(want)
+    assert all(torch.equal(got["params"][n].to(cuda_device), p)
+               for n, p in want.items())
+    assert any(not torch.equal(state.params[n], p) for n, p in want.items())
+
+
+@pytest.mark.cuda
+def test_nan_hook_under_transfers_and_nans_keeps_the_guard(cuda_device):
+    """``strict="transfers,nans"``: the NaN hook lifts the sync guard for
+    its own check, so a clean epoch runs; a NaN raises
+    ``FloatingPointError`` naming the module, not the guard's error."""
+    from deeplearning_tpu_torch.analysis import strict
+    trainer = _micro_trainer("transfers,nans")
+    trainer.train()
+    assert trainer.state.step == 4 and trainer.strict_sections == 4
+    model = trainer.state.model
+    with torch.no_grad():
+        model.norm.weight[0] = float("nan")
+    x = torch.randn(2, 56, 56, 3, device=cuda_device)
+    with strict.debug_nans(model=model):
+        with strict.strict_section(frozenset({"transfers"})):
+            with pytest.raises(FloatingPointError, match="'norm'"):
+                model(x)
+    assert torch.cuda.get_sync_debug_mode() == 0
