@@ -216,11 +216,34 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and its data-wait share; exactly one sample quarantined a pass and
    every batch full; whether the native JPEG decode builds, and its
    largest difference from PIL on JPEG copies of 64 images where PIL
-   imports.
+   imports;
+27. YOLOX-S trained at full width through ``train.detection`` (``build``,
+   ``train_steps``, ``evaluate``, as ``run`` calls them; the ``yolox_s``
+   experiment's overrides: 640², 80 classes, ``max_gt`` 50, batch 8,
+   multi-scale buckets 480-800 every 4 steps; 64 synthetic images, 24
+   steps, the L1 term from step 20; weights from ``--seed``), then its
+   COCO evaluation (the 64 images in one predict call, score 0.3). K3
+   counted from zero just before the run and read just after: one launch
+   a predict call (training launches none). Every logged loss finite,
+   step 16's total below step 0's; the steady step by bucket (CUDA
+   events) and ``simota_assign``'s share of a step's device time (its
+   profiler range); 4 steps of a resident batch under sync debug mode
+   "error"; the first batch's loss from one raw output on the card and on
+   the CPU (SimOTA's assignment equal, terms within 1e-5). The evaluation
+   again through the plain sweep: equal detections and summary; the C++
+   matcher's summary equal to numpy's. Then one batch at score 0 over
+   every candidate through both sweeps (alive and suppressed both > 0),
+   its detections scored by the C++ matcher (built and loaded) and by
+   numpy, the plain sweep's too: some match a ground truth (AR100 > 0),
+   the three summaries equal, the host seconds of each matcher;
+28. RetinaNet R50-FPN trained the same way at 512² (20 classes, batch 8,
+   12 steps at Adam lr 1e-4, no multi-scale) with the same checks (the
+   anchor matches for the assignment; step 10's loss below step 0's).
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
-(phases 13 and 16), each counted from zero just before its run. The
+(phases 13 and 16) and the two trained detectors' evaluations (phases
+27-28), each counted from zero just before its run. The
 flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
 phase 6's (dQ, dK/dV). The K2 entry adds the launches of phases 22-26 to
 phase 9's, each counted from zero just before its run.
@@ -614,7 +637,25 @@ def main() -> int:
     # --------------------------------------------------- 26. folder data
     phase(26, started)
     win["launches"] += _folder_feed(wa, dev, args.seed, workdir + "_folder")
-    log(f"chip_smoke: phases 22-26 in {time.perf_counter() - t22:.1f}s; "
+    log(f"chip_smoke: phases 22-26 in {time.perf_counter() - t22:.1f}s")
+
+    # ----------- 27. YOLOX-S trained (multi-scale, SimOTA) and COCO-scored
+    phase(27, started)
+    t27 = time.perf_counter()
+    torch.cuda.empty_cache()
+    from deeplearning_tpu_torch.core.experiment import get_exp
+    k3 = by_name["nms_greedy_sweep"]
+    # the kernels line counts K3 over the trained detectors' evaluations too
+    k3["launches"] += _train_and_score(
+        nms_ops, dev, args.seed, YOLOX,
+        get_exp(exp_name=YOLOX).cli_overrides() + YOLOX_TRAIN)
+
+    # --------------------------- 28. RetinaNet R50-FPN trained and scored
+    phase(28, started)
+    torch.cuda.empty_cache()
+    k3["launches"] += _train_and_score(nms_ops, dev, args.seed, RETINA,
+                                       RETINA_TRAIN)
+    log(f"chip_smoke: phases 27-28 in {time.perf_counter() - t27:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -2959,6 +3000,306 @@ def _folder_feed(wa, dev, seed, workdir) -> int:
             f"|native - PIL| {worst} (uint8 levels)")
     shutil.rmtree(workdir, ignore_errors=True)
     return launches
+
+
+# ------------------ phases 27-28: one-stage detection training + COCO eval
+DET_TRAIN_N = 64            # synthetic training images; evaluated in one call
+YOLOX_TRAIN = ["data.n_train=64", "train.steps=24", "train.no_aug_steps=4",
+               "train.multiscale_every=4"]
+RETINA = "retinanet_resnet50_fpn"
+# Adam at 1e-4: at the CLI's 1e-3 the first steps move every weight by
+# ~1e-3 whatever its gradient, and both terms swing between batches (the
+# total 2.0 -> 9-16 on the card). The JAX CLI does the same: R50-FPN at
+# 256², batch 8, 20 classes, 12 steps on the CPU, its total goes 2.02 ->
+# 9.07 -> ... -> 14.97 at 1e-3 and falls to 1.00 at 1e-4.
+RETINA_TRAIN = [f"model.name={RETINA}", "model.num_classes=20",
+                "model.image_size=512", "data.max_gt=50", "data.batch=8",
+                f"data.n_train={DET_TRAIN_N}", "train.steps=12",
+                "train.lr=1e-4"]
+STEADY_STEPS = 4            # steps of a resident batch under the sync guard
+
+
+def _loss_card_vs_cpu(name, model, batch, num_classes) -> dict:
+    """The family's loss of one batch from one raw output, on the card and
+    on the CPU: SimOTA's assignment exact, every term within 1e-5."""
+    import torch
+    from deeplearning_tpu_torch.models.detection import retinanet, yolox
+    hw = tuple(batch["image"].shape[1:3])
+    model.eval()
+    with torch.no_grad():
+        out = model(batch["image"])
+    sides = {}
+    for dev in (batch["image"].device, torch.device("cpu")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        if name.startswith("yolox"):
+            c, s = (torch.from_numpy(a).to(dev) for a in yolox.yolox_grid(hw))
+            raw = out.to(dev)
+            assign = yolox.simota_assign(yolox.decode_outputs(raw, c, s), c, s,
+                                         b["boxes"], b["labels"], b["valid"],
+                                         num_classes)
+            terms = yolox.yolox_loss(raw, c, s, b["boxes"], b["labels"],
+                                     b["valid"], num_classes, use_l1=True)
+        else:
+            a = torch.from_numpy(retinanet.retinanet_anchors(hw)).to(dev)
+            o = {k: out[k].to(dev) for k in ("cls_logits", "bbox_deltas")}
+            from deeplearning_tpu_torch.ops import boxes as box_ops, matcher
+            assign = {"matches": matcher.match_anchors(
+                box_ops.box_iou(b["boxes"], a), b["valid"], 0.5, 0.4)}
+            terms = retinanet.retinanet_loss(o, a, b["boxes"], b["labels"],
+                                             b["valid"])
+        sides[dev.type] = ({k: v.cpu() for k, v in assign.items()},
+                           {k: float(v) for k, v in terms.items()})
+    (ga, gt), (ca, ct) = sides["cuda"], sides["cpu"]
+    same = all(torch.equal(ga[k], ca[k]) for k in ga if k != "matched_iou")
+    iou_err = (float((ga["matched_iou"] - ca["matched_iou"]).abs().max())
+               if "matched_iou" in ga else 0.0)
+    rel = {k: abs(gt[k] - ct[k]) / max(abs(ct[k]), 1e-12) for k in ct}
+    log(f"{name} first batch at {hw[0]}², card vs CPU from one raw output: "
+        f"assignment equal {same} (matched IoU {iou_err:.2e}), loss terms "
+        f"{json.dumps({k: round(v, 5) for k, v in gt.items()})}, relative "
+        f"difference {max(rel.values()):.2e}")
+    check(same and iou_err <= 1e-6, f"{name}: assignment on the card == CPU")
+    check(max(rel.values()) <= 1e-5, f"{name}: loss on the card == CPU")
+    return gt
+
+
+def _steady_step_ms(sizes, step_ms) -> dict:
+    """Median device-stream ms of the steps each bucket ran after its
+    first (the first at a new size builds its grid and cuDNN plans)."""
+    by = {}
+    for i, (size, ms) in enumerate(zip(sizes, step_ms)):
+        if i and sizes[i - 1] == size:
+            by.setdefault(size, []).append(ms)
+    return {size: statistics.median(v) for size, v in sorted(by.items())}
+
+
+def _profile_steps(r, batch, iters=3) -> tuple:
+    """Device time a step (the profiler's kernels and copies) and, inside
+    it, of ``simota_assign`` (the profiler range ``yolox_loss`` opens
+    around it; 0 for RetinaNet)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning_tpu_torch.serve.profile import (_device_total_us,
+                                                      _device_us)
+    r.state, _ = r.step(r.state, batch, r.key)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            r.state, _ = r.step(r.state, batch, r.key)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(_device_us(e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key != "simota_assign") / 1e3 / iters
+    simota_ms = sum(_device_total_us(e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.key == "simota_assign") / 1e3 / iters
+    check(device_ms > 0, "the profiler recorded device time")
+    return simota_ms, device_ms
+
+
+def _postprocess_at_zero(name, model, x):
+    """One eval batch through the postprocess at score threshold 0 with
+    every candidate kept (YOLOX: every anchor; RetinaNet: its 1 000 top
+    candidates an image), with K3 and with the plain sweep on one forward:
+    equal detections. Returns (alive, kept, {"auto": K3's detections,
+    "blocked": the plain sweep's}). The forward normalises with the
+    batch's statistics, as the loss saw it (the running statistics, a few
+    steps from their start, put every YOLOX-S box of a 24-step network
+    apart: nothing to suppress); the running statistics are restored
+    after."""
+    import torch
+    from deeplearning_tpu_torch.models.detection import retinanet, yolox
+    hw = tuple(x.shape[1:3])
+    saved = {k: v.clone() for k, v in model.named_buffers()}
+    model.train()
+    with torch.no_grad():
+        out = model(x)
+        for k, v in model.named_buffers():
+            v.copy_(saved[k])
+    model.eval()
+    if name.startswith("yolox"):
+        c, s = (torch.from_numpy(a).to(x.device) for a in yolox.yolox_grid(hw))
+        dets = {impl: yolox.yolox_postprocess(
+            out, c, s, score_thresh=0.0, max_det=out.shape[1],
+            nms_impl=impl) for impl in ("auto", "blocked")}
+        dec = yolox.decode_outputs(out, c, s)
+        score = (torch.sigmoid(dec[..., 4:5]) * torch.sigmoid(dec[..., 5:])
+                 ).amax(dim=-1)
+    else:
+        anchors = torch.from_numpy(retinanet.retinanet_anchors(hw)).to(
+            x.device)
+        dets = {impl: retinanet.retinanet_postprocess(
+            out, anchors, hw, score_thresh=0.0, max_det=1000, nms_impl=impl)
+            for impl in ("auto", "blocked")}
+        score = torch.sigmoid(out["cls_logits"]).reshape(
+            x.shape[0], -1).topk(1000).values
+    torch.cuda.synchronize()
+    check(all(torch.equal(dets["auto"][k], dets["blocked"][k])
+              for k in dets["auto"]),
+          f"{name} detections through K3 == through the plain sweep "
+          f"(every candidate)")
+    return int((score > 0).sum()), int(dets["auto"]["valid"].sum()), dets
+
+
+def _score_at_zero(name, dets, gt, num_classes) -> None:
+    """The score-0 detections of one batch through the COCO evaluator:
+    K3's with the C++ matcher and with numpy, the plain sweep's with the
+    C++ matcher. Some detections match a ground truth (AR100 > 0) and the
+    three summaries are equal; the host seconds of ``summarize`` on each
+    matching path, in turns (C++, numpy, numpy, C++)."""
+    from deeplearning_tpu_torch.evaluation.coco_eval import CocoEvaluator
+    from deeplearning_tpu_torch.native.build import load
+    check(load("cocoeval") is not None,
+          "the C++ COCO matcher builds and loads")
+    ids = np.arange(len(gt["boxes"]))
+    k3 = CocoEvaluator(num_classes)
+    k3.add_batch(ids, dets["auto"], gt=gt)
+    plain = CocoEvaluator(num_classes)
+    plain.add_batch(ids, dets["blocked"], gt=gt)
+    summaries, secs = {}, {}
+    for use_cpp in (True, False, False, True):
+        k3.use_cpp = use_cpp
+        t0 = time.perf_counter()
+        summaries[use_cpp] = k3.summarize()
+        secs.setdefault(use_cpp, []).append(time.perf_counter() - t0)
+    n_dets = sum(len(d["scores"]) for d in k3._dts.values())
+    log(f"{name} at score 0, {len(ids)} images, {n_dets} detections: COCO "
+        f"summary {json.dumps(summaries[True])}; evaluator host seconds "
+        f"C++ matcher {min(secs[True]):.4f}s, numpy {min(secs[False]):.4f}s")
+    check(summaries[True]["AR100"] > 0,
+          f"{name}: some score-0 detections match a ground truth")
+    check(summaries[True] == summaries[False],
+          f"{name}: C++ and numpy summaries equal at score 0")
+    check(plain.summarize() == summaries[True],
+          f"{name}: the plain sweep's COCO summary == K3's at score 0")
+
+
+def _train_and_score(nms_ops, dev, seed, name, overrides) -> int:
+    """Phases 27-28: ``train.detection`` at full width on the card
+    (``build``, ``train_steps``, ``evaluate``, as ``run`` calls them), its
+    checks and timings. Returns K3's launches in the run."""
+    import torch
+    from deeplearning_tpu_torch.core.config import load_config
+    from deeplearning_tpu_torch.models.detection.predict import (
+        build_predict_fn)
+    from deeplearning_tpu_torch.train import detection as det
+    cfg = load_config(det.DetConfig(), None,
+                      overrides + [f"train.seed={seed}"])
+    every = max(cfg.train.steps // 5, 1)
+    torch.cuda.synchronize()
+    nms_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = det.build(cfg)
+    # a step's device-stream interval runs from the previous step's end:
+    # its batch's copy and resize are in it
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    sizes, logged, batch = [], {}, None
+    try:
+        for it, b, metrics in det.train_steps(r):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            sizes.append(int(b["image"].shape[1]))
+            batch = b if it == 0 else batch
+            if it % every == 0:
+                logged[it] = {k: float(v) for k, v in metrics.items()}
+    finally:
+        r.close()
+    summary, ev, calls = det.evaluate(r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = nms_ops.launch_counts()["nms_greedy_sweep"]
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    terms = {k: {t: round(v, 4) for t, v in m.items()}
+             for k, m in logged.items()}
+    log(f"{name} trained {cfg.train.steps} steps at {cfg.model.image_size}² "
+        f"(batch {cfg.data.batch}, Adam lr {cfg.train.lr}, buckets "
+        f"{sorted(set(sizes))}) and evaluated in {wall:.1f}s; logged "
+        f"{json.dumps(terms)}; K3 launches {launched} over {len(calls)} "
+        f"predict calls")
+    check(all(np.isfinite(v) for m in logged.values() for v in m.values()),
+          f"{name}: every logged loss is finite")
+    # the last logged step before YOLOX's L1 term joins the total
+    l1_from = cfg.train.steps - cfg.train.no_aug_steps
+    last = max(k for k in logged if k < l1_from)
+    check(logged[last]["loss"] < logged[0]["loss"],
+          f"{name}: the loss at step {last} is below step 0's")
+    check(len(calls) > 0 and launched == len(calls),
+          f"{name}: K3 launches once a predict call")
+    check(len(summary) == 12 and all(np.isfinite(v)
+                                     for v in summary.values()),
+          f"{name}: the 12-metric summary is finite")
+    log(f"{name} COCO summary after {cfg.train.steps} steps (random weights "
+        f"from the seed, logged only): {json.dumps(summary)}")
+
+    # the evaluation again through the plain sweep (before any other step
+    # moves the weights): the same detections and summary
+    plain = build_predict_fn(r.model, name, cfg.model.num_classes,
+                             score_thresh=cfg.train.eval_score_thresh,
+                             max_det=det.EVAL_MAX_DET, nms_impl="blocked")
+    plain_summary, _, again = det.evaluate(r, plain)
+    k3, again = calls[0], again[0]
+    torch.cuda.synchronize()
+    check(all(torch.equal(k3[k], again[k]) for k in ("valid", "labels"))
+          and float((k3["scores"] - again["scores"]).abs().max()) <= 1e-6
+          and float((k3["boxes"] - again["boxes"]).abs().max()) <= 1e-3,
+          f"{name}: eval detections through K3 == the plain sweep's")
+    check(plain_summary == summary,
+          f"{name}: the plain sweep's COCO summary == K3's")
+    ev.use_cpp = False
+    check(ev.summarize() == summary,
+          f"{name}: C++ and numpy summaries equal")
+    valid = int(k3["valid"].sum())
+    images = torch.from_numpy(r.arrays[0]).to(dev)
+    x = images[:cfg.data.batch]
+    t_pred = _time_ms(lambda: r.predict_fn(images), iters=3, warmup=1)
+    t_batch = _time_ms(lambda: r.predict_fn(x), iters=5, warmup=1)
+    log(f"{name} eval: {valid} detections pass score "
+        f"{cfg.train.eval_score_thresh} (== plain sweep); predict "
+        f"{t_pred:.2f} ms for the {len(images)}-image call, {t_batch:.2f} "
+        f"ms a batch of {len(x)}")
+    # few or no scores pass 0.3 this early: the comparisons above may hold
+    # nothing, so one batch again at score 0 with every candidate kept
+    alive, kept, dets = _postprocess_at_zero(name, r.model, x)
+    log(f"{name} at score 0 over every candidate: K3 == plain, alive "
+        f"{alive}, kept {kept}, suppressed {alive - kept}")
+    check(alive > 0 and alive - kept > 0,
+          f"{name}: candidates alive and suppressed at score 0")
+    _score_at_zero(name, dets, {k: a[:len(x)] for k, a in zip(
+        ("boxes", "labels", "valid"), r.arrays[1:])},
+        cfg.model.num_classes)
+
+    log(f"{name} step ms (CUDA events) by step: " + ", ".join(
+        f"{size}²: {ms:.1f}" for size, ms in zip(sizes, step_ms)))
+    steady = _steady_step_ms(sizes, step_ms)
+    log(f"{name} steady train step by bucket (CUDA events, median of the "
+        f"steps after a bucket's first): " + ", ".join(
+            f"{s}²: {ms:.2f} ms ({cfg.data.batch / ms * 1e3:.1f} img/s)"
+            for s, ms in steady.items()))
+    size = batch["image"].shape[1]
+    simota_ms, device_ms = _profile_steps(r, batch)
+    steady_ms = steady.get(size, statistics.median(step_ms))
+    log(f"{name} at {size}²: {device_ms:.2f} ms device time a step "
+        f"(profiler, 3 steps), idle {1 - device_ms / steady_ms:.3f} of the "
+        f"steady step; simota_assign {simota_ms:.2f} ms "
+        f"({simota_ms / device_ms:.1%})")
+    # steady steps with the batch resident under the sync guard
+    r.state, _ = r.step(r.state, batch, r.key)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(STEADY_STEPS):
+            r.state, metrics = r.step(r.state, batch, r.key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(metrics["loss"])),
+          f"{name}: guarded steps finite")
+    log(f"{name}: {STEADY_STEPS} steady steps under sync debug mode 'error' "
+        f"raised nothing")
+    _loss_card_vs_cpu(name, r.model, batch, cfg.model.num_classes)
+    return launched
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -5,8 +5,10 @@ the threaded device feed (``device_prefetch``), the numpy transforms and
 samplers (copies of the JAX package's), mixup / cutmix on tensors
 (``mixup``), class-folder datasets (``datasets``), the zip source and
 memmap cache (``zip_cache``), the native libjpeg decode
-(``native_decode``) and the folder-loader builder (``build``). COCO,
-mosaic and the detection transforms come with ROADMAP Queue 1 item 5b.
+(``native_decode``), the folder-loader builder (``build``), the COCO
+detection source (``coco``) and the annotation converters
+(``label_convert``). Mosaic and random perspective come with ROADMAP
+Queue 1 item 5d.
 """
 
 from .device_prefetch import DevicePrefetcher

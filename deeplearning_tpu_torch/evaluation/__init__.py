@@ -1,1 +1,2 @@
-"""Evaluation helpers of the port (top-k counts in this slice)."""
+"""Evaluation of the port: top-k counts, the detection precision helpers
+(``metrics``) and the COCO evaluator (``coco_eval``)."""

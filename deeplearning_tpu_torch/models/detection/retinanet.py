@@ -1,5 +1,5 @@
-"""RetinaNet: the port of ``deeplearning_tpu/models/detection/retinanet.py``
-(serving half: the network, the anchors and the postprocess).
+"""RetinaNet: the port of ``deeplearning_tpu/models/detection/retinanet.py``:
+the network, the anchors, the postprocess and the loss.
 
 A ResNet backbone (c3-c5), an FPN with P6/P7 convs, and two shared towers
 (four 3×3 convs + ReLU, then a 3×3 prediction: K·A sigmoid logits with a
@@ -14,7 +14,11 @@ in one call: sigmoid scores, the top 1 000 of the image's (anchor, class)
 pairs with JAX's tie order (``ops/topk.topk_stable``), decode, clip, one
 class-aware NMS launch a batch (``ops/nms.batched_nms``: K3 on the card).
 
-``retinanet_loss`` (training) comes with the detection training slice.
+``retinanet_loss`` matches every anchor of every image in one call
+(``ops/matcher.match_anchors`` at 0.5 / 0.4 with low-quality matches):
+the focal loss over the anchors that are not ignored, plain L1 (not
+smooth-L1) on the positives' encoded deltas, both normalised by each
+image's own positives (at least 1), then averaged over the batch.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch.nn.functional as F
 from ...core.registry import MODELS
 from ...ops import anchors as anc
 from ...ops import boxes as box_ops
+from ...ops import losses as L
+from ...ops import matcher as M
 from ...ops import nms as nms_ops
 from ...ops.topk import topk_stable
 from ..classification.resnet import ResNet
@@ -37,7 +43,7 @@ from ..layers import conv, init_flax_
 from .fpn import FPN
 
 __all__ = ["RetinaHead", "RetinaNet", "retinanet_anchors",
-           "retinanet_postprocess", "nhwc_rows"]
+           "retinanet_loss", "retinanet_postprocess", "nhwc_rows"]
 
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -132,6 +138,35 @@ def retinanet_anchors(image_hw: Tuple[int, int]) -> np.ndarray:
     all_anchors, _ = anc.pyramid_anchors(shapes, strides,
                                          anc.retinanet_sizes())
     return all_anchors
+
+
+def retinanet_loss(outputs: Dict, anchors: torch.Tensor,
+                   gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                   gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """{cls_loss, reg_loss}: the focal loss and the L1 loss, each per
+    image over its positives, averaged over the batch. anchors (A, 4);
+    gt_boxes (B, G, 4), gt_labels (B, G), gt_valid (B, G)."""
+    cls_logits, deltas = outputs["cls_logits"], outputs["bbox_deltas"]
+    num_classes = cls_logits.shape[-1]
+    with torch.no_grad():
+        iou = box_ops.box_iou(gt_boxes, anchors)                # (B, G, A)
+        matches = M.match_anchors(iou, gt_valid, 0.5, 0.4,
+                                  allow_low_quality=True)       # (B, A)
+    pos = matches >= 0
+    ignore = matches == M.BETWEEN
+    safe = torch.clamp(matches, min=0)
+    target_cls = F.one_hot(gt_labels.gather(1, safe).long(),
+                           num_classes).float() * pos[..., None]
+    cls_loss = L.sigmoid_focal_loss(cls_logits, target_cls,
+                                    reduction="none")
+    cls_loss = torch.sum(cls_loss * (~ignore)[..., None], dim=(1, 2))
+    matched = gt_boxes.gather(1, safe[..., None].expand(-1, -1, 4))
+    reg_targets = box_ops.encode_boxes(matched, anchors)
+    reg_loss = torch.sum(torch.abs(deltas - reg_targets) * pos[..., None],
+                         dim=(1, 2))
+    num_pos = torch.clamp(pos.sum(1), min=1)
+    return {"cls_loss": torch.mean(cls_loss / num_pos),
+            "reg_loss": torch.mean(reg_loss / num_pos)}
 
 
 def retinanet_postprocess(outputs: Dict, anchors: torch.Tensor,

@@ -1,5 +1,5 @@
-"""YOLOX: the port of ``deeplearning_tpu/models/detection/yolox.py``
-(serving half: the networks, the decode and the postprocess).
+"""YOLOX: the port of ``deeplearning_tpu/models/detection/yolox.py``:
+the networks, the decode, the postprocess, SimOTA and the loss.
 
 Same classes, structure and parameter names as the flax modules, so a flax
 tree converts one to one (``utils/convert.from_flax_params`` with the
@@ -22,8 +22,18 @@ run in float32, SPP max-pools at stride 1 padded with -inf, 2× nearest
 upsampling, a Bottleneck shortcut only when the channels match, PAFPN's
 CSP layers without shortcut, and cls/obj biases initialised at −log(99).
 
-``simota_assign`` and ``yolox_loss`` (training) come with the detection
-training slice.
+``simota_assign`` is the fixed-shape SimOTA of the JAX package, batched
+over the images: candidates gated by in-box or in-centre, cost = class
+BCE + 3·(−log IoU) + 1e5 for a non-candidate + 1e5 for an anchor not in
+both gates, dynamic k from the top-10 candidate IoUs (summed, truncated,
+at least 1), a stable sort of each gt's costs ranked with a scatter (so
+equal float32 costs keep the anchor order, as ``jnp.argsort`` does), and
+an anchor claimed by several gts kept by the cheapest (first on ties). It
+runs in float32 under ``no_grad`` on detached boxes and never leaves the
+device. ``yolox_loss`` is the IoU² loss (×5), the objectness BCE summed
+over anchors, the class BCE against IoU-scaled one-hots summed over the
+positives, and with ``use_l1`` the L1 loss on the raw deltas, each over
+the batch's positives (at least 1).
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...core.registry import MODELS
+from ...ops import boxes as box_ops
+from ...ops import losses as L
 from ...ops import nms as nms_ops
 from ..layers import BatchNorm, calibrate_batchnorm, lecun_normal_
 from ..layers import conv as _conv
@@ -44,7 +56,8 @@ from ..layers import conv as _conv
 __all__ = ["STRIDES", "ConvBnSiLU", "Bottleneck", "CSPLayer",
            "SPPBottleneck", "CSPDarknet", "PAFPN", "ResLayer", "Darknet53",
            "YOLOFPN", "YOLOXHead", "YOLOX", "yolox_grid", "decode_outputs",
-           "yolox_postprocess", "postprocess_decoded", "calibrate_batchnorm"]
+           "simota_assign", "yolox_loss", "yolox_postprocess",
+           "postprocess_decoded", "calibrate_batchnorm"]
 
 STRIDES = (8, 16, 32)
 _PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
@@ -388,6 +401,118 @@ def decode_outputs(raw: torch.Tensor, centers: torch.Tensor,
     wh = torch.exp(raw[..., 2:4].clamp(-10, 8)) * strides[:, None]
     boxes = torch.cat([xy - wh / 2, xy + wh / 2], dim=-1)
     return torch.cat([boxes, raw[..., 4:]], dim=-1)
+
+
+def simota_assign(decoded: torch.Tensor, centers: torch.Tensor,
+                  strides: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                  num_classes: int, center_radius: float = 2.5,
+                  topk_ious: int = 10) -> Dict[str, torch.Tensor]:
+    """Fixed-shape SimOTA. decoded (B, A, 5+C) float32; gt_boxes (B, G, 4)
+    xyxy pixels, gt_labels (B, G), gt_valid (B, G). Returns {fg (B, A)
+    bool, matched_gt (B, A) int64 (0 where not fg), matched_iou (B, A)}."""
+    with torch.no_grad():
+        decoded = decoded.detach().float()
+        a = decoded.shape[1]
+        boxes = decoded[..., :4]
+        obj = torch.sigmoid(decoded[..., 4])                    # (B, A)
+        cls = torch.sigmoid(decoded[..., 5:])                   # (B, A, C)
+
+        cx = (centers[:, 0] + 0.5) * strides                    # (A,)
+        cy = (centers[:, 1] + 0.5) * strides
+        g = gt_boxes[..., None, :]                              # (B, G, 1, 4)
+        # gating: anchor centre in the gt box OR within the centre radius
+        in_box = ((cx > g[..., 0]) & (cx < g[..., 2])
+                  & (cy > g[..., 1]) & (cy < g[..., 3]))        # (B, G, A)
+        gcx = (gt_boxes[..., 0] + gt_boxes[..., 2]) / 2
+        gcy = (gt_boxes[..., 1] + gt_boxes[..., 3]) / 2
+        rad = center_radius * strides
+        in_center = ((torch.abs(cx - gcx[..., None]) < rad)
+                     & (torch.abs(cy - gcy[..., None]) < rad))
+        valid = gt_valid[..., None]
+        fg_cand = (in_box | in_center) & valid
+
+        iou = torch.where(valid, box_ops.box_iou(gt_boxes, boxes), 0.0)
+        iou_cost = -torch.log(iou + 1e-8)
+        onehot = F.one_hot(gt_labels.long(), num_classes).float()
+        onehot = onehot[:, :, None, :]                          # (B,G,1,C)
+        joint = torch.sqrt(torch.clamp(cls * obj[..., None], 1e-8, 1.0))
+        joint = joint[:, None]                                  # (B,1,A,C)
+        cls_cost = -(onehot * torch.log(joint)
+                     + (1 - onehot) * torch.log(1 - joint + 1e-8))
+        cls_cost = torch.sum(cls_cost, -1)                      # (B, G, A)
+        # an extra 1e5 for candidates not in BOTH gates prefers anchors
+        # that pass both; non-candidates end at 2e5, strictly worse
+        cost = (cls_cost + 3.0 * iou_cost + 1e5 * (~fg_cand)
+                + 1e5 * (~(in_box & in_center)))
+
+        # dynamic k per gt: the top-10 candidate IoUs summed, truncated
+        masked_iou = torch.where(fg_cand, iou, 0.0)
+        topk = torch.topk(masked_iou, min(topk_ious, a), dim=-1).values
+        dynamic_k = torch.clamp(topk.sum(-1).to(torch.int32), 1, a)
+
+        # rank of each anchor's cost within its gt row (0 = cheapest);
+        # the stable sort keeps equal float32 costs in anchor order
+        order = torch.argsort(cost, dim=-1, stable=True)
+        ranks = torch.arange(a, device=cost.device).expand_as(order)
+        rank = torch.empty_like(order).scatter_(-1, order, ranks)
+        take = (rank < dynamic_k[..., None]) & fg_cand          # (B, G, A)
+
+        # an anchor claimed by several gts keeps the cheapest (first on ties)
+        best_gt = torch.argmin(torch.where(take, cost, float("inf")), dim=1)
+        fg = take.any(dim=1)
+        matched_gt = torch.where(fg, best_gt, 0)
+        matched_iou = torch.where(
+            fg, iou.gather(1, matched_gt[:, None]).squeeze(1), 0.0)
+    return {"fg": fg, "matched_gt": matched_gt, "matched_iou": matched_iou}
+
+
+def yolox_loss(raw: torch.Tensor, centers: torch.Tensor,
+               strides: torch.Tensor, gt_boxes: torch.Tensor,
+               gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+               num_classes: int, use_l1: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """IoU loss + objectness BCE + class BCE (+ the L1 loss on the raw
+    deltas with ``use_l1``), each summed per image and normalised by the
+    batch's positives. raw (B, A, 5+C) float32, the head's output. Every
+    value is a device tensor; the assignment is a constant target."""
+    decoded = decode_outputs(raw, centers, strides)
+    with torch.profiler.record_function("simota_assign"):
+        assign = simota_assign(decoded, centers, strides, gt_boxes,
+                               gt_labels, gt_valid, num_classes)
+    fg = assign["fg"]
+    fgf = fg.float()
+    mg = assign["matched_gt"]
+    tgt_boxes = gt_boxes.gather(1, mg[..., None].expand(-1, -1, 4))
+    iou = box_ops.elementwise_box_iou(decoded[..., :4], tgt_boxes, "iou")
+    iou_loss = torch.sum((1.0 - iou ** 2) * fgf, dim=1)         # IoU² loss
+    a = raw.shape[1]
+    # the sum over anchors, as the mean times A
+    obj_loss = torch.mean(L.binary_cross_entropy(
+        raw[..., 4], fgf, reduction="none"), dim=1) * a
+    cls_t = (F.one_hot(gt_labels.gather(1, mg).long(), num_classes)
+             * assign["matched_iou"][..., None])
+    # the JAX weighted mean with the (A, 1) positive mask, times the
+    # positives: the sum over (positives, C)
+    n_fg = fgf.sum(1)
+    cls_bce = L.binary_cross_entropy(raw[..., 5:], cls_t, reduction="none")
+    cls_loss = (torch.sum(cls_bce * fgf[..., None], dim=(1, 2))
+                / torch.clamp(n_fg, min=1.0) * n_fg)
+    l1 = torch.zeros_like(n_fg)
+    if use_l1:
+        s = strides[:, None]
+        tgt_xy = (tgt_boxes[..., :2] + tgt_boxes[..., 2:]) / 2 / s - centers
+        tgt_wh = torch.log(torch.clamp(
+            (tgt_boxes[..., 2:] - tgt_boxes[..., :2]) / s, min=1e-6))
+        l1_t = torch.cat([tgt_xy, tgt_wh], -1)
+        l1 = torch.sum(torch.abs(raw[..., :4] - l1_t) * fgf[..., None],
+                       dim=(1, 2))
+    norm = torch.clamp(n_fg.sum(), min=1.0)
+    return {"iou_loss": 5.0 * iou_loss.sum() / norm,
+            "obj_loss": obj_loss.sum() / norm,
+            "cls_loss": cls_loss.sum() / norm,
+            "l1_loss": l1.sum() / norm,
+            "num_fg": n_fg.sum()}
 
 
 def yolox_postprocess(raw: torch.Tensor, centers: torch.Tensor,

@@ -41,8 +41,9 @@ brings it (ROADMAP Queue 1):
 - ``weight_update`` (ZeRO-1 and the topology sidecar): item 7.
 Fixed here, where the JAX Trainer takes an option: a checkpoint every
 epoch (``save_every_epochs``), ``best`` by ``top1`` (``best_metric``),
-the count-normalised eval (``metric_reducer``; detection's mAP reducer
-comes with item 5b), always abort on a non-finite loss
+the count-normalised eval (``metric_reducer``: no caller of the JAX
+package passes one, detection scores its mAP in its own CLI, so the
+option comes with its first caller), always abort on a non-finite loss
 (``abort_non_finite``) and the metrics window from ``log_every``
 (``metrics_window``).
 ``retrace_warn`` never comes: eager PyTorch does not retrace. And

@@ -910,3 +910,110 @@ def test_nan_hook_under_transfers_and_nans_keeps_the_guard(cuda_device):
             with pytest.raises(FloatingPointError, match="'norm'"):
                 model(x)
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ------------------------------------------- one-stage detection training
+def _det_loss_inputs(seed, family, size=320, classes=80, b=4, g=20):
+    """Seeded raw head outputs and padded gts (numpy), as the CPU would
+    see them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if family == "yolox":
+        from deeplearning_tpu_torch.models.detection.yolox import yolox_grid
+        centers, strides = yolox_grid((size, size))
+        raw = {"raw": rng.normal(0, 1, (b, len(strides), 5 + classes))}
+        consts = {"centers": centers, "strides": strides}
+    else:
+        from deeplearning_tpu_torch.models.detection.retinanet import (
+            retinanet_anchors)
+        anchors = retinanet_anchors((size, size))
+        raw = {"cls_logits": rng.normal(-2, 1.5, (b, len(anchors), classes)),
+               "bbox_deltas": rng.normal(0, 0.5, (b, len(anchors), 4))}
+        consts = {"anchors": anchors}
+    wh = rng.uniform(8, size / 2, (b, g, 2))
+    xy = rng.uniform(0, size / 2, (b, g, 2))
+    gts = {"boxes": np.concatenate([xy, xy + wh], -1),
+           "labels": rng.integers(0, classes, (b, g)),
+           "valid": np.arange(g)[None] < rng.integers(1, g, (b, 1))}
+    as_t = {**{k: v.astype(np.float32) for k, v in raw.items()},
+            **{k: np.asarray(v, np.float32) for k, v in consts.items()},
+            **gts, "boxes": gts["boxes"].astype(np.float32)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in as_t.items()}
+
+
+def _det_loss(family, t):
+    from deeplearning_tpu_torch.models.detection import retinanet, yolox
+    if family == "yolox":
+        assign = yolox.simota_assign(
+            yolox.decode_outputs(t["raw"], t["centers"], t["strides"]),
+            t["centers"], t["strides"], t["boxes"], t["labels"],
+            t["valid"], 80)
+        out = yolox.yolox_loss(t["raw"], t["centers"], t["strides"],
+                               t["boxes"], t["labels"], t["valid"], 80,
+                               use_l1=True)
+        return out, assign
+    out = retinanet.retinanet_loss(
+        {"cls_logits": t["cls_logits"], "bbox_deltas": t["bbox_deltas"]},
+        t["anchors"], t["boxes"], t["labels"], t["valid"])
+    return out, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["yolox", "retinanet"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_detection_losses_on_the_card_equal_the_cpu(cuda_device, family,
+                                                    seed):
+    """The same raw outputs on the card and on the CPU: SimOTA's
+    assignment exact, every loss term within 1e-5 relative."""
+    cpu = _det_loss_inputs(seed, family)
+    want, want_assign = _det_loss(family, cpu)
+    got, got_assign = _det_loss(family, {k: v.to(cuda_device)
+                                         for k, v in cpu.items()})
+    torch.cuda.synchronize()
+    for k in want_assign:
+        assert torch.equal(got_assign[k].cpu(), want_assign[k]) or (
+            k == "matched_iou" and torch.allclose(
+                got_assign[k].cpu(), want_assign[k], atol=1e-6)), k
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-5 * max(abs(float(v)),
+                                                           1e-12), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolox_nano", "retinanet_resnet18_fpn"])
+def test_detection_step_never_syncs(cuda_device, name):
+    """``build_task``'s loss through ``make_train_step`` with Adam and the
+    clip, the batch resident on the card and resized there to a new
+    bucket: steps under sync debug mode "error" raise nothing."""
+    import numpy as np
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.train.detection import (build_task,
+                                                        synthetic_boxes)
+    from deeplearning_tpu_torch.train.multiscale import (
+        resize_detection_batch)
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    from deeplearning_tpu_torch.train.state import TrainState
+    from deeplearning_tpu_torch.train.steps import make_train_step
+    model, _ = hub.load(name, num_classes=3, seed=0, device=cuda_device)
+    loss_fn, _ = build_task(model, name, 3, 0.3)
+    tx = build_optimizer("adam", 1e-3, clip_grad_norm=1.0,
+                         params=dict(model.named_parameters()))
+    state = TrainState.create(model=model, tx=tx)
+    step = make_train_step(loss_fn, device=cuda_device)
+    arrays = synthetic_boxes(4, 128, 3, 4, seed=1)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in zip(
+        ("image", "boxes", "labels", "valid"), arrays)}
+    small = resize_detection_batch(batch, 96)
+    for b in (batch, small):          # warm: anchors and grids cached
+        state, _ = step(state, b, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = step(state, batch, 0)
+            state, metrics = step(state, resize_detection_batch(batch, 96),
+                                  0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 6 and np.isfinite(float(metrics["loss"]))

@@ -344,7 +344,10 @@ def test_port_imports_nothing_of_jax():
             "elastic/preempt.py", "elastic/signals.py",
             "elastic/heartbeat.py", "data/build.py", "data/quarantine.py",
             "data/datasets.py", "data/zip_cache.py", "data/native_decode.py",
-            "native/build.py", "train/lr_finder.py"} <= scanned
+            "native/build.py", "train/lr_finder.py", "ops/matcher.py",
+            "train/multiscale.py", "train/detection.py",
+            "evaluation/coco_eval.py", "data/coco.py",
+            "data/label_convert.py", "core/experiment.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as f:
