@@ -2,13 +2,12 @@
 
 The loader with its bad-sample quarantine (``loader``, ``quarantine``),
 the threaded device feed (``device_prefetch``), the numpy transforms and
-samplers (copies of the JAX package's), mixup / cutmix on tensors
-(``mixup``), class-folder datasets (``datasets``), the zip source and
-memmap cache (``zip_cache``), the native libjpeg decode
-(``native_decode``), the folder-loader builder (``build``), the COCO
-detection source (``coco``) and the annotation converters
-(``label_convert``). Mosaic and random perspective come with ROADMAP
-Queue 1 item 5d.
+samplers (copies of the JAX package's), mixup / cutmix on tensors and
+the detection mosaic (``mixup``), class-folder datasets (``datasets``),
+the zip source and memmap cache (``zip_cache``), the native libjpeg
+decode (``native_decode``), the folder loaders (``build``), the
+COCO detection source with its mosaic mode (``coco``) and the
+annotation converters (``label_convert``).
 """
 
 from .device_prefetch import DevicePrefetcher

@@ -1,2 +1,3 @@
 """Evaluation of the port: top-k counts, the detection precision helpers
-(``metrics``) and the COCO evaluator (``coco_eval``)."""
+(``metrics``), the COCO evaluator (``coco_eval``) and PASCAL VOC AP
+(``voc``)."""

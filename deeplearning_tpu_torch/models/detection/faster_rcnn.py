@@ -1,6 +1,6 @@
 """Faster R-CNN: the port of
-``deeplearning_tpu/models/detection/faster_rcnn.py`` (serving half: the
-network, the anchors, the proposals and the postprocess).
+``deeplearning_tpu/models/detection/faster_rcnn.py``: the network, the
+anchors, the proposals, the training losses and the postprocess.
 
 A ResNet backbone (c2-c5), an FPN with the pooled P6, an RPN head shared
 by p2..p6 (3×3 conv + ReLU, objectness and box deltas, normal(0.01)
@@ -20,8 +20,14 @@ one class-aware NMS launch a batch over the (proposal, class) pairs, the
 padded proposals masked out (−∞ scores), since zero-area padded boxes do
 not suppress each other.
 
-``rpn_loss``, ``sample_rois`` and ``roi_head_loss`` (training) come with
-the detection training slice.
+Training: ``rpn_loss`` matches anchors at 0.7 / 0.3 and samples 256 an
+image, half positive at most; ``sample_rois`` appends the gts to the
+proposals, matches at 0.5 and samples 128 an image, a quarter positive at
+most; ``roi_head_loss`` is the cross-entropy over the sampled RoIs plus
+smooth-L1 on the positives' matched-class deltas. Each is batched over the
+images (JAX vmaps a per-image function): per-image weighted means, then
+the mean over the batch. Both samplers draw from the step's
+``torch.Generator`` in turn (``ops/matcher.balanced_sample``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import torch.nn.functional as F
 from ...core.registry import MODELS
 from ...ops import anchors as anc
 from ...ops import boxes as box_ops
+from ...ops import losses as L
+from ...ops import matcher as M
 from ...ops import nms as nms_ops
 from ...ops.roi_align import multiscale_roi_align
 from ...ops.topk import topk_stable
@@ -46,8 +54,8 @@ from .fpn import FPN
 from .retinanet import nhwc_rows
 
 __all__ = ["RPNHead", "TwoMLPHead", "FastRCNNPredictor", "FasterRCNN",
-           "fasterrcnn_anchors", "generate_proposals",
-           "fasterrcnn_postprocess"]
+           "fasterrcnn_anchors", "generate_proposals", "rpn_loss",
+           "sample_rois", "roi_head_loss", "fasterrcnn_postprocess"]
 
 
 class RPNHead(nn.Module):
@@ -226,6 +234,96 @@ def generate_proposals(outputs: Dict, anchors: torch.Tensor,
                                        impl=nms_impl)
     props, = nms_ops.gather_nms_outputs(keep_idx, keep_valid, cand_boxes)
     return props, keep_valid
+
+
+# ----------------------------------------------------------------- losses
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, G, ...) at idx (B, A) → (B, A, ...): ``x[b, idx[b, a]]``."""
+    b, a = idx.shape
+    return torch.gather(x, 1, idx.reshape(b, a, *([1] * (x.dim() - 2)))
+                        .expand(b, a, *x.shape[2:]))
+
+
+def _per_image_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum(x · w) / max(sum(w), 1) over each image's rows (the weighted
+    mean of ``ops/losses`` taken image by image)."""
+    w = w.to(x.dtype)
+    dims = tuple(range(1, x.dim()))
+    return torch.sum(x * w, dim=dims) / torch.clamp(
+        torch.sum(w, dim=tuple(range(1, w.dim()))), min=1.0)
+
+
+def rpn_loss(outputs: Dict, anchors: torch.Tensor, gt_boxes: torch.Tensor,
+             gt_valid: torch.Tensor, generator: torch.Generator,
+             batch_per_image: int = 256, positive_fraction: float = 0.5
+             ) -> Dict[str, torch.Tensor]:
+    """Objectness BCE over the sampled anchors and smooth-L1 (beta 1/9) on
+    the positives' deltas over the sample count, per image, then the
+    batch's mean. Anchors match at 0.7 / 0.3 with low-quality matches."""
+    iou = box_ops.box_iou(gt_boxes, anchors)               # (B, G, A)
+    matches = M.match_anchors(iou, gt_valid, 0.7, 0.3,
+                              allow_low_quality=True)
+    pos, neg = M.balanced_sample(matches, generator, batch_per_image,
+                                 positive_fraction)
+    labels = (matches >= 0).to(torch.float32)
+    sample = pos | neg
+    obj = L.binary_cross_entropy(outputs["rpn_obj"], labels,
+                                 reduction="none")
+    obj_loss = _per_image_mean(obj, sample)
+    reg_targets = box_ops.encode_boxes(
+        _gather_rows(gt_boxes, matches.clamp(min=0)), anchors)
+    reg = L.smooth_l1(outputs["rpn_deltas"], reg_targets, beta=1.0 / 9,
+                      reduction="none")
+    reg_loss = torch.sum(reg * pos[..., None], dim=(1, 2)) / torch.clamp(
+        sample.sum(dim=1), min=1).to(reg.dtype)
+    return {"rpn_obj_loss": obj_loss.mean(), "rpn_reg_loss": reg_loss.mean()}
+
+
+def sample_rois(proposals: torch.Tensor, prop_valid: torch.Tensor,
+                gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                gt_valid: torch.Tensor, generator: torch.Generator,
+                batch_per_image: int = 128, positive_fraction: float = 0.25
+                ) -> Dict[str, torch.Tensor]:
+    """The gts appended to the proposals, matched at 0.5, and each RoI's
+    class target (0 = background), box target (weights 10, 10, 5, 5) and
+    sampled masks. Padded proposals are marked ``BETWEEN``, so neither
+    sampler takes them."""
+    all_props = torch.cat([proposals, gt_boxes], dim=1)     # (B, P+G, 4)
+    all_valid = torch.cat([prop_valid, gt_valid], dim=1)
+    iou = box_ops.box_iou(gt_boxes, all_props)
+    iou = torch.where(all_valid[:, None, :], iou, -1.0)
+    matches = M.match_anchors(iou, gt_valid, 0.5, 0.5,
+                              allow_low_quality=False)
+    matches = torch.where(all_valid, matches, M.BETWEEN)
+    pos, neg = M.balanced_sample(matches, generator, batch_per_image,
+                                 positive_fraction)
+    safe = matches.clamp(min=0)
+    cls_target = torch.where(matches >= 0, _gather_rows(gt_labels, safe),
+                             0)
+    reg_target = box_ops.encode_boxes(_gather_rows(gt_boxes, safe),
+                                      all_props, weights=(10, 10, 5, 5))
+    return {"rois": all_props, "cls_target": cls_target,
+            "reg_target": reg_target, "pos": pos, "sample": pos | neg}
+
+
+def roi_head_loss(roi_scores: torch.Tensor, roi_deltas: torch.Tensor,
+                  samples: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Cross-entropy over the sampled RoIs, and smooth-L1 (beta 1) on the
+    positives' deltas of their matched class over the sample count, per
+    image, then the batch's mean."""
+    cls_t, sample = samples["cls_target"], samples["sample"]
+    ce = -torch.sum(F.one_hot(cls_t.long(), roi_scores.shape[-1]).to(
+        roi_scores.dtype) * F.log_softmax(roi_scores, dim=-1), dim=-1)
+    cls_loss = _per_image_mean(ce, sample)
+    b, p = cls_t.shape
+    idx = cls_t.long().reshape(b, p, 1, 1).expand(b, p, 1, 4)
+    per_class = torch.gather(roi_deltas, 2, idx)[:, :, 0]
+    reg = L.smooth_l1(per_class, samples["reg_target"], beta=1.0,
+                      reduction="none")
+    reg_loss = torch.sum(reg * samples["pos"][..., None], dim=(1, 2)) \
+        / torch.clamp(sample.sum(dim=1), min=1).to(reg.dtype)
+    return {"roi_cls_loss": cls_loss.mean(), "roi_reg_loss": reg_loss.mean()}
 
 
 def fasterrcnn_postprocess(roi_scores: torch.Tensor, roi_deltas: torch.Tensor,

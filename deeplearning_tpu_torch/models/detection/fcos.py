@@ -1,5 +1,6 @@
-"""FCOS: the port of ``deeplearning_tpu/models/detection/fcos.py``
-(serving half: the network, the locations and the postprocess).
+"""FCOS: the port of ``deeplearning_tpu/models/detection/fcos.py``: the
+network, the locations, the training targets and loss, and the
+postprocess.
 
 Anchor-free per-pixel detection with centre-ness: a ResNet backbone
 (c3-c5), an FPN with P6/P7 convs, and one head shared by the five levels
@@ -10,12 +11,18 @@ Parameter names are flax's; ``ScaleExp``'s flax ``scale`` is its
 permuted to NHWC before the reshape that enumerates locations, so row i
 is location i of ``fcos_locations``, levels at strides 8..128.
 
-``fcos_targets`` and ``fcos_loss`` (training) come with the detection
-training slice.
+Training: ``fcos_targets`` makes a location positive when it lies inside
+a gt, within 1.5 strides of its centre, and its largest side distance
+falls in its level's range; several gts resolve to the smallest.
+``fcos_loss`` is the focal loss over the positives' count, the
+centre-ness BCE on the positives and a GIoU loss weighted by the
+centre-ness target. Both are batched over the images (JAX vmaps a
+per-image function).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from ...core.registry import MODELS
 from ...ops import boxes as box_ops
+from ...ops import losses as L
 from ...ops import nms as nms_ops
 from ...ops.topk import topk_stable
 from ..classification.resnet import ResNet
@@ -34,7 +42,8 @@ from .fpn import FPN
 from .retinanet import PRIOR_BIAS, nhwc_rows
 
 __all__ = ["LEVEL_RANGES", "STRIDES", "ScaleExp", "FCOSHead", "FCOS",
-           "fcos_locations", "fcos_postprocess"]
+           "fcos_locations", "fcos_targets", "fcos_loss",
+           "fcos_postprocess"]
 
 # per-level regression ranges (used by the training targets)
 LEVEL_RANGES = ((-1, 64), (64, 128), (128, 256), (256, 512), (512, 1e8))
@@ -142,6 +151,91 @@ def fcos_locations(image_hw: Tuple[int, int]
         locs.append(pts)
         lvl.append(np.full(len(pts), li))
     return np.concatenate(locs), np.concatenate(lvl)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_tables(device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``LEVEL_RANGES`` and ``STRIDES`` as float32 tensors on ``device``,
+    made once: a host table copied to the card every step would
+    synchronise."""
+    return (torch.tensor(LEVEL_RANGES, dtype=torch.float32, device=device),
+            torch.tensor(STRIDES, dtype=torch.float32, device=device))
+
+
+def fcos_targets(locations: torch.Tensor, level_idx: torch.Tensor,
+                 gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                 gt_valid: torch.Tensor, center_radius: float = 1.5
+                 ) -> Dict[str, torch.Tensor]:
+    """Targets of every location (L,) for each image: {cls (B, L), −1 the
+    background; reg (B, L, 4) ltrb; ctr (B, L) centre-ness; pos (B, L)}.
+    Ties in area take the first gt, as ``jnp.argmin`` does."""
+    range_table, stride_table = _level_tables(locations.device)
+    ranges = range_table[level_idx]                          # (L, 2)
+    strides = stride_table[level_idx][:, None]               # (L, 1)
+    x = locations[:, 0][:, None]                             # (L, 1)
+    y = locations[:, 1][:, None]
+    bx = gt_boxes[:, None]                                   # (B, 1, G, 4)
+    ltrb = torch.stack([x - bx[..., 0], y - bx[..., 1], bx[..., 2] - x,
+                        bx[..., 3] - y], dim=-1)             # (B, L, G, 4)
+    in_box = ltrb.amin(dim=-1) > 0
+    max_reg = ltrb.amax(dim=-1)
+    in_level = (max_reg >= ranges[:, 0:1]) & (max_reg <= ranges[:, 1:2])
+    cx = (bx[..., 0] + bx[..., 2]) / 2
+    cy = (bx[..., 1] + bx[..., 3]) / 2
+    near = ((torch.abs(x - cx) <= center_radius * strides)
+            & (torch.abs(y - cy) <= center_radius * strides))
+    cand = in_box & in_level & near & gt_valid[:, None, :]
+    area = box_ops.box_area(gt_boxes)[:, None, :]            # (B, 1, G)
+    area_mat = torch.where(cand, area, torch.full_like(area, math.inf))
+    best_gt = torch.argmin(area_mat, dim=-1)                 # (B, L)
+    pos = cand.any(dim=-1)
+    cls_target = torch.where(pos, torch.gather(gt_labels, 1, best_gt), -1)
+    b, n = best_gt.shape
+    reg_target = torch.gather(
+        ltrb, 2, best_gt.reshape(b, n, 1, 1).expand(b, n, 1, 4))[:, :, 0]
+    # slices, not index lists: a list index is a host tensor copied to the
+    # card, which synchronises
+    lr = reg_target[..., 0::2]                               # (l, r)
+    tb = reg_target[..., 1::2]                               # (t, b)
+    ctr_target = torch.sqrt(torch.clamp(
+        (lr.amin(-1) / lr.amax(-1).clamp(min=1e-9))
+        * (tb.amin(-1) / tb.amax(-1).clamp(min=1e-9)), 0, 1))
+    return {"cls": cls_target, "reg": reg_target, "ctr": ctr_target,
+            "pos": pos}
+
+
+def fcos_loss(outputs: Dict[str, torch.Tensor],
+              targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per image: focal loss summed over the positives' count, centre-ness
+    BCE on the positives (over the same count), and 1 − GIoU of the
+    ltrb boxes weighted by the centre-ness target; then the batch's
+    means."""
+    cls_logits, ctr, ltrb = (outputs["cls_logits"], outputs["centerness"],
+                             outputs["ltrb"])
+    tgt_cls, tgt_reg, tgt_ctr = targets["cls"], targets["reg"], targets["ctr"]
+    pos = targets["pos"].to(torch.float32)
+    fg = tgt_cls >= 0
+    onehot = F.one_hot(torch.where(fg, tgt_cls, 0).long(),
+                       cls_logits.shape[-1]).to(torch.float32) * fg[..., None]
+    n_pos = pos.sum(dim=1)
+    num_pos = n_pos.clamp(min=1)
+    cls_loss = L.sigmoid_focal_loss(cls_logits, onehot, reduction="none"
+                                    ).sum(dim=(1, 2)) / num_pos
+    bce = L.binary_cross_entropy(ctr, tgt_ctr, reduction="none")
+    ctr_loss = (torch.sum(bce * pos, dim=1) / n_pos.clamp(min=1.0)) \
+        * n_pos / num_pos
+
+    def corners(d):
+        return torch.stack([-d[..., 0], -d[..., 1], d[..., 2], d[..., 3]],
+                           dim=-1)
+    giou = box_ops.elementwise_box_iou(corners(ltrb), corners(tgt_reg),
+                                       "giou")
+    w = pos * tgt_ctr
+    reg_loss = torch.sum((1 - giou) * w, dim=1) / w.sum(dim=1).clamp(
+        min=1e-6)
+    return {"cls_loss": cls_loss.mean(), "ctr_loss": ctr_loss.mean(),
+            "reg_loss": reg_loss.mean()}
 
 
 def fcos_postprocess(outputs: Dict, locations: torch.Tensor,

@@ -28,6 +28,7 @@ expression would hold all four).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -112,6 +113,20 @@ def assign_levels(levels, rois: torch.Tensor, canonical_level: int = 4,
     return torch.clamp(target, lmin, lmax).to(torch.int64) - lmin
 
 
+@functools.lru_cache(maxsize=64)
+def _level_tables(scales: Tuple[float, ...], hs: Tuple[int, ...],
+                  ws: Tuple[int, ...], offs: Tuple[int, ...],
+                  dtype: torch.dtype, device: torch.device
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Each level's scale, height, width and row offset as tensors on
+    ``device``, made once per pyramid shape: a host list copied to the
+    card at every call would synchronise (a train step calls this once
+    an image)."""
+    return (torch.tensor(scales, dtype=dtype, device=device),
+            *(torch.tensor(v, dtype=torch.int64, device=device)
+              for v in (hs, ws, offs)))
+
+
 def _sorted_levels(feature_pyramid: Dict[str, torch.Tensor]):
     return sorted(feature_pyramid, key=lambda k: int(k[1:]))
 
@@ -151,13 +166,10 @@ def multiscale_roi_align(
         row += h * w
         flats.append(f.reshape(h * w, c))
     packed = torch.cat(flats, dim=0)
-    dev = rois.device
-    scale = torch.tensor([1.0 / strides[n] for n in levels],
-                         dtype=rois.dtype, device=dev)[lvl_idx]
-    h_l = torch.tensor(hs, dtype=torch.int64, device=dev)[lvl_idx]
-    w_l = torch.tensor(ws, dtype=torch.int64, device=dev)[lvl_idx]
-    base = torch.tensor(offs, dtype=torch.int64, device=dev)[lvl_idx]
-    yy, xx = _sample_grid(rois * scale[:, None], output_size,
+    scales, h_l, w_l, base = (t[lvl_idx] for t in _level_tables(
+        tuple(1.0 / strides[n] for n in levels), tuple(hs), tuple(ws),
+        tuple(offs), rois.dtype, rois.device))
+    yy, xx = _sample_grid(rois * scales[:, None], output_size,
                           max(sampling_ratio, 1), 1.0)
     expand = (slice(None),) + (None,) * (yy.dim() - 1)
     hi, wi, base = h_l[expand], w_l[expand], base[expand]

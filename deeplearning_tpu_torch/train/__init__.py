@@ -7,7 +7,9 @@ classification loss and metric functions (``classification``),
 (``python -m deeplearning_tpu_torch.train``), the step benchmark
 (``python -m deeplearning_tpu_torch.train.bench``) and profiler
 (``train.profile``), divergence rollback (``recovery``) and the LR range
-test (``lr_finder``).
+test (``lr_finder``), the detection CLI
+(``python -m deeplearning_tpu_torch.train.detection``) and hyperparameter
+evolution (``evolve``).
 """
 
 from .recovery import RecoveryExhausted, RecoveryManager, RecoveryPolicy

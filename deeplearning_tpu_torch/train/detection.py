@@ -1,9 +1,12 @@
 """Detection training CLI of the port — the counterpart of
-``tools/train_detection.py``: train a one-stage detector, then score it
-with the COCO evaluator.
+``tools/train_detection.py``: train a detector, then score it with the
+COCO evaluator.
 
   python -m deeplearning_tpu_torch.train.detection [--cfg FILE] [key=value]
   python -m deeplearning_tpu_torch.train.detection --exp yolox_s
+  python -m deeplearning_tpu_torch.train.detection \\
+      model.name=fasterrcnn_resnet50_fpn model.num_classes=20
+  python -m deeplearning_tpu_torch.train.detection --evolve 10
   # on the CPU, tiny
   python -m deeplearning_tpu_torch.train.detection train.device=cpu \\
       model.name=yolox_nano model.image_size=64 data.batch=2 \\
@@ -15,13 +18,23 @@ way (defaults < ``--exp`` < ``--cfg`` yaml < dotted overrides), plus
 pass ``cpu``). Data is the synthetic coloured-box set (``synthetic_boxes``,
 the JAX CLI's byte for byte), an ``.npz`` of images / boxes / labels /
 valid, or a COCO ``instances.json`` (``data.coco``) split into train and
-validation by ``data.val_rate``. The model comes from the port's registry,
-initialised from ``train.seed``; its step is ``make_train_step`` over the
-family's loss (``build_task``) with Adam, global-norm clipping and
+validation by ``data.val_rate``. ``data.mosaic`` makes every training
+sample a 4-image mosaic (``data/mixup.mosaic_array_source``, or the COCO
+source's mosaic mode over the training split), through
+``random_perspective`` (``data.degrees`` / ``translate`` / ``scale`` /
+``shear``) when ``data.random_perspective`` is set. The model comes from
+the port's registry, initialised from ``train.seed`` (Faster R-CNN with
+one more class, the background); its step is ``make_train_step`` over
+the family's loss (``build_task``) with Adam, global-norm clipping and
 optional frozen parameters, BatchNorm moving its statistics in train mode.
 ``train.multiscale`` resizes each batch on the device to the bucket of
-``MultiScaleSchedule``; ``train.no_aug_steps`` adds YOLOX's L1 term for
-the last steps (a second step function: nothing else changes). The
+``MultiScaleSchedule``; the last ``train.no_aug_steps`` steps draw from a
+source without mosaic and perspective (the raw arrays, or the COCO
+source with its flip only) and add YOLOX's L1 term (a second step
+function: nothing else changes). ``--evolve N`` runs N generations of
+``train/evolve.evolve`` over ``train.lr`` and ``train.clip_grad_norm``,
+each a whole ``run`` scored by ``det_fitness``, its records appended to
+``runs/evolve/detection.jsonl`` under the working directory. The
 evaluation puts the model in eval mode and runs the family's batched
 predict function (every NMS through ``ops/nms``: K3 on the card): over
 the training arrays in one call, or over the COCO validation split in
@@ -30,10 +43,10 @@ prints the 12-metric summary. ``run`` is ``build``, ``train_steps`` and
 ``evaluate`` in turn; a caller that times or checks the steps drives
 those three itself.
 
-Families: RetinaNet and YOLOX. FCOS, Faster R-CNN and YOLOv5 training,
-``--evolve``, ``data.mosaic`` and ``data.random_perspective`` raise a
-``ValueError`` naming ROADMAP Queue 1 item 5d, ``train.eval_tta`` one
-naming item 6 (which brings ``ops/tta.py``).
+Families: RetinaNet, YOLOX, FCOS, YOLOv5 and Faster R-CNN, whose step
+launches the proposals' NMS (K3 on the card) once over the batch between
+its two forwards. ``train.eval_tta`` raises a ``ValueError`` naming ROADMAP
+Queue 1 item 6 (which brings ``ops/tta.py``).
 """
 
 from __future__ import annotations
@@ -49,10 +62,10 @@ import torch
 
 __all__ = ["DetModelCfg", "DetDataCfg", "DetTrainCfg", "DetConfig",
            "DetRun", "synthetic_boxes", "build_task", "build", "train_steps",
-           "evaluate", "run", "main"]
+           "evaluate", "run", "evolve_cfg", "main"]
 
-_ITEM_5D = "comes with ROADMAP Queue 1 item 5d"
 EVAL_MAX_DET = 10
+EVOLVE_RECORDS = "runs/evolve/detection.jsonl"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +74,8 @@ class DetModelCfg:
     num_classes: int = 3
     image_size: int = 128
     backbone_frozen_bn: bool = False  # frozen backbone BatchNorm statistics
+    rcnn_post_nms_top_n: int = 256    # Faster R-CNN proposals after NMS
+    rcnn_roi_batch: int = 128         # Faster R-CNN sampled RoIs an image
     nms_impl: str = "auto"            # ops/nms.py: auto | blocked | greedy
 
 
@@ -72,8 +87,12 @@ class DetDataCfg:
     n_train: int = 32
     max_gt: int = 4
     batch: int = 8
-    mosaic: bool = False             # item 5d
-    random_perspective: bool = False  # item 5d
+    mosaic: bool = False             # a 4-image mosaic a sample
+    random_perspective: bool = False  # yolov5's warp inside the mosaic
+    degrees: float = 0.0             # hyp.scratch.yaml values
+    translate: float = 0.1
+    scale: float = 0.5
+    shear: float = 0.0
     val_rate: float = 0.1            # COCO-mode eval split
     num_workers: int = 8             # COCO-mode decode threads
     prefetch: int = 2                # device-feed queue depth (0 = off)
@@ -92,7 +111,8 @@ class DetTrainCfg:
     multiscale_min: float = 0.75      # bucket range as ratios of image_size
     multiscale_max: float = 1.25
     multiscale_every: int = 10        # steps between size changes
-    no_aug_steps: int = 0             # the last N steps add YOLOX's L1 loss
+    no_aug_steps: int = 0             # the last N steps: no mosaic or
+                                      # perspective, YOLOX's L1 loss added
     device: str = "cuda"              # cpu: the tests' small runs
 
 
@@ -128,13 +148,6 @@ def synthetic_boxes(n: int, size: int, num_classes: int, max_gt: int,
 
 def _refuse_later_items(cfg) -> None:
     """Options of later ROADMAP items raise before anything is built."""
-    name = cfg.model.name
-    if name.startswith(("fcos", "fasterrcnn", "yolov5")):
-        raise ValueError(f"training {name} {_ITEM_5D}")
-    if cfg.data.mosaic:
-        raise ValueError(f"data.mosaic {_ITEM_5D}")
-    if cfg.data.random_perspective:
-        raise ValueError(f"data.random_perspective {_ITEM_5D}")
     if cfg.train.eval_tta:
         raise ValueError("train.eval_tta comes with ROADMAP Queue 1 item 6 "
                          "(ops/tta.py)")
@@ -142,24 +155,30 @@ def _refuse_later_items(cfg) -> None:
 
 def build_task(model: torch.nn.Module, name: str, num_classes: int,
                score_thresh: float, max_det: int = 10,
+               rcnn_kw: Optional[dict] = None,
                nms_impl: str = "auto") -> Tuple[Callable, Callable]:
     """Family dispatch. Returns (``loss_fn(params, state, batch, rng) ->
     (total, aux)`` for ``make_train_step``, YOLOX's with a keyword
     ``use_l1``; ``predict_fn(images) -> padded det dict``, the shared
     ``build_predict_fn``). The image size is read off the batch, so each
-    multi-scale bucket gets its own anchors or grid, cached on the batch's
-    device. ``aux`` holds the BatchNorm buffers (updated in place by the
-    train-mode forward) and the loss terms as device tensors."""
+    multi-scale bucket gets its own anchors, grid or locations, cached on
+    the batch's device. ``aux`` holds the BatchNorm buffers (updated in
+    place by the train-mode forward) and the loss terms as device tensors.
+    ``rcnn_kw``: Faster R-CNN's ``post_nms_top_n`` and ``roi_batch``
+    (default ``DetModelCfg``'s); ``num_classes`` counts the foreground
+    classes, Faster R-CNN's model carries the background besides."""
     from ..models.detection.predict import _cached, build_predict_fn
-    if name.startswith(("fcos", "fasterrcnn", "yolov5")):
-        raise ValueError(f"training {name} {_ITEM_5D}")
+    rcnn_kw = rcnn_kw or {}
+    post_nms = rcnn_kw.get("post_nms_top_n", DetModelCfg.rcnn_post_nms_top_n)
+    roi_batch = rcnn_kw.get("roi_batch", DetModelCfg.rcnn_roi_batch)
     predict_fn = build_predict_fn(model, name, num_classes,
                                   score_thresh=score_thresh, max_det=max_det,
-                                  nms_impl=nms_impl)
+                                  post_nms_top_n=post_nms, nms_impl=nms_impl)
 
-    def forward(params, state, images):
+    def forward(params, state, images, **kw):
         state.model.train()
-        return torch.func.functional_call(state.model, params, (images,))
+        return torch.func.functional_call(state.model, params, (images,),
+                                          kw)
 
     def aux(state, terms: Dict[str, torch.Tensor]) -> dict:
         return {"batch_stats": dict(state.model.named_buffers()),
@@ -198,8 +217,76 @@ def build_task(model: torch.nn.Module, name: str, num_classes: int,
 
         return loss_fn, predict_fn
 
+    if name.startswith("yolov5"):
+        from ..models.detection.yolov5 import yolov5_grid, yolov5_loss
+        grids = _cached(yolov5_grid)
+
+        def loss_fn(params, state, batch, rng):
+            images = batch["image"]
+            grid = grids(tuple(images.shape[1:3]), images.device)
+            out = forward(params, state, images)
+            terms = yolov5_loss(out, grid, batch["boxes"], batch["labels"],
+                                batch["valid"], num_classes=num_classes)
+            total = terms["box_loss"] + terms["obj_loss"] + terms["cls_loss"]
+            return total, aux(state, terms)
+
+        return loss_fn, predict_fn
+
+    if name.startswith("fcos"):
+        from ..models.detection.fcos import (fcos_locations, fcos_loss,
+                                             fcos_targets)
+        locations = _cached(fcos_locations)
+
+        def loss_fn(params, state, batch, rng):
+            images = batch["image"]
+            locs, lvl = locations(tuple(images.shape[1:3]), images.device)
+            out = forward(params, state, images)
+            terms = fcos_loss(out, fcos_targets(
+                locs, lvl, batch["boxes"], batch["labels"], batch["valid"]))
+            total = terms["cls_loss"] + terms["reg_loss"] + terms["ctr_loss"]
+            return total, aux(state, terms)
+
+        return loss_fn, predict_fn
+
+    if name.startswith("fasterrcnn"):
+        # two stages on one pyramid: the RPN loss on the first forward,
+        # proposals (one NMS launch over the batch) and their sample, then
+        # the RoI head on the same pyramid (no backbone recompute, no
+        # BatchNorm). Gt labels shift +1: class 0 is the background.
+        from ..models.detection.faster_rcnn import (
+            fasterrcnn_anchors, generate_proposals, roi_head_loss, rpn_loss,
+            sample_rois)
+        anchors = _cached(fasterrcnn_anchors)
+
+        def loss_fn(params, state, batch, rng):
+            images, boxes, valid = (batch["image"], batch["boxes"],
+                                    batch["valid"])
+            hw = tuple(images.shape[1:3])
+            a = anchors(hw, images.device)
+            labels1 = torch.where(valid, batch["labels"] + 1, 0)
+            out = forward(params, state, images)
+            rpn = rpn_loss(out, a, boxes, valid, rng)
+            # JAX stops the proposals' gradient: without autograd here the
+            # NMS kernel and the sampler see plain tensors, and the RoI
+            # head's gradient stops at its proposals just the same
+            with torch.no_grad():
+                props, pvalid = generate_proposals(
+                    out, a, hw, post_nms_top_n=post_nms, nms_impl=nms_impl)
+                samples = sample_rois(props, pvalid, boxes, labels1, valid,
+                                      rng, batch_per_image=roi_batch)
+            out2 = forward(params, state, images, proposals=samples["rois"],
+                           pyramid=out["pyramid"])
+            head = roi_head_loss(out2["roi_scores"], out2["roi_deltas"],
+                                 samples)
+            terms = {**rpn, **head}
+            total = (rpn["rpn_obj_loss"] + rpn["rpn_reg_loss"]
+                     + head["roi_cls_loss"] + head["roi_reg_loss"])
+            return total, aux(state, terms)
+
+        return loss_fn, predict_fn
+
     raise ValueError(f"no detection task for model {name!r} "
-                     "(expected retinanet*/yolox*)")
+                     "(expected retinanet*/fasterrcnn*/yolox*/yolov5*/fcos*)")
 
 
 def main(argv=None) -> int:
@@ -207,8 +294,7 @@ def main(argv=None) -> int:
     defaults (defaults < exp < yaml < CLI)."""
     from ..core.config import config_cli, load_config, pop_flag
     argv = list(sys.argv[1:] if argv is None else argv)
-    if pop_flag(argv, "--evolve"):
-        raise ValueError(f"--evolve {_ITEM_5D}")
+    evolve_gens = pop_flag(argv, "--evolve")
     exp_name = pop_flag(argv, "--exp")
     defaults = DetConfig()
     if exp_name:
@@ -216,8 +302,33 @@ def main(argv=None) -> int:
         defaults = load_config(
             defaults, None, get_exp(exp_name=exp_name).cli_overrides())
     cfg = config_cli(defaults, argv, description=__doc__)
+    if evolve_gens:
+        evolve_cfg(cfg, int(evolve_gens))
+        return 0
     run(cfg)
     return 0
+
+
+def evolve_cfg(cfg: DetConfig, generations: int) -> Dict[str, float]:
+    """yolov5's ``--evolve``: each generation trains and scores a whole
+    ``run`` with a mutated ``train.lr`` and ``train.clip_grad_norm`` (its
+    fitness ``det_fitness`` of the COCO summary), appends the record to
+    ``EVOLVE_RECORDS`` under the working directory and prints the best
+    hyperparameters at the end."""
+    from .evolve import DETECTION_META, det_fitness, evolve
+
+    def eval_fn(hyp):
+        trial = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, lr=hyp["lr"], clip_grad_norm=hyp["clip_grad_norm"]))
+        return det_fitness(run(trial))
+
+    meta = {"lr": DETECTION_META["lr"], "clip_grad_norm": (1.0, 0.1, 10.0)}
+    best = evolve(eval_fn, {"lr": cfg.train.lr,
+                            "clip_grad_norm": cfg.train.clip_grad_norm},
+                  meta, generations, records_path=EVOLVE_RECORDS,
+                  seed=cfg.train.seed)
+    print(f"evolve done: best hyp {best}")
+    return best
 
 
 @dataclasses.dataclass
@@ -233,6 +344,7 @@ class DetRun:
     predict_fn: Callable
     key: Any
     next_batch: Callable[[], dict]
+    next_batch_plain: Callable[[], dict]  # the last no_aug_steps steps'
     schedule: Optional[Any]        # MultiScaleSchedule
     arrays: Optional[tuple]        # images, boxes, labels, valid (no COCO)
     val_src: Optional[Any]         # the COCO validation split
@@ -251,6 +363,7 @@ def build(cfg: DetConfig) -> DetRun:
     from ..core.device import resolve_device
     from ..core.registry import MODELS
     from ..core.rng import root_key
+    from ..models.detection.predict import head_classes
     from .multiscale import MultiScaleSchedule
     from .optim import build_optimizer
     from .state import TrainState
@@ -266,7 +379,10 @@ def build(cfg: DetConfig) -> DetRun:
     size = cfg.model.image_size
     num_classes = cfg.model.num_classes
     seed = cfg.train.seed
-    arrays = train_src = val_src = None
+    arrays = train_src = val_src = plain_src = None
+    persp = (dict(degrees=cfg.data.degrees, translate=cfg.data.translate,
+                  scale=cfg.data.scale, shear=cfg.data.shear)
+             if cfg.data.random_perspective else None)
     if cfg.data.coco:
         from ..data.coco import coco_detection_source, load_coco_json
         from ..data.loader import MapSource
@@ -284,12 +400,22 @@ def build(cfg: DetConfig) -> DetRun:
         kw = dict(images_dir=images_dir, records=records,
                   class_names=class_names, image_size=size,
                   max_gt=cfg.data.max_gt)
-        aug_src, _ = coco_detection_source(augment=True, seed=seed, **kw)
+        # a mosaic's three extra tiles come from the training split only
+        aug_src, _ = coco_detection_source(
+            augment=True, seed=seed, mosaic=cfg.data.mosaic,
+            perspective=persp, mosaic_pool=tr_idx, **kw)
         raw_src, _ = coco_detection_source(augment=False, **kw)
         train_src = MapSource(len(tr_idx),
                               lambda i: aug_src[int(tr_idx[i])])
         val_src = MapSource(len(val_idx),
                             lambda i: raw_src[int(val_idx[i])])
+        if cfg.train.no_aug_steps > 0 and (cfg.data.mosaic
+                                           or cfg.data.random_perspective):
+            # close-mosaic: the flip stays, mosaic and perspective go
+            plain_aug, _ = coco_detection_source(augment=True,
+                                                 seed=seed + 1, **kw)
+            plain_src = MapSource(len(tr_idx),
+                                  lambda i: plain_aug[int(tr_idx[i])])
     elif cfg.data.npz:
         blob = np.load(cfg.data.npz)
         arrays = tuple(blob[k] for k in ("images", "boxes", "labels",
@@ -297,16 +423,27 @@ def build(cfg: DetConfig) -> DetRun:
     else:
         arrays = synthetic_boxes(cfg.data.n_train, size, num_classes,
                                  cfg.data.max_gt, seed)
+    if cfg.data.mosaic and train_src is None:
+        # the arrays' samples become fresh mosaics; float images fill with
+        # the first image's median
+        from ..data.mixup import mosaic_array_source
+        train_src = mosaic_array_source(
+            *arrays, out_size=size, max_boxes=cfg.data.max_gt, seed=seed,
+            perspective=persp, fill=float(np.median(arrays[0][0])))
 
     model_kw = {}
     if cfg.model.backbone_frozen_bn:
         model_kw["backbone_frozen_bn"] = True
-    model = MODELS.build(cfg.model.name, num_classes=num_classes,
+    model = MODELS.build(cfg.model.name,
+                         num_classes=head_classes(cfg.model.name, num_classes),
                          generator=torch.Generator().manual_seed(seed),
                          **model_kw).to(dev)
     loss_fn, predict_fn = build_task(
         model, cfg.model.name, num_classes, cfg.train.eval_score_thresh,
-        max_det=EVAL_MAX_DET, nms_impl=cfg.model.nms_impl)
+        max_det=EVAL_MAX_DET,
+        rcnn_kw=dict(post_nms_top_n=cfg.model.rcnn_post_nms_top_n,
+                     roi_batch=cfg.model.rcnn_roi_batch),
+        nms_impl=cfg.model.nms_impl)
     params = dict(model.named_parameters())
     tx = build_optimizer(
         "adam", cfg.train.lr, clip_grad_norm=cfg.train.clip_grad_norm,
@@ -329,16 +466,18 @@ def build(cfg: DetConfig) -> DetRun:
                                       seed=seed)
 
     feeds = []
-    if train_src is not None:
+
+    def loader_fn(src, loader_seed):
         from ..data.device_prefetch import DevicePrefetcher
         from ..data.loader import DataLoader
-        loader = DataLoader(train_src, cfg.data.batch, shuffle=True,
-                            seed=seed, infinite=True, device=dev,
+        loader = DataLoader(src, cfg.data.batch, shuffle=True,
+                            seed=loader_seed, infinite=True, device=dev,
                             num_workers=cfg.data.num_workers)
         feeds.append(iter(DevicePrefetcher(loader, depth=cfg.data.prefetch)
                           if cfg.data.prefetch else loader))
-        next_batch = functools.partial(next, feeds[0])
-    else:
+        return functools.partial(next, feeds[-1])
+
+    def array_fn():
         rng = np.random.default_rng(seed)
         n = len(arrays[0])
 
@@ -346,19 +485,30 @@ def build(cfg: DetConfig) -> DetRun:
             idx = rng.choice(n, cfg.data.batch, replace=False)
             return {k: torch.from_numpy(a[idx]).to(dev) for k, a in
                     zip(("image", "boxes", "labels", "valid"), arrays)}
+        return next_batch
+
+    next_batch = (loader_fn(train_src, seed) if train_src is not None
+                  else array_fn())
+    next_batch_plain = next_batch
+    if cfg.train.no_aug_steps > 0:
+        if plain_src is not None:
+            next_batch_plain = loader_fn(plain_src, seed + 1)
+        elif train_src is not None and arrays is not None:
+            next_batch_plain = array_fn()   # the raw arrays, no mosaic
 
     return DetRun(cfg=cfg, model=model, state=state,
                   step=make_train_step(loss_fn, device=dev), step_l1=step_l1,
                   predict_fn=predict_fn, key=root_key(seed),
-                  next_batch=next_batch, schedule=schedule, arrays=arrays,
-                  val_src=val_src, feeds=feeds)
+                  next_batch=next_batch, next_batch_plain=next_batch_plain,
+                  schedule=schedule, arrays=arrays, val_src=val_src,
+                  feeds=feeds)
 
 
 def train_steps(r: DetRun) -> Iterator[Tuple[int, dict, dict]]:
     """Run ``train.steps`` steps; yields ``(step, batch, metrics)`` once
     each step is dispatched (its metrics are device tensors; ``r.state``
-    is the state after it). The last ``train.no_aug_steps`` steps of YOLOX
-    add the L1 term."""
+    is the state after it). The last ``train.no_aug_steps`` steps draw
+    from ``next_batch_plain`` and, for YOLOX, add the L1 term."""
     from .multiscale import resize_detection_batch
     cfg = r.cfg
     aug_close_at = (cfg.train.steps - cfg.train.no_aug_steps
@@ -368,7 +518,7 @@ def train_steps(r: DetRun) -> Iterator[Tuple[int, dict, dict]]:
         if closing and it == aug_close_at:
             print(f"step {it}: closing mosaic/perspective"
                   + (" + adding L1 loss" if r.step_l1 else ""))
-        batch = r.next_batch()
+        batch = (r.next_batch_plain if closing else r.next_batch)()
         if r.schedule is not None:
             batch = resize_detection_batch(batch,
                                            r.schedule.size_for_step(it))

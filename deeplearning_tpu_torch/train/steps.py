@@ -16,7 +16,12 @@
   step never calls ``.item()`` and never waits for the card.
 
 It runs on the card (``device`` defaults to ``cuda`` and raises when no
-card is visible) unless the caller asks for the CPU. Batches may be
+card is visible) unless the caller asks for the CPU. On the CPU the step
+runs its convolutions without oneDNN: oneDNN's threaded convolutions do
+not repeat themselves from run to run, so two runs of one seed would
+give other losses (JAX's CPU steps repeat). The native convolution is
+bit-equal from run to run at any thread count, and slower; the card's
+path is untouched. Batches may be
 numpy arrays or tensors; they are moved to the step's device. JAX's
 ``donate`` flags are accepted: the port updates the state in place
 anyway. ``mesh``, ``weight_update="zero1"`` and ``grad_comm="int8"`` come
@@ -99,6 +104,17 @@ def make_train_step(loss_fn: LossFn, mesh: Any = None, accum_steps: int = 1,
 
     def step_fn(state: TrainState, batch: Any, rng: int
                 ) -> Tuple[TrainState, Dict]:
+        if dev.type != "cpu":
+            return run_step(state, batch, rng)
+        was = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+        try:
+            return run_step(state, batch, rng)
+        finally:
+            torch.backends.mkldnn.enabled = was
+
+    def run_step(state: TrainState, batch: Any, rng: int
+                 ) -> Tuple[TrainState, Dict]:
         gen = rng_mod.step_key(rng, state.step, dev)
         batch = _to_device(batch, dev)
         params = state.params

@@ -42,6 +42,7 @@ from deeplearning_tpu_torch.ops import roi_align as troi
 from deeplearning_tpu_torch.ops.padding import conv_padding, torch_pad
 from deeplearning_tpu_torch.ops.topk import topk_stable
 from deeplearning_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -46,6 +46,7 @@ from deeplearning_tpu_torch.serve import __main__ as serve_cli
 from deeplearning_tpu_torch.utils import convert
 
 from test_torch_detection import seeded_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 EXACT_KEYS = ("labels", "valid")

@@ -24,6 +24,7 @@ from deeplearning_tpu.ops.pallas import flash_attention as jfa
 from deeplearning_tpu_torch.ops import attention as tattn
 from deeplearning_tpu_torch.ops import flash_attention as tfa
 from deeplearning_tpu_torch.ops.kernels import build
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SHAPES = [(197, 64), (49, 32), (17, 16)]

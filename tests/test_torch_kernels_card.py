@@ -981,13 +981,16 @@ def test_detection_losses_on_the_card_equal_the_cpu(cuda_device, family,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["yolox_nano", "retinanet_resnet18_fpn"])
+@pytest.mark.parametrize("name", ["yolox_nano", "retinanet_resnet18_fpn",
+                                  "fcos_resnet18_fpn",
+                                  "fasterrcnn_resnet18_fpn", "yolov5s"])
 def test_detection_step_never_syncs(cuda_device, name):
     """``build_task``'s loss through ``make_train_step`` with Adam and the
     clip, the batch resident on the card and resized there to a new
     bucket: steps under sync debug mode "error" raise nothing."""
     import numpy as np
     from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.models.detection.predict import head_classes
     from deeplearning_tpu_torch.train.detection import (build_task,
                                                         synthetic_boxes)
     from deeplearning_tpu_torch.train.multiscale import (
@@ -995,7 +998,8 @@ def test_detection_step_never_syncs(cuda_device, name):
     from deeplearning_tpu_torch.train.optim import build_optimizer
     from deeplearning_tpu_torch.train.state import TrainState
     from deeplearning_tpu_torch.train.steps import make_train_step
-    model, _ = hub.load(name, num_classes=3, seed=0, device=cuda_device)
+    model, _ = hub.load(name, num_classes=head_classes(name, 3), seed=0,
+                        device=cuda_device)
     loss_fn, _ = build_task(model, name, 3, 0.3)
     tx = build_optimizer("adam", 1e-3, clip_grad_norm=1.0,
                          params=dict(model.named_parameters()))
@@ -1017,3 +1021,66 @@ def test_detection_step_never_syncs(cuda_device, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert state.step == 6 and np.isfinite(float(metrics["loss"]))
+
+
+# ------------------------------------------- Faster R-CNN's train step
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [128, 800])
+def test_train_mode_proposals_through_k3_equal_the_plain_sweep(cuda_device,
+                                                               size):
+    """``generate_proposals`` on a train-mode forward's outputs, which
+    require grad (the step runs it under ``no_grad``; here it runs
+    without): one K3 launch, the proposals of the plain sweep exactly. At
+    800² the RPN has 4 507 candidates an image."""
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.models.detection import faster_rcnn
+    model, _ = hub.load("fasterrcnn_resnet18_fpn", num_classes=4, seed=0,
+                        device=cuda_device)
+    model.train()
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    x = torch.randn(2, size, size, 3, device=cuda_device, generator=g)
+    out = model(x)
+    assert out["rpn_obj"].requires_grad and out["rpn_deltas"].requires_grad
+    anchors = torch.from_numpy(faster_rcnn.fasterrcnn_anchors(
+        (size, size))).to(cuda_device)
+    before = nms_ops.launch_counts()["nms_greedy_sweep"]
+    props, valid = faster_rcnn.generate_proposals(out, anchors, (size, size),
+                                                  nms_impl="auto")
+    torch.cuda.synchronize()
+    assert nms_ops.launch_counts()["nms_greedy_sweep"] == before + 1
+    with torch.no_grad():
+        plain, plain_valid = faster_rcnn.generate_proposals(
+            out, anchors, (size, size), nms_impl="blocked")
+    assert torch.equal(props.detach(), plain)
+    assert torch.equal(valid, plain_valid) and valid.any()
+    if size == 800:
+        assert sum(min(1000, c) for c in out["level_counts"]) == 4507
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,fraction", [(256, 0.5), (128, 0.25)])
+def test_balanced_sample_keeps_its_counts_on_the_card(cuda_device, batch,
+                                                      fraction):
+    """Matches drawn over 8 images of 4 507 slots, the generator on the
+    card: exactly min(candidates, int(batch · fraction)) positives and the
+    negatives filling to the batch, a subset of each kind, never
+    BETWEEN, and no sync under sync debug mode "error"."""
+    from deeplearning_tpu_torch.ops import matcher
+    g = torch.Generator(device=cuda_device).manual_seed(batch)
+    u = torch.rand(8, 4507, device=cuda_device, generator=g)
+    matches = torch.where(u < 0.02, 3, torch.where(
+        u < 0.1, matcher.BETWEEN, matcher.BELOW_LOW))
+    matches[0, 40:] = matcher.BETWEEN           # fewer candidates than asked
+    pos_c, neg_c = matches >= 0, matches == matcher.BELOW_LOW
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pos, neg = matcher.balanced_sample(matches, g, batch, fraction)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n_pos = pos_c.sum(-1).clamp(max=int(batch * fraction))
+    assert torch.equal(pos.sum(-1), n_pos)
+    assert torch.equal(neg.sum(-1), torch.minimum(neg_c.sum(-1),
+                                                  batch - n_pos))
+    assert not (pos & ~pos_c).any() and not (neg & ~neg_c).any()
+

@@ -27,6 +27,7 @@ from deeplearning_tpu.ops import nms as jnms
 from deeplearning_tpu.ops.pallas import nms as jpallas_nms
 from deeplearning_tpu_torch.ops import boxes as tboxes
 from deeplearning_tpu_torch.ops import nms as tnms
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (iou_thresh, score_thresh, max_out): tests/test_blocked_nms.py's regimes
 CONFIGS = [

@@ -36,6 +36,7 @@ from deeplearning_tpu_torch.train import bench as tbench
 from deeplearning_tpu_torch.train import classification as tcls
 from deeplearning_tpu_torch.train import optim as toptim
 from deeplearning_tpu_torch.utils.convert import from_flax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -44,6 +44,7 @@ from deeplearning_tpu_torch.train import optim as toptim
 from deeplearning_tpu_torch.train import schedules as tsched
 from deeplearning_tpu_torch.utils.convert import (from_flax_params,
                                                   from_optax_state)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=32, patch_size=8, num_classes=10, embed_dim=64,
             depth=2, num_heads=4)

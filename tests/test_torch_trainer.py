@@ -67,6 +67,7 @@ from deeplearning_tpu_torch.train.lr_finder import lr_range_test
 from deeplearning_tpu_torch.train.recovery import RecoveryPolicy
 from deeplearning_tpu_torch.train.trainer import HOOKS, Callbacks, Trainer
 from deeplearning_tpu_torch.utils.convert import from_flax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=4, num_classes=10, embed_dim=32,
             depth=2, num_heads=2)

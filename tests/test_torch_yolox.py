@@ -39,6 +39,7 @@ from deeplearning_tpu_torch.ops import nms as tnms
 from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
 from deeplearning_tpu_torch.serve import __main__ as serve_cli
 from deeplearning_tpu_torch.utils import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 64
 
