@@ -266,14 +266,50 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    CPU's, every one of the 25 200 candidates an image at score 0; the
    mosaic feed's images/s (8 threads, prefetch 2) beside the step's.
 
+32. int8 residency: ViT-B/16 (flash_hb, buckets 1/8) and YOLOX-S (640²,
+   BatchNorm statistics calibrated as in phase 13, score 0) built by
+   ``InferenceEngine`` with ``weight_quant`` "fp32" and "int8": resident
+   bytes by ``variables_nbytes()`` and by the ``memory_allocated`` delta
+   of each build (ViT-B/16's int8 at least 3.5x denser by both); the
+   card's dequantized weights bit-equal to a CPU int8 engine's from the
+   same weights; int8 against float32 on seeded images (ViT top-1
+   agreement, YOLOX kept-set sizes); bucket-1 and bucket-8 latency of
+   both, in turns; the dequantize alone (CUDA events);
+33. the zoo: ViT-B/16 float32 and int8, Swin-T (the fused K2) and
+   YOLOX-S in one ``ModelZoo`` built by the serve CLI's ``build_zoo``
+   (preloaded on their ``zoo-load-*`` threads: K1 and K2 launched there),
+   behind ``serve_http`` on a thread of this process: 64 requests from 8
+   threads over HTTP, mixed across the four tenants, each answer equal to
+   a solo engine's (the same weights) at one of its buckets; ``/metrics``
+   parsed: four warm tenants, ``trace_count`` == 2 each; ``POST
+   /admin/brownout/vit/2`` demotes ViT to int8 and its next request
+   reloads it int8-resident, answering as the int8 tenant; ``POST
+   /admin/evict/swin``, then a request reloads it and answers as before;
+   K1, K2 and K3 launched through the zoo. Then ``python -m
+   deeplearning_tpu_torch.serve --zoo @spec --http 0`` in a process of its
+   own: the ready line, one answer, a SIGTERM drain that exits 0;
+34. eviction by the card's own reading: three ViT-B/16 tenants; with two
+   resident the alert fraction is set from ``hbm_snapshot``'s reading so
+   that the third load projects past it: the least-recently-used tenant
+   goes, the reading (recorded, not stubbed) falls by at least 90% of its
+   bytes, the third loads; with both residents busy, a load answers 429
+   ``hbm_pressure`` over HTTP;
+35. phase 19's ViT-B/16 Trainer run (8 steps and an eval) with
+   ``metrics_port=0``, ``hbm_sample_s=0.05`` and ``strict=transfers``:
+   ``/metrics`` scraped mid-run (train step, loss and the sampler's
+   gauge), the sampler's peak at least ``max_memory_allocated``, and every
+   loss equal to the same run's without the sampler and the server.
+
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
-(phases 13 and 16), the trained detectors' evaluations (phases 27-31)
-and Faster R-CNN's train steps (phase 29), each counted from zero just
-before its run. The
+(phases 13 and 16), the trained detectors' evaluations (phases 27-31),
+Faster R-CNN's train steps (phase 29) and the zoo phases (32-33), each
+counted from zero just before its run. The
 flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
-phase 6's (dQ, dK/dV). The K2 entry adds the launches of phases 22-26 to
-phase 9's, each counted from zero just before its run.
+phase 6's (dQ, dK/dV), and those of phases 32-35 (the zoo's loads and
+traffic, the Trainer of phase 35). The K2 entry adds the launches of
+phases 22-26 and 33 to phase 9's, each counted from zero just before its
+run.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -282,6 +318,7 @@ The last three lines: the card's name and power limit (nvidia-smi), one
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -702,7 +739,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3["launches"] += _train_and_score(nms_ops, dev, args.seed, YOLOV5,
                                        YOLOV5_TRAIN)
-    log(f"chip_smoke: phases 29-31 in {time.perf_counter() - t29:.1f}s; "
+    log(f"chip_smoke: phases 29-31 in {time.perf_counter() - t29:.1f}s")
+
+    # ------------------- 32. int8 residency: ViT-B/16 and YOLOX-S, fp32 beside
+    phase(32, started)
+    t32 = time.perf_counter()
+    torch.cuda.empty_cache()
+    k1, k2 = by_name["flash_attn_fwd_hb"], by_name[wa.KERNEL_NAME]
+    yolox_state = _calibrated_yolox(dev, args.seed)
+    _add_launches(kernels, _int8_residency(fa, nms_ops, dev, args.seed,
+                                           yolox_state))
+
+    # --------- 33. four tenants in one process, behind serve_http's zoo
+    phase(33, started)
+    _add_launches(kernels, _zoo_http(fa, wa, nms_ops, dev, args.seed,
+                                     yolox_state))
+    del yolox_state
+    _zoo_subprocess(dev, args.seed)
+
+    # -------------------- 34. eviction by the card's own memory reading
+    phase(34, started)
+    _add_launches(kernels, _zoo_real_eviction(fa, dev, args.seed))
+
+    # ----- 35. ViT-B/16 Trainer: /metrics and the memory sampler beside it
+    phase(35, started)
+    _add_launches(kernels, _trainer_metrics(fa))
+    check(k1["launches"] > 0 and k2["launches"] > 0
+          and k3["launches"] > 0, "K1, K2 and K3 launched")
+    log(f"chip_smoke: phases 32-35 in {time.perf_counter() - t32:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -3624,6 +3688,540 @@ def _train_and_score(nms_ops, dev, seed, name, overrides) -> int:
         f"raised nothing")
     _loss_card_vs_cpu(name, r.model, batch, cfg.model.num_classes)
     return launched
+
+
+# ------------------------------------------ phases 32-35: the serving zoo
+ZOO_BUCKETS = (1, 8)
+ZOO_REQUESTS = 64                 # mixed requests of phase 33, 8 threads
+ZOO_TENANTS = ("vit", "vit8", "swin", "yolox")
+VIT_SIZE = 224                    # ViT-B/16 and Swin-T inputs
+
+
+def _add_launches(kernels, counts) -> None:
+    """Adds a phase's launches (counted from zero just before its run) to
+    the kernels line's entries of the same names."""
+    for k in kernels:
+        k["launches"] += counts.get(k["name"], 0)
+
+
+def _counters(fa, wa, nms_ops):
+    def reset():
+        import torch
+        torch.cuda.synchronize()
+        for mod in (fa, wa, nms_ops):
+            mod.reset_launch_counts()
+
+    def read():
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for mod in (fa, wa, nms_ops):
+            out.update({k: v for k, v in mod.launch_counts().items() if v})
+        return out
+    return reset, read
+
+
+def _calibrated_yolox(dev, seed):
+    """YOLOX-S at 640² from the seed, its BatchNorm statistics calibrated
+    on seeded images (phase 13's weights), as a CPU state dict: what a
+    zoo tenant's ``weights`` reloads from."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.models.detection.yolox import \
+        calibrate_batchnorm
+    model, _ = hub.load(YOLOX, num_classes=YOLOX_CLASSES, seed=seed,
+                        device=dev)
+    rng = np.random.default_rng(seed + 2)
+    calibrate_batchnorm(model, torch.from_numpy(rng.normal(size=(
+        8, YOLOX_SIZE, YOLOX_SIZE, 3)).astype(np.float32)).to(dev))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    return state
+
+
+def _tenant_kwargs(alias, seed, yolox_state):
+    """One zoo tenant's engine keywords (phase 33's spec)."""
+    if alias == "yolox":
+        return dict(num_classes=YOLOX_CLASSES, image_size=YOLOX_SIZE,
+                    weights=yolox_state, score_thresh=0.0,
+                    max_det=YOLOX_MAX_DET, seed=seed)
+    return dict(num_classes=1000, attn="flash_hb", seed=seed,
+                image_size=VIT_SIZE)
+
+
+def _int8_residency(fa, nms_ops, dev, seed, yolox_state) -> dict:
+    """Phase 32: ViT-B/16 and YOLOX-S, float32 and int8-resident side by
+    side: resident bytes by ``variables_nbytes()`` and by the
+    ``memory_allocated`` delta of each build (ViT-B/16 int8 at least 3.5×
+    denser by both), the card's dequantized weights against the CPU's,
+    int8 against float32 (ViT top-1 agreement, YOLOX kept-set sizes),
+    bucket-1 and bucket-8 latency in turns and the dequantize alone."""
+    import copy
+    import gc
+    import torch
+    from deeplearning_tpu_torch.ops import window_attention as wa
+    from deeplearning_tpu_torch.serve import InferenceEngine
+    reset, read = _counters(fa, wa, nms_ops)
+    engines, nbytes, delta = {}, {}, {}
+    for name, key in ((MODEL, "vit"), (YOLOX, "yolox")):
+        for quant in ("fp32", "int8"):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            m0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = InferenceEngine(
+                name, batch_buckets=ZOO_BUCKETS, device=dev,
+                weight_quant=quant, **_tenant_kwargs(key, seed, yolox_state))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            engines[key, quant] = eng
+            nbytes[key, quant] = eng.variables_nbytes()
+            delta[key, quant] = torch.cuda.memory_allocated() - m0
+            log(f"int8 residency: {name} {quant} built and warmed in "
+                f"{secs:.2f}s; variables_nbytes {nbytes[key, quant]}, "
+                f"memory_allocated delta {delta[key, quant]}")
+        by_vars = nbytes[key, "fp32"] / nbytes[key, "int8"]
+        by_alloc = delta[key, "fp32"] / delta[key, "int8"]
+        log(f"int8 residency: {name} float32 / int8 resident bytes "
+            f"{by_vars:.3f} (variables_nbytes), {by_alloc:.3f} "
+            f"(memory_allocated)")
+        if key == "vit":
+            check(by_vars >= 3.5 and by_alloc >= 3.5,
+                  "ViT-B/16 int8 residency at least 3.5x denser")
+
+    # the card's dequantized weights == the CPU's, bit for bit
+    cpu = InferenceEngine(MODEL, model=copy.deepcopy(
+        engines["vit", "fp32"].model).to("cpu"), device="cpu",
+        batch_buckets=(1,), precompile=False, weight_quant="int8")
+    want = cpu.dequantized_state_dict()
+    got = engines["vit", "int8"].dequantized_state_dict()
+    same = sum(torch.equal(got[k].cpu(), want[k]) for k in want)
+    log(f"int8 residency: card vs CPU dequantized weights: {same}/"
+        f"{len(want)} tensors bit-equal")
+    check(same == len(want) and set(got) == set(want),
+          "the card's dequantized weights equal the CPU's")
+    del cpu, want, got
+
+    reset()
+    rng = np.random.default_rng(seed + 32)
+    x = rng.normal(size=(32, VIT_SIZE, VIT_SIZE, 3)).astype(np.float32)
+    p32, p8 = (engines["vit", q].infer(x) for q in ("fp32", "int8"))
+    agree = int((p32.argmax(1) == p8.argmax(1)).sum())
+    dlogp = float(np.abs(np.log(p32) - np.log(p8)).max())
+    log(f"int8 residency: {MODEL} int8 vs float32 on 32 seeded images: "
+        f"top-1 agree {agree}/32, max |dlogp| {dlogp:.3e}")
+    xd = rng.normal(size=(8, YOLOX_SIZE, YOLOX_SIZE, 3)).astype(np.float32)
+    d32, d8 = (engines["yolox", q].infer(xd) for q in ("fp32", "int8"))
+    log(f"int8 residency: {YOLOX} kept boxes an image at score 0, float32 "
+        f"{d32['valid'].sum(1).tolist()}, int8 {d8['valid'].sum(1).tolist()}")
+    check(np.isfinite(p8).all() and np.isfinite(d8["boxes"]).all(),
+          "int8 answers are finite")
+    _bucket_latency({q: engines["vit", q] for q in ("fp32", "int8")},
+                    ("fp32", "int8"), MODEL, size=VIT_SIZE)
+    _bucket_latency({q: engines["yolox", q] for q in ("fp32", "int8")},
+                    ("fp32", "int8"), YOLOX, size=YOLOX_SIZE)
+    counts = read()
+    for key in ("vit", "yolox"):
+        weights = engines[key, "int8"]._int8
+        ms = _time_ms(weights.dequantize, iters=20, warmup=3)
+        log(f"int8 residency: {key} dequantize alone (one launch into a "
+            f"{4 * weights.q.numel() / 1e6:.1f} MB float32 transient): "
+            f"{ms:.4f} ms")
+    log(f"int8 residency launches {json.dumps(counts)}")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _post(url, body=b"", timeout=120.0):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _npy(arr) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _answer_matches(answer, refs, i, fmt) -> bool:
+    """A served answer equals the solo engine's formatted answer for the
+    same image at one of the buckets (no op mixes images: exact)."""
+    return any(answer == fmt({k: v[i] for k, v in ref.items()}
+                             if isinstance(ref, dict) else ref[i])
+               for ref in refs.values())
+
+
+def _solo_refs(engine, images):
+    """``engine.infer`` of ``images`` at each bucket (phase 13's refs)."""
+    refs = {}
+    for bucket in engine.buckets:
+        parts = [engine.infer(images[i:i + bucket])
+                 for i in range(0, len(images), bucket)]
+        refs[bucket] = ({k: np.concatenate([p[k] for p in parts])
+                         for k in parts[0]} if isinstance(parts[0], dict)
+                        else np.concatenate(parts))
+    return refs
+
+
+def _zoo_http(fa, wa, nms_ops, dev, seed, yolox_state) -> dict:
+    """Phase 33: ViT-B/16 (float32 and int8), Swin-T and YOLOX-S in one
+    ``ModelZoo`` built by the serve CLI's ``build_zoo``, loaded on their
+    ``zoo-load-*`` threads, behind ``serve_http`` on a thread of this
+    process: 64 mixed requests from 8 threads, each answer equal to a solo
+    engine's at one bucket; ``/metrics`` parsed; brownout step 2 demotes
+    ViT to int8 and an evicted Swin-T reloads on its next request."""
+    import gc
+    import re
+    import threading
+    import urllib.request
+    import torch
+    from deeplearning_tpu_torch.obs import metrics as obs_metrics
+    from deeplearning_tpu_torch.serve import InferenceEngine, MicroBatcher
+    from deeplearning_tpu_torch.serve import __main__ as serve_cli
+    reset, read = _counters(fa, wa, nms_ops)
+    spec = {alias: {"model": name, "preload": True, **extra, **{
+        k: v for k, v in _tenant_kwargs(alias, seed, yolox_state).items()
+        if k != "seed"}} for alias, name, extra in (
+            ("vit", MODEL, {}), ("vit8", MODEL, {"weight_quant": "int8"}),
+            ("swin", SWIN, {}), ("yolox", YOLOX, {}))}
+    args = serve_cli.build_parser().parse_args(
+        ["--zoo", "{}", "--http", "0", "--buckets", "1,8", "--seed",
+         str(seed), "--score-thresh", "0", "--device", str(dev)])
+    reset()
+    t0 = time.perf_counter()
+    zoo = serve_cli.build_zoo(spec, args)
+    load_launches = read()
+    stats = zoo.stats()
+    log(f"zoo: {len(spec)} tenants loaded in {time.perf_counter() - t0:.2f}s"
+        f" on their load threads: "
+        + json.dumps({a: {k: r.get(k) for k in (
+            "state", "weight_quant", "bytes", "load_seconds", "trace_count",
+            "load_error")} for a, r in stats["models"].items()})
+        + f"; launches {json.dumps(load_launches)}")
+    check(all(r["warm"] and r["trace_count"] == len(ZOO_BUCKETS)
+              for r in stats["models"].values()), "four warm tenants")
+    for name in ("flash_attn_fwd_hb", wa.KERNEL_NAME):
+        check(load_launches.get(name, 0) > 0,
+              f"{name} launched from the zoo's load threads")
+    rng = np.random.default_rng(seed + 33)
+    images = {a: rng.normal(size=(ZOO_REQUESTS // 4, s, s, 3)).astype(
+        np.float32) for a, s in (("vit", VIT_SIZE), ("vit8", VIT_SIZE),
+                                 ("swin", VIT_SIZE), ("yolox", YOLOX_SIZE))}
+    fmt = functools.partial(serve_cli.format_answer, names={}, topk=5)
+    with MicroBatcher(zoo=zoo, max_wait_ms=5.0,
+                      default_timeout_s=args.timeout_s) as mb:
+        server = serve_cli.serve_http(mb, {}, 5, args.timeout_s, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_port}"
+        try:
+            jobs = [(ZOO_TENANTS[i % 4], i // 4)
+                    for i in range(ZOO_REQUESTS)]
+
+            def client(part):
+                return [(a, i, _post(f"{url}/predict/{a}",
+                                     _npy(images[a][i])))
+                        for a, i in part]
+            reset()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:
+                answers = [r for part in pool.map(
+                    client, [jobs[k::8] for k in range(8)]) for r in part]
+            wall = time.perf_counter() - t0
+            counts = read()
+            log(f"zoo: {len(answers)} mixed requests from 8 threads over "
+                f"HTTP in {wall:.2f}s, {mb.dispatched} batches, launches "
+                f"{json.dumps(counts)}")
+            for name in ("flash_attn_fwd_hb", wa.KERNEL_NAME,
+                         "nms_greedy_sweep"):
+                check(counts.get(name, 0) > 0,
+                      f"{name} launched through the zoo")
+            bad = [(a, i, code, body) for a, i, (code, body) in answers
+                   if code != 200]
+            check(not bad, f"every request answered 200 (not: {bad[:3]})")
+            solo = {a: InferenceEngine(
+                spec[a]["model"], batch_buckets=ZOO_BUCKETS, device=dev,
+                weight_quant=spec[a].get("weight_quant", "fp32"),
+                **_tenant_kwargs(a, seed, yolox_state)) for a in ZOO_TENANTS}
+            refs = {a: _solo_refs(solo[a], images[a]) for a in ZOO_TENANTS}
+            equal = {a: 0 for a in ZOO_TENANTS}
+            for a, i, (_, body) in answers:
+                equal[a] += _answer_matches(body["results"][0], refs[a], i,
+                                            fmt)
+            log(f"zoo: answers equal to a solo engine's at one bucket "
+                f"{json.dumps(equal)} of {ZOO_REQUESTS // 4} each")
+            check(all(n == ZOO_REQUESTS // 4 for n in equal.values()),
+                  "every zoo answer equals its solo engine's")
+
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            gauge = {(name, a): float(v) for name, a, v in re.findall(
+                r'^(dltpu_zoo_model_\w+)\{model="(\w+)"\} (\S+)$', text,
+                re.M)}
+            log("zoo /metrics: " + json.dumps(
+                {a: {n[len("dltpu_zoo_model_"):]: gauge.get((n, a))
+                     for n in ("dltpu_zoo_model_warm",
+                               "dltpu_zoo_model_trace_count",
+                               "dltpu_zoo_model_bytes")}
+                 for a in ZOO_TENANTS}))
+            check(all(gauge.get(("dltpu_zoo_model_warm", a)) == 1.0
+                      and gauge.get(("dltpu_zoo_model_trace_count", a))
+                      == len(ZOO_BUCKETS) for a in ZOO_TENANTS),
+                  "/metrics: four warm tenants, trace_count == buckets")
+
+            reset()                 # the solo engines' launches aside
+            code, body = _post(f"{url}/admin/brownout/vit/2")
+            log(f"zoo: POST /admin/brownout/vit/2 -> {code} "
+                f"{json.dumps(body)}")
+            check(body.get("demoted") is True, "brownout step 2 demotes")
+            t0 = time.perf_counter()
+            code, body = _post(f"{url}/predict/vit", _npy(images["vit"][0]))
+            reload_s = time.perf_counter() - t0
+            counts2 = read()
+            eng = zoo.engine("vit")
+            log(f"zoo: vit reloaded int8-resident on its next request in "
+                f"{reload_s:.2f}s ({eng.variables_nbytes()} bytes)")
+            demoted = _solo_refs(solo["vit8"], images["vit"][:8])
+            check(code == 200 and eng.weight_quant == "int8"
+                  and _answer_matches(body["results"][0], demoted, 0, fmt),
+                  "the demoted vit answers as the int8 tenant")
+            reset()                 # the solo engine's launches aside
+            _post(f"{url}/admin/brownout/vit/0")
+            code, body = _post(f"{url}/admin/evict/swin")
+            t0 = time.perf_counter()
+            code2, body2 = _post(f"{url}/predict/swin",
+                                 _npy(images["swin"][1]))
+            log(f"zoo: POST /admin/evict/swin -> {json.dumps(body)}; its "
+                f"next request reloaded it and answered in "
+                f"{time.perf_counter() - t0:.2f}s; loads {zoo.loads}, "
+                f"evictions {zoo.evictions}")
+            check(body.get("evicted") is True and code2 == 200
+                  and _answer_matches(body2["results"][0], refs["swin"], 1,
+                                      fmt),
+                  "an evicted swin reloads and answers as before")
+            for name, n in read().items():
+                counts2[name] = counts2.get(name, 0) + n
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+            # serve_http's collector holds the batcher and its zoo in the
+            # process-wide registry: let them go with the server
+            obs_metrics.disable()
+    for name, n in load_launches.items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in counts2.items():
+        counts[name] = counts.get(name, 0) + n
+    del zoo, solo, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _zoo_subprocess(dev, seed) -> None:
+    """Phase 33's last part: ``python -m deeplearning_tpu_torch.serve --zoo
+    @spec --http 0`` in a process of its own: the ready line, one answer,
+    and a SIGTERM drain that exits 0."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "smoke_zoo.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"vit": {"model": MODEL, "buckets": [1],
+                           "image_size": VIT_SIZE, "preload": True}}, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning_tpu_torch.serve", "--zoo",
+         f"@{path}", "--http", "0", "--seed", str(seed), "--device",
+         str(dev)], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        serving = json.loads(proc.stdout.readline())
+        code, body = _post(serving["serving"] + "/predict/vit",
+                           _npy(np.zeros((VIT_SIZE, VIT_SIZE, 3), np.float32)))
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    ready = [line for line in err.splitlines() if line.startswith(
+        '{"ready"')]
+    log(f"zoo CLI subprocess: ready line {bool(ready)}, serving "
+        f"{serving['serving']}, POST /predict/vit -> {code}, SIGTERM -> "
+        f"exit {proc.returncode} after {time.perf_counter() - t0:.2f}s")
+    check(ready and json.loads(ready[0])["ready"]["models"]["vit"]["warm"]
+          and code == 200 and len(body["results"]) == 1
+          and proc.returncode == 0,
+          "the zoo CLI answers and drains to exit 0 on SIGTERM")
+
+
+def _zoo_real_eviction(fa, dev, seed) -> dict:
+    """Phase 34: three ViT-B/16 tenants (seeds s, s+1, s+2) and the card's
+    own reading (``obs/xla.hbm_snapshot``, recorded, not stubbed). With a
+    and b resident the alert fraction is set from the reading so that c's
+    load projects past it: a (the LRU) goes, the reading falls by its
+    bytes, c loads; with b and c busy, a's load answers 429
+    ``hbm_pressure`` over HTTP."""
+    import gc
+    import threading
+    import weakref
+    import torch
+    from deeplearning_tpu_torch.obs import metrics as obs_metrics
+    from deeplearning_tpu_torch.obs.xla import hbm_snapshot
+    from deeplearning_tpu_torch.ops import nms as nms_ops
+    from deeplearning_tpu_torch.ops import window_attention as wa
+    from deeplearning_tpu_torch.serve import MicroBatcher, ModelZoo
+    from deeplearning_tpu_torch.serve import __main__ as serve_cli
+    reset, read = _counters(fa, wa, nms_ops)
+    readings = []
+
+    def reading():
+        snap = hbm_snapshot()
+        readings.append(snap["devices"][0]["bytes_in_use"])
+        return snap
+    zoo = ModelZoo(hbm_snapshot_fn=reading)
+    for i, alias in enumerate("abc"):
+        zoo.register(alias, MODEL, attn="flash_hb", batch_buckets=(1,),
+                     image_size=VIT_SIZE, device=dev, seed=seed + i)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset()
+    for alias in "ab":
+        check(zoo.load(alias, wait=True) == "warm", f"{alias} loads")
+    p0 = zoo.hbm_pressure()
+    est = zoo.stats()["models"]["a"]["bytes"]
+    zoo.spec("c").est_bytes = est
+    zoo._alert_frac = p0["usage_frac"] + 0.5 * est / p0["bytes_limit"]
+    log(f"zoo eviction: a, b resident; reading {p0['bytes_in_use']} of "
+        f"{p0['bytes_limit']} bytes (usage {p0['usage_frac']:.5f}); alert "
+        f"set to {zoo._alert_frac:.5f}: c ({est} bytes) projects "
+        f"{p0['usage_frac'] + est / p0['bytes_limit']:.5f}")
+    del readings[:]
+    victim = weakref.ref(zoo.engine("a"))
+    state = zoo.load("c", wait=True)
+    fell = readings[0] - readings[1] if len(readings) > 1 else 0
+    if victim() is not None:
+        log("zoo eviction: the evicted engine is still referenced by "
+            + ", ".join(type(r).__name__ for r in gc.get_referrers(
+                victim())))
+    log(f"zoo eviction: load c -> {state}; states "
+        f"{json.dumps({a: zoo.state(a) for a in 'abc'})}; the reading "
+        f"{readings[:2]} fell {fell} bytes as a went (its variables "
+        f"{est}); evictions {zoo.evictions}")
+    check(state == "warm" and zoo.state("a") == "evicted"
+          and zoo.evictions == 1, "the LRU tenant goes, c loads")
+    check(fell >= 0.9 * est, "the reading falls by the evicted bytes")
+    with MicroBatcher(zoo=zoo, max_wait_ms=1.0) as mb:
+        server = serve_cli.serve_http(mb, {}, 5, 30.0, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            zoo.mark_dispatch("b", +1)
+            zoo.mark_dispatch("c", +1)
+            code, body = _post(
+                f"http://127.0.0.1:{server.server_port}/predict/a",
+                _npy(np.zeros((VIT_SIZE, VIT_SIZE, 3), np.float32)))
+            zoo.mark_dispatch("b", -1)
+            zoo.mark_dispatch("c", -1)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+            obs_metrics.disable()
+    log(f"zoo eviction: b and c busy, POST /predict/a -> {code} "
+        f"{json.dumps(body)}; rejected loads {zoo.rejected_loads}")
+    check(code == 429 and body["reason"] == "hbm_pressure"
+          and body["model"] == "a", "nothing evictable: 429 hbm_pressure")
+    counts = read()
+    del zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _trainer_metrics(fa) -> dict:
+    """Phase 35: phases 19's ViT-B/16 Trainer run (2 epochs of 4 steps,
+    one eval) with ``metrics_port=0``, ``hbm_sample_s=0.05`` and
+    ``strict=transfers``: ``/metrics`` scraped mid-run, the sampler's peak
+    at least ``max_memory_allocated``, and the losses equal the same run's
+    without the sampler and the server."""
+    import dataclasses
+    import gc
+    import torch
+    import urllib.request
+    cli = _cli()
+    cfg = _smoke_cfg(None)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, strict="transfers"))
+    losses, counts = {}, {}
+    for run in ("served", "plain"):
+        kw = (dict(obs=True, metrics_port=0, hbm_sample_s=0.05)
+              if run == "served" else dict(obs=False))
+        trainer = cli.build(cfg, eval_every_epochs=2, preemptible=False,
+                            heartbeat=None, **kw)
+        logged, scraped = [], {}
+        consume = trainer._consume
+
+        def record(entries, consume=consume, logged=logged):
+            logged += [host["loss"] for _, host in entries]
+            return consume(entries)
+        trainer._consume = record
+
+        def scrape(t, scraped=scraped, **kw):
+            if t._metrics_server is not None and t.epoch == 1 \
+                    and not scraped:
+                with urllib.request.urlopen(
+                        t._metrics_server.url + "/metrics", timeout=30) as r:
+                    scraped["text"] = r.read().decode()
+        trainer.callbacks.register("before_iter", scrape)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses[run] = logged
+        if run == "served":
+            counts = {k: v for k, v in fa.launch_counts().items() if v}
+            wm = trainer.hbm_watermark
+            lines = [ln for ln in scraped.get("text", "").splitlines()
+                     if ln.startswith(("dltpu_train_step ",
+                                       "dltpu_train_loss ",
+                                       "dltpu_hbm_peak_bytes_in_use "))]
+            log(f"Trainer with /metrics and the sampler: {wall:.2f}s, "
+                f"{trainer.strict_sections} strict sections; mid-run "
+                f"scrape {lines}; sampler {json.dumps(wm)}; "
+                f"max_memory_allocated {peak}; launches {json.dumps(counts)}")
+            check(len(lines) == 3, "/metrics scraped mid-run")
+            check(wm["hbm_samples"] >= 2 and wm["peak_bytes_in_use"] >= peak,
+                  "the sampler's peak >= max_memory_allocated")
+        else:
+            log(f"Trainer without them: {wall:.2f}s")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(losses["served"], losses["plain"]))
+    log(f"Trainer losses with vs without the sampler and server: "
+        f"{len(losses['served'])} steps, max |dloss| {diff:.3e} (tol "
+        f"{TRAINER_LOSS_TOL})")
+    check(len(losses["served"]) == len(losses["plain"]) == 2 * TRAINER_STEPS
+          and diff <= TRAINER_LOSS_TOL, "the losses equal the plain run's")
+    return counts
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -22,7 +22,7 @@ newest intact one; ``auto_resume`` is that walk on a fresh state.
 dict of tensors. A failed write is retried ``save_retries`` times, after
 a capped-exponential delay with jitter (the JAX manager's defaults), and
 each attempt is a ``ckpt_retry`` flight record. The topology sidecar
-comes with ROADMAP Queue 1 item 7, ``restore_variables`` with item 6.
+comes with ROADMAP Queue 1 item 7, ``restore_variables`` with item 6b.
 
 ``async_save=True`` takes the write off the loop: ``save`` queues a
 device-side copy of every tensor on the caller's stream (so the next

@@ -20,9 +20,8 @@ never quarantine.
 
 Every quarantined sample also lands a ``quarantine`` flight event, so a
 crash dump carries the count next to the rollback and checkpoint-retry
-telemetry. The JAX log also increments the ``dltpu_quarantine_total``
-counter of ``obs/metrics.py``; the port's log records to the flight ring
-only until that module lands with ROADMAP Queue 1 item 6.
+telemetry, and increments the ``dltpu_quarantine_total`` counter of
+``obs/metrics.py`` (a no-op while no registry is enabled).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from ..obs import flight
+from ..obs import flight, metrics
 
 __all__ = ["PoisonedData", "QuarantineLog", "quarantinable"]
 
@@ -100,6 +99,7 @@ class QuarantineLog:
             except OSError:
                 pass               # losing a manifest line beats dying
         flight.record("quarantine", **entry)
+        metrics.inc("dltpu_quarantine_total")
         self.check_escalation()
 
     def check_escalation(self) -> None:

@@ -55,15 +55,19 @@ def nhwc_rows(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 class RetinaHead(nn.Module):
-    """Shared-conv classification or regression tower."""
+    """Shared-conv classification or regression tower: ``channels`` wide
+    (256, as the flax head, whatever the pyramid's width), reading
+    ``in_channels`` (default ``channels``)."""
 
     def __init__(self, num_outputs: int, num_convs: int = 4,
                  channels: int = 256, prior_bias: Optional[float] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 in_channels: Optional[int] = None):
         super().__init__()
         self.num_convs = num_convs
         for i in range(num_convs):
-            setattr(self, f"conv{i}", nn.Conv2d(channels, channels, 3,
+            cin = (in_channels or channels) if i == 0 else channels
+            setattr(self, f"conv{i}", nn.Conv2d(cin, channels, 3,
                                                 padding=1))
         self.pred = nn.Conv2d(channels, num_outputs, 3, padding=1)
         self.prior_bias, self.dtype = prior_bias, dtype
@@ -98,10 +102,10 @@ class RetinaNet(nn.Module):
         self.fpn = FPN({"c3": c // 4, "c4": c // 2, "c5": c}, fpn_channels,
                        "p6p7", dtype)
         self.cls_head = RetinaHead(num_classes * anchors_per_loc,
-                                   channels=fpn_channels,
+                                   in_channels=fpn_channels,
                                    prior_bias=PRIOR_BIAS, dtype=dtype)
         self.reg_head = RetinaHead(4 * anchors_per_loc,
-                                   channels=fpn_channels, dtype=dtype)
+                                   in_channels=fpn_channels, dtype=dtype)
         self.num_classes = num_classes
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))

@@ -1,28 +1,44 @@
-"""Dynamic micro-batching: many concurrent requests, one device stream.
+"""Dynamic micro-batching: many concurrent requests, one device stream —
+the port of ``deeplearning_tpu/serve/batcher.py``.
 
-The port of ``deeplearning_tpu/serve/batcher.py``, single-engine lane.
 One dedicated dispatch thread owns the device; everything else talks to
-it through one queue:
+it through per-model queues ("lanes"):
 
-1. ``submit()`` runs admission control (backpressure/deadline stamping),
-   enqueues, and returns a ``SubmitHandle`` future.
-2. The dispatch thread pops the first request, then accumulates
-   followers until the largest bucket is full or ``max_wait_ms``
-   expires — light traffic dispatches at once in the smallest bucket,
-   bursts fill big buckets. Past the admission shed threshold it pads to
-   the largest bucket only.
-3. The batch is padded to its bucket, run through the engine (device
-   outputs, no synchronisation), and demultiplexed: each request's future
-   resolves to ITS row. Padding rows are sliced away here.
+1. ``submit()`` runs admission control (backpressure/deadline stamping)
+   against the TARGET model's lane, enqueues, and returns a
+   ``SubmitHandle`` future.
+2. The dispatch thread round-robins over lanes with waiting work (so
+   one hot tenant cannot starve the rest), pops the first request, then
+   accumulates same-model followers until the lane's largest bucket is
+   full or ``max_wait_ms`` expires — light traffic dispatches
+   immediately in the smallest bucket, bursts fill big buckets.
+3. The batch is padded to its bucket, run through that model's engine
+   (device outputs, no synchronisation), and demultiplexed: each
+   request's future resolves to ITS row. Padding rows are sliced away
+   here and never observable.
+
+Two fronting modes share all of the above: ``MicroBatcher(engine)``
+serves one model through one implicit lane, while
+``MicroBatcher(zoo=...)`` serves every model a :class:`~.zoo.ModelZoo`
+holds — ``submit(image, model=alias)`` routes to the tenant's lane, cold
+tenants get a background hot-load kicked and their lane skipped until the
+zoo's warm flag flips, and each lane owns its telemetry + admission
+controller (per-model EWMA drain). A batch is bracketed by
+``zoo.mark_dispatch`` so its engine is never evicted mid-run.
+
+The resilience surface: ``drain()`` (new submits 429 "draining", queued
+work still dispatches), a warm ``standby`` that refuses traffic until
+``promote()``, and a per-tenant brownout ladder (``set_brownout``: step 1
+pins the lane to its largest bucket, step 2 is the zoo's int8 demotion,
+which the CLI drives, step 3 sheds one submit in four with reason
+"brownout"). The batcher's fault hooks of ``elastic/faults.py`` (wedge,
+injected 503 and latency) work as in JAX; the serve side of the heartbeat
+and the CLI's preempt / crash callbacks come with ROADMAP Queue 1 item
+6b.
 
 The dispatch thread never waits on the card: demux hands out
 (batch, row) pairs, and the FIRST ``result()`` of a batch pays one
 device-to-host copy for the whole batch on the calling thread.
-
-Multi-model lanes (the zoo), brownout, warm standby and the CLI's
-preempt/crash fault callbacks come with the zoo slice; the batcher's own
-fault hooks from ``elastic/faults.py`` (wedge, injected 503 and latency)
-work as in JAX.
 """
 
 from __future__ import annotations
@@ -32,7 +48,7 @@ import itertools
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -55,6 +71,21 @@ class _Request:
         self.future = future
         self.deadline = deadline
         self.t_submit = t_submit
+
+
+class _Lane:
+    """One model's wait queue + policy + counters. The deque is guarded
+    by the batcher's condition variable; admission/telemetry objects are
+    internally locked."""
+
+    __slots__ = ("model", "q", "admission", "telemetry")
+
+    def __init__(self, model: str, admission: AdmissionController,
+                 telemetry: ServeTelemetry):
+        self.model = model
+        self.q: "collections.deque[_Request]" = collections.deque()
+        self.admission = admission
+        self.telemetry = telemetry
 
 
 class _SharedBatch:
@@ -85,15 +116,21 @@ class _SharedBatch:
 
 class SubmitHandle:
     """Per-request future. ``result()`` blocks for the demuxed row and
-    materialises it on the CALLING thread, recording e2e latency into
-    telemetry exactly once."""
+    materializes it on the CALLING thread (the D2H lands on the
+    requester, keeping the dispatcher sync-free), recording e2e latency
+    into telemetry exactly once (into the lane's AND the aggregate
+    rings in zoo mode)."""
 
     def __init__(self, rid: int, future: Future, t_submit: float,
-                 telemetry: Optional[ServeTelemetry]):
+                 telemetry: Any):
         self.rid = rid
         self._future = future
         self._t_submit = t_submit
-        self._telemetry = telemetry
+        if telemetry is None:
+            telemetry = ()
+        elif isinstance(telemetry, ServeTelemetry):
+            telemetry = (telemetry,)
+        self._telemetry = tuple(telemetry)
         self._recorded = False
 
     def done(self) -> bool:
@@ -102,10 +139,11 @@ class SubmitHandle:
     def result(self, timeout: Optional[float] = None) -> Any:
         shared, i = self._future.result(timeout)
         out = shared.row(i)
-        if not self._recorded and self._telemetry is not None:
+        if not self._recorded and self._telemetry:
             self._recorded = True
-            self._telemetry.record_e2e_latency(
-                time.perf_counter() - self._t_submit)
+            e2e = time.perf_counter() - self._t_submit
+            for t in self._telemetry:
+                t.record_e2e_latency(e2e)
         return out
 
     def exception(self, timeout: Optional[float] = None):
@@ -113,32 +151,51 @@ class SubmitHandle:
 
 
 class MicroBatcher:
-    """Dynamic micro-batching front of one ``InferenceEngine``.
+    """Dynamic micro-batching front of one ``InferenceEngine`` or a
+    whole ``ModelZoo``.
 
     - ``max_wait_ms``: how long the dispatcher holds an underfull batch
-      open for followers before padding and going.
-    - ``admission``: an ``AdmissionController``; defaults to one sized on
-      the engine's buckets with ``max_queue`` pending requests.
+      open for followers before padding and going (the latency the
+      lightest-traffic request pays for batching).
+    - ``admission``: an ``AdmissionController``; single-engine mode
+      defaults to one sized on the engine's buckets with ``max_queue``
+      pending requests. Zoo mode ignores it — each tenant's controller
+      comes from ``zoo.admission_for``.
     - Runs its dispatch thread from construction; ``close()`` (or the
-      context manager) stops it.
+      context manager) drains and stops it.
     """
 
-    def __init__(self, engine, *,
+    def __init__(self, engine=None, *, zoo=None,
                  max_wait_ms: float = 5.0,
                  max_queue: int = 256,
                  default_timeout_s: Optional[float] = None,
                  admission: Optional[AdmissionController] = None,
                  telemetry: Optional[ServeTelemetry] = None,
+                 standby: bool = False,
                  start: bool = True):
+        if (engine is None) == (zoo is None):
+            raise ValueError("pass exactly one of engine= or zoo=")
         self.engine = engine
+        self.zoo = zoo
         self.max_wait_s = max_wait_ms / 1e3
         self.telemetry = telemetry or ServeTelemetry()
-        self.admission = admission or AdmissionController(
-            engine.buckets, max_queue=max_queue,
-            default_timeout_s=default_timeout_s,
-            model=getattr(engine, "name", None))
         self._cv = threading.Condition()
-        self._q: "collections.deque[_Request]" = collections.deque()
+        self._lanes: Dict[str, _Lane] = {}
+        self._rr = 0                   # round-robin cursor over lanes
+        if engine is not None:
+            self.admission = admission or AdmissionController(
+                engine.buckets, max_queue=max_queue,
+                default_timeout_s=default_timeout_s,
+                model=getattr(engine, "name", None))
+            # the single-engine surface is one implicit lane sharing the
+            # aggregate telemetry (so nothing records twice)
+            self._default_lane = _Lane(
+                getattr(engine, "name", "model"), self.admission,
+                self.telemetry)
+            self._lanes[self._default_lane.model] = self._default_lane
+        else:
+            self.admission = None
+            self._default_lane = None
         self.dispatched = 0            # batches the dispatch loop finished
         self._busy = False             # dispatch thread is inside a batch
         self._ids = itertools.count()
@@ -146,6 +203,14 @@ class MicroBatcher:
         # drain() flips _draining: new submits 429 with reason="draining",
         # queued work still dispatches
         self._draining = threading.Event()
+        # resilience surface: a standby replica warms fully but refuses
+        # traffic (healthz "standby") until promote(); brownout steps
+        # per model degrade one hot tenant without touching the rest
+        self._standby = threading.Event()
+        if standby:
+            self._standby.set()
+        self._brownout: Dict[str, int] = {}     # model -> ladder step
+        self._bo_count: Dict[str, int] = {}     # model -> submit ordinal
         self._thread: Optional[threading.Thread] = None
         if start:
             self.start()
@@ -173,7 +238,16 @@ class MicroBatcher:
     @property
     def queue_depth(self) -> int:
         with self._cv:
-            return len(self._q)
+            return sum(len(lane.q) for lane in self._lanes.values())
+
+    def lane_depth(self, model: str) -> int:
+        with self._cv:
+            lane = self._lanes.get(model)
+            return len(lane.q) if lane is not None else 0
+
+    def lane_telemetry(self, model: str) -> Optional[ServeTelemetry]:
+        lane = self._lanes.get(model)
+        return lane.telemetry if lane is not None else None
 
     @property
     def busy(self) -> bool:
@@ -185,8 +259,9 @@ class MicroBatcher:
     # ------------------------------------------------------------ drain
     def drain(self) -> None:
         """Stop ACCEPTING without stopping WORKING: new submits are
-        rejected (429 reason="draining") while every queued request still
-        dispatches. Idempotent."""
+        rejected (429 reason="draining", retry elsewhere) while every
+        already-queued request still dispatches — the graceful half of
+        the controller's drain-and-requeue. Idempotent."""
         if not self._draining.is_set():
             self._draining.set()
             flight.record("serve_drain", depth=self.queue_depth)
@@ -198,82 +273,233 @@ class MicroBatcher:
     @property
     def drained(self) -> bool:
         """True once a drain has fully flushed: draining was requested,
-        the queue is empty, and no batch is in flight."""
+        the lanes are empty, and no batch is in flight."""
         return (self._draining.is_set() and not self._busy
                 and self.queue_depth == 0)
 
+    # ------------------------------------------------ standby/brownout
+    @property
+    def standby(self) -> bool:
+        return self._standby.is_set()
+
+    def promote(self) -> bool:
+        """Flip a warm standby into rotation: healthz goes "standby" →
+        "ready" on the next probe and submits are accepted immediately.
+        The engine warmed at construction, so promotion costs a flag
+        flip, not a warmup pass. True when this call did the flip."""
+        if self._standby.is_set():
+            self._standby.clear()
+            flight.record("serve_promote", dispatched=self.dispatched)
+            return True
+        return False
+
+    def set_brownout(self, model: str, step: int) -> int:
+        """Set one tenant's degrade-ladder step (0 = full service).
+        Step >= 1: the lane dispatches largest-bucket-only (max
+        throughput posture). Step >= 3: additionally shed a fixed
+        fraction of that lane's submits (deterministic 1-in-4, reason
+        "brownout"). Step 2's int8-residency move belongs to the zoo —
+        the serve CLI applies it when it owns one. Returns the step
+        actually stored (clamped to [0, 3])."""
+        step = max(0, min(int(step), 3))
+        with self._cv:
+            if step:
+                self._brownout[model] = step
+            else:
+                self._brownout.pop(model, None)
+                self._bo_count.pop(model, None)
+        flight.record("serve_brownout", model=model, step=step)
+        return step
+
+    def brownout_step(self, model: str) -> int:
+        with self._cv:
+            return self._brownout.get(model, 0)
+
+    # -------------------------------------------------------- lanes
+    def _lane(self, model: Optional[str]) -> _Lane:
+        if self._default_lane is not None:
+            return self._default_lane
+        if model is None:
+            models = self.zoo.models()
+            if len(models) != 1:
+                raise ValueError(
+                    f"zoo serves {models}; submit(model=...) required")
+            model = models[0]
+        lane = self._lanes.get(model)
+        if lane is None:
+            admission = self.zoo.admission_for(model)  # raises KeyError
+            with self._cv:
+                lane = self._lanes.get(model)
+                if lane is None:
+                    lane = _Lane(model, admission, ServeTelemetry())
+                    self._lanes[model] = lane
+        return lane
+
+    def _tels(self, lane: _Lane) -> Tuple[ServeTelemetry, ...]:
+        if lane.telemetry is self.telemetry:
+            return (lane.telemetry,)
+        return (lane.telemetry, self.telemetry)
+
+    def _engine_for(self, lane: _Lane):
+        """The lane's warm engine, or None (zoo lane still loading — the
+        load was kicked at submit; the dispatcher just skips the lane)."""
+        if self.engine is not None:
+            return self.engine
+        return self.zoo.engine(lane.model)
+
     # ----------------------------------------------------------- submit
-    def submit(self, image, timeout_s: Optional[float] = None
-               ) -> SubmitHandle:
-        """Admit one request. Raises ``Rejected`` on a full queue
-        (backpressure, with a retry-after hint) or while draining; the
-        handle's ``result()`` raises ``DeadlineExceeded`` if the request
-        expired before dispatch. ``image`` is one model-ready
-        (image_size, image_size, 3) frame."""
-        size = self.engine.image_size
+    def submit(self, image, timeout_s: Optional[float] = None,
+               model: Optional[str] = None) -> SubmitHandle:
+        """Admit one request. Raises ``serve.Rejected`` on a full lane
+        (backpressure, with the TARGET model's retry-after hint) or —
+        zoo mode — when the model would need a load that memory pressure
+        refuses; the returned handle's ``result()`` raises
+        ``DeadlineExceeded`` if the request expired before dispatch.
+        ``image`` must be one model-ready (image_size, image_size, 3)
+        frame — resizing/normalizing is the client's job."""
+        lane = self._lane(model)
+        if self.engine is not None:
+            size = self.engine.image_size
+        else:
+            size = self.zoo.image_size(lane.model)
         image = np.asarray(image, np.float32)
         if image.shape != (size, size, 3):
             raise ValueError(f"request image shape {image.shape} != "
                              f"({size}, {size}, 3); resize client-side")
-        depth = self.queue_depth
         try:
+            if self._standby.is_set():
+                # a standby is warm but OUT of rotation — a request
+                # reaching it is a routing error, not load to absorb
+                raise Rejected(len(lane.q), 0.0, model=lane.model,
+                               reason="standby")
             if self._draining.is_set():
-                raise Rejected(depth, 0.0, model=self.admission.model,
+                # a draining replica refuses new work outright — no
+                # retry_after hint would help; the caller must reroute
+                raise Rejected(len(lane.q), 0.0, model=lane.model,
                                reason="draining")
             if faults.consume("e503", "submit", self.dispatched):
-                raise Rejected(depth, 0.0, model=self.admission.model,
+                # seeded chaos: one injected 503 — exercises router
+                # failover and the per-replica breaker for real
+                raise Rejected(len(lane.q), 0.0, model=lane.model,
                                reason="injected")
-            self.admission.admit(depth)
+            if self.brownout_step(lane.model) >= 3:
+                n = 0
+                with self._cv:
+                    n = self._bo_count.get(lane.model, 0) + 1
+                    self._bo_count[lane.model] = n
+                if n % 4 == 0:
+                    raise Rejected(
+                        len(lane.q),
+                        lane.admission.retry_after_s(len(lane.q)),
+                        model=lane.model, reason="brownout")
+            if self.zoo is not None:
+                # warm fast-path: dict lookup. Cold: kicks a background
+                # hot-load (may LRU-evict; raises Rejected on pressure)
+                self.zoo.request(lane.model)
+            lane.admission.admit(len(lane.q))
         except Exception:
-            self.telemetry.record_reject()
-            flight.record("serve_reject", depth=depth)
+            for t in self._tels(lane):
+                t.record_reject()
+            flight.record("serve_reject", model=lane.model,
+                          depth=len(lane.q))
             raise
         now = time.perf_counter()
         req = _Request(next(self._ids), image, Future(),
-                       self.admission.deadline_for(timeout_s, now), now)
-        self.telemetry.record_submit()
+                       lane.admission.deadline_for(timeout_s, now), now)
+        for t in self._tels(lane):
+            t.record_submit()
         with self._cv:
-            self._q.append(req)
+            lane.q.append(req)
             self._cv.notify_all()
-        return SubmitHandle(req.rid, req.future, now, self.telemetry)
+        return SubmitHandle(req.rid, req.future, now, self._tels(lane))
 
     # --------------------------------------------------------- dispatch
-    def _expire(self, req: _Request, now: float) -> bool:
+    def _expire(self, lane: _Lane, req: _Request, now: float) -> bool:
         """Cancel a request whose deadline passed BEFORE spending device
         time on it; True when the request was dropped."""
-        if self.admission.expired(req.deadline, now):
+        if lane.admission.expired(req.deadline, now):
             req.future.set_exception(DeadlineExceeded(
                 f"request {req.rid} expired after "
                 f"{now - req.t_submit:.3f}s in queue"))
-            self.telemetry.record_timeout()
+            for t in self._tels(lane):
+                t.record_timeout()
             return True
         return False
 
-    def _collect(self) -> list:
-        """Wait (≤50ms) for a first request, then hold the batch open for
-        followers until the LARGEST bucket fills or ``max_wait_ms``
-        expires."""
+    def _purge_expired(self, lane: _Lane) -> None:
+        """Deadline enforcement for a lane whose engine is still
+        warming: expired requests fail now, not after the load."""
+        now = time.perf_counter()
         with self._cv:
-            self._cv.wait_for(lambda: self._stop.is_set() or self._q,
-                              timeout=0.05)
-            if self._stop.is_set() or not self._q:
+            keep = collections.deque()
+            for req in lane.q:
+                if not self._expire(lane, req, now):
+                    keep.append(req)
+            lane.q = keep
+
+    def _pick_lane(self) -> Optional[Tuple[_Lane, Any]]:
+        """Wait (≤50ms) for any lane with work, then round-robin to the
+        next one whose engine is ready. Lanes of still-loading models
+        are skipped (their hot-load is already running); round-robin
+        across ready lanes is the anti-starvation guarantee — a
+        saturated tenant gets one batch per turn, not the whole
+        thread."""
+        with self._cv:
+            self._cv.wait_for(
+                lambda: self._stop.is_set()
+                or any(lane.q for lane in self._lanes.values()),
+                timeout=0.05)
+            if self._stop.is_set():
+                return None
+            names: List[str] = [name for name, lane
+                                in self._lanes.items() if lane.q]
+        if not names:
+            return None
+        order = sorted(names)
+        start = self._rr % len(order)
+        cold = []
+        for name in order[start:] + order[:start]:
+            lane = self._lanes[name]
+            engine = self._engine_for(lane)
+            if engine is None:
+                cold.append(lane)
+                continue
+            if lane.q:
+                self._rr += 1
+                return lane, engine
+        for lane in cold:
+            self._purge_expired(lane)
+        if cold:
+            # every pending lane is warming: don't spin on the CV (the
+            # warm flag flips without a notify) — nap one poll tick
+            self._stop.wait(0.01)
+        return None
+
+    def _collect(self, lane: _Lane, engine) -> list:
+        """Pop one request from the lane, then hold the batch open for
+        same-model followers until the LARGEST bucket fills or
+        ``max_wait_ms`` expires — a burst rides one big bucket, a
+        lone request pays at most ``max_wait_ms`` extra latency before
+        going out in bucket 1."""
+        with self._cv:
+            if not lane.q:
                 return []
-            first = self._q.popleft()
+            first = lane.q.popleft()
         t0 = time.perf_counter()
-        batch = [] if self._expire(first, t0) else [first]
+        batch = [] if self._expire(lane, first, t0) else [first]
         wait_until = t0 + self.max_wait_s
-        big = self.engine.buckets[-1]
+        big = engine.buckets[-1]
         while len(batch) < big:
             remaining = wait_until - time.perf_counter()
             if remaining <= 0:
                 break
             with self._cv:
-                if not self._q:
+                if not lane.q:
                     self._cv.wait(timeout=remaining)
-                if not self._q:
-                    continue            # spurious wakeup
-                req = self._q.popleft()
-            if not self._expire(req, time.perf_counter()):
+                if not lane.q:
+                    continue            # spurious/other-lane wakeup
+                req = lane.q.popleft()
+            if not self._expire(lane, req, time.perf_counter()):
                 batch.append(req)
         return batch
 
@@ -290,31 +516,41 @@ class MicroBatcher:
     def _dispatch_loop(self) -> None:
         while not self._stop.is_set():
             self._poll_faults()
-            batch = self._collect()
+            picked = self._pick_lane()
+            if picked is None:
+                continue
+            lane, engine = picked
+            batch = self._collect(lane, engine)
             if not batch:
                 continue
             self._busy = True
             try:
-                self._dispatch_one(batch)
+                self._dispatch_one(lane, engine, batch)
             finally:
                 # count the batch whether it ran or errored — both mean
                 # the dispatch thread is ALIVE (what a wedge probe asks)
                 self._busy = False
                 self.dispatched += 1
 
-    def _dispatch_one(self, batch: list) -> None:
-        engine = self.engine
+    def _dispatch_one(self, lane: _Lane, engine, batch: list) -> None:
         t0 = time.perf_counter()
-        depth = self.queue_depth
-        shed = self.admission.overloaded(depth)
+        depth = len(lane.q)
+        # brownout step >= 1 pins the lane to its max-throughput
+        # posture (largest bucket) even before admission sheds
+        shed = (lane.admission.overloaded(depth)
+                or self.brownout_step(lane.model) >= 1)
         bucket = (engine.buckets[-1] if shed
                   else engine.bucket_for(len(batch)))
         lat_ms = faults.consume_arg("latency", "step", self.dispatched)
         if lat_ms:
-            time.sleep(lat_ms / 1e3)    # injected tail latency
+            # seeded chaos: injected tail latency — the stimulus the
+            # router's hedging policy exists to absorb
+            time.sleep(lat_ms / 1e3)
+        if self.zoo is not None:
+            self.zoo.mark_dispatch(lane.model, +1)
         try:
-            with span("serve/dispatch", bucket=bucket, n=len(batch),
-                      depth=depth, shed=shed):
+            with span("serve/dispatch", model=lane.model, bucket=bucket,
+                      n=len(batch), depth=depth, shed=shed):
                 padded = engine.pad_to_bucket(
                     np.stack([r.image for r in batch]), bucket)
                 out = engine.run(bucket, padded)
@@ -323,11 +559,20 @@ class MicroBatcher:
                 if not r.future.done():
                     r.future.set_exception(exc)
             return
+        finally:
+            if self.zoo is not None:
+                self.zoo.mark_dispatch(lane.model, -1)
         now = time.perf_counter()
         shared = _SharedBatch(out)
+        tels = self._tels(lane)
         for i, r in enumerate(batch):
+            # hand each request its row of the shared device batch —
+            # no sync here; the first result() call materializes once
             r.future.set_result((shared, i))
-            self.telemetry.record_dispatch_latency(now - r.t_submit)
-        self.telemetry.record_batch(bucket, len(batch), self.queue_depth,
-                                    shed)
-        self.admission.note_drained(len(batch), now - t0)
+            for t in tels:
+                t.record_dispatch_latency(now - r.t_submit)
+        for t in tels:
+            t.record_batch(bucket, len(batch), len(lane.q), shed)
+        # per-model EWMA: the drain estimate behind retry_after quotes
+        # THIS tenant's dispatch history (the TenantAdmission bugfix)
+        lane.admission.note_drained(len(batch), now - t0)

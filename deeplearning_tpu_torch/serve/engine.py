@@ -27,14 +27,28 @@ detections). All five families are ported (RetinaNet, FCOS, Faster
 R-CNN, YOLOv5, YOLOX); ``task="detect"`` for a name of no family raises
 ``ValueError``, as the JAX predict builder does.
 
+**int8 weight residency** (``weight_quant="int8"``, as in JAX): every
+floating leaf of the model's flax variable tree with at least 1 024
+elements (kernels, biases of wide layers, BatchNorm statistics) is stored
+as block-scaled int8 (``parallel/collectives.py``: 256-element blocks cut
+over the leaf's flax element order, so the blocks and scales are JAX's),
+about 3.9× denser than float32. The payloads live in one flat int8 buffer
+and the scales in one float32 buffer; each forward dequantizes them in one
+launch into a flat float32 transient and runs the model on views of it
+(``torch.func.functional_call``). Smaller leaves and the port's constant
+buffers stay float32. ``variables_nbytes()`` is the resident footprint of
+the variables, the quantized one under int8.
+
 Outputs of ``run`` stay on the device (a tensor, or a dict of tensors for
 detection); callers materialise them (the batcher's dispatch thread never
-synchronises). TTA and int8 weight residency are not ported yet and raise
-``NotImplementedError``.
+synchronises). TTA raises ``NotImplementedError``: it comes with ROADMAP
+Queue 1 item 6b.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import threading
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -43,14 +57,92 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.convert import variable_names
 
 __all__ = ["InferenceEngine"]
+
+# as JAX's engine: 256-element blocks, one scale each; leaves below 1 024
+# elements (biases, norm scales) stay float32
+_QUANT_BLOCK = 256
+_QUANT_MIN_SIZE = 1024
 
 
 def _map(fn, out):
     """``fn`` over a tensor or over each value of a detection dict."""
     return {k: fn(v) for k, v in out.items()} if isinstance(out, dict) \
         else fn(out)
+
+
+class _Int8Weights:
+    """A model's large variables as block-scaled int8: one flat int8
+    payload, one float32 scale a block, and where each leaf's blocks
+    start. Building it quantizes on the CPU (the same arithmetic on every
+    device) and strips the quantized tensors out of ``model``, so only the
+    payloads stay resident once ``to(device)`` moves them."""
+
+    def __init__(self, model: torch.nn.Module):
+        from ..parallel.collectives import _pad_to, _quantize_blocks
+        from ..utils.convert import to_flax_order
+        state = model.state_dict()
+        payloads, scales = [], []
+        self.leaves = []            # (name, first element, size, shape)
+        start = 0
+        for name in variable_names(model):
+            t = state[name]
+            if not t.is_floating_point() or t.numel() < _QUANT_MIN_SIZE:
+                continue
+            flat = to_flax_order(name, t.detach()).to(
+                "cpu", torch.float32).reshape(-1)
+            flat, _ = _pad_to(flat, _QUANT_BLOCK)
+            q, s = _quantize_blocks(flat.view(-1, _QUANT_BLOCK))
+            payloads.append(q)
+            scales.append(s)
+            self.leaves.append((name, start, t.numel(), tuple(t.shape)))
+            start += q.numel()
+        self.q = torch.cat(payloads)                  # (blocks, 256) int8
+        self.s = torch.cat(scales)                    # (blocks, 1) float32
+        for name, *_ in self.leaves:
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner)
+            empty = torch.empty(0, device=state[name].device)
+            setattr(module, leaf, torch.nn.Parameter(empty, False)
+                    if leaf in module._parameters else empty)
+
+    def to(self, device: torch.device) -> None:
+        self.q, self.s = self.q.to(device), self.s.to(device)
+
+    def nbytes(self) -> int:
+        return self.q.numel() + 4 * self.s.numel()
+
+    def dequantize(self) -> Dict[str, torch.Tensor]:
+        """{name: float32 view in the port's layout} of one transient: the
+        dequantize is one launch whatever the number of leaves."""
+        from ..utils.convert import from_flax_order
+        flat = (self.q * self.s).view(-1)
+        return {name: from_flax_order(name, flat[i:i + n], shape)
+                for name, i, n, shape in self.leaves}
+
+
+def _classify(model: torch.nn.Module):
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return torch.softmax(model(images), dim=-1)
+    return forward
+
+
+class _Forward(torch.nn.Module):
+    """The engine's forward as a module over the served model, so that
+    ``functional_call`` puts the dequantized views in for one call. It
+    holds no reference to the engine: an evicted engine is freed at once,
+    with no cycle to wait for."""
+
+    def __init__(self, model: torch.nn.Module, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, images: torch.Tensor) -> Any:
+        return self.fn(images)
 
 
 class InferenceEngine:
@@ -62,7 +154,9 @@ class InferenceEngine:
     tree) — the ``hub.load`` return surface. ``score_thresh``,
     ``max_det``, ``nms_impl`` and ``post_nms_top_n`` (Faster R-CNN's
     proposals) shape a detection engine's postprocess, with the JAX
-    defaults.
+    defaults. ``attn`` (a registry-name build only) picks the attention
+    as the serve CLI's ``--attn`` does (``hub.model_kwargs``; the model
+    is then built at ``image_size``); None keeps the factory's default.
     """
 
     def __init__(self, model_name: Optional[str] = None, *,
@@ -81,6 +175,7 @@ class InferenceEngine:
                  seed: int = 0,
                  precompile: bool = True,
                  weight_quant: str = "fp32",
+                 attn: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         from ..models.detection.predict import is_detection_model
         if model is None and model_name is None:
@@ -89,12 +184,9 @@ class InferenceEngine:
             raise ValueError(f"task must be auto, classify or detect, "
                              f"got {task!r}")
         if tta:
-            raise NotImplementedError("test-time augmentation is not "
-                                      "ported yet")
-        if weight_quant == "int8":
-            raise NotImplementedError("int8 weight residency is not "
-                                      "ported yet")
-        if weight_quant != "fp32":
+            raise NotImplementedError("test-time augmentation comes with "
+                                      "ROADMAP Queue 1 item 6b")
+        if weight_quant not in ("fp32", "int8"):
             raise ValueError(f"weight_quant must be fp32 or int8, "
                              f"got {weight_quant!r}")
         self.name = model_name or type(model).__name__.lower()
@@ -120,19 +212,39 @@ class InferenceEngine:
             from .. import hub
             from ..models.detection.predict import head_classes
             # Faster R-CNN's head carries class 0 = background besides
-            # them (its predict shifts labels back to 0-based)
+            # them (its predict shifts labels back to 0-based); built on
+            # the CPU, moved below
+            model_kw = ({} if attn is None else
+                        hub.model_kwargs(self.name, attn, self.image_size))
             model, _ = hub.load(self.name,
                                 num_classes=head_classes(self.name,
                                                          num_classes),
-                                weights=weights, seed=seed,
-                                device=self.device)
-        elif variables is not None or weights is not None:
-            from ..utils.convert import as_state_dict
-            model.load_state_dict(as_state_dict(
-                variables if variables is not None else weights,
-                like=model))
-        # the session's single resident copy of the weights
-        self.model = model.to(self.device).eval()
+                                weights=weights, seed=seed, device="cpu",
+                                **model_kw)
+        else:
+            if weight_quant == "int8":
+                # the int8 session strips its model: keep the caller's
+                model = copy.deepcopy(model)
+            if variables is not None or weights is not None:
+                from ..utils.convert import as_state_dict
+                model.load_state_dict(as_state_dict(
+                    variables if variables is not None else weights,
+                    like=model))
+        self._int8 = (_Int8Weights(model) if weight_quant == "int8"
+                      else None)
+        # the session's single resident copy of the weights (the int8
+        # payloads and scales in place of the large ones under int8), in
+        # a memory pool of its own on the card: dropping the engine leaves
+        # whole segments free, which torch.cuda.empty_cache hands back (a
+        # zoo eviction lowers mem_get_info's reading by the tenant's
+        # bytes, however the caching allocator placed other blocks)
+        self._pool = (torch.cuda.MemPool() if self.device.type == "cuda"
+                      else None)
+        with (torch.cuda.use_mem_pool(self._pool, self.device.index)
+              if self._pool is not None else contextlib.nullcontext()):
+            self.model = model.to(self.device).eval()
+            if self._int8 is not None:
+                self._int8.to(self.device)
         self._predict = None
         if self.task == "detect":
             from ..models.detection.predict import build_predict_fn
@@ -140,6 +252,8 @@ class InferenceEngine:
                 self.model, self.name, num_classes,
                 score_thresh=score_thresh, max_det=max_det,
                 post_nms_top_n=post_nms_top_n, nms_impl=nms_impl)
+        self._runner = _Forward(self.model,
+                                self._predict or _classify(self.model))
 
         # counters: the "no new work after warmup" test surface
         self.trace_count = 0        # first forward of a bucket
@@ -152,10 +266,13 @@ class InferenceEngine:
 
     # ------------------------------------------------------- forward fn
     def _forward(self, images: torch.Tensor) -> Any:
-        if self._predict is not None:
-            return self._predict(images)
+        if self._int8 is None:
+            return self._runner(images)
         with torch.no_grad():
-            return torch.softmax(self.model(images), dim=-1)
+            views = {f"model.{k}": v
+                     for k, v in self._int8.dequantize().items()}
+            return torch.func.functional_call(self._runner, views,
+                                              (images,))
 
     # --------------------------------------------------------- buckets
     def bucket_for(self, n: int) -> int:
@@ -248,10 +365,24 @@ class InferenceEngine:
 
     # ------------------------------------------------------ introspection
     def variables_nbytes(self) -> int:
-        """Resident weight bytes (parameters and buffers)."""
-        return int(sum(t.numel() * t.element_size() for t in
-                       list(self.model.parameters())
-                       + list(self.model.buffers())))
+        """Resident bytes of the model's variables (the leaves of its flax
+        tree: parameters and BatchNorm statistics), as the JAX engine
+        counts them; under int8 the payloads and scales in place of the
+        quantized leaves. Host metadata only, never a sync."""
+        state = self.model.state_dict()
+        plain = sum(state[n].numel() * state[n].element_size()
+                    for n in variable_names(self.model))
+        return int(plain + (self._int8.nbytes() if self._int8 else 0))
+
+    def dequantized_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The variables each forward runs on, by ``state_dict`` name: the
+        int8 leaves dequantized (a fresh transient), the rest as held."""
+        state = self.model.state_dict()
+        out = {n: state[n] for n in variable_names(self.model)}
+        if self._int8 is not None:
+            with torch.no_grad():
+                out.update(self._int8.dequantize())
+        return out
 
     def stats(self) -> Dict[str, Any]:
         return {

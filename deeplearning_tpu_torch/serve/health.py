@@ -1,6 +1,6 @@
 """Health surface: the one readiness/overload verdict for a serving
-process — the port of ``deeplearning_tpu/serve/health.py`` (single
-model; the zoo verdict comes with the zoo slice).
+process — the port of ``deeplearning_tpu/serve/health.py``: ``health``
+for one engine, ``zoo_health`` for a multi-tenant zoo process.
 
 ``GET /healthz`` answers from state the stack already tracks — no device
 work, no synchronisation, safe to poll at any rate:
@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from ..elastic.supervisor import WedgeDetector
 
-__all__ = ["health", "DispatchWatch"]
+__all__ = ["health", "zoo_health", "DispatchWatch"]
 
 
 class DispatchWatch:
@@ -83,6 +83,64 @@ def health(engine, batcher=None,
         payload["e2e_ms_p99"] = batcher.telemetry.latency_ms("e2e")["p99"]
         payload["rejected"] = batcher.telemetry.rejected
         payload["dispatched"] = batcher.dispatched
+    if wedged:
+        payload["stalled_s"] = round(wedge.stalled_for(), 3)
+    return (200 if status == "ready" else 503), payload
+
+
+def zoo_health(zoo, batcher=None,
+               wedge: Optional[DispatchWatch] = None
+               ) -> Tuple[int, Dict[str, Any]]:
+    """(http_status, payload) for a multi-tenant zoo process.
+
+    200 "ready" when no tenant is mid-load and no lane sheds — cold
+    (registered/evicted) tenants do NOT block readiness, because a
+    request for one triggers a hot-load rather than an error. 503
+    "warming" while any load is in flight, "degraded" while any lane
+    sheds, "draining" while the batcher flushes toward a requeue,
+    "wedged" (precedence) on a frozen dispatch stream. The
+    payload carries the full per-model state table (warm/evicted/
+    loading, bytes, quotas, queue depths) so per-tenant posture is
+    diagnosable from the probe alone. Pure host reads."""
+    zs = zoo.stats()
+    models: Dict[str, Any] = {}
+    any_loading = False
+    any_shed = False
+    for alias, row in zs["models"].items():
+        entry = dict(row)
+        if batcher is not None:
+            depth = batcher.lane_depth(alias)
+            entry["queue_depth"] = depth
+            entry["shed"] = zoo.admission_for(alias).overloaded(depth)
+            any_shed = any_shed or entry["shed"]
+            lane_tel = batcher.lane_telemetry(alias)
+            if lane_tel is not None:
+                entry["e2e_ms_p99"] = lane_tel.latency_ms("e2e")["p99"]
+                entry["rejected"] = lane_tel.rejected
+        any_loading = any_loading or row["state"] == "loading"
+        models[alias] = entry
+    wedged = wedge is not None and wedge.verdict() == "wedged"
+    draining = bool(getattr(batcher, "draining", False))
+    standby = bool(getattr(batcher, "standby", False))
+    status = "wedged" if wedged else (
+        "draining" if draining else (
+            "standby" if standby else (
+                "warming" if any_loading else (
+                    "degraded" if any_shed else "ready"))))
+    payload: Dict[str, Any] = {
+        "status": status,
+        "standby": standby,
+        "zoo": {k: zs[k] for k in ("registered", "resident", "loads",
+                                   "evictions", "rejected_loads",
+                                   "alert_frac")},
+        "models": models,
+        "wedged": wedged,
+        "draining": draining,
+        "drained": bool(getattr(batcher, "drained", False)),
+    }
+    if batcher is not None:
+        payload["queue_depth"] = batcher.queue_depth
+        payload["dispatched"] = getattr(batcher, "dispatched", 0)
     if wedged:
         payload["stalled_s"] = round(wedge.stalled_for(), 3)
     return (200 if status == "ready" else 503), payload

@@ -46,7 +46,7 @@ those three itself.
 Families: RetinaNet, YOLOX, FCOS, YOLOv5 and Faster R-CNN, whose step
 launches the proposals' NMS (K3 on the card) once over the batch between
 its two forwards. ``train.eval_tta`` raises a ``ValueError`` naming ROADMAP
-Queue 1 item 6 (which brings ``ops/tta.py``).
+Queue 1 item 6b (which brings ``ops/tta.py``).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class DetTrainCfg:
     freeze: str = ""                  # comma-separated flax-path patterns
     seed: int = 0
     eval_score_thresh: float = 0.3
-    eval_tta: bool = False            # item 6
+    eval_tta: bool = False            # item 6b
     multiscale: bool = False          # bucketed random resize
     multiscale_min: float = 0.75      # bucket range as ratios of image_size
     multiscale_max: float = 1.25
@@ -149,7 +149,7 @@ def synthetic_boxes(n: int, size: int, num_classes: int, max_gt: int,
 def _refuse_later_items(cfg) -> None:
     """Options of later ROADMAP items raise before anything is built."""
     if cfg.train.eval_tta:
-        raise ValueError("train.eval_tta comes with ROADMAP Queue 1 item 6 "
+        raise ValueError("train.eval_tta comes with ROADMAP Queue 1 item 6b "
                          "(ops/tta.py)")
 
 

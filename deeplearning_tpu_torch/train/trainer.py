@@ -34,10 +34,18 @@ The robust half, as in JAX:
 - ``async_checkpoint``: ``CheckpointManager(async_save=True)``; the
   ``ckpt_corrupt`` fault garbles a committed step.
 
+With observability on (``obs``), as in JAX: an ``HbmWatermark`` samples
+the card's memory reading every ``hbm_sample_s`` from its own thread
+(``hbm_alert_frac`` arms its alert), the metrics registry
+(``obs/metrics.py``) takes the lagged train scalars, the feed's stats and
+the rollbacks, and ``metrics_port`` serves it as ``/metrics``,
+``/metrics.json`` and ``/healthz`` (``"auto"``: the port in
+``DLTPU_METRICS_PORT``, if any; 0 picks a free one; None off) beside the
+loop, advertised in ``DLTPU_ENDPOINT_FILE`` when set. The scrape reads
+the host copies the log line reads: it adds no fetch from the card.
+
 What the JAX Trainer takes and this one does not, and the slice that
 brings it (ROADMAP Queue 1):
-- ``metrics_port`` (the ``/metrics`` scrape server), ``hbm_sample_s`` and
-  ``hbm_alert_frac`` (the device-memory sampler): item 6;
 - ``weight_update`` (ZeRO-1 and the topology sidecar): item 7.
 Fixed here, where the JAX Trainer takes an option: a checkpoint every
 epoch (``save_every_epochs``), ``best`` by ``top1`` (``best_metric``),
@@ -74,6 +82,7 @@ from ..elastic import heartbeat as hb
 from ..elastic.preempt import (Preempted, PreemptionGuard,
                                agree_preempt_step)
 from ..obs import flight, spans
+from ..obs import metrics as obs_metrics
 from ..obs.spans import span, step_span
 from . import recovery as recovery_mod
 from .async_metrics import DeferredMetrics, fetch_scalars
@@ -139,6 +148,9 @@ class Trainer:
         heartbeat="auto",
         recovery=None,
         strict=None,
+        hbm_sample_s: float = 0.25,
+        hbm_alert_frac: Optional[float] = None,
+        metrics_port="auto",
     ):
         self.state = state
         # strict mode: "transfers" arms the sync guard around every step
@@ -178,6 +190,24 @@ class Trainer:
         self.run_config = run_config
         self._obs_owns_tracer = False
         self._obs_started = False
+        # the memory sampler (with obs) and the scrape server: "auto"
+        # serves /metrics only when DLTPU_METRICS_PORT names a port; an
+        # int forces that port (0 = ephemeral); None / False disables
+        self.hbm_sample_s = hbm_sample_s
+        self.hbm_alert_frac = hbm_alert_frac
+        self._hbm = None
+        self.hbm_watermark: Dict[str, float] = {}
+        if metrics_port == "auto":
+            raw = os.environ.get("DLTPU_METRICS_PORT")
+            self.metrics_port = int(raw) if raw not in (None, "") else None
+        else:
+            # "is", not "in": 0 == False, and 0 asks for a free port (the
+            # JAX Trainer's membership test turns metrics_port=0 off)
+            self.metrics_port = (None if metrics_port is None
+                                 or metrics_port is False
+                                 else int(metrics_port))
+        self._metrics_server = None
+        self._owns_metrics_registry = False
         self.train_step = train_step
         # "auto" wraps a loader with a device (its host-to-card copy is
         # the loop's last blocking stage); an int wraps any loader at that
@@ -261,15 +291,49 @@ class Trainer:
             flight.configure(os.path.join(self.workdir, "flightrec.json"),
                              config=self._obs_config())
             flight.install_signal_handler()
+        from ..obs.xla import HbmWatermark
+        self._hbm = HbmWatermark(interval_s=self.hbm_sample_s,
+                                 alert_frac=self.hbm_alert_frac).start()
+        # the registry is on with obs (the pushes of _consume, the feed
+        # and the rollback need a home); the server only on a port
+        self._owns_metrics_registry = not obs_metrics.enabled()
+        obs_metrics.enable()
+        if self.metrics_port is not None and self._metrics_server is None:
+            self._metrics_server = obs_metrics.MetricsServer(
+                port=self.metrics_port,
+                healthz_fn=self._metrics_healthz).start()
+            obs_metrics.write_endpoint(self._metrics_server.url,
+                                       role="train")
+
+    def _metrics_healthz(self):
+        """Train-replica health, backed by the heartbeat's step/activity
+        watermark when one is armed."""
+        payload = {"status": "ready", **obs_metrics.replica_identity()}
+        if self._beat is not None:
+            payload["step"] = self._beat.step
+            payload["activity"] = self._beat.activity
+            payload["phase"] = self._beat.phase
+        return 200, payload
 
     def _obs_finish(self) -> None:
         if not self.obs_enabled:
             return
+        if self._hbm is not None:
+            self._hbm.stop()
+            self.hbm_watermark = self._hbm.watermark()
         tracer = spans.get_tracer()
         if tracer is not None and self.workdir:
             tracer.dump(os.path.join(self.workdir, "trace.json"))
         if self._obs_owns_tracer:
             spans.disable()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
+        reg = obs_metrics.get_registry()
+        if reg is not None and self.workdir:
+            reg.dump(os.path.join(self.workdir, "metrics_registry.json"))
+        if self._owns_metrics_registry:
+            obs_metrics.disable()
         self._obs_started = False      # a second train() re-arms
 
     # ---------------------------------------------------------- elastic
@@ -503,6 +567,9 @@ class Trainer:
                              self.host_step)
             if self.obs_enabled:
                 flight.record("feed", epoch=epoch, **stats)
+                for k, v in stats.items():
+                    if isinstance(v, (int, float)):
+                        obs_metrics.set_gauge(f"dltpu_feed_{k}", float(v))
             reset = getattr(self.train_loader, "reset_stats", None)
             if reset is not None:
                 reset()
@@ -558,6 +625,13 @@ class Trainer:
             f"{self.meters}")
         self.hub.scalars({f"train/{k}": v for k, v in host.items()},
                          meta["step"])
+        # the scrape surface: the same lagged host snapshot, no new fetch
+        if meta.get("step") is not None:
+            obs_metrics.set_gauge("dltpu_train_step", float(meta["step"]))
+        for k, v in host.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                safe = "".join(c if c.isalnum() else "_" for c in str(k))
+                obs_metrics.set_gauge(f"dltpu_train_{safe}", float(v))
 
     # ---------------------------------------------------------- recovery
     def _rollback(self, d: _DivergenceDetected) -> None:
@@ -593,6 +667,7 @@ class Trainer:
             + f"lr x{pol.lr_decay} for {pol.cooldown_steps} steps "
             f"({len(self._recovery.recovery_steps)}/{pol.max_recoveries} "
             f"recoveries used)")
+        obs_metrics.inc("dltpu_recovery_rollbacks_total")
         if self.obs_enabled:
             flight.record("recovery", step=bad_step,
                           anchor_step=anchor_step, loss=host.get("loss"),

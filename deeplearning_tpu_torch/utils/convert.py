@@ -20,6 +20,13 @@ Rules, per leaf of a tree of numpy arrays (flax names → port names):
 carries the statistics). ``flax_path`` maps a port name back to its flax
 path (what the optimizer masks are judged on), and ``from_optax_state``
 carries an optax optimizer state across.
+
+The other way round, ``variable_names`` lists the tensors of a module
+that are leaves of its flax variable tree (parameters and BatchNorm
+statistics, not the port's own constant buffers), and ``to_flax_order`` /
+``from_flax_order`` view one of them in its flax element order (a kernel
+transposed back) and return: what the serving engine's int8 residency cuts
+its blocks over.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax_params", "load_npz",
-           "as_state_dict", "flax_path", "from_optax_state"]
+           "as_state_dict", "flax_path", "from_optax_state",
+           "variable_names", "to_flax_order", "from_flax_order"]
 
 _INDEXED = re.compile(r"(.+)_(\d+)")
 
@@ -115,6 +123,43 @@ def flax_path(name: str, ndim: int) -> str:
         leaf = "kernel" if ndim >= 2 else "scale"
     leaf = {v: k for k, v in _STATS.items()}.get(leaf, leaf)
     return "/".join(parts + [leaf])
+
+
+def variable_names(module: torch.nn.Module) -> list:
+    """The ``state_dict`` names of ``module`` that are leaves of its flax
+    variable tree: every parameter and the BatchNorm ``running_mean`` /
+    ``running_var``. The port's own buffers (relative-position indices,
+    shift masks, ``num_batches_tracked``) have no flax leaf."""
+    buffers = {n for n, _ in module.named_buffers()
+               if n.rsplit(".", 1)[-1] in _STATS.values()}
+    params = {n for n, _ in module.named_parameters()}
+    return [n for n in module.state_dict() if n in params or n in buffers]
+
+
+def to_flax_order(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A view of port tensor ``name`` whose row-major element order is its
+    flax leaf's: a 2-D ``weight`` (Dense ``(out, in)``, or a patch
+    projection) transposed back to ``(in, out)``, a 4-D conv ``weight``
+    OIHW back to HWIO; any other tensor as it is."""
+    if name.rsplit(".", 1)[-1] == "weight":
+        if t.dim() == 2:
+            return t.t()
+        if t.dim() == 4:
+            return t.permute(2, 3, 1, 0)
+    return t
+
+
+def from_flax_order(name: str, flat: torch.Tensor,
+                    shape: Tuple[int, ...]) -> torch.Tensor:
+    """The inverse of ``to_flax_order``: a view, of port shape ``shape``,
+    of the elements of ``flat`` laid out in flax order."""
+    if name.rsplit(".", 1)[-1] == "weight":
+        if len(shape) == 2:
+            return flat.view(shape[1], shape[0]).t()
+        if len(shape) == 4:
+            o, i, h, w = shape
+            return flat.view(h, w, i, o).permute(3, 2, 0, 1)
+    return flat.view(shape)
 
 
 def from_optax_state(state: Any) -> Any:

@@ -1084,3 +1084,122 @@ def test_balanced_sample_keeps_its_counts_on_the_card(cuda_device, batch,
                                                   batch - n_pos))
     assert not (pos & ~pos_c).any() and not (neg & ~neg_c).any()
 
+
+
+# --------------------------------------------------- the serving zoo (item 6)
+def _micro_engine(device, alias, quant="fp32", precompile=True):
+    """A float32 micro ViT (flash_hb) or micro Swin (the fused K2) engine,
+    weights from seed 0."""
+    from deeplearning_tpu_torch import models  # noqa: F401  (registry)
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.serve import InferenceEngine
+    name, size, kw = {
+        "vit": ("vit_micro_patch4_56", 56, {"attn_fn": get_attn_fn("flash_hb")}),
+        "vit_plain": ("vit_micro_patch4_56", 56, {}),
+        "swin": ("swin_micro_patch2_window7", 28, {"use_pallas": True}),
+        "swin_plain": ("swin_micro_patch2_window7", 28, {})}[alias]
+    model = MODELS.build(name, num_classes=10, dtype=torch.float32,
+                         img_size=size,
+                         generator=torch.Generator().manual_seed(0), **kw)
+    return InferenceEngine(name, model=model, image_size=size,
+                           batch_buckets=(1, 4), device=device,
+                           weight_quant=quant, precompile=precompile)
+
+
+@pytest.mark.cuda
+def test_int8_dequantize_on_the_card_equals_the_cpu(cuda_device):
+    """The card's int8 payloads, scales and dequantized weights equal the
+    plain CPU engine's bit for bit (one launch: q * s), and its answers
+    stay within 1e-4 of the float32 engine's on the same card."""
+    card = _micro_engine(cuda_device, "vit", "int8")
+    cpu = _micro_engine("cpu", "vit", "int8", precompile=False)
+    assert torch.equal(card._int8.q.cpu(), cpu._int8.q)
+    assert torch.equal(card._int8.s.cpu(), cpu._int8.s)
+    want = cpu.dequantized_state_dict()
+    got = card.dequantized_state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    x = torch.randn(4, 56, 56, 3, generator=torch.Generator().manual_seed(1))
+    fp32 = _micro_engine(cuda_device, "vit")
+    np_x = x.numpy()
+    assert abs(card.infer(np_x) - fp32.infer(np_x)).max() < 5e-2
+    assert card.variables_nbytes() * 3.5 < fp32.variables_nbytes()
+
+
+@pytest.mark.cuda
+def test_eviction_gives_the_memory_back(cuda_device):
+    """A zoo eviction drops the engine and empties the allocator's cache:
+    the card's used bytes (mem_get_info) fall by at least 90% of the
+    tenant's variables_nbytes()."""
+    from deeplearning_tpu_torch.serve import ModelZoo
+    zoo = ModelZoo()
+    zoo.register("vit", "vit_base_patch16_224", attn="flash_hb",
+                 batch_buckets=(1,), device=cuda_device)
+    assert zoo.load("vit", wait=True) == "warm", zoo.load_errors
+    nbytes = zoo.engine("vit").variables_nbytes()
+    torch.cuda.synchronize()
+    free_before, _ = torch.cuda.mem_get_info()
+    assert zoo.evict("vit")
+    free_after, _ = torch.cuda.mem_get_info()
+    assert free_after - free_before >= 0.9 * nbytes
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_from_a_zoo_load_thread_match_plain(cuda_device):
+    """Engines built and warmed on the zoo's ``zoo-load-*`` threads launch
+    K1 and K2 there (their counters rise during the load) and answer as
+    the plain-attention engines on the same weights."""
+    import functools
+    import numpy as np
+    from deeplearning_tpu_torch.serve import MicroBatcher, ModelZoo
+    zoo = ModelZoo()
+    for alias, size in (("vit", 56), ("swin", 28)):
+        zoo.register(alias, engine_factory=functools.partial(
+            _micro_engine, cuda_device, alias), batch_buckets=(1, 4),
+            image_size=size)
+    before = {**fa.launch_counts(), **wa.launch_counts()}
+    for alias in ("vit", "swin"):
+        assert zoo.load(alias, wait=True) == "warm", zoo.load_errors
+    torch.cuda.synchronize()
+    after = {**fa.launch_counts(), **wa.launch_counts()}
+    assert after["flash_attn_fwd_hb"] > before["flash_attn_fwd_hb"]
+    assert after[wa.KERNEL_NAME] > before[wa.KERNEL_NAME]
+    g = torch.Generator().manual_seed(2)
+    with MicroBatcher(zoo=zoo, max_wait_ms=1.0) as mb:
+        for alias, size in (("vit", 56), ("swin", 28)):
+            x = torch.randn(4, size, size, 3, generator=g).numpy()
+            got = [mb.submit(im, model=alias).result(60.0) for im in x]
+            want = _micro_engine(cuda_device, f"{alias}_plain").infer(x)
+            assert abs(np.stack(got) - want).max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_hbm_snapshot_adds_no_sync(cuda_device):
+    """The zoo reads the card's memory before every load and the sampler
+    every interval: neither may synchronise (work in flight on the
+    stream)."""
+    from deeplearning_tpu_torch.obs.xla import HbmWatermark, hbm_snapshot
+    x = torch.randn(4096, 4096, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = x @ x                                  # in flight
+        snap = hbm_snapshot(alert_frac=0.99)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dev = snap["devices"][0]
+    assert 0 < dev["bytes_in_use"] <= dev["bytes_limit"]
+    assert dev["peak_bytes_in_use"] >= x.numel() * 4
+    assert snap["live_arrays"]["nbytes"] >= 2 * x.numel() * 4
+    wm = HbmWatermark(interval_s=0.01).start()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(20):
+            y = y @ x
+        import time
+        time.sleep(0.05)
+    finally:
+        wm.stop()
+        torch.cuda.set_sync_debug_mode(0)
+    assert wm.samples >= 2 and wm.peak_bytes_in_use >= dev["bytes_in_use"]

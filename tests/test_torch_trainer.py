@@ -275,6 +275,48 @@ def test_hooks_prefetch_precompile_and_throughput(jparams):
         trainer.throughput(n_iters=1)
 
 
+def test_metrics_port_answers_during_train(jparams, tmp_path, monkeypatch):
+    """``metrics_port=0`` serves /metrics, /metrics.json and /healthz
+    beside the loop (the lagged train scalars, the feed's stats, the
+    memory sampler's gauges), advertised in DLTPU_ENDPOINT_FILE, and
+    stops with the run; the losses are the run's without it."""
+    import urllib.request
+    from deeplearning_tpu_torch.obs import metrics as tmetrics
+    ep = tmp_path / "endpoint.json"
+    monkeypatch.setenv("DLTPU_ENDPOINT_FILE", str(ep))
+    trainer = _port_trainer(jparams, obs=True, metrics_port=0,
+                            hbm_sample_s=0.01, prefetch=2, heartbeat=None,
+                            preemptible=False, log_every=2)
+    seen = {}
+
+    def scrape(t, **kw):
+        if t.epoch == 1 and "text" not in seen:
+            url = json.loads(ep.read_text())["url"]
+            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                seen["text"] = r.read().decode()
+            with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                seen["health"] = json.loads(r.read())
+            seen["url"] = url
+    trainer.callbacks.register("before_iter", scrape)
+    trainer.train()
+    text = seen["text"]
+    assert "dltpu_train_step" in text and "dltpu_train_loss" in text
+    assert "dltpu_hbm_peak_bytes_in_use" in text
+    assert "dltpu_feed_" in text
+    assert seen["health"]["status"] == "ready"
+    assert trainer.hbm_watermark["hbm_samples"] >= 1
+    assert tmetrics.get_registry() is None        # the Trainer's own, gone
+    with pytest.raises(OSError):
+        urllib.request.urlopen(seen["url"] + "/metrics", timeout=2)
+    plain = _port_trainer(jparams, heartbeat=None, preemptible=False,
+                          log_every=2, prefetch=2)
+    plain.train()
+    assert trainer.meters.loss.avg == plain.meters.loss.avg
+    want = plain.state.model.state_dict()
+    assert all(torch.equal(v, want[k])
+               for k, v in trainer.state.model.state_dict().items())
+
+
 # ---------------------------------------------------------------- the CLI
 CLI_TINY = ["train.device=cpu", "model.name=vit_micro_patch4_56",
             "data.image_size=16", "data.channels=3", "data.n_train=16",
