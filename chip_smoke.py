@@ -298,7 +298,41 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``metrics_port=0``, ``hbm_sample_s=0.05`` and ``strict=transfers``:
    ``/metrics`` scraped mid-run (train step, loss and the sampler's
    gauge), the sampler's peak at least ``max_memory_allocated``, and every
-   loss equal to the same run's without the sampler and the server.
+   loss equal to the same run's without the sampler and the server;
+36. checkpoints and new sizes: ViT-B/16 trained 2 steps through the
+   Trainer with EMA (phase 19's set-up), its step directory served by
+   ``hub.serve`` (buckets 1/8): the weights are the EMA's and every answer
+   equals an engine's built from the same EMA weights in memory (bit for
+   bit). The checkpoint restored by ``restore_variables`` and loaded by
+   ``surgical_load(default_resize_fn)`` into ViT-B/16 at 384² (pos_embed
+   resized to 577 tokens: K1 at N = 577, its last key tile one row), served
+   at buckets 1 and 8 against a naive-attention engine on the same weights
+   (log-probabilities within 0.05); a Swin-T window-7 224² state loaded
+   into Swin-T at 384² with window 12 (the 12 bias tables resized 13² ->
+   23²: K2 at N = 144, d = 32), served at bucket 8 against the unfused
+   engine. K1 (B = 8 and 1) and K2 (Swin-T 384²'s four stages at batch 8)
+   against their plain versions at those shapes (bf16, 2e-2), and timed by
+   graph replay beside their bounds; restore and surgical-load seconds;
+37. classification flip-TTA: the checkpoint served with ``tta=True``
+   (buckets 1/8): K1 24 launches a TTA forward, trace and compile counts at
+   2, answers the mean of the plain engine's softmax over the images and
+   their mirror images (1e-6); latency at buckets 1 and 8 against the
+   plain engine, in turns;
+38. YOLOX-S at 640² through ``train.detection`` (4 steps on 32 images)
+   scored with ``train.eval_tta`` at score 0.01: the plain evaluation and
+   the TTA one (views 640, 544 flipped and 416), K3 once a predict call;
+   the TTA call's 32 x 18 018 candidates through K3 and through the plain
+   sweep, equal keep sets; K3 there by graph replay beside its bound; the
+   two predict calls in turns (CUDA events);
+39. the supervised serve CLI: ``python -m deeplearning_tpu_torch.serve
+   --ckpt <step> --http 0`` in a process of its own under
+   ``DLTPU_HEARTBEAT``, ``DLTPU_STANDBY=1``, ``DLTPU_TRACE=1`` and
+   ``DLTPU_FAULTS=preempt_replica:0@step:3``: 503 until ``/admin/promote``,
+   then three answers with the heartbeat's step following the dispatches,
+   exit 75 with ``trace.json`` holding the three dispatch spans; again
+   with ``crash_replica:0@step:1``: an exit code neither 0 nor 75; then the
+   CLI in stdin mode in this process: a seeded PNG answers as the ``.npy``
+   preprocessed from it.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -309,7 +343,9 @@ flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
 phase 6's (dQ, dK/dV), and those of phases 32-35 (the zoo's loads and
 traffic, the Trainer of phase 35). The K2 entry adds the launches of
 phases 22-26 and 33 to phase 9's, each counted from zero just before its
-run.
+run. Phases 36-39 add theirs (the Trainer's, the served forwards' at 224²
+and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
+phase 38); the subprocesses' launches are not counted.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -764,9 +800,42 @@ def main() -> int:
     # ----- 35. ViT-B/16 Trainer: /metrics and the memory sampler beside it
     phase(35, started)
     _add_launches(kernels, _trainer_metrics(fa))
+    log(f"chip_smoke: phases 32-35 in {time.perf_counter() - t32:.1f}s")
+
+    # ------ 36. a Trainer checkpoint served; ViT-B/16 and Swin-T at 384²
+    phase(36, started)
+    t36 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "smoke_serve")
+    restored = _restore_and_resize(fa, wa, nms_ops, dev, g, args.seed,
+                                   os.path.join(serve_dir, "train"))
+    _add_launches(kernels, restored["launches"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], restored["k1_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], restored["k2_err"])
+
+    # ---------------------------------- 37. classification flip-TTA
+    phase(37, started)
+    _add_launches(kernels, _classify_tta(fa, wa, nms_ops, dev, args.seed,
+                                         restored["step_dir"],
+                                         restored.pop("served")))
+    torch.cuda.empty_cache()
+
+    # ------------ 38. YOLOX-S scored with train.eval_tta (K3 at 18 018)
+    phase(38, started)
+    launched, mismatches = _yolox_eval_tta(nms_ops, dev, args.seed)
+    k3["launches"] += launched
+    k3["max_abs_err"] += mismatches
+
+    # ------------------------------- 39. the supervised serve CLI
+    phase(39, started)
+    _add_launches(kernels, _supervised_cli(
+        fa, wa, nms_ops, dev, args.seed, restored["step_dir"],
+        os.path.join(serve_dir, "cli")))
+    shutil.rmtree(serve_dir, ignore_errors=True)
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 32-35 in {time.perf_counter() - t32:.1f}s; "
+    log(f"chip_smoke: phases 36-39 in {time.perf_counter() - t36:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -4221,6 +4290,560 @@ def _trainer_metrics(fa) -> dict:
         f"{TRAINER_LOSS_TOL})")
     check(len(losses["served"]) == len(losses["plain"]) == 2 * TRAINER_STEPS
           and diff <= TRAINER_LOSS_TOL, "the losses equal the plain run's")
+    return counts
+
+
+# -------- phases 36-39: checkpoints, new sizes, TTA and the supervised CLI
+SERVE_BUCKETS = (1, 8)
+BIG_SIZE = 384                    # ViT-B/16 and Swin-T reloaded at 384²
+BIG_TOKENS = (BIG_SIZE // 16) ** 2 + 1                # 577: K1's N
+BIG_WINDOW = 12                   # Swin-T at 384²: K2's N = 144
+# Swin-T's window attention at 384², window 12: windows an image, heads,
+# mask windows (stage 4 is one unshifted window)
+BIG_SWIN_STAGES = [(64, 3, 64), (16, 6, 16), (4, 12, 4), (1, 24, 0)]
+TTA_VIEWS = (640, 544, 416)       # yolox_tta's views of 640² (rounded)
+TTA_CANDIDATES = sum((s // 8) ** 2 + (s // 16) ** 2 + (s // 32) ** 2
+                     for s in TTA_VIEWS)                 # 18 018
+TTA_BATCH = 32                    # the TTA evaluation's one predict call
+PREEMPT_AT = 3                    # dispatches before the injected preempt
+
+
+def _add(total, counts) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _ckpt_trainer(fa, seed, workdir):
+    """Phase 36a: ViT-B/16 trained 2 steps through the Trainer (phase 19's
+    set-up, one epoch, EMA on, no eval), its step directory written.
+    Returns the step directory, the EMA and trained parameters (CPU) and
+    the K1 launches (counted from zero just before ``train()``)."""
+    import dataclasses
+    import shutil
+    import torch
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = _smoke_cfg(workdir, steps=2)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=1, ema=True))
+    trainer = cli.build(cfg, eval_every_epochs=2)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fa.launch_counts().items() if v}
+    step = trainer.ckpt.latest_step()
+    ema = {k: v.detach().cpu().clone()
+           for k, v in trainer.state.ema_params.items()}
+    params = {k: v.detach().cpu().clone()
+              for k, v in trainer.state.params.items()}
+    log(f"Trainer with EMA: 2 steps and a checkpoint in "
+        f"{time.perf_counter() - t0:.2f}s, step {step}, launches "
+        f"{json.dumps(counts)}")
+    want = {fa.KERNEL_NAMES[4]: 2 * DEPTH,
+            fa.BWD_KERNEL_NAMES["dq"][4]: 2 * DEPTH,
+            fa.BWD_KERNEL_NAMES["dkv"][4]: 2 * DEPTH}
+    check(counts == want, f"the Trainer's K1 launches == {want}")
+    del trainer
+    torch.cuda.empty_cache()
+    return os.path.join(workdir, "ckpt", str(step)), ema, params, counts
+
+
+def _check_k1_at(fa, dev, g, b, n) -> float:
+    """K1 (both heads-per-CTA) against its plain version at (b, 12, n,
+    64), bf16, q/k/v strided slices of one qkv: the largest error."""
+    import torch
+    qkv = torch.randn(b, n, 3, HEADS, HEAD_DIM, device=dev,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    worst = 0.0
+    for name, hpc in HPC_FOR.items():
+        out, lse = fa._attention(q, k, v, sm_scale=None, causal=False,
+                                 heads_per_cta=hpc)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        log(f"kernel-vs-plain {name} bf16 B={b} H={HEADS} N={n} "
+            f"D={HEAD_DIM}: max_abs_err {err:.3e} (tol 2e-2) lse "
+            f"{lse_err:.3e}")
+        check(err <= 2e-2 and lse_err <= 1e-3,
+              f"{name} disagrees with the plain version at N={n}")
+        worst = max(worst, err)
+    return worst
+
+
+def _time_k1_at(fa, dev, g, b, n) -> None:
+    """K1 (flash_hb's instantiation) at (b, 12, n, 64) bf16 by CUDA-graph
+    replay beside the plain version, SDPA and the bound."""
+    import torch
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    qkv = torch.randn(b, n, 3, HEADS, HEAD_DIM, device=dev,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = graph_ms(lambda: fa.attention_bnhd(q, k, v, heads_per_cta=4))
+    plain_ms = _time_ms(lambda: fa.flash_attention_reference(qt, kt, vt),
+                        iters=20, warmup=3)
+    sdpa_ms = graph_ms(lambda: torch.nn.functional.
+                       scaled_dot_product_attention(qt, kt, vt))
+    nbytes = fa.min_bytes(b, HEADS, n, HEAD_DIM, 2)
+    flops = fa.flops(b, HEADS, n, HEAD_DIM)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"timing flash_attn_fwd_hb B={b} H={HEADS} N={n} D={HEAD_DIM} "
+        f"bf16: kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} "
+        f"ms, sdpa {sdpa_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+
+
+def _check_and_time_k2_at(wa, dev, g, batch) -> float:
+    """K2 against its plain version at Swin-T 384²'s four stages (window
+    12: N = 144, d = 32) at ``batch`` images, bf16 (2e-2), masks as the
+    shifted blocks have them; each also by CUDA-graph replay beside the
+    plain version, masked SDPA and the bound. Returns the largest
+    error."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    n, d, worst = BIG_WINDOW * BIG_WINDOW, WIN_HEAD_DIM, 0.0
+    for stage, (wins, heads, nw) in enumerate(BIG_SWIN_STAGES, 1):
+        bw = batch * wins
+        qkv, bias, mask = _window_inputs(dev, g, bw, n, heads, d,
+                                         torch.bfloat16, nw)
+        out = wa.window_attention(qkv, bias, mask)
+        ref = wa.window_attention_plain(qkv, bias, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= 2e-2, f"window_attn_fwd disagrees at N={n} stage "
+                           f"{stage}")
+        worst = max(worst, err)
+        ms = graph_ms(lambda: wa.window_attention(qkv, bias, mask))
+        plain_ms = graph_ms(lambda: wa.window_attention_plain(qkv, bias,
+                                                              mask),
+                            calls=5, replays=3)
+        q, k, v = (x.transpose(1, 2).unflatten(0, (batch, wins))
+                   for x in qkv.unbind(2))
+        comb = (bias[None] if mask is None
+                else bias[None] + mask[:, None]).to(torch.bfloat16)
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=comb))
+        nbytes = wa.min_bytes(bw, n, heads, d, 2, nw)
+        flops = wa.flops(bw, n, heads, d)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"kernel-vs-plain window_attn_fwd bf16 BW={bw} N={n} "
+            f"heads={heads} d={d} nW={nw}: max_abs_err {err:.3e} (tol "
+            f"2e-2); timing: kernel {ms:.4f} ms (graph replay), plain "
+            f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.4f} ms "
+            f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    return worst
+
+
+def _restore_and_resize(fa, wa, nms_ops, dev, g, seed, workdir) -> dict:
+    """Phase 36: a Trainer checkpoint restored and served, and weights
+    loaded at another image size. ViT-B/16 trained 2 steps with EMA, its
+    step directory served by ``hub.serve`` (buckets 1/8, flash_hb): the
+    weights are the EMA's and the answers equal an engine built from the
+    same EMA weights in memory. The checkpoint restored by
+    ``restore_variables`` and loaded by ``surgical_load(default_resize_fn)``
+    into ViT-B/16 at 384² (K1 at N = 577), served at buckets 1 and 8
+    against a naive-attention engine on the same weights; a Swin-T window-7
+    224² state loaded into Swin-T at 384² with window 12 (K2 at N = 144,
+    d = 32), served at bucket 8 against the unfused engine. K1 and K2 held
+    against their plain versions at these shapes and timed. Returns the
+    launches (the Trainer's and the served forwards'), the step directory
+    and the restored engine for phases 37 and 39."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.core.checkpoint import (default_resize_fn,
+                                                         restore_variables,
+                                                         surgical_load)
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.serve import InferenceEngine
+    reset, read = _counters(fa, wa, nms_ops)
+    step_dir, ema, params, launches = _ckpt_trainer(fa, seed, workdir)
+    moved = sum(not torch.equal(ema[k], params[k]) for k in ema)
+    check(moved > 0, "the EMA differs from the trained parameters")
+    x = np.random.default_rng(seed + 36).normal(
+        size=(8, BIG_SIZE, BIG_SIZE, 3)).astype(np.float32)
+    x224 = np.ascontiguousarray(x[:, :224, :224])
+
+    # the checkpoint served, beside an engine on the same EMA in memory
+    reset()
+    t0 = time.perf_counter()
+    served = hub.serve(MODEL, ckpt=step_dir, image_size=224,
+                       batch_buckets=SERVE_BUCKETS, attn="flash_hb",
+                       device=dev)
+    serve_s = time.perf_counter() - t0
+    mem_model, _ = hub.load(MODEL, attn_fn=get_attn_fn("flash_hb"),
+                            device="cpu")
+    state = mem_model.state_dict()
+    state.update(ema)
+    mem_model.load_state_dict(state)
+    mem = InferenceEngine(MODEL, model=mem_model,
+                          batch_buckets=SERVE_BUCKETS, device=dev)
+    got = [served.infer(x224), served.infer(x224[:1])]
+    want = [mem.infer(x224), mem.infer(x224[:1])]
+    counts = read()
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    state = served.model.state_dict()
+    ema_served = all(torch.equal(state[k].cpu(), v) for k, v in ema.items())
+    log(f"hub.serve of the step directory: built, restored and warmed in "
+        f"{serve_s:.2f}s; weights == EMA {ema_served} ({moved} of "
+        f"{len(ema)} tensors differ from the trained parameters); answers "
+        f"vs the in-memory EMA engine max |dp| {diff:.3e} at buckets 8 "
+        f"and 1; {json.dumps(served.stats())}; launches "
+        f"{json.dumps(counts)}")
+    check(ema_served and diff == 0.0,
+          "the restored engine serves the EMA weights, bit-equal answers")
+    check(served.trace_count == served.compile_count == 2,
+          "trace_count == compile_count == len(buckets)")
+    check(counts == {fa.KERNEL_NAMES[4]: DEPTH * 8},
+          "K1 launches == 12 x 8 forwards (4 warmups, 4 requests)")
+    _add(launches, counts)
+    del mem, mem_model, state
+    torch.cuda.empty_cache()
+
+    # ViT-B/16 at 384²: restore + surgical load, served at buckets 1 and 8
+    init, _ = hub.load(MODEL, device="cpu")
+    t0 = time.perf_counter()
+    restored = restore_variables(step_dir, init.state_dict())
+    restore_s = time.perf_counter() - t0
+    big, _ = hub.load(MODEL, img_size=BIG_SIZE,
+                      attn_fn=get_attn_fn("flash_hb"), device="cpu")
+    t0 = time.perf_counter()
+    loaded = surgical_load(big.state_dict(), restored,
+                           resize_fn=default_resize_fn)
+    big.load_state_dict(loaded)
+    surgical_s = time.perf_counter() - t0
+    check(tuple(loaded["pos_embed"].shape) == (1, BIG_TOKENS, 768)
+          and all(torch.equal(loaded[k], v) for k, v in restored.items()
+                  if k != "pos_embed"),
+          "every tensor loaded, pos_embed resized to 577 tokens")
+    naive, _ = hub.load(MODEL, img_size=BIG_SIZE,
+                        attn_fn=get_attn_fn("naive"), device="cpu")
+    naive.load_state_dict(loaded)
+    reset()
+    eng = InferenceEngine(MODEL, model=big, image_size=BIG_SIZE,
+                          batch_buckets=SERVE_BUCKETS, device=dev)
+    p8, p1 = eng.infer(x), eng.infer(x[:1])
+    counts = read()
+    ref = InferenceEngine(MODEL, model=naive, image_size=BIG_SIZE,
+                          batch_buckets=(8,), device=dev)
+    size_gb = os.path.getsize(os.path.join(step_dir, "state.pt")) / 1e9
+    log(f"ViT-B/16 at {BIG_SIZE}²: restore_variables {restore_s:.3f}s (a "
+        f"{size_gb:.3f} GB step file, warm), surgical_load + "
+        f"load_state_dict {surgical_s:.3f}s; launches {json.dumps(counts)}")
+    check(counts == {fa.KERNEL_NAMES[4]: DEPTH * 4},
+          "K1 launches == 12 x 4 forwards at N = 577")
+    _compare(p8, ref.infer(x), f"ViT-B/16 {BIG_SIZE}² flash_hb vs naive, "
+                               f"bucket 8")
+    _compare(p1, ref.infer(x[:1]), f"ViT-B/16 {BIG_SIZE}² bucket 1 vs "
+                                   f"naive")
+    _add(launches, counts)
+    k1_err = max(_check_k1_at(fa, dev, g, 8, BIG_TOKENS),
+                 _check_k1_at(fa, dev, g, 1, BIG_TOKENS))
+    _time_k1_at(fa, dev, g, 8, BIG_TOKENS)
+    del eng, ref, big, naive, init, restored, loaded
+    torch.cuda.empty_cache()
+
+    # Swin-T window 7 at 224² into Swin-T window 12 at 384²
+    t0 = time.perf_counter()
+    small, _ = hub.load(SWIN, seed=seed, device="cpu")
+    engines, loaded, counts = {}, None, {}
+    for name, fused in (("fused", True), ("unfused", False)):
+        model, _ = hub.load(SWIN, img_size=BIG_SIZE, window=BIG_WINDOW,
+                            use_pallas=fused, seed=seed + 1, device="cpu")
+        if loaded is None:
+            loaded = surgical_load(model.state_dict(), small.state_dict(),
+                                   resize_fn=default_resize_fn)
+        model.load_state_dict(loaded)
+        if fused:
+            reset()
+        engines[name] = InferenceEngine(SWIN, model=model,
+                                        image_size=BIG_SIZE,
+                                        batch_buckets=(8,), device=dev)
+        if fused:
+            probs = engines[name].infer(x)
+            counts = read()
+    swin_s = time.perf_counter() - t0
+    tables = [k for k in loaded
+              if k.endswith("relative_position_bias_table")]
+    check(len(tables) == SWIN_BLOCKS and all(
+        loaded[k].shape[0] == (2 * BIG_WINDOW - 1) ** 2 for k in tables)
+        and all(torch.equal(loaded[k], v)
+                for k, v in small.state_dict().items() if k not in tables),
+        "Swin-T: 12 bias tables resized to 23², every other tensor copied")
+    log(f"Swin-T w{BIG_WINDOW} at {BIG_SIZE}² from the w7 224² state: "
+        f"loaded and both engines warmed in {swin_s:.2f}s; launches "
+        f"{json.dumps(counts)}")
+    check(counts == {wa.KERNEL_NAME: SWIN_BLOCKS * 2},
+          "K2 launches == 12 x 2 forwards at N = 144")
+    _compare(probs, engines["unfused"].infer(x),
+             f"Swin-T {BIG_SIZE}² w{BIG_WINDOW} fused vs unfused, bucket 8")
+    _add(launches, counts)
+    del engines, small
+    torch.cuda.empty_cache()
+    k2_err = _check_and_time_k2_at(wa, dev, g, 8)
+    log(f"phase 36: K1 at N={BIG_TOKENS} max_abs_err {k1_err:.3e}, K2 at "
+        f"N={BIG_WINDOW ** 2} {k2_err:.3e}")
+    return {"launches": launches, "step_dir": step_dir, "served": served,
+            "k1_err": k1_err, "k2_err": k2_err}
+
+
+def _classify_tta(fa, wa, nms_ops, dev, seed, step_dir, served) -> dict:
+    """Phase 37: the checkpoint served with ``tta=True`` (buckets 1/8):
+    two forwards a batch (K1 launches 24 a TTA forward); its answers the
+    mean of the plain engine's softmax over the images and their mirror
+    images (1e-6); latency at buckets 1 and 8 against the plain engine,
+    in turns."""
+    from deeplearning_tpu_torch import hub
+    reset, read = _counters(fa, wa, nms_ops)
+    x = np.random.default_rng(seed + 37).normal(
+        size=(8, 224, 224, 3)).astype(np.float32)
+    reset()
+    tta = hub.serve(MODEL, ckpt=step_dir, image_size=224,
+                    batch_buckets=SERVE_BUCKETS, attn="flash_hb",
+                    device=dev, tta=True)
+    got = [tta.infer(x), tta.infer(x[:1])]
+    counts = read()
+    want = [(served.infer(x) + served.infer(x[:, :, ::-1])) / 2,
+            (served.infer(x[:1]) + served.infer(x[:1, :, ::-1])) / 2]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    log(f"TTA engine: {json.dumps(tta.stats())}; vs the plain engine's "
+        f"mean over the flip: max |dp| {diff:.3e}; launches "
+        f"{json.dumps(counts)}")
+    check(diff <= 1e-6, "TTA == the mean of the two views' softmax")
+    check(tta.trace_count == tta.compile_count == 2,
+          "TTA keeps trace_count == compile_count == len(buckets)")
+    check(counts == {fa.KERNEL_NAMES[4]: 2 * DEPTH * 4},
+          "K1 launches == 24 x 4 TTA forwards")
+    _bucket_latency({"plain": served, "tta": tta}, ("plain", "tta"),
+                    MODEL + " TTA")
+    return counts
+
+
+def _yolox_eval_tta(nms_ops, dev, seed) -> tuple:
+    """Phase 38: YOLOX-S at 640² through ``train.detection`` (``build``, 4
+    steps, ``evaluate``) with ``train.eval_tta`` at score 0.01: the plain
+    evaluation, then the TTA one (``tta_predict_fn``: views 640, 544
+    flipped and 416, one NMS over 18 018 candidates an image), K3 once a
+    predict call. So early no candidate passes 0.01, so the kernel is
+    also held at score 0 on one TTA predict of the same images (every
+    candidate alive, 100 slots): its candidates through K3 and through the
+    plain sweep, equal keep sets, and K3 timed at both thresholds by graph
+    replay; the plain and TTA predict calls timed in turns. Returns (K3
+    launches of the evaluations, mismatching slots)."""
+    import contextlib
+    import io
+    import torch
+    from deeplearning_tpu_torch.core.config import load_config
+    from deeplearning_tpu_torch.core.experiment import get_exp
+    from deeplearning_tpu_torch.ops.tta import yolox_tta
+    from deeplearning_tpu_torch.train import detection as det
+    cfg = load_config(det.DetConfig(), None, get_exp(
+        exp_name=YOLOX).cli_overrides() + [
+        f"data.n_train={TTA_BATCH}", "train.steps=4",
+        "train.multiscale=false", "train.eval_tta=true",
+        "train.eval_score_thresh=0.01", f"train.seed={seed}"])
+    t0 = time.perf_counter()
+    r = det.build(cfg)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            losses = [float(m["loss"]) for _, _, m in det.train_steps(r)]
+    finally:
+        r.close()
+    train_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    nms_ops.reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        summary = det.evaluate(r)[0]
+        (tta_summary, _, calls), recorded = _record_nms(
+            nms_ops, lambda: det.evaluate(r, det.tta_predict_fn(r),
+                                          tag="TTA "))
+    torch.cuda.synchronize()
+    launched = nms_ops.launch_counts()["nms_greedy_sweep"]
+    log(printed.getvalue().rstrip())
+    shapes = [tuple(c[1].shape) for c in recorded]
+    log(f"YOLOX-S trained 4 steps in {train_s:.1f}s (losses "
+        f"{[round(v, 3) for v in losses]}); AP {summary['AP']:.4f}, TTA AP "
+        f"{tta_summary['AP']:.4f}; TTA NMS candidates {shapes}, K3 "
+        f"launches {launched} over 2 predict calls")
+    check(all(np.isfinite(losses)) and len(calls) == 1 and launched == 2,
+          "K3 once a predict call, plain and TTA")
+    check(shapes == [(TTA_BATCH, TTA_CANDIDATES)],
+          "one NMS over 32 x 18 018 candidates")
+    images = torch.from_numpy(r.arrays[0]).to(dev)
+    _, at_zero = _record_nms(nms_ops, lambda: yolox_tta(
+        r.model, images, score_thresh=0.0, max_det=YOLOX_MAX_DET))
+    bad = 0
+    for boxes, scores, th, mo, st in recorded + at_zero:
+        got = nms_ops.nms(boxes, scores, th, mo, st, impl="auto")
+        ref = nms_ops.nms(boxes, scores, th, mo, st, impl="blocked")
+        torch.cuda.synchronize()
+        bad += _keep_mismatches(ref, got)
+        alive = int((scores > st).sum())
+        log(f"K3 vs the plain sweep at {tuple(scores.shape)} (score > {st}, "
+            f"{alive} alive, max_out {mo}): {_keep_mismatches(ref, got)} "
+            f"mismatching slots, {int(got[1].sum())} kept")
+        ms, plain, bound, kept, ious = _time_k3(nms_ops, boxes, scores, st,
+                                                th, mo)
+        bytes_ms, ops_ms = bound
+        log(f"timing nms yolox_s TTA B={scores.shape[0]} "
+            f"N={scores.shape[1]} th={th} max_out={mo} score>{st}: "
+            f"nms_greedy_sweep {ms['kernel']:.4f} ms (graph replay), whole "
+            f"call {ms['call']:.4f} ms; plain sweep {plain['sweep']:.4f} "
+            f"ms, plain call {plain['call']:.4f} ms; bound "
+            f"{max(bytes_ms, ops_ms):.5f} ms "
+            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}); kept "
+            f"{kept}, greedy IoUs {ious}")
+    boxes, scores, th, mo, st = at_zero[0]
+    kept = nms_ops.nms(boxes, scores, th, mo, st, impl="auto")[1]
+    check(bad == 0 and int((scores > st).sum()) == scores.numel()
+          and 0 < int(kept.sum()) <= TTA_BATCH * YOLOX_MAX_DET,
+          "K3 == the plain sweep over 18 018 candidates an image")
+    fns = {"plain": r.predict_fn, "tta": det.tta_predict_fn(r)}
+    times = {"plain": [], "tta": []}
+    for name in ("plain", "tta", "tta", "plain") * 2:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fns[name](images)
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end))
+    log(f"YOLOX-S predict at batch {TTA_BATCH}, 640² (CUDA events, in "
+        f"turns, median of 4): " + json.dumps(
+            {k: round(statistics.median(v), 3) for k, v in times.items()}))
+    del r, images
+    torch.cuda.empty_cache()
+    return launched, bad
+
+
+def _serve_subprocess(argv, env, root):
+    return subprocess.Popen(
+        [sys.executable, "-m", "deeplearning_tpu_torch.serve", *argv],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _supervised_cli(fa, wa, nms_ops, dev, seed, step_dir, workdir) -> dict:
+    """Phase 39: the serve CLI under supervision. ``python -m
+    deeplearning_tpu_torch.serve --ckpt <step> --http 0`` in a process of
+    its own with ``DLTPU_HEARTBEAT``, ``DLTPU_STANDBY=1``,
+    ``DLTPU_TRACE=1`` and ``DLTPU_FAULTS=preempt_replica:0@step:3``: 503
+    until ``/admin/promote``, then 3 answers, the heartbeat's step
+    following the dispatches, exit 75 and ``trace.json`` written. A second
+    run with ``crash_replica:0@step:1`` exits with neither 0 nor 75. Then
+    the CLI in stdin mode in this process: a seeded PNG and the ``.npy``
+    preprocessed from it get the same answer (K1 counted: 12 x 3
+    forwards)."""
+    import contextlib
+    import io
+    from deeplearning_tpu_torch.elastic.heartbeat import read_heartbeat
+    from deeplearning_tpu_torch.serve import __main__ as serve_cli
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(workdir, exist_ok=True)
+    beat = os.path.join(workdir, "heartbeat.json")
+    trace = os.path.join(workdir, "trace.json")
+    for path in (beat, trace):
+        if os.path.exists(path):
+            os.remove(path)
+    argv = ["--model", MODEL, "--ckpt", step_dir, "--buckets", "1",
+            "--seed", str(seed), "--device", str(dev)]
+    env = dict(os.environ, DLTPU_HEARTBEAT=beat, DLTPU_STANDBY="1",
+               DLTPU_TRACE="1", DLTPU_TRACE_FILE=trace, DLTPU_REPLICA="0",
+               DLTPU_FAULTS=f"preempt_replica:0@step:{PREEMPT_AT}")
+    img = np.random.default_rng(seed + 39).normal(
+        size=(224, 224, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    proc = _serve_subprocess(argv + ["--http", "0"], env, root)
+    try:
+        url = json.loads(proc.stdout.readline())["serving"]
+        standby, _ = _post(url + "/predict", _npy(img))
+        promoted = _post(url + "/admin/promote")
+        steps, codes = [], []
+        for _ in range(PREEMPT_AT):
+            codes.append(_post(url + "/predict", _npy(img))[0])
+            deadline = time.monotonic() + 5.0
+            doc = read_heartbeat(beat)
+            while (doc is None or doc["step"] < len(codes)) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+                doc = read_heartbeat(beat)
+            steps.append(None if doc is None else doc["step"])
+        proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    final = read_heartbeat(beat)
+    with open(trace) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("name") == "serve/dispatch"]
+    log(f"supervised serve CLI: standby -> {standby}, promote -> "
+        f"{promoted}, predicts {codes}, heartbeat steps {steps} (final "
+        f"{final['step']}, phase {final['phase']!r}), exit "
+        f"{proc.returncode}, trace.json {len(spans)} dispatch spans, after "
+        f"{time.perf_counter() - t0:.2f}s")
+    check(standby == 503 and promoted[0] == 200 and promoted[1]["promoted"]
+          and codes == [200] * PREEMPT_AT
+          and steps == list(range(1, PREEMPT_AT + 1))
+          and final["step"] == PREEMPT_AT and proc.returncode == 75
+          and len(spans) == PREEMPT_AT,
+          "503 until promoted, answers, heartbeat, exit 75 with trace.json")
+
+    env = dict(os.environ, DLTPU_REPLICA="0",
+               DLTPU_FAULTS="crash_replica:0@step:1")
+    t0 = time.perf_counter()
+    proc = _serve_subprocess(argv + ["--http", "0"], env, root)
+    try:
+        url = json.loads(proc.stdout.readline())["serving"]
+        try:
+            code = _post(url + "/predict", _npy(img), timeout=60.0)[0]
+        except OSError as exc:        # the process died mid-answer
+            code = repr(exc)
+        proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"crash_replica: predict -> {code}, exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.2f}s")
+    check(proc.returncode not in (0, 75), "a crash exits neither 0 nor 75")
+
+    from PIL import Image
+    png = os.path.join(workdir, "request.png")
+    npy = os.path.join(workdir, "request.npy")
+    pixels = np.random.default_rng(seed + 40).integers(0, 256, (300, 260, 3))
+    Image.fromarray(pixels.astype(np.uint8)).save(png)
+    np.save(npy, serve_cli.load_request_images(png, 224, "classify")[0])
+    reset, read = _counters(fa, wa, nms_ops)
+    printed = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(f"{png}\n{npy}\n")
+    reset()
+    try:
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = serve_cli.main(argv)
+    finally:
+        sys.stdin = stdin
+    counts = read()
+    answers = [json.loads(line) for line in
+               printed.getvalue().strip().splitlines()]
+    log(f"stdin CLI: PNG {answers[0]['top'][:2]}, its .npy "
+        f"{answers[1]['top'][:2]}; launches {json.dumps(counts)}")
+    check(rc == 0 and len(answers) == 2
+          and answers[0]["top"] == answers[1]["top"],
+          "a PNG request answers as the .npy preprocessed from it")
+    check(counts == {fa.KERNEL_NAMES[4]: DEPTH * 3},
+          "K1 launches == 12 x 3 forwards (a warmup, two requests)")
     return counts
 
 

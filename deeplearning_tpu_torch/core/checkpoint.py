@@ -16,13 +16,16 @@ either whole or absent; ``max_to_keep`` keeps the newest steps.
 and on a mismatch or a failed load moves it aside and walks back to the
 newest intact one; ``auto_resume`` is that walk on a fresh state.
 ``save_pytree`` / ``load_pytree`` write one tree without a manager.
+``restore_variables`` reads either (or a manager's step directory) for
+inference, and ``surgical_load`` copies a state dict into another
+model's, resizing position tables for a new image size or window.
 
 ``save`` and ``restore`` take any object with ``state_dict()`` /
 ``load_state_dict()`` (``train.TrainState``, an ``nn.Module``) or a plain
 dict of tensors. A failed write is retried ``save_retries`` times, after
 a capped-exponential delay with jitter (the JAX manager's defaults), and
 each attempt is a ``ckpt_retry`` flight record. The topology sidecar
-comes with ROADMAP Queue 1 item 7, ``restore_variables`` with item 6b.
+comes with ROADMAP Queue 1 item 7.
 
 ``async_save=True`` takes the write off the loop: ``save`` queues a
 device-side copy of every tensor on the caller's stream (so the next
@@ -41,12 +44,14 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import shutil
 import threading
 import time
 import zlib
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..obs import flight
@@ -54,7 +59,9 @@ from ..obs import threads as obs_threads
 from .logging import create_logger
 
 __all__ = ["checksum_dir", "CheckpointManager", "save_pytree",
-           "load_pytree"]
+           "load_pytree", "restore_variables", "surgical_load",
+           "resize_vit_pos_embed", "resize_relative_position_bias",
+           "default_resize_fn"]
 
 _STATE_FILE = "state.pt"
 _TREE_FILE = "tree.pt"
@@ -468,14 +475,165 @@ def save_pytree(path: str, tree: Any) -> None:
     torch.save(_tree_of(tree), os.path.join(path, _TREE_FILE))
 
 
+def _read_tree(path: str, map_location: Any) -> Any:
+    path = os.path.abspath(path)
+    name = _TREE_FILE if os.path.exists(os.path.join(path, _TREE_FILE)) \
+        else _STATE_FILE
+    return torch.load(os.path.join(path, name), map_location=map_location,
+                      weights_only=True)
+
+
 def load_pytree(path: str, target: Optional[Any] = None) -> Any:
     """A tree written by ``save_pytree``, or a manager's step directory;
     loaded into ``target`` (and returned) when it has
     ``load_state_dict``."""
-    path = os.path.abspath(path)
-    name = _TREE_FILE if os.path.exists(os.path.join(path, _TREE_FILE)) \
-        else _STATE_FILE
-    tree = torch.load(os.path.join(path, name),
-                      map_location=None if target is None
-                      else _map_location(target), weights_only=True)
+    tree = _read_tree(path, None if target is None
+                      else _map_location(target))
     return tree if target is None else _load_into(target, tree)
+
+
+def restore_variables(path: str, init_variables: Dict[str, torch.Tensor],
+                      prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The one reading of an inference checkpoint, as in JAX: a
+    TrainState-style tree (``TrainState.state_dict()``: ``params``,
+    ``ema_params``, ``buffers``) or a bare state dict at ``path`` (a
+    ``save_pytree`` directory or a manager's step directory), merged over
+    ``init_variables`` (the model's ``state_dict()``). ``ema_params`` win
+    when present and ``prefer_ema``; the BatchNorm statistics (the
+    ``buffers``) come from the checkpoint when it has them (evaluating
+    with init-time statistics is silently wrong). Loaded on the CPU;
+    ``load_state_dict`` moves it to the model's device."""
+    restored = _read_tree(path, "cpu")
+    variables = dict(init_variables)
+    if isinstance(restored, dict) and (
+            "params" in restored or "ema_params" in restored):
+        params = restored.get("ema_params") if prefer_ema else None
+        if params is None:
+            params = restored.get("params")
+        variables.update(params)
+        stats = restored.get("buffers")
+        if stats:
+            # a TrainState's buffers include those the model computes
+            # itself and keeps out of its state dict (Swin's indices)
+            variables.update({k: v for k, v in stats.items()
+                              if k in variables})
+    else:
+        variables.update(restored)
+    return variables
+
+
+def surgical_load(
+    params: Dict[str, Any],
+    pretrained: Dict[str, Any],
+    rename: Optional[Dict[str, str]] = None,
+    drop: Optional[List[str]] = None,
+    resize_fn: Optional[Callable[[str, np.ndarray, tuple],
+                                 Optional[np.ndarray]]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Partial / renamed pretrained loading over state dicts (dotted
+    names): every ``pretrained`` tensor whose (renamed) name is in
+    ``params`` with the same shape is copied; ``drop`` holds regexes of
+    names to skip (a classifier head when the class count differs).
+    ``resize_fn(name, value, new_shape)`` may adapt a mismatched tensor (a
+    position table at another image size or window); when it returns
+    None the tensor keeps ``params``' value, as buffers the model computes
+    itself do. Returns a new state dict with ``params``' dtypes."""
+    flat_params = dict(params)
+    rename = rename or {}
+    drop_res = [re.compile(d) for d in (drop or [])]
+    logger = create_logger()
+    loaded, skipped = 0, []
+    for path, value in pretrained.items():
+        tgt_path = rename.get(path, path)
+        if any(r.search(tgt_path) for r in drop_res):
+            skipped.append(tgt_path)
+            continue
+        if tgt_path not in flat_params:
+            skipped.append(tgt_path)
+            continue
+        want = flat_params[tgt_path]
+        value = _as_numpy(value)
+        if value.shape != tuple(want.shape):
+            if resize_fn is not None:
+                value = resize_fn(tgt_path, value, tuple(want.shape))
+            if value is None or value.shape != tuple(want.shape):
+                skipped.append(tgt_path)
+                continue
+        flat_params[tgt_path] = torch.from_numpy(np.ascontiguousarray(
+            value)).to(want.dtype)
+        loaded += 1
+    if skipped:
+        logger.info(f"surgical_load: loaded {loaded}, skipped {len(skipped)}: "
+                    f"{skipped[:8]}{'...' if len(skipped) > 8 else ''}")
+    return flat_params
+
+
+def _as_numpy(value: Any) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+# the resize functions and _bilinear_resize are JAX's numpy, line for line,
+# so a table resized here is bit-equal to JAX's
+def resize_vit_pos_embed(path: str, value: np.ndarray,
+                         new_shape: tuple) -> Optional[np.ndarray]:
+    """``resize_fn`` for ViT ``pos_embed`` (1, 1+N, C): 2-D bilinear
+    resize of the patch-grid part, cls token kept."""
+    if "pos_embed" not in path or value.ndim != 3 or len(new_shape) != 3:
+        return None
+    n_old, n_new = value.shape[1] - 1, new_shape[1] - 1
+    g_old, g_new = int(round(n_old ** 0.5)), int(round(n_new ** 0.5))
+    if g_old * g_old != n_old or g_new * g_new != n_new:
+        return None
+    cls, grid = value[:, :1], value[:, 1:]
+    grid = grid.reshape(g_old, g_old, -1)
+    grid = _bilinear_resize(grid, g_new, g_new)
+    return np.concatenate(
+        [cls, grid.reshape(1, g_new * g_new, -1)], axis=1)
+
+
+def resize_relative_position_bias(path: str, value: np.ndarray,
+                                  new_shape: tuple) -> Optional[np.ndarray]:
+    """``resize_fn`` for Swin ``relative_position_bias_table``
+    ((2w-1)^2, H): bilinear resize over the (2w-1, 2w-1) offset grid when
+    the window size changes."""
+    if "relative_position_bias" not in path or value.ndim != 2 \
+            or len(new_shape) != 2 or value.shape[1] != new_shape[1]:
+        return None
+    s_old = int(round(value.shape[0] ** 0.5))
+    s_new = int(round(new_shape[0] ** 0.5))
+    if s_old * s_old != value.shape[0] or s_new * s_new != new_shape[0]:
+        return None
+    grid = value.reshape(s_old, s_old, -1)
+    grid = _bilinear_resize(grid, s_new, s_new)
+    return grid.reshape(s_new * s_new, -1)
+
+
+def default_resize_fn(path: str, value: np.ndarray,
+                      new_shape: tuple) -> Optional[np.ndarray]:
+    """Chain of the built-in interpolators; pass to ``surgical_load`` as
+    ``resize_fn=default_resize_fn`` for ViT / Swin size transfers."""
+    for fn in (resize_vit_pos_embed, resize_relative_position_bias):
+        out = fn(path, value, new_shape)
+        if out is not None:
+            return out
+    return None
+
+
+def _bilinear_resize(grid: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W, C) -> (h, w, C) bilinear, align_corners=True semantics."""
+    h_old, w_old = grid.shape[:2]
+    if (h_old, w_old) == (h, w):
+        return grid
+    ys = np.linspace(0, h_old - 1, h)
+    xs = np.linspace(0, w_old - 1, w)
+    y0 = np.clip(np.floor(ys).astype(int), 0, h_old - 1)
+    y1 = np.clip(y0 + 1, 0, h_old - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, w_old - 1)
+    x1 = np.clip(x0 + 1, 0, w_old - 1)
+    wy = (ys - y0)[:, None, None]
+    wx = (xs - x0)[None, :, None]
+    top = grid[y0][:, x0] * (1 - wx) + grid[y0][:, x1] * wx
+    bot = grid[y1][:, x0] * (1 - wx) + grid[y1][:, x1] * wx
+    return top * (1 - wy) + bot * wy

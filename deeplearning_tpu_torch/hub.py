@@ -5,11 +5,18 @@
                             seed=0)                  # on the card
     logits = model(images)                           # (B, 224, 224, 3)
 
+    engine = hub.serve("vit_base_patch16_224", ckpt="runs/x/ckpt/best",
+                       image_size=224, batch_buckets=(1, 8))
+    probs = engine.infer(images)                     # warmed, on the card
+
 ``weights`` takes a flattened ``.npz`` of a JAX variable tree (see
 ``utils/convert.py``; a detector's ``batch_stats`` go into its BatchNorm
-buffers), a flax tree, or a ``state_dict``; without it the weights are
-initialised from ``seed``. The model runs on ``cuda`` unless ``device``
-says otherwise, and raises when no card is visible.
+buffers), a flax tree, or a ``state_dict``; ``ckpt`` a checkpoint of the
+port (a ``save_pytree`` directory or a ``CheckpointManager`` step),
+restored by ``core.checkpoint.restore_variables`` (EMA weights first
+unless ``prefer_ema=False``); without either the weights are initialised
+from ``seed``. The model runs on ``cuda`` unless ``device`` says
+otherwise, and raises when no card is visible.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 
 from .core.device import resolve_device
 
-__all__ = ["load", "list_models", "model_kwargs"]
+__all__ = ["load", "list_models", "model_kwargs", "serve"]
 
 
 def list_models(filter: str = "") -> list:
@@ -59,22 +66,42 @@ def model_kwargs(name: str, attn: str = "flash_hb",
 
 
 def load(name: str, *, num_classes: int = 1000, weights: Any = None,
+         ckpt: Optional[str] = None, prefer_ema: bool = True,
          seed: int = 0,
          device: Optional[Union[str, torch.device]] = None,
          **model_kw) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
     """Build a registry model (initialised from ``seed``), optionally load
-    ``weights``, move it to ``device`` once and put it in eval mode.
-    Returns ``(module, state_dict)``; the state holds the BatchNorm
-    buffers (running statistics) beside the parameters."""
+    ``weights`` or restore ``ckpt``, move it to ``device`` once and put it
+    in eval mode. Returns ``(module, state_dict)``; the state holds the
+    BatchNorm buffers (running statistics) beside the parameters."""
     from . import models  # noqa: F401  (registers the factories)
     from .core.registry import MODELS
     from .utils.convert import as_state_dict
 
+    if weights is not None and ckpt:
+        raise ValueError("pass weights or ckpt, not both")
     dev = resolve_device(device)
     model = MODELS.build(name, num_classes=num_classes,
                          generator=torch.Generator().manual_seed(seed),
                          **model_kw)
     if weights is not None:
         model.load_state_dict(as_state_dict(weights, like=model))
+    if ckpt:
+        from .core.checkpoint import restore_variables
+        model.load_state_dict(restore_variables(
+            ckpt, model.state_dict(), prefer_ema=prefer_ema))
     model = model.to(dev).eval()
     return model, model.state_dict()
+
+
+def serve(name: str, *, num_classes: int = 1000,
+          ckpt: Optional[str] = None, image_size: int = 224,
+          batch_buckets: Tuple[int, ...] = (1, 8, 32, 128),
+          **engine_kw):
+    """One-line serving session: a warmed ``serve.InferenceEngine`` (every
+    bucket run once, nothing new built after this call). Wrap it in
+    ``serve.MicroBatcher`` for concurrent requests."""
+    from .serve import InferenceEngine
+    return InferenceEngine(name, num_classes=num_classes, ckpt=ckpt,
+                           image_size=image_size,
+                           batch_buckets=batch_buckets, **engine_kw)

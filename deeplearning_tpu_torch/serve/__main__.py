@@ -1,8 +1,12 @@
 """Inference server CLI of the port (``tools/serve.py``).
 
-  # stdin mode: one .npy/.npz path per line, one JSON answer per image
-  echo img.npy | python -m deeplearning_tpu_torch.serve \\
+  # stdin mode: one image / .npy / .npz path per line, one JSON answer
+  # per image
+  echo img.png | python -m deeplearning_tpu_torch.serve \\
       --model vit_base_patch16_224 --attn flash_hb
+  # a trained checkpoint (a Trainer step directory), with flip-TTA
+  echo img.jpg | python -m deeplearning_tpu_torch.serve \\
+      --model vit_base_patch16_224 --ckpt runs/x/ckpt/best --tta
   echo img.npy | python -m deeplearning_tpu_torch.serve \\
       --model swin_tiny_patch4_window7_224
   echo img.npy | python -m deeplearning_tpu_torch.serve \\
@@ -23,20 +27,37 @@
         "vit8": {"model": "vit_base_patch16_224", "weight_quant": "int8"},
         "det": {"model": "yolox_s", "image_size": 640}}'
 
-Requests are model-ready float32 arrays (H, W, 3) or (n, H, W, 3): an
-``.npy`` file, or an ``.npz`` with an ``images`` array. A classifier
-answers ``{"top": [[class, p], ...]}``; a detector (picked from the name,
-e.g. ``yolox_s``, ``fasterrcnn_resnet50_fpn``) answers ``{"detections":
-[{"box", "score", "label"}, ...]}`` with its valid rows only: the padded
+A stdin request is an image file (decoded by ``data/datasets.load_image``;
+a classifier's frame goes through ``classification_eval_transform``, a
+detector's is resized and divided by 255, as in ``tools/serve.py``) or a
+model-ready float32 array (H, W, 3) or (n, H, W, 3): an ``.npy`` file, or
+an ``.npz`` with an ``images`` array; frames of another size are resized
+(``load_request_images``). An HTTP request is an ``.npy`` body. A
+classifier answers ``{"top": [[class, p], ...]}``; a detector (picked
+from the name, e.g. ``yolox_s``, ``fasterrcnn_resnet50_fpn``) answers
+``{"detections": [{"box", "score", "label"}, ...]}`` with its valid rows
+only: the padded
 class −1 slots never leave the server. Labels are 0-based foreground
 classes for every family (``--num-classes`` of them; Faster R-CNN's head
 is built with a background class besides). Every request
 path goes through ``MicroBatcher.submit()``, so concurrent clients batch
 together; a full queue answers 429 with ``retry_after_s`` and a request
 past its deadline 504 (``X-Deadline-Ms`` tightens the deadline).
-Weights come from ``--weights`` (an ``.npz`` of a JAX parameter tree) or
-from ``--seed``. The model runs on the card; ``--device cpu`` runs it on
-the CPU.
+Weights come from ``--ckpt`` (a checkpoint of the port: a ``save_pytree``
+directory or a Trainer step directory, EMA weights first), ``--weights``
+(an ``.npz`` of a JAX parameter tree) or ``--seed``. ``--tta`` serves a
+classifier's flip-TTA. The model runs on the card; ``--device cpu`` runs
+it on the CPU.
+
+Supervision (the supervisor's contract with its children, as in JAX):
+``DLTPU_HEARTBEAT=<file>`` writes a heartbeat whose step is the batches
+dispatched; ``DLTPU_STANDBY=1`` starts a warm standby that answers 503
+until ``POST /admin/promote``; ``DLTPU_TRACE=1`` records the span timeline
+and dumps it on a graceful exit to ``DLTPU_TRACE_FILE`` (default
+``trace.json`` beside ``DLTPU_ENDPOINT_FILE``, else in the working
+directory). In HTTP mode a ``preempt_replica`` fault (``DLTPU_FAULTS``)
+drains the server and exits 75 (``elastic.preempt.EXIT_PREEMPTED``), and a
+``crash_replica`` fault records a flight event and exits 1 at once.
 
 ``--zoo`` (inline JSON or ``@file.json``, see ``parse_zoo_spec``) serves
 several tenants from one ``ModelZoo``: each hot-loads on its first request
@@ -53,27 +74,50 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import sys
 
 import numpy as np
 
 
-def load_request_images(path: str, size: int) -> np.ndarray:
-    """One request's model-ready (n, size, size, 3) float32 frames."""
+def _resize(imgs: np.ndarray, size: int) -> np.ndarray:
+    """(n, H, W, 3) frames to (n, size, size, 3) with the emulation of
+    ``jax.image.resize(..., "bilinear")`` (``train/multiscale.py``)."""
+    import torch
+
+    from ..train.multiscale import _resize_images
+    return _resize_images(torch.from_numpy(np.ascontiguousarray(imgs)),
+                          (size, size)).numpy()
+
+
+def load_request_images(path: str, size: int,
+                        task: str = "classify") -> np.ndarray:
+    """One request's model-ready (n, size, size, 3) float32 frames: an
+    ``.npz`` (its ``images``) or an ``.npy`` array as it is; an image file
+    through the classification eval transform, or for a detector resized
+    and divided by 255 (``tools/serve.py``'s frames); frames of another
+    size resized."""
     if path.endswith(".npz"):
         with np.load(path) as archive:
             imgs = archive["images"]
     elif path.endswith(".npy"):
         imgs = np.load(path, allow_pickle=False)
     else:
-        raise ValueError(f"{path}: requests are .npy or .npz arrays "
-                         "(image decoding comes with the data slice)")
+        from ..data.datasets import load_image
+        raw = np.asarray(load_image(path), np.float32)
+        if task == "detect":
+            imgs = raw[None] / 255.0
+        else:
+            from ..data.transforms import classification_eval_transform
+            fn = classification_eval_transform((size, size))
+            imgs = fn({"image": raw[None]})["image"]
     imgs = np.asarray(imgs, np.float32)
     if imgs.ndim == 3:
         imgs = imgs[None]
-    if imgs.shape[1:] != (size, size, 3):
-        raise ValueError(f"{path}: images {imgs.shape[1:]} != "
-                         f"({size}, {size}, 3)")
+    if imgs.ndim != 4 or imgs.shape[-1] != 3:
+        raise ValueError(f"{path}: images {imgs.shape} are not (n, H, W, 3)")
+    if imgs.shape[1:3] != (size, size):
+        imgs = _resize(imgs, size)
     return imgs
 
 
@@ -95,7 +139,8 @@ def format_answer(row, names, topk: int) -> dict:
 
 
 def serve_stdin(batcher, size: int, names, topk: int, timeout_s: float,
-                stream_in=None, stream_out=None) -> int:
+                stream_in=None, stream_out=None,
+                task: str = "classify") -> int:
     """Line protocol: path in, JSON out (one line per image; an .npz
     submits every row concurrently so they micro-batch together)."""
     from .admission import DeadlineExceeded, Rejected
@@ -106,7 +151,7 @@ def serve_stdin(batcher, size: int, names, topk: int, timeout_s: float,
         if not path:
             continue
         try:
-            images = load_request_images(path, size)
+            images = load_request_images(path, size, task)
             handles = [batcher.submit(img, timeout_s=timeout_s)
                        for img in images]
         except Rejected as r:
@@ -386,6 +431,9 @@ def serve_http(batcher, names, topk: int, timeout_s: float, port: int,
                          "/admin/{load,evict}/<model>"})
 
     server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+    # server_close waits for the handlers in flight: a drain (SIGTERM, a
+    # preemption) answers every request it admitted before the exit
+    server.daemon_threads = False
     url = f"http://127.0.0.1:{server.server_port}"
     # advertise the scrape endpoint when a supervisor asked for it
     obs_metrics.write_endpoint(url, role="serve")
@@ -481,6 +529,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "DLTPU_HBM_ALERT_FRAC or 0.9)")
     ap.add_argument("--num-classes", type=int, default=None,
                     help="head classes (default 1000, a detector 80)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint of the port: a save_pytree or Trainer "
+                         "step directory (EMA weights first)")
     ap.add_argument("--weights", default=None,
                     help=".npz of a JAX parameter tree (else --seed)")
     ap.add_argument("--seed", type=int, default=0)
@@ -505,6 +556,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nms-impl", default="auto",
                     help="detection NMS: auto (the CUDA kernel on the card), "
                          "pallas (the same), blocked, greedy")
+    ap.add_argument("--tta", action="store_true",
+                    help="classification flip-TTA (two forwards a batch)")
     ap.add_argument("--classes", default=None,
                     help="json mapping class index -> name")
     ap.add_argument("--http", type=int, default=None,
@@ -524,49 +577,104 @@ def main(argv=None) -> int:
     if args.zoo is not None and args.http is None:
         ap.error("--zoo requires --http (stdin mode is single-model)")
 
-    from ..obs import threads as obs_threads
+    from ..elastic import heartbeat as hb
+    from ..obs import spans
     from .batcher import MicroBatcher
+
+    # DLTPU_TRACE=1: the span timeline, dumped on a graceful exit (beside
+    # the endpoint file when supervised, one trace a replica workdir)
+    trace_path = None
+    if os.environ.get("DLTPU_TRACE"):
+        spans.enable()
+        ep = os.environ.get("DLTPU_ENDPOINT_FILE")
+        trace_path = os.environ.get("DLTPU_TRACE_FILE") or os.path.join(
+            os.path.dirname(ep) if ep else ".", "trace.json")
 
     engine = zoo = None
     if args.zoo is not None:
         zoo = build_zoo(parse_zoo_spec(args.zoo), args)
         print(json.dumps({"ready": zoo.stats()}), file=sys.stderr,
               flush=True)
+        task = "classify"          # a zoo serves HTTP only
     else:
         engine = _build_engine(args)
         print(json.dumps({"ready": engine.stats()}), file=sys.stderr,
               flush=True)
+        task = engine.task
     names = {}
     if args.classes:
         with open(args.classes) as f:
             names = {int(k): v for k, v in json.load(f).items()}
 
-    with MicroBatcher(engine, zoo=zoo, max_wait_ms=args.max_wait_ms,
-                      max_queue=args.max_queue,
-                      default_timeout_s=args.timeout_s) as batcher:
-        if args.http is None:
-            return serve_stdin(batcher, args.size, names, args.topk,
-                               args.timeout_s)
-        server = serve_http(batcher, names, args.topk, args.timeout_s,
-                            args.http, args.wedge_deadline_s)
-        import signal
+    # DLTPU_HEARTBEAT=<file>: the dispatch loop advances the activity
+    # watermark, so a wedged replica is told from a slow one
+    beat = writer = None
+    beat_path = os.environ.get(hb.ENV_VAR)
+    if beat_path:
+        beat = hb.Heartbeat()
+        writer = hb.HeartbeatWriter(beat_path, beat).start()
+    try:
+        with MicroBatcher(engine, zoo=zoo, max_wait_ms=args.max_wait_ms,
+                          max_queue=args.max_queue,
+                          default_timeout_s=args.timeout_s,
+                          heartbeat=beat,
+                          standby=os.environ.get("DLTPU_STANDBY") == "1"
+                          ) as batcher:
+            if args.http is None:
+                return serve_stdin(batcher, args.size, names, args.topk,
+                                   args.timeout_s, task=task)
+            return _serve_forever(batcher, args, names)
+    finally:
+        if trace_path is not None:
+            tracer = spans.get_tracer()
+            if tracer is not None:
+                tracer.dump(trace_path)
+        if writer is not None:
+            writer.stop()
 
-        def _drain(signum, frame):
-            # SIGTERM shuts the server down from a helper thread, so
-            # serve_forever returns instead of dying mid-request
-            obs_threads.spawn(server.shutdown, name="serve-drain",
-                              daemon=True)
-        try:
-            signal.signal(signal.SIGTERM, _drain)
-        except ValueError:
-            pass           # non-main thread (embedded use)
-        try:
-            server.serve_forever()
-        except KeyboardInterrupt:
-            pass
-        finally:
-            server.server_close()
-        return 0
+
+def _serve_forever(batcher, args, names) -> int:
+    """HTTP mode until SIGTERM (drain, exit 0), a ``preempt_replica``
+    fault (drain, exit 75) or a ``crash_replica`` fault (exit 1 at once,
+    no drain, as a replica that died)."""
+    import signal
+
+    from ..elastic.preempt import EXIT_PREEMPTED
+    from ..obs import flight
+    from ..obs import threads as obs_threads
+
+    server = serve_http(batcher, names, args.topk, args.timeout_s,
+                        args.http, args.wedge_deadline_s)
+    rc = {"rc": 0}
+
+    def _drain(signum, frame):
+        # SIGTERM shuts the server down from a helper thread, so
+        # serve_forever returns instead of dying mid-request
+        obs_threads.spawn(server.shutdown, name="serve-drain", daemon=True)
+    try:
+        signal.signal(signal.SIGTERM, _drain)
+    except ValueError:
+        pass           # non-main thread (embedded use)
+
+    def _preempted():
+        rc["rc"] = EXIT_PREEMPTED
+        flight.record("serve_preempted", dispatched=batcher.dispatched)
+        batcher.drain()
+        obs_threads.spawn(server.shutdown, name="serve-preempt-drain",
+                          daemon=True)
+    batcher.on_preempt = _preempted
+
+    def _crashed():
+        flight.record("serve_crash", dispatched=batcher.dispatched)
+        os._exit(1)
+    batcher.on_crash = _crashed
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return rc["rc"]
 
 
 def _build_engine(args):
@@ -577,14 +685,14 @@ def _build_engine(args):
         80 if is_detection_model(args.model) else 1000)
     model, _ = hub.load(args.model,
                         num_classes=head_classes(args.model, num_classes),
-                        weights=args.weights, seed=args.seed,
-                        device=args.device,
+                        weights=args.weights, ckpt=args.ckpt,
+                        seed=args.seed, device=args.device,
                         **hub.model_kwargs(args.model, args.attn, args.size))
     return InferenceEngine(
         args.model, model=model, num_classes=num_classes,
         image_size=args.size, device=args.device,
         batch_buckets=tuple(int(b) for b in args.buckets.split(",")),
-        score_thresh=args.score_thresh, max_det=args.max_det,
+        tta=args.tta, score_thresh=args.score_thresh, max_det=args.max_det,
         nms_impl=args.nms_impl)
 
 

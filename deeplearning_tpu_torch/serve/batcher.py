@@ -32,9 +32,12 @@ work still dispatches), a warm ``standby`` that refuses traffic until
 pins the lane to its largest bucket, step 2 is the zoo's int8 demotion,
 which the CLI drives, step 3 sheds one submit in four with reason
 "brownout"). The batcher's fault hooks of ``elastic/faults.py`` (wedge,
-injected 503 and latency) work as in JAX; the serve side of the heartbeat
-and the CLI's preempt / crash callbacks come with ROADMAP Queue 1 item
-6b.
+injected 503 and latency) work as in JAX. Supervision: a ``heartbeat``
+(``elastic.heartbeat.Heartbeat``) is touched ``("dispatch",
+step=dispatched)`` after every dispatched batch, and the owner's
+``on_preempt`` / ``on_crash`` callbacks run when a ``preempt_replica`` /
+``crash_replica`` fault fires (consumed only once a callback is set, so a
+spec cannot burn before the owner wires it).
 
 The dispatch thread never waits on the card: demux hands out
 (batch, row) pairs, and the FIRST ``result()`` of a batch pays one
@@ -171,6 +174,7 @@ class MicroBatcher:
                  default_timeout_s: Optional[float] = None,
                  admission: Optional[AdmissionController] = None,
                  telemetry: Optional[ServeTelemetry] = None,
+                 heartbeat=None,
                  standby: bool = False,
                  start: bool = True):
         if (engine is None) == (zoo is None):
@@ -196,13 +200,20 @@ class MicroBatcher:
         else:
             self.admission = None
             self._default_lane = None
+        # the activity watermark advances once a dispatched batch: the
+        # liveness contract the Trainer gives its supervisor
+        self._beat = heartbeat
         self.dispatched = 0            # batches the dispatch loop finished
         self._busy = False             # dispatch thread is inside a batch
         self._ids = itertools.count()
         self._stop = threading.Event()
         # drain() flips _draining: new submits 429 with reason="draining",
-        # queued work still dispatches
+        # queued work still dispatches; on_preempt / on_crash, set by the
+        # owning CLI, run once when a preempt_replica / crash_replica fault
+        # targets this replica
         self._draining = threading.Event()
+        self.on_preempt = None
+        self.on_crash = None
         # resilience surface: a standby replica warms fully but refuses
         # traffic (healthz "standby") until promote(); brownout steps
         # per model degrade one hot tenant without touching the rest
@@ -504,14 +515,24 @@ class MicroBatcher:
         return batch
 
     def _poll_faults(self) -> None:
-        """The ``wedge_replica`` fault, polled once per dispatch-loop
-        iteration: it freezes THIS thread, so ``dispatched`` stops with
-        work queued — the signature ``DispatchWatch`` classifies."""
+        """The replica faults, polled once per dispatch-loop iteration.
+        ``wedge_replica`` freezes THIS thread, so ``dispatched`` stops with
+        work queued — the signature ``DispatchWatch`` classifies.
+        ``preempt_replica`` and ``crash_replica`` hand control to the
+        owner's callbacks, and are consumed only once one is set."""
         if faults.consume("wedge_replica", "step", self.dispatched):
             deadline = time.monotonic() + faults.WEDGE_SLEEP_S
             while (not self._stop.is_set()
                    and time.monotonic() < deadline):
                 self._stop.wait(0.25)
+        cb = self.on_preempt
+        if cb is not None and faults.consume(
+                "preempt_replica", "step", self.dispatched):
+            cb()
+        cb = self.on_crash
+        if cb is not None and faults.consume(
+                "crash_replica", "step", self.dispatched):
+            cb()
 
     def _dispatch_loop(self) -> None:
         while not self._stop.is_set():
@@ -531,6 +552,8 @@ class MicroBatcher:
                 # the dispatch thread is ALIVE (what a wedge probe asks)
                 self._busy = False
                 self.dispatched += 1
+                if self._beat is not None:
+                    self._beat.touch("dispatch", step=self.dispatched)
 
     def _dispatch_one(self, lane: _Lane, engine, batch: list) -> None:
         t0 = time.perf_counter()

@@ -39,10 +39,17 @@ launch into a flat float32 transient and runs the model on views of it
 buffers stay float32. ``variables_nbytes()`` is the resident footprint of
 the variables, the quantized one under int8.
 
+**Checkpoints and TTA.** ``ckpt`` restores a checkpoint of the port
+through ``hub.load`` (``core.checkpoint.restore_variables``: the EMA
+weights first, the BatchNorm statistics from the checkpoint). ``tta=True``
+serves a classifier's flip-TTA (``ops/tta.classify_tta``: the mean of the
+softmax over the identity and a horizontal flip), two forwards a batch;
+a detector's TTA is ``ops/tta.yolox_tta``, which the detection CLI's
+``train.eval_tta`` runs, and ``tta=True`` on a detection engine raises.
+
 Outputs of ``run`` stay on the device (a tensor, or a dict of tensors for
 detection); callers materialise them (the batcher's dispatch thread never
-synchronises). TTA raises ``NotImplementedError``: it comes with ROADMAP
-Queue 1 item 6b.
+synchronises).
 """
 
 from __future__ import annotations
@@ -123,9 +130,12 @@ class _Int8Weights:
                 for name, i, n, shape in self.leaves}
 
 
-def _classify(model: torch.nn.Module):
+def _classify(model: torch.nn.Module, tta: bool):
     def forward(images: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
+            if tta:
+                from ..ops.tta import classify_tta
+                return classify_tta(model, images)
             return torch.softmax(model(images), dim=-1)
     return forward
 
@@ -148,10 +158,11 @@ class _Forward(torch.nn.Module):
 class InferenceEngine:
     """A servable model session with per-bucket warmed shapes.
 
-    Build from a registry name (weights from ``seed``, or ``weights``:
-    an ``.npz`` of a JAX variable tree), or pass a built module via
-    ``model=`` with optional ``variables=`` (a ``state_dict`` or a flax
-    tree) — the ``hub.load`` return surface. ``score_thresh``,
+    Build from a registry name (weights from ``seed``, ``weights``: an
+    ``.npz`` of a JAX variable tree, or ``ckpt``: a checkpoint of the
+    port), or pass a built module via ``model=`` with optional
+    ``variables=`` (a ``state_dict`` or a flax tree) or ``ckpt`` — the
+    ``hub.load`` return surface. ``score_thresh``,
     ``max_det``, ``nms_impl`` and ``post_nms_top_n`` (Faster R-CNN's
     proposals) shape a detection engine's postprocess, with the JAX
     defaults. ``attn`` (a registry-name build only) picks the attention
@@ -162,6 +173,7 @@ class InferenceEngine:
     def __init__(self, model_name: Optional[str] = None, *,
                  num_classes: int = 1000,
                  weights: Any = None,
+                 ckpt: Optional[str] = None,
                  image_size: int = 224,
                  batch_buckets: Sequence[int] = (1, 8, 32, 128),
                  task: str = "auto",
@@ -183,18 +195,20 @@ class InferenceEngine:
         if task not in ("auto", "classify", "detect"):
             raise ValueError(f"task must be auto, classify or detect, "
                              f"got {task!r}")
-        if tta:
-            raise NotImplementedError("test-time augmentation comes with "
-                                      "ROADMAP Queue 1 item 6b")
         if weight_quant not in ("fp32", "int8"):
             raise ValueError(f"weight_quant must be fp32 or int8, "
                              f"got {weight_quant!r}")
         self.name = model_name or type(model).__name__.lower()
         self.task = (("detect" if is_detection_model(self.name)
                       else "classify") if task == "auto" else task)
+        if tta and self.task == "detect":
+            raise ValueError("tta=True is a classifier's flip-TTA; a "
+                             "detector's is ops.tta.yolox_tta (the "
+                             "detection CLI's train.eval_tta)")
         if self.task == "detect" and not is_detection_model(self.name):
             raise ValueError(f"no detection predict path for model "
                              f"{self.name!r}")
+        self.tta = tta
         self.score_thresh = score_thresh
         self.max_det = max_det
         self.nms_impl = nms_impl
@@ -219,8 +233,8 @@ class InferenceEngine:
             model, _ = hub.load(self.name,
                                 num_classes=head_classes(self.name,
                                                          num_classes),
-                                weights=weights, seed=seed, device="cpu",
-                                **model_kw)
+                                weights=weights, ckpt=ckpt, seed=seed,
+                                device="cpu", **model_kw)
         else:
             if weight_quant == "int8":
                 # the int8 session strips its model: keep the caller's
@@ -230,6 +244,10 @@ class InferenceEngine:
                 model.load_state_dict(as_state_dict(
                     variables if variables is not None else weights,
                     like=model))
+            elif ckpt:
+                from ..core.checkpoint import restore_variables
+                model.load_state_dict(restore_variables(
+                    ckpt, model.state_dict()))
         self._int8 = (_Int8Weights(model) if weight_quant == "int8"
                       else None)
         # the session's single resident copy of the weights (the int8
@@ -252,8 +270,8 @@ class InferenceEngine:
                 self.model, self.name, num_classes,
                 score_thresh=score_thresh, max_det=max_det,
                 post_nms_top_n=post_nms_top_n, nms_impl=nms_impl)
-        self._runner = _Forward(self.model,
-                                self._predict or _classify(self.model))
+        self._runner = _Forward(self.model, self._predict
+                                or _classify(self.model, tta))
 
         # counters: the "no new work after warmup" test surface
         self.trace_count = 0        # first forward of a bucket
@@ -397,6 +415,7 @@ class InferenceEngine:
             "compile_count": self.compile_count,
             "warm": self.compile_count >= len(self.buckets),
             "weight_quant": self.weight_quant,
+            "tta": self.tta,
             "variables_bytes": self.variables_nbytes(),
             "warmup_seconds": {str(b): round(s, 4)
                                for b, s in self.warmup_seconds.items()},

@@ -45,8 +45,10 @@ those three itself.
 
 Families: RetinaNet, YOLOX, FCOS, YOLOv5 and Faster R-CNN, whose step
 launches the proposals' NMS (K3 on the card) once over the batch between
-its two forwards. ``train.eval_tta`` raises a ``ValueError`` naming ROADMAP
-Queue 1 item 6b (which brings ``ops/tta.py``).
+its two forwards. ``train.eval_tta`` (YOLOX only; another family raises
+before anything is built, as in JAX) scores the model a second time
+through ``ops/tta.yolox_tta`` (three scales, the second flipped, one NMS
+over every view's candidates) and adds that summary under ``"tta"``.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ import torch
 
 __all__ = ["DetModelCfg", "DetDataCfg", "DetTrainCfg", "DetConfig",
            "DetRun", "synthetic_boxes", "build_task", "build", "train_steps",
-           "evaluate", "run", "evolve_cfg", "main"]
+           "evaluate", "tta_predict_fn", "run", "evolve_cfg", "main"]
 
 EVAL_MAX_DET = 10
 EVOLVE_RECORDS = "runs/evolve/detection.jsonl"
@@ -106,7 +108,7 @@ class DetTrainCfg:
     freeze: str = ""                  # comma-separated flax-path patterns
     seed: int = 0
     eval_score_thresh: float = 0.3
-    eval_tta: bool = False            # item 6b
+    eval_tta: bool = False            # YOLOX: a second, TTA evaluation
     multiscale: bool = False          # bucketed random resize
     multiscale_min: float = 0.75      # bucket range as ratios of image_size
     multiscale_max: float = 1.25
@@ -146,11 +148,12 @@ def synthetic_boxes(n: int, size: int, num_classes: int, max_gt: int,
     return images, boxes, labels, valid
 
 
-def _refuse_later_items(cfg) -> None:
-    """Options of later ROADMAP items raise before anything is built."""
-    if cfg.train.eval_tta:
-        raise ValueError("train.eval_tta comes with ROADMAP Queue 1 item 6b "
-                         "(ops/tta.py)")
+def _check_eval_tta(cfg) -> None:
+    """``train.eval_tta`` of a family without TTA raises before anything
+    is built."""
+    if cfg.train.eval_tta and not cfg.model.name.startswith("yolox"):
+        raise ValueError("train.eval_tta currently supports the YOLOX "
+                         "family")
 
 
 def build_task(model: torch.nn.Module, name: str, num_classes: int,
@@ -369,7 +372,7 @@ def build(cfg: DetConfig) -> DetRun:
     from .state import TrainState
     from .steps import make_train_step
 
-    _refuse_later_items(cfg)
+    _check_eval_tta(cfg)
     if cfg.train.no_aug_steps >= max(cfg.train.steps, 1):
         raise ValueError(
             f"train.no_aug_steps={cfg.train.no_aug_steps} must be < "
@@ -527,12 +530,23 @@ def train_steps(r: DetRun) -> Iterator[Tuple[int, dict, dict]]:
         yield it, batch, metrics
 
 
-def evaluate(r: DetRun, predict_fn: Optional[Callable] = None
-             ) -> Tuple[Dict[str, float], Any, list]:
+def tta_predict_fn(r: DetRun) -> Callable:
+    """YOLOX's multi-scale + flip TTA predict over the run's model, at the
+    evaluation's score threshold and slots."""
+    from ..ops.tta import yolox_tta
+    return functools.partial(yolox_tta, r.model,
+                             score_thresh=r.cfg.train.eval_score_thresh,
+                             max_det=EVAL_MAX_DET,
+                             nms_impl=r.cfg.model.nms_impl)
+
+
+def evaluate(r: DetRun, predict_fn: Optional[Callable] = None,
+             tag: str = "") -> Tuple[Dict[str, float], Any, list]:
     """Score the model in eval mode with ``predict_fn`` (default the
     run's): the COCO validation split in padded chunks, else the training
     arrays in one call; each batch reaches the host once. Returns the
-    summary, the evaluator and each predict call's detections."""
+    summary, the evaluator and each predict call's detections; the
+    printed summary starts with ``tag``."""
     from ..evaluation.coco_eval import CocoEvaluator
     predict_fn = predict_fn or r.predict_fn
     dev = next(r.model.parameters()).device
@@ -562,12 +576,13 @@ def evaluate(r: DetRun, predict_fn: Optional[Callable] = None
         ev.add_batch(np.arange(len(images)), det,
                      gt={"boxes": boxes, "labels": labels, "valid": valid})
     summary = ev.summarize()
-    print(str({k: round(v, 4) for k, v in summary.items()}))
+    print(tag + str({k: round(v, 4) for k, v in summary.items()}))
     return summary, ev, calls
 
 
 def run(cfg: DetConfig) -> Dict[str, float]:
-    """Train and evaluate one configuration; returns the COCO summary."""
+    """Train and evaluate one configuration; returns the COCO summary
+    (with ``train.eval_tta``, the TTA summary under ``"tta"``)."""
     r = build(cfg)
     every = max(cfg.train.steps // 5, 1)
     try:
@@ -576,7 +591,11 @@ def run(cfg: DetConfig) -> Dict[str, float]:
                 print(f"step {it}: loss={float(metrics['loss']):.4f}")
     finally:
         r.close()               # stops a prefetcher's thread
-    return evaluate(r)[0]
+    summary = evaluate(r)[0]
+    if cfg.train.eval_tta:
+        summary = {**summary,
+                   "tta": evaluate(r, tta_predict_fn(r), tag="TTA ")[0]}
+    return summary
 
 
 if __name__ == "__main__":

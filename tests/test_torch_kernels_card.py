@@ -27,7 +27,8 @@ def cuda_device():
 
 
 # the tile edges of the kernels' 64-row query and key tiles, and ViT's N
-EDGE_N = [1, 17, 49, 63, 64, 65, 128, 129, 197, 256, 300]
+# (197 at 224², 577 at 384²: a last key tile of one row)
+EDGE_N = [1, 17, 49, 63, 64, 65, 128, 129, 197, 256, 300, 577]
 
 
 @pytest.mark.cuda

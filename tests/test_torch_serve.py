@@ -103,11 +103,12 @@ def test_microbatcher_demux_equals_infer(port_engine):
 
 def test_engine_rejects_unported_modes():
     model = tvit.VisionTransformer(**TINY, dtype=torch.float32)
-    # TTA comes with item 6b; int8 residency is held against JAX in
-    # tests/test_torch_zoo.py::test_int8_engine_matches_jax
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # TTA is held against JAX in tests/test_torch_serve_ckpt_tta.py, int8
+    # residency in tests/test_torch_zoo.py::test_int8_engine_matches_jax;
+    # a classifier's flip-TTA is no detector's
+    with pytest.raises(ValueError, match="yolox_tta"):
         InferenceEngine(model=model, image_size=32, device="cpu",
-                        precompile=False, tta=True)
+                        precompile=False, tta=True, task="detect")
     with pytest.raises(ValueError, match="fp32 or int8"):
         InferenceEngine(model=model, image_size=32, device="cpu",
                         precompile=False, weight_quant="int4")
@@ -353,7 +354,8 @@ def test_port_imports_nothing_of_jax():
             "evaluation/coco_eval.py", "data/coco.py",
             "data/label_convert.py", "core/experiment.py",
             "train/evolve.py", "evaluation/voc.py", "obs/metrics.py",
-            "obs/xla.py", "parallel/collectives.py", "serve/zoo.py"} <= scanned
+            "obs/xla.py", "parallel/collectives.py", "serve/zoo.py",
+            "ops/tta.py"} <= scanned
     bad = []
     for path in files:
         with open(path) as f:
