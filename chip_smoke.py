@@ -332,7 +332,48 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    exit 75 with ``trace.json`` holding the three dispatch spans; again
    with ``crash_replica:0@step:1``: an exit code neither 0 nor 75; then the
    CLI in stdin mode in this process: a seeded PNG answers as the ``.npy``
-   preprocessed from it.
+   preprocessed from it;
+40. the mesh step: a world-size-1 NCCL group started in this process
+   (127.0.0.1, a free port), the ``data=-1`` mesh, and ViT-B/16 at full
+   width (batch 128, flash_hb, phase 6's AdamW, schedule and loss) placed
+   by ``shard_state`` and trained through ``make_train_step(mesh=...)`` in
+   four modes, 3 steps each: replicated float32, ZeRO-1, int8 and
+   ZeRO-1 + int8. K1's and the collectives' counters are zeroed just
+   before each run and read just after: 12 forward, 12 dQ and 12 dK/dV
+   launches a step, one packed all-reduce of the gradients and one of the
+   metrics a float32 step, two ``all_to_all`` and two ``all_gather`` an
+   int8 step.
+   After one step the replicated and ZeRO-1 states hold params and Adam
+   moments bit-equal to the step without a mesh on the same weights and
+   batch; the int8 steps' first loss equals it and their ``grad_norm`` is
+   within 2/127 relative; every metric is finite; 8 int8 steps at
+   constant lr 1e-4 on the fixed batch lower the loss;
+41. measure, in turns: the step time and images/s of the step without a
+   mesh and of the float32, ZeRO-1, int8 and ZeRO-1 + int8 mesh steps
+   (median of 6 runs of 3 steps); the int8 block quantize and dequantize
+   of ViT-B/16's 86 M float32 gradients by CUDA-graph replay beside their
+   bytes bound; the one-rank NCCL all-reduce of the same 344 MB and the
+   packed int8 reduction of them (CUDA events);
+42. the Trainer on the mesh: the train CLI's ``build`` with
+   ``train.weight_update=zero1`` over the running group: 2 steps and one
+   evaluation, K1 launches counted, a checkpoint whose ``topology.json``
+   records ``weight_update: zero1``; ``elastic_restore`` of it into a
+   replicated state (params and moments bit-equal to the Trainer's,
+   ``topology_changed`` true: the weight-update mode changed);
+   ``make_eval_step(mesh)`` equal to the step without a mesh on a batch;
+   ``agree_preempt_step`` at one rank returns its own step. The process
+   group is destroyed after it;
+43. two ranks on the one card: NCCL refuses two ranks on one device, so
+   two processes of this script (``--mesh-rank``) join a gloo group
+   (which moves CUDA tensors) on ``cuda:0`` and train ViT-B/16 at full
+   width with ZeRO-1 and the int8 collectives, 64 images a rank (the
+   global batch of 128 split), 2 steps: in each, K1's counters read 12 +
+   12 + 12 a step, both report the same averaged losses, the first within
+   1e-3 of phase 40's step without a mesh on the whole batch, and a rank
+   holds half of AdamW's moment bytes plus the leaves no even dim splits.
+   Their launches are checked in the processes, not added to the kernels
+   line. This shows the layout and the collectives on the card, not a
+   speed: gloo stages every collective through the host.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -345,7 +386,8 @@ traffic, the Trainer of phase 35). The K2 entry adds the launches of
 phases 22-26 and 33 to phase 9's, each counted from zero just before its
 run. Phases 36-39 add theirs (the Trainer's, the served forwards' at 224²
 and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
-phase 38); the subprocesses' launches are not counted.
+phase 38); the subprocesses' launches are not counted. Phases 40 and 42
+add the mesh runs' K1 launches.
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -429,7 +471,13 @@ def check(cond: bool, what: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 43 runs two processes of this script, one a rank
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return _mesh_rank(args.mesh_rank, args.mesh_dir, args.seed)
 
     started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -833,9 +881,41 @@ def main() -> int:
         fa, wa, nms_ops, dev, args.seed, restored["step_dir"],
         os.path.join(serve_dir, "cli")))
     shutil.rmtree(serve_dir, ignore_errors=True)
+    log(f"chip_smoke: phases 36-39 in {time.perf_counter() - t36:.1f}s")
+
+    # --------------------- 40. the mesh step: replicated, ZeRO-1, int8
+    phase(40, started)
+    t40 = time.perf_counter()
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    mesh = _mesh_start()
+    try:
+        launched, ref_loss = _mesh_steps(fa, dev, args.seed, mesh)
+        _add_launches(kernels, launched)
+
+        # ---------------------------------------------------- 41. measure
+        phase(41, started)
+        torch.cuda.empty_cache()
+        _measure_mesh(dev, args.seed, mesh)
+
+        # ----------------------- 42. the Trainer on the mesh with ZeRO-1
+        phase(42, started)
+        torch.cuda.empty_cache()
+        _add_launches(kernels, _mesh_trainer(
+            fa, dev, args.seed, mesh,
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "smoke_mesh")))
+    finally:
+        dist.destroy_process_group()
+
+    # ------------------ 43. two ranks on the one card, over gloo
+    phase(43, started)
+    torch.cuda.empty_cache()
+    _two_ranks_on_one_card(args.seed, ref_loss, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "smoke_ranks"))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 36-39 in {time.perf_counter() - t36:.1f}s; "
+    log(f"chip_smoke: phases 40-43 in {time.perf_counter() - t40:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -4845,6 +4925,421 @@ def _supervised_cli(fa, wa, nms_ops, dev, seed, step_dir, workdir) -> dict:
     check(counts == {fa.KERNEL_NAMES[4]: DEPTH * 3},
           "K1 launches == 12 x 3 forwards (a warmup, two requests)")
     return counts
+
+
+# ------------------ phases 40-42: the mesh step (multi-GPU, first half)
+MESH_STEPS = 3                    # steps a mode in phase 40
+MESH_MODES = (("replicated", "fp32"), ("zero1", "fp32"),
+              ("replicated", "int8"), ("zero1", "int8"))
+MESH_RUNS = 6                     # phase 41: runs of 3 steps a variant
+INT8_NORM_TOL = 2 / 127           # two block quantizations
+MESH_TRAIN_STEPS = 2              # phase 42's Trainer: one epoch
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_start():
+    """Phase 40's world: one NCCL rank in this process, the data=-1
+    mesh over it."""
+    from deeplearning_tpu_torch.parallel.mesh import (MeshConfig,
+                                                      build_mesh,
+                                                      initialize_distributed)
+    check(initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                 device="cuda", local_rank=0),
+          "the smoke started its own process group")
+    mesh = build_mesh(MeshConfig(data=-1))
+    log(f"process group: nccl, world 1; mesh {mesh}, device {mesh.device}")
+    return mesh
+
+
+def _mesh_state(seed, dev, mesh, zero1, lr=None):
+    from deeplearning_tpu_torch.train.steps import shard_state
+    return shard_state(_train_state("flash_hb", seed, dev, lr=lr), mesh,
+                       zero1=zero1)
+
+
+def _mesh_step(mesh, weight_update, grad_comm):
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    return make_train_step(make_loss_fn(label_smoothing=0.1), mesh=mesh,
+                           weight_update=weight_update, grad_comm=grad_comm)
+
+
+def _moments(state) -> list:
+    """Adam's mu and nu (the first transform of AdamW's chain)."""
+    adam = state.opt_state[0]
+    return list(adam["mu"].values()) + list(adam["nu"].values())
+
+
+def _mesh_steps(fa, dev, seed, mesh) -> tuple:
+    """Phase 40; returns K1's launches over the four counted runs and the
+    first loss of the step without a mesh."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    names = [fa.KERNEL_NAMES[4], fa.BWD_KERNEL_NAMES["dq"][4],
+             fa.BWD_KERNEL_NAMES["dkv"][4]]
+    plain = _train_state("flash_hb", seed, dev)
+    plain, m = make_train_step(make_loss_fn(label_smoothing=0.1),
+                               device=dev)(plain, batch, key)
+    ref = _metrics(m)
+    launches = {n: 0 for n in names}
+    for wu, comm in MESH_MODES:
+        state = _mesh_state(seed, dev, mesh, wu == "zero1")
+        step = _mesh_step(mesh, wu, comm)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        coll.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics, equal = [], None
+        for i in range(MESH_STEPS):
+            state, mm = step(state, batch, key)
+            metrics.append(mm)
+            if i == 0 and comm == "fp32":
+                equal = (all(torch.equal(a, b) for a, b in zip(
+                    state.params.values(), plain.params.values()))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        _moments(state), _moments(plain))))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, ccounts = fa.launch_counts(), coll.launch_counts()
+        metrics = [_metrics(x) for x in metrics]
+        log(f"mesh step {wu}/{comm}: {MESH_STEPS} steps in {wall:.2f}s, "
+            f"losses {[round(x['loss'], 5) for x in metrics]}, grad_norm "
+            f"{metrics[0]['grad_norm']:.5f}, K1 {json.dumps(counts)}, "
+            f"collectives {json.dumps(ccounts)}, moments sharded "
+            f"{state.sharding.any_sharded}")
+        for name in names:
+            check(counts[name] == DEPTH * MESH_STEPS,
+                  f"{wu}/{comm}: {name} launches == {DEPTH} x "
+                  f"{MESH_STEPS} steps")
+            launches[name] += counts[name]
+        check(sum(counts.values()) == 3 * DEPTH * MESH_STEPS,
+              f"{wu}/{comm} launched only flash_hb's kernels")
+        if comm == "fp32":
+            check(equal, f"{wu}: params and moments after one step "
+                         f"bit-equal to the step without a mesh")
+            check(ccounts["all_reduce"] == 2 * MESH_STEPS
+                  and ccounts["all_to_all"] == 0,
+                  f"{wu}: one packed all-reduce of the gradients and one "
+                  f"of the metrics a step")
+        else:
+            dn = abs(metrics[0]["grad_norm"] - ref["grad_norm"]) \
+                / ref["grad_norm"]
+            log(f"  int8 first step vs float32: loss {metrics[0]['loss']!r}"
+                f" vs {ref['loss']!r}, grad_norm rel {dn:.3e} (tol "
+                f"{INT8_NORM_TOL:.4f})")
+            check(metrics[0]["loss"] == ref["loss"] and dn <= INT8_NORM_TOL,
+                  f"{wu}/int8: loss equal, grad_norm within 2/127")
+            check(ccounts["all_to_all"] == 2 * MESH_STEPS
+                  and ccounts["all_gather"] == 2 * MESH_STEPS
+                  and ccounts["all_reduce"] == MESH_STEPS,
+                  f"{wu}/int8: one packed reduction a step")
+        del state
+        torch.cuda.empty_cache()
+    del plain
+    state = _mesh_state(seed, dev, mesh, False, lr=1e-4)
+    step = _mesh_step(mesh, "replicated", "int8")
+    losses = []
+    for _ in range(8):
+        state, mm = step(state, batch, key)
+        losses.append(mm["loss"])
+    losses = [float(x) for x in losses]
+    log(f"fixed batch, constant lr 1e-4, int8 mesh step: losses "
+        f"{[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "int8 training on a fixed batch lowers the loss")
+    del state
+    torch.cuda.empty_cache()
+    return launches, ref["loss"]
+
+
+def _measure_mesh(dev, seed, mesh) -> None:
+    """Phase 41: step times in turns; the int8 quantizers and the one-rank
+    all-reduce of ViT-B/16's gradient bytes."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    runs = {"no_mesh": (_train_state("flash_hb", seed, dev),
+                        make_train_step(make_loss_fn(label_smoothing=0.1),
+                                        device=dev))}
+    for wu, comm in MESH_MODES:
+        runs[f"{wu}/{comm}"] = (_mesh_state(seed, dev, mesh, wu == "zero1"),
+                                _mesh_step(mesh, wu, comm))
+    order = list(runs) + list(reversed(runs))
+    times = {k: [] for k in runs}
+    for name in order * (MESH_RUNS // 2):
+        state, step = runs[name]
+        state, _ = step(state, batch, key)            # untimed warm step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, _ = step(state, batch, key)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 3)
+    for name, ts in times.items():
+        dt = statistics.median(ts)
+        log(f"mesh step time {name} batch {TRAIN_BATCH}: "
+            f"{json.dumps({'step_time_ms': round(dt * 1e3, 3), 'images_per_sec': round(TRAIN_BATCH / dt, 1), 'runs_ms': [round(t * 1e3, 2) for t in ts]})}")
+    n = sum(p.numel() for p in runs["no_mesh"][0].params.values())
+    del runs, state
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pad = -(-n // 256) * 256
+    grads = torch.randn(n_pad, device=dev, generator=g) * 1e-3
+    blocks = grads.view(-1, 256)
+    q, sc = coll._quantize_blocks(blocks)
+    q_ms = graph_ms(lambda: coll._quantize_blocks(blocks))
+    d_ms = graph_ms(lambda: coll._dequantize_blocks(q, sc))
+    scale_bytes = n_pad // 256 * 4
+    moved = {"quantize": n_pad * 4 + n_pad + scale_bytes,
+             "dequantize": n_pad + scale_bytes + n_pad * 4}
+    for what, ms in (("quantize", q_ms), ("dequantize", d_ms)):
+        bound = moved[what] / HBM_BYTES_PER_S * 1e3
+        log(f"timing int8 {what} of {n} float32 gradients (blocks of 256): "
+            f"{ms:.4f} ms (graph replay), bound {bound:.4f} ms "
+            f"({moved[what] / 1e9:.3f} GB; {moved[what] / ms / 1e6:.0f} "
+            f"GB/s achieved)")
+    err = (coll._dequantize_blocks(q, sc) - blocks).abs().amax(dim=-1)
+    # |x - q s| <= s / 2 <= max|block| / 127 (s a few ulps off 2^k)
+    check(bool((err <= blocks.abs().amax(dim=-1) / 127 * (1 + 1e-5))
+               .all()),
+          "the int8 blocks hold each value within max|block| / 127")
+    group = mesh.group(("data", "fsdp"))
+
+    def events_ms(fn, iters=10):
+        for _ in range(2):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    flat = grads[:n]
+    ar_ms = events_ms(lambda: coll.all_reduce(flat, group))
+    qr_ms = events_ms(lambda: coll.quantized_reduce([flat], [False], group))
+    log(f"timing one-rank NCCL all-reduce of {n * 4 / 1e6:.1f} MB: "
+        f"{ar_ms:.4f} ms; packed int8 reduction of the same: {qr_ms:.4f} ms "
+        f"(CUDA events)")
+    del grads, blocks, q, sc, flat
+    torch.cuda.empty_cache()
+
+
+def _mesh_trainer(fa, dev, seed, mesh, workdir) -> dict:
+    """Phase 42; returns K1's launches over the Trainer's run."""
+    import dataclasses
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.core.checkpoint import CheckpointManager
+    from deeplearning_tpu_torch.elastic.preempt import agree_preempt_step
+    from deeplearning_tpu_torch.elastic.resume import elastic_restore
+    from deeplearning_tpu_torch.elastic.topology import (current_topology,
+                                                         topology_changed)
+    from deeplearning_tpu_torch.train import make_eval_step
+    from deeplearning_tpu_torch.train.classification import make_metric_fn
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = _smoke_cfg(workdir, MESH_TRAIN_STEPS)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=1, weight_update="zero1"))
+    trainer = cli.build(cfg)
+    check(trainer.weight_update == "zero1"
+          and trainer.state.sharding is not None
+          and trainer.state.sharding.mesh.size == 1,
+          "the CLI built the Trainer on the running group's mesh")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    names = [fa.KERNEL_NAMES[4], fa.BWD_KERNEL_NAMES["dq"][4],
+             fa.BWD_KERNEL_NAMES["dkv"][4]]
+    eval_batches = len(trainer.eval_loader)
+    want = {names[0]: DEPTH * (MESH_TRAIN_STEPS + eval_batches),
+            names[1]: DEPTH * MESH_TRAIN_STEPS,
+            names[2]: DEPTH * MESH_TRAIN_STEPS}
+    side = trainer.ckpt.topology(MESH_TRAIN_STEPS)
+    log(f"mesh Trainer (zero1): {MESH_TRAIN_STEPS} steps + eval in "
+        f"{wall:.2f}s, eval {json.dumps(trainer._last_eval)}, launches "
+        f"{json.dumps(counts)}, topology.json {json.dumps(side)}")
+    for name, n in want.items():
+        check(counts[name] == n, f"{name} launches == {n}")
+    check(side is not None and side["weight_update"] == "zero1"
+          and side["process_count"] == 1 and side["platform"] == "gpu"
+          and side["mesh_shape"]["data"] == 1,
+          "topology.json records the one-rank zero1 run")
+    saved = trainer.state.state_dict()
+    ckpt_dir = trainer.ckpt.directory
+    del trainer
+    torch.cuda.empty_cache()
+    restored, step = elastic_restore(CheckpointManager(ckpt_dir),
+                                     _train_state("flash_hb", seed, dev),
+                                     mesh, zero1=False)
+    same = (all(torch.equal(p, saved["params"][n])
+                for n, p in restored.params.items())
+            and all(torch.equal(a, b) for a, b in zip(
+                _moments(restored), list(saved["opt_state"][0]["mu"].values())
+                + list(saved["opt_state"][0]["nu"].values()))))
+    current = current_topology(state=restored, weight_update="replicated")
+    changed = topology_changed(side, current)
+    log(f"elastic_restore into replicated: step {step}, params and moments "
+        f"bit-equal {same}, topology_changed {changed} "
+        f"({side['weight_update']} -> {current['weight_update']})")
+    check(step == MESH_TRAIN_STEPS and same and changed,
+          "elastic_restore: bit-equal, and the change reported")
+    batch = _train_batch(seed, dev)
+    on_mesh = make_eval_step(make_metric_fn(), mesh=mesh)(restored, batch)
+    alone = make_eval_step(make_metric_fn(), device=dev)(restored, batch)
+    on_mesh = {k: float(v) for k, v in on_mesh.items()}
+    alone = {k: float(v) for k, v in alone.items()}
+    log(f"eval step on the mesh {json.dumps(on_mesh)}, without "
+        f"{json.dumps(alone)}")
+    check(on_mesh == alone, "make_eval_step(mesh) equals the plain eval")
+    check(agree_preempt_step(7) == 7, "agree_preempt_step at one rank")
+    del restored, saved
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return want
+
+
+MESH_RANKS = 2                    # phase 43: processes on cuda:0
+MESH_RANK_STEPS = 2
+
+
+def _mesh_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 43's ranks: a gloo group on cuda:0 through a file,
+    ViT-B/16 with ZeRO-1 and the int8 collectives on this rank's half of
+    the global batch; writes what it saw to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import (MeshConfig,
+                                                      build_mesh,
+                                                      initialize_distributed)
+    from deeplearning_tpu_torch.parallel.sharding import (
+        tree_bytes_per_device, zero1_partition_spec)
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train.steps import shard_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    initialize_distributed(
+        f"file://{os.path.join(workdir, 'store')}", MESH_RANKS, rank,
+        device="cuda", local_rank=0, backend="gloo")
+    try:
+        mesh = build_mesh(MeshConfig(data=-1), device=dev)
+        state = shard_state(_train_state("flash_hb", seed, dev), mesh,
+                            zero1=True)
+        shapes = [p.shape for p in state.params.values()]
+        whole = sum(2 * 4 * int(np.prod(sh)) for sh in shapes)
+        tail = sum(2 * 4 * int(np.prod(sh)) for sh in shapes
+                   if not zero1_partition_spec(tuple(sh), MESH_RANKS))
+        step = _mesh_step(mesh, "zero1", "int8")
+        per = TRAIN_BATCH // MESH_RANKS
+        batch = {k: v[rank * per:(rank + 1) * per]
+                 for k, v in _train_batch(seed, dev).items()}
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        coll.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(MESH_RANK_STEPS):
+            state, m = step(state, batch, root_key(seed))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        out = {"rank": rank, "metrics": metrics,
+               "seconds": time.perf_counter() - t0,
+               "launches": fa.launch_counts(),
+               "collectives": coll.launch_counts(),
+               "moment_bytes": tree_bytes_per_device(state.opt_state),
+               "whole_bytes": whole, "tail_bytes": tail,
+               "split_leaves": sum(not s.is_fully_replicated for s in
+                                   state.sharding.moments.values())}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _two_ranks_on_one_card(seed, ref_loss, workdir) -> None:
+    """Phase 43: two processes of this script on cuda:0 over gloo."""
+    import shutil
+    import torch
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--mesh-rank", str(r), "--mesh-dir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        check(p.returncode == 0, f"phase 43 rank {r} ran")
+    outs = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    for o in outs:
+        log(f"rank {o['rank']} of {MESH_RANKS} on cuda:0 (gloo), zero1 + "
+            f"int8, {TRAIN_BATCH // MESH_RANKS} images: losses "
+            f"{[round(m['loss'], 5) for m in o['metrics']]}, grad_norm "
+            f"{o['metrics'][0]['grad_norm']:.5f}, {MESH_RANK_STEPS} steps "
+            f"in {o['seconds']:.2f}s, launches {json.dumps(o['launches'])},"
+            f" collectives {json.dumps(o['collectives'])}, moment bytes "
+            f"{o['moment_bytes']} of {o['whole_bytes']} ({o['split_leaves']}"
+            f" leaves split, {o['tail_bytes']} bytes whole)")
+        for name in ("flash_attn_fwd_hb", "flash_attn_bwd_dq_hb",
+                     "flash_attn_bwd_dkv_hb"):
+            check(o["launches"][name] == DEPTH * MESH_RANK_STEPS,
+                  f"rank {o['rank']}: {name} == {DEPTH} x "
+                  f"{MESH_RANK_STEPS}")
+        check(o["moment_bytes"] == (o["whole_bytes"] - o["tail_bytes"])
+              // MESH_RANKS + o["tail_bytes"] and o["split_leaves"] > 0,
+              f"rank {o['rank']} holds 1/{MESH_RANKS} of the split moments")
+        check(all(np.isfinite(v) for m in o["metrics"] for v in m.values()),
+              "finite metrics")
+    losses = [[m["loss"] for m in o["metrics"]] for o in outs]
+    rel = abs(losses[0][0] - ref_loss) / abs(ref_loss)
+    log(f"phase 43: {wall:.1f}s with the processes' start; first loss "
+        f"{losses[0][0]:.6f} vs {ref_loss:.6f} without a mesh (rel "
+        f"{rel:.2e}, tol 1e-3)")
+    check(losses[0] == losses[1] and rel <= 1e-3,
+          "both ranks report the averaged loss of the whole batch")
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

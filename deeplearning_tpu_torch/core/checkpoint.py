@@ -8,6 +8,7 @@ Orbax writes its tree):
     <dir>/<step>/state.pt        one committed step (``state_dict()``)
     <dir>/best/                  a copy of the best step
     <dir>/checksums.json         {step: {relpath: {crc32, size}}}
+    <dir>/topology.json          {step: the run's topology fingerprint}
     <dir>/corrupt-<step>/        a step that failed its check, moved aside
 
 A step is written into ``<step>.tmp`` and renamed, so a step directory is
@@ -24,8 +25,18 @@ model's, resizing position tables for a new image size or window.
 ``load_state_dict()`` (``train.TrainState``, an ``nn.Module``) or a plain
 dict of tensors. A failed write is retried ``save_retries`` times, after
 a capped-exponential delay with jitter (the JAX manager's defaults), and
-each attempt is a ``ckpt_retry`` flight record. The topology sidecar
-comes with ROADMAP Queue 1 item 7.
+each attempt is a ``ckpt_retry`` flight record. ``save(...,
+topology=)`` records the run's fingerprint (``elastic.topology.
+current_topology``: mesh, ranks, the state's layout, the weight-update
+mode) in ``topology.json``, which ``topology(step)`` reads back.
+
+Over a process group of more than one rank a step holds global tensors:
+every rank calls ``save`` (a sharded ``TrainState.state_dict()``
+all-gathers its slices), rank 0 alone writes, and the others wait at a
+barrier until it has committed (an async write is waited for by the
+next restore instead). ``restore_verified`` runs its walk on rank 0 and
+broadcasts the step it chose; every rank then loads that step's global
+tensors and cuts them to its own layout.
 
 ``async_save=True`` takes the write off the loop: ``save`` queues a
 device-side copy of every tensor on the caller's stream (so the next
@@ -133,8 +144,24 @@ def _replace_leaves(tree: Any, new: Iterator[torch.Tensor]) -> Any:
     return tree
 
 
+def _rank_world() -> Tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    from ..parallel.collectives import sync_barrier
+    sync_barrier("checkpoint")
+
+
 def _map_location(obj: Any) -> Optional[torch.device]:
-    """The device a restore lands on: that of ``obj``'s first tensor."""
+    """The device a restore lands on: that of ``obj``'s first tensor (a
+    sharded state's mesh device: its ``state_dict()`` is collective)."""
+    sharding = getattr(obj, "sharding", None)
+    if sharding is not None:
+        return sharding.mesh.device
     tree = _tree_of(obj)
     stack = [tree]
     while stack:
@@ -188,26 +215,44 @@ class CheckpointManager:
         return os.path.join(self.directory, str(step))
 
     def save(self, step: int, state: Any, metrics: Optional[Dict] = None,
-             is_best: bool = False) -> None:
+             is_best: bool = False,
+             topology: Optional[Dict[str, Any]] = None) -> None:
         """Commit ``state`` as ``step`` (its ``metrics`` in
-        ``metrics.json``), record its checksums, keep the newest
-        ``max_to_keep`` steps, and copy it to ``best/`` when ``is_best``.
-        Asynchronous: returns once the snapshot is queued on the card;
-        a previous write is waited for first. A step already committed is
-        not written again (Orbax's rule in the JAX manager)."""
+        ``metrics.json``), record its checksums and ``topology``, keep the
+        newest ``max_to_keep`` steps, and copy it to ``best/`` when
+        ``is_best``. Asynchronous: returns once the snapshot is queued on
+        the card; a previous write is waited for first. A step already
+        committed is not written again (Orbax's rule in the JAX
+        manager)."""
+        rank, world = _rank_world()
         # the previous write commits (and its best copy lands) BEFORE
         # this save can garbage-collect it
         self.wait_until_finished()
+        if world > 1:
+            # the gather is collective: every rank takes part whatever
+            # rank 0 decides, then only rank 0 writes
+            tree = _tree_of(state)
+            if rank != 0:
+                if not self._async:
+                    _barrier()
+                return
         if is_best:
             self._pending_best = int(step)
+        if topology is not None:
+            self._write_topology(step, topology)
         if int(step) in self.all_steps():
             self._finish_pending_best()
+            if world > 1 and not self._async:
+                _barrier()
             return
-        tree = _tree_of(state)
+        if world == 1:
+            tree = _tree_of(state)
         if not self._async:
             self._save_with_retry(step, tree, metrics)
             self._commit(step)
             self._finish_pending_best()
+            if world > 1:
+                _barrier()
             return
         snapshot, event = self._device_snapshot(tree)
         self._writing = int(step)
@@ -348,6 +393,43 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
+    # -------------------------------------------------- topology sidecar
+    # one JSON file for the directory ({step: fingerprint}), as JAX's
+    _TOPOLOGY_KEEP = 32
+
+    def _topology_path(self) -> str:
+        return os.path.join(self.directory, "topology.json")
+
+    def _write_topology(self, step: int, topology: Dict[str, Any]) -> None:
+        try:
+            docs = self._read_topology_file()
+            docs[str(step)] = topology
+            for key in sorted(docs, key=int)[:-self._TOPOLOGY_KEEP]:
+                del docs[key]
+            tmp = self._topology_path() + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(docs, f, indent=1)
+            os.replace(tmp, self._topology_path())
+        except (OSError, ValueError) as e:
+            self._logger.warning(f"topology sidecar write failed: {e}")
+
+    def _read_topology_file(self) -> Dict[str, Any]:
+        try:
+            with open(self._topology_path()) as f:
+                docs = json.load(f)
+            return docs if isinstance(docs, dict) else {}
+        except (OSError, ValueError):
+            return {}
+
+    def topology(self, step: Optional[int] = None
+                 ) -> Optional[Dict[str, Any]]:
+        """The fingerprint recorded at ``step`` (default: the newest
+        step); None for a step saved without one."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return self._read_topology_file().get(str(step))
+
     # -------------------------------------------------- checksum sidecar
     def _checksum_path(self) -> str:
         return os.path.join(self.directory, "checksums.json")
@@ -416,6 +498,7 @@ class CheckpointManager:
         """Load ``step`` (default: the newest) into ``state``, unchecked;
         None when there is no step."""
         self.wait_until_finished()
+        _barrier()
         step = self.latest_step() if step is None else step
         return None if step is None else self._load(step, state)
 
@@ -426,6 +509,19 @@ class CheckpointManager:
         aside and walk back to the next-newest. Returns ``(None, 0)`` when
         nothing restorable remains."""
         self.wait_until_finished()
+        rank, world = _rank_world()
+        if world == 1:
+            return self._restore_walk(state, step)
+        from ..parallel.collectives import broadcast_from_host0
+        restored, got = (self._restore_walk(state, step) if rank == 0
+                         else (None, 0))
+        got = broadcast_from_host0(got if restored is not None else None)
+        if got is None:
+            return None, 0
+        return (restored if rank == 0 else self._load(got, state)), got
+
+    def _restore_walk(self, state: Any,
+                      step: Optional[int]) -> Tuple[Any, int]:
         first: Optional[int] = None
         ceiling = step
         while True:

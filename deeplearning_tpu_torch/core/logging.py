@@ -7,7 +7,7 @@ that is a no-op where ``torch.utils.tensorboard`` cannot be imported, the
 ``CsvLogger`` and offline ``JsonlLogger`` sinks, and ``LoggerHub`` over
 the ``LOGGERS`` registry, which fails loudly on an unknown backend. The
 process index is the ``torch.distributed`` rank when a process group is
-up, else 0 (one process a card until the multi-GPU slice).
+up (one process a card), else 0.
 """
 
 from __future__ import annotations

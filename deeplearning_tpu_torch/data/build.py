@@ -13,8 +13,9 @@ copies (classification/mnist/dataLoader/dataSet.py etc.):
 
 The JAX builder's ``mesh=`` is ``device=`` (where the loaders move their
 batches), and ``jax.process_count()`` is the ``torch.distributed`` world
-size, or 1 when no group is initialised; per-process slicing of the
-global batch comes with ROADMAP Queue 1 item 7. ``quarantine=`` (a
+size, or 1 when no group is initialised: each rank's loaders yield its
+slice of every global batch, and the validation split is padded to a
+multiple of the world size as JAX pads it. ``quarantine=`` (a
 ``QuarantineLog`` or a manifest path) goes to both loaders.
 """
 
@@ -25,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import world_size
 from .datasets import folder_source, read_split_data, write_class_indices
 from .device_prefetch import DevicePrefetcher
 from .loader import DataLoader, prefetch_to_device  # noqa: F401 - re-export
@@ -33,14 +35,6 @@ from .transforms import eval_image_transform, get_train_transform
 
 __all__ = ["LoaderConfig", "build_classification_loaders",
            "device_iterator", "measure_throughput"]
-
-
-def _process_count() -> int:
-    """The ``torch.distributed`` world size, or 1 without a group."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +81,7 @@ def build_classification_loaders(
     # keep it divisible by process count, repeating tail paths when the
     # split is smaller than the process count (multi-host degenerate
     # case — a duplicated val image beats an empty evaluation)
-    n_proc = _process_count()
+    n_proc = world_size()
     val_paths = list(split["val_paths"])
     val_labels = list(split["val_labels"])
     orig_len = len(val_paths)

@@ -9,8 +9,10 @@ workers and drop-last batches (every batch has one shape).
 
 The JAX loader's ``mesh=`` is ``device=`` here: the device its batches
 are moved to (a ``torch.device`` or name), or None for host numpy
-batches. Per-process slicing of the global batch comes with the mesh
-(multi-GPU slice, ROADMAP Queue 1 item 7).
+batches. Over a ``torch.distributed`` group each rank materialises its
+contiguous ``global_batch / world_size`` slice of every global batch of
+the same shuffled order (the JAX loader's per-process slice), so the
+ranks' slices, concatenated, are the single-process batch.
 
 ``quarantine=`` (a ``QuarantineLog`` or a manifest path) switches the
 fetch to one sample at a time: a sample whose fetch raises is logged and
@@ -38,6 +40,8 @@ import numpy as np
 import torch
 
 from ..elastic import faults
+from ..parallel.mesh import world_size
+from ..parallel.sharding import host_local_slice
 from .quarantine import PoisonedData, QuarantineLog, quarantinable
 
 __all__ = ["ArraySource", "MapSource", "epoch_indices", "ArraySpec",
@@ -115,7 +119,8 @@ def _to_device(batch: Dict[str, Any], device: torch.device
 
 
 class DataLoader:
-    """Fixed-shape batches of ``global_batch`` rows, optionally moved to
+    """Fixed-shape batches of ``global_batch`` rows (this rank's
+    ``host_batch`` of them over a process group), optionally moved to
     ``device``.
 
     - ``num_workers > 0`` fetches samples on a thread pool, keeping
@@ -159,6 +164,11 @@ class DataLoader:
         # total; None on the serial path (the Trainer then uses wall time)
         self.last_data_wait: Optional[float] = None
         self.data_wait_total = 0.0
+        n_proc = world_size()
+        if global_batch % n_proc:
+            raise ValueError(f"global_batch {global_batch} not divisible by "
+                             f"process count {n_proc}")
+        self.host_batch = global_batch // n_proc
 
     def __len__(self) -> int:
         return len(self.source) // self.global_batch
@@ -177,8 +187,10 @@ class DataLoader:
         idx = epoch_indices(len(self.source), shuffle=self.shuffle,
                             seed=self._effective_seed(), epoch=epoch,
                             drop_last_to=self.global_batch)
+        # this rank's contiguous slice of each global batch
+        lo, hi = host_local_slice(self.global_batch)
         for start in range(0, len(idx), self.global_batch):
-            yield idx[start:start + self.global_batch]
+            yield idx[start:start + self.global_batch][lo:hi]
 
     def _finalize(self, batch: Dict[str, Any],
                   to_device: bool) -> Dict[str, Any]:
@@ -199,7 +211,7 @@ class DataLoader:
         sample = self.source[np.asarray([first])]
         if self.transform:
             sample = self.transform(sample)
-        return {k: ArraySpec((self.global_batch, *np.shape(v)[1:]),
+        return {k: ArraySpec((self.host_batch, *np.shape(v)[1:]),
                              np.asarray(v).dtype, self.device)
                 for k, v in sample.items()}
 

@@ -10,8 +10,14 @@
   and a supervisor reads.
 - ``faults``     — ``DLTPU_FAULTS`` injection.
 - ``supervisor`` — the slow-vs-wedged detector; the rest of the JAX
-  supervisor comes with ROADMAP Queue 1 item 8, the topology sidecar and
-  cross-topology resume with item 7.
+  supervisor comes with ROADMAP Queue 1 item 8.
+- ``topology``   — the fingerprint a checkpoint's ``topology.json``
+  records (mesh, ranks, layout, weight-update mode).
+- ``resume``     — ``elastic_restore``: the newest checkpoint onto the
+  current mesh, resharded.
+
+``topology`` and ``resume`` are imported by name, not here: they bring
+the train step with them.
 """
 
 from . import faults, heartbeat, preempt, signals, supervisor

@@ -265,8 +265,12 @@ class ResNet(nn.Module):
             if isinstance(m, (BasicBlock, Bottleneck)):
                 m.zero_init_()
 
-    def forward(self, images: torch.Tensor
+    def forward(self, images: torch.Tensor,
+                rng: Optional[torch.Generator] = None
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``rng`` is the train step's generator (``TrainState.apply_fn``
+        passes one); a ResNet draws no mask from it."""
+        del rng
         x = images.permute(0, 3, 1, 2).to(self.dtype)   # NCHW view
         x = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)                     # pads with −inf

@@ -1,7 +1,10 @@
 """Layers the port's convolutional models share: flax's ``nn.Conv`` /
 ``nn.Dense`` compute-dtype semantics, flax's ``nn.BatchNorm`` over NCHW,
 flax's default initialisers, and the BatchNorm helpers that give a
-seed-initialised detector realistic statistics.
+seed-initialised detector realistic statistics. Inside
+``sync_batch_stats(group)`` a training BatchNorm takes its batch moments
+over every rank of ``group`` (GSPMD's global-batch statistics, which the
+mesh train step needs).
 
 The models run their convolutions in NCHW on a channels-last view of the
 NHWC input (no copy), so a permute back to NHWC before a reshape that
@@ -10,6 +13,7 @@ enumerates positions is free.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -18,7 +22,38 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["BatchNorm", "conv", "dense", "lecun_normal_", "init_flax_",
-           "calibrate_batchnorm"]
+           "calibrate_batchnorm", "sync_batch_stats"]
+
+# the process group whose ranks' batches a training BatchNorm normalises
+# over together; None: this rank's batch alone
+_SYNC_GROUP = None
+
+
+@contextlib.contextmanager
+def sync_batch_stats(group):
+    """Inside the block, every training BatchNorm reduces its batch mean
+    and variance over ``group``'s ranks (autograd flows through the
+    reduction), so each rank normalises with the global batch's moments
+    and moves its running statistics by them."""
+    global _SYNC_GROUP
+    was, _SYNC_GROUP = _SYNC_GROUP, group
+    try:
+        yield
+    finally:
+        _SYNC_GROUP = was
+
+
+def _global_moments(xf: torch.Tensor, group):
+    """The biased mean and variance over dims (0, 2, 3) of the batches of
+    every rank of ``group`` (the same two passes as the local path)."""
+    import torch.distributed as dist
+    from ..parallel import collectives
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3] * dist.get_world_size(group)
+    mean = collectives.all_reduce_autograd(xf.sum(dim=(0, 2, 3)), group) / n
+    d = xf - mean[:, None, None]
+    var = collectives.all_reduce_autograd((d * d).sum(dim=(0, 2, 3)),
+                                          group) / n
+    return mean, var
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
@@ -81,8 +116,11 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training and not self.frozen:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            if _SYNC_GROUP is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = xf.var(dim=(0, 2, 3), unbiased=False)
+            else:
+                mean, var = _global_moments(xf, _SYNC_GROUP)
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

@@ -1,0 +1,402 @@
+"""Sharding rules and layouts — the port of
+``deeplearning_tpu/parallel/sharding.py``.
+
+JAX places every leaf with a ``NamedSharding`` and GSPMD moves the data.
+The port keeps each sharded leaf as this rank's slice: a plain
+contiguous tensor, so the train step, the kernels' wrappers, the
+optimizer's ``_foreach`` calls and the checkpoint see ordinary tensors.
+``NamedSharding(mesh, spec)`` is the layout record beside it, and
+``local_slice`` / ``gather_global`` move a leaf between its global value
+and this rank's slice (``all_gather`` over ``Mesh.group`` of the dim's
+axes).
+
+The rules are JAX's regexes, matched on each parameter's flax path
+(``utils/convert.flax_path``: ``blocks.0.attn.qkv.weight`` ->
+``blocks_0/attn/qkv/kernel``), with the first matching rule winning and
+a rule skipped when its spec has more entries than the leaf has dims.
+Their specs are re-expressed on the port's layouts, so that rank r's
+slice holds the elements of JAX's shard on device r: a Dense kernel
+``(in, out)`` is a Linear weight ``(out, in)`` (JAX ``P(None, X)`` is dim
+0 here, ``P(X, None)`` dim 1), an HWIO conv kernel is OIHW (JAX's
+``P(None, None, None, X)`` is dim 0), and a ViT patch projection is a 2-D
+Linear weight whose dim 0 is the kernel's O.
+
+ZeRO-1 (``zero1_partition_spec``) shards the first dim of the port's own
+shape that the data-parallel extent divides. Whether such a dim exists
+does not depend on the order of the dims, so the same leaves stay
+replicated as in JAX and a rank holds the same bytes; for a 2-D or 4-D
+leaf the slice is along another dim than JAX's.
+
+``StateSharding`` is a sharded ``TrainState``'s record: the params' and
+the optimizer moments' layouts, and the moves between them that the
+train step makes (``update_views``, ``complete_update``) and the
+checkpoint makes (``gather_tree``, ``slice_tree``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
+
+import numpy as np
+import torch
+
+from ..utils.convert import flax_path
+from . import collectives
+from .mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, rank, world_size
+
+__all__ = ["PartitionSpec", "P", "NamedSharding", "Rules", "batch_spec",
+           "batch_sharding", "replicated", "logical_to_sharding",
+           "tree_paths", "shard_params_tree", "TRANSFORMER_TP_RULES",
+           "FSDP_RULES", "zero1_partition_spec", "zero1_shardings",
+           "opt_state_shardings", "tree_bytes_per_device",
+           "shard_layout_summary", "host_local_slice", "make_global_array",
+           "local_slice", "gather_global", "map_tree", "StateSharding",
+           "DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS"]
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: one entry a dim, each None (replicated),
+    an axis name or a tuple of axis names."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+Rules = Sequence[Tuple[str, PartitionSpec]]
+
+
+def _axes(entry: Any) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A leaf's layout on ``mesh``: dim d is split over ``spec[d]``'s
+    axes (row-major over them), the dims past the spec are whole."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def dims(self) -> List[Tuple[int, Tuple[str, ...]]]:
+        """(dim, axes) of every dim split over more than one rank."""
+        return [(d, _axes(e)) for d, e in enumerate(self.spec)
+                if _axes(e) and self.mesh.axis_size(_axes(e)) > 1]
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return not self.dims()
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = list(shape)
+        for d, axes in self.dims():
+            n = self.mesh.axis_size(axes)
+            if out[d] % n:
+                raise ValueError(
+                    f"dim {d} of a {tuple(shape)} leaf is {out[d]}, not "
+                    f"divisible by the {n} ranks of {axes}")
+            out[d] //= n
+        return tuple(out)
+
+    def same_layout(self, other: "NamedSharding") -> bool:
+        return self.dims() == other.dims()
+
+
+def batch_spec() -> PartitionSpec:
+    """The leading (batch) dim over data x fsdp; the rest whole."""
+    return P((DATA_AXIS, FSDP_AXIS))
+
+
+def batch_sharding(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, batch_spec())
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding by regex rules over flax paths; first match wins and
+# the default is replicated.
+# ---------------------------------------------------------------------------
+
+def logical_to_sharding(mesh: Mesh, rules: Optional[Rules]
+                        ) -> Callable[[str, torch.Tensor], NamedSharding]:
+    compiled = [(re.compile(pat), spec) for pat, spec in (rules or [])]
+
+    def lookup(name: str, leaf: torch.Tensor) -> NamedSharding:
+        path = flax_path(name, leaf.dim())
+        for pat, spec in compiled:
+            if pat.search(path) and len(spec) <= leaf.dim():
+                return NamedSharding(mesh, spec)
+        return NamedSharding(mesh, P())
+    return lookup
+
+
+def tree_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of every leaf of a tree of dicts, tuples and lists,
+    the keys '/'-joined (a parameter keeps its port name)."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in tree_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def shard_params_tree(params: Dict[str, torch.Tensor], mesh: Mesh,
+                      rules: Optional[Rules] = None
+                      ) -> Dict[str, NamedSharding]:
+    """A ``NamedSharding`` a parameter under ``rules``."""
+    lookup = logical_to_sharding(mesh, rules)
+    return {n: lookup(n, p) for n, p in params.items()}
+
+
+# JAX's Megatron layout (qkv and mlp-in column-parallel, proj and mlp-out
+# row-parallel) on Linear weights: JAX's P(None, model) is dim 0 here,
+# P(model, None) dim 1
+TRANSFORMER_TP_RULES: Rules = (
+    (r"(qkv|query|key|value|mlp/fc1|Dense_0)/kernel$", P(MODEL_AXIS, None)),
+    (r"(proj|out|mlp/fc2|Dense_1)/kernel$", P(None, MODEL_AXIS)),
+    (r"(qkv|query|key|value|mlp/fc1|Dense_0)/bias$", P(MODEL_AXIS)),
+)
+
+# JAX's FSDP rules: the row-parallel kernels (attention proj, mlp fc2)
+# split their input dim (Linear dim 1), every other Dense kernel its
+# output dim (Linear dim 0), and a conv kernel its output channels
+# (OIHW dim 0). The 4-entry conv rule comes before the 2-D one, which a
+# 4-D leaf never reaches.
+FSDP_RULES: Rules = (
+    (r"(attn/proj|mlp/fc2)/kernel$", P(None, FSDP_AXIS)),
+    (r"kernel$", P(FSDP_AXIS, None, None, None)),
+    (r"kernel$", P(FSDP_AXIS, None)),
+)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the optimizer moments shard over the data axes.
+# ---------------------------------------------------------------------------
+
+def zero1_partition_spec(shape: Tuple[int, ...], dp: int) -> PartitionSpec:
+    """The FIRST dim of ``shape`` that the data-parallel extent ``dp``
+    divides, over ('data', 'fsdp'); ``P()`` when none does (the small
+    tail stays replicated, not padded)."""
+    if dp <= 1:
+        return P()
+    for d, size in enumerate(shape):
+        if size >= dp and size % dp == 0:
+            spec: List[Any] = [None] * len(shape)
+            spec[d] = (DATA_AXIS, FSDP_AXIS)
+            return P(*spec)
+    return P()
+
+
+def zero1_shardings(params: Dict[str, torch.Tensor], mesh: Mesh,
+                    rules: Optional[Rules] = None
+                    ) -> Dict[str, NamedSharding]:
+    """The moments' layouts under ZeRO-1: a leaf a rule shards keeps the
+    rule's layout, a rule-replicated leaf shards over the whole
+    data-parallel extent where a dim divides."""
+    dp = mesh.axis_size((DATA_AXIS, FSDP_AXIS))
+    base = shard_params_tree(params, mesh, rules)
+    return {n: (sh if not sh.is_fully_replicated else NamedSharding(
+        mesh, zero1_partition_spec(tuple(params[n].shape), dp)))
+        for n, sh in base.items()}
+
+
+def opt_state_shardings(opt_state: Any, param_names: Sequence[str],
+                        param_sh: Dict[str, NamedSharding],
+                        rep: NamedSharding) -> Any:
+    """A tree mirroring an optimizer state: a dict keyed by every
+    parameter name (Adam's ``mu`` / ``nu``, momentum's ``trace``) gets
+    ``param_sh``; every other leaf (counts, masked sub-states) ``rep``."""
+    names = set(param_names)
+
+    def go(node: Any) -> Any:
+        if isinstance(node, dict):
+            if node and set(node) == names:
+                return {k: param_sh[k] for k in node}
+            return {k: go(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v) for v in node)
+        return rep
+    return go(opt_state)
+
+
+def tree_bytes_per_device(tree: Any) -> int:
+    """Bytes ONE rank holds for a tree: the port keeps local slices, so
+    this is the sum of its tensors' bytes."""
+    return sum(int(t.numel()) * t.element_size()
+               for _, t in tree_paths(tree) if isinstance(t, torch.Tensor))
+
+
+def shard_layout_summary(shardings: Any) -> Dict[str, Any]:
+    """The spec of every split leaf of a tree of ``NamedSharding``s
+    (keyed by path) and the leaf counts, as JAX's summary of a placed
+    tree."""
+    specs: Dict[str, str] = {}
+    counts = {"leaves": 0, "replicated": 0, "sharded": 0}
+    for path, sh in tree_paths(shardings):
+        if not isinstance(sh, NamedSharding):
+            continue
+        counts["leaves"] += 1
+        if sh.is_fully_replicated:
+            counts["replicated"] += 1
+        else:
+            counts["sharded"] += 1
+            specs[path] = str(tuple(sh.spec))
+    return {"specs": specs, **counts}
+
+
+def host_local_slice(global_batch: int) -> Tuple[int, int]:
+    """[start, end) of this rank's slice of a global batch."""
+    per_rank = global_batch // world_size()
+    start = rank() * per_rank
+    return start, start + per_rank
+
+
+def make_global_array(local_batch: Union[np.ndarray, torch.Tensor],
+                      mesh: Mesh,
+                      spec: Optional[PartitionSpec] = None) -> torch.Tensor:
+    """A rank's batch on its device. JAX assembles the hosts' batches
+    into one global array; here a rank's batch stays local and the
+    process group is the global view (the step reduces over it)."""
+    if spec is not None and tuple(spec) != tuple(batch_spec()):
+        raise ValueError(f"a rank's batch is split as {batch_spec()}, "
+                         f"got {spec}")
+    if isinstance(local_batch, np.ndarray):
+        local_batch = torch.from_numpy(np.ascontiguousarray(local_batch))
+    return local_batch.to(mesh.device, non_blocking=True)
+
+
+# ---------------------------------------------------------------------------
+# Moves between a leaf's global value and this rank's slice.
+# ---------------------------------------------------------------------------
+
+def local_slice(x: torch.Tensor, sh: NamedSharding,
+                view: bool = False) -> torch.Tensor:
+    """This rank's slice of the global ``x`` (a copy, or with ``view`` a
+    view into ``x``)."""
+    out = x
+    shape = sh.shard_shape(x.shape)
+    for d, axes in sh.dims():
+        i = sh.mesh.axis_index(axes)
+        out = out.narrow(d, i * shape[d], shape[d])
+    return out if view or out is x else out.clone()
+
+
+def gather_global(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """The global value of this rank's slice ``x`` (an all-gather along
+    each split dim over its axes' group)."""
+    for d, axes in reversed(sh.dims()):
+        n = sh.mesh.axis_size(axes)
+        src = x.movedim(d, 0).contiguous()
+        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        collectives.all_gather_dim0(out, src, sh.mesh.group(axes))
+        x = out.movedim(0, d)
+    return x.contiguous()
+
+
+def map_tree(fn: Callable[[torch.Tensor, NamedSharding], torch.Tensor],
+             tree: Any, shardings: Any) -> Any:
+    """``tree`` with every tensor leaf t replaced by ``fn(t, sh)``, sh its
+    leaf of the mirroring ``shardings`` tree."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, shardings)
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, s)
+                          for v, s in zip(tree, shardings))
+    return tree
+
+
+class StateSharding:
+    """The layout record of a sharded ``TrainState``: ``params`` and
+    ``ema`` are the params' layouts, ``moments`` the optimizer moments'
+    (the gradients' layout in the step), ``opt_state`` the mirror of the
+    optimizer state."""
+
+    def __init__(self, mesh: Mesh, params: Dict[str, NamedSharding],
+                 moments: Dict[str, NamedSharding], opt_state: Any,
+                 ema: Optional[Dict[str, NamedSharding]]):
+        self.mesh = mesh
+        self.params = params
+        self.moments = moments
+        self.opt_state = opt_state
+        self.ema = ema
+
+    def tree(self) -> Dict[str, Any]:
+        """The mirror of ``TrainState.state_dict()``'s sharded parts."""
+        return {"params": self.params, "opt_state": self.opt_state,
+                "ema_params": self.ema}
+
+    @property
+    def any_sharded(self) -> bool:
+        return any(not s.is_fully_replicated
+                   for s in list(self.params.values())
+                   + list(self.moments.values()))
+
+    def gather_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """``tree`` (``params`` / ``opt_state`` / ``ema_params`` of local
+        slices) with every leaf's global value; collective."""
+        sh = self.tree()
+        return {k: (map_tree(gather_global, v, sh[k]) if k in sh else v)
+                for k, v in tree.items()}
+
+    def slice_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """The reverse: global values cut to this rank's slices."""
+        sh = self.tree()
+        return {k: (map_tree(local_slice, v, sh[k]) if k in sh else v)
+                for k, v in tree.items()}
+
+    def update_views(self, params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Each parameter in its moments' layout: itself where the two
+        layouts agree, else (a replicated parameter, ZeRO-1 moments) a view
+        of this rank's slice, so that an in-place update writes into it."""
+        out = {}
+        for n, p in params.items():
+            psh, msh = self.params[n], self.moments[n]
+            if psh.same_layout(msh):
+                out[n] = p
+            elif psh.is_fully_replicated:
+                out[n] = local_slice(p, msh, view=True)
+            else:
+                raise ValueError(f"{n}: moments laid out as {msh.spec} "
+                                 f"over params laid out as {psh.spec}")
+        return out
+
+    @torch.no_grad()
+    def complete_update(self, params: Dict[str, torch.Tensor],
+                        views: Dict[str, torch.Tensor]) -> None:
+        """All-gather every updated slice back into its replicated
+        parameter (ZeRO-1's second half)."""
+        for n, p in params.items():
+            if views[n] is not p:
+                p.copy_(gather_global(views[n], self.moments[n]))
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole gradient from the leaves in the moments'
+        layout: each split leaf's squared norm is summed over the ranks
+        of its axes, a replicated leaf's counted once."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for n, g in grads.items():
+            axes = tuple(a for _, ax in self.moments[n].dims() for a in ax)
+            by_axes.setdefault(axes, []).append(g)
+        total = None
+        for axes, gs in by_axes.items():
+            sq = torch.stack(torch._foreach_norm(gs)).float().square().sum()
+            if axes:
+                collectives.all_reduce(sq, self.mesh.group(axes))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)

@@ -427,8 +427,15 @@ class ModelZoo:
                               alert_frac=alert)
                 raise Rejected(0, 1.0, model=alias,
                                reason="hbm_pressure")
-            freed += self._resident_bytes.get(victim, 0)
+            # count only the part of the victim's bytes the reading has
+            # not shown: the card's reading falls by them as the eviction
+            # empties the engine's pool; a reading that does not fall
+            # (the CPU, an engine without a pool) keeps them all
+            resident = self._resident_bytes.get(victim, 0)
             self._evict_locked(victim)
+            drop = (pressure["bytes_in_use"]
+                    - self.hbm_pressure()["bytes_in_use"])
+            freed += max(0, resident - drop)
 
     def enforce_pressure(self) -> int:
         """Reactive sweep (admin / watermark hook): evict LRU models

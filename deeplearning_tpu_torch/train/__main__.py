@@ -33,10 +33,26 @@ depth ``data.prefetch``; the Trainer logs, evaluates, checkpoints into
 ``train.strict=transfers|nans`` and ``train.async_checkpoint=true`` are
 the Trainer's ``recovery``, ``strict`` and ``async_checkpoint``. A run
 preempted by SIGTERM / SIGINT checkpoints and exits 75 (requeue me).
+
+Data parallel over ``torch.distributed``, as ``tools/train.py`` builds
+its mesh: under torchrun (``WORLD_SIZE`` set), or with
+``train.weight_update=zero1`` (the optimizer moments split over the
+ranks) or ``train.grad_comm=int8`` (the EQuARX int8 gradient
+collectives), the CLI starts the process group (NCCL on the card, gloo
+with ``train.device=cpu``; a single process is a world of one), builds
+the ``data=-1`` mesh, places the state with ``shard_state`` and trains
+through ``make_train_step(mesh=...)``; each rank reads its slice of every
+global batch and rank 0 logs and writes the checkpoints (with their
+``topology.json``):
+
+  torchrun --nproc_per_node=8 -m deeplearning_tpu_torch.train \
+      --cfg configs/vit_b16_imagenet.yaml train.weight_update=zero1
+
 Options of later slices raise a ``ValueError`` naming the ROADMAP Queue 1
-item that brings them (``train.strict=threads`` / ``all`` item 8, the
-mesh and sharding options item 7); the port has no
-``train.donate_batch`` (it updates the state in place).
+item that brings them (``train.strict=threads`` / ``all`` item 8;
+``train.mesh_model_axis``, ``train.mesh_seq_axis``, ``train.seq_parallel``,
+``train.pipeline_stages`` and ``train.microbatches`` item 7b); the port
+has no ``train.donate_batch`` (it updates the state in place).
 """
 
 from __future__ import annotations
@@ -92,19 +108,19 @@ class TrainCfg:
     ema: bool = False
     workdir: Optional[str] = None
     device: str = "cuda"             # cuda | cpu
-    mesh_model_axis: int = 1         # item 7
-    mesh_seq_axis: int = 1           # item 7
-    seq_parallel: str = "ring"       # item 7
+    mesh_model_axis: int = 1         # item 7b
+    mesh_seq_axis: int = 1           # item 7b
+    seq_parallel: str = "ring"       # item 7b
     accum_steps: int = 1             # gradient accumulation microbatches
     mixup: bool = False              # mixup/cutmix soft targets
     async_checkpoint: bool = False   # writes off the loop
-    pipeline_stages: int = 1         # item 7
-    microbatches: int = 0            # item 7
+    pipeline_stages: int = 1         # item 7b
+    microbatches: int = 0            # item 7b
     precompile: bool = True          # start the feed before the first step
     recovery: str = "none"           # none|abort|rollback
     strict: str = ""                 # transfers|nans (threads: item 8)
-    weight_update: str = "replicated"  # zero1: item 7
-    grad_comm: str = "fp32"          # int8: item 7
+    weight_update: str = "replicated"  # replicated | zero1: shard adam
+    grad_comm: str = "fp32"          # fp32 | int8: EQuARX block-scaled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,20 +131,19 @@ class Config:
     train: TrainCfg = dataclasses.field(default_factory=TrainCfg)
 
 
-_ITEM_7 = "ROADMAP Queue 1 item 7 (multi-GPU)"
+_ITEM_7B = ("ROADMAP Queue 1 item 7b (tensor, sequence and pipeline "
+            "parallelism)")
 
 
 def check_slice(cfg: Config) -> None:
     """Raise on an option whose mechanism comes with a later slice."""
     t = cfg.train
     later = [
-        ("train.mesh_model_axis", t.mesh_model_axis > 1, _ITEM_7),
-        ("train.mesh_seq_axis", t.mesh_seq_axis > 1, _ITEM_7),
-        ("train.seq_parallel", t.seq_parallel != "ring", _ITEM_7),
-        ("train.pipeline_stages", t.pipeline_stages > 1, _ITEM_7),
-        ("train.microbatches", t.microbatches != 0, _ITEM_7),
-        ("train.weight_update=zero1", t.weight_update == "zero1", _ITEM_7),
-        ("train.grad_comm=int8", t.grad_comm == "int8", _ITEM_7),
+        ("train.mesh_model_axis", t.mesh_model_axis > 1, _ITEM_7B),
+        ("train.mesh_seq_axis", t.mesh_seq_axis > 1, _ITEM_7B),
+        ("train.seq_parallel", t.seq_parallel != "ring", _ITEM_7B),
+        ("train.pipeline_stages", t.pipeline_stages > 1, _ITEM_7B),
+        ("train.microbatches", t.microbatches != 0, _ITEM_7B),
     ]
     for name, is_set, item in later:
         if is_set:
@@ -148,6 +163,18 @@ def check_slice(cfg: Config) -> None:
         raise ValueError(
             f"data.global_batch={cfg.data.global_batch} must be divisible "
             f"by train.accum_steps={t.accum_steps}")
+    if t.grad_comm == "int8" and t.accum_steps > 1:
+        raise ValueError("train.grad_comm=int8 requires "
+                         "train.accum_steps=1")
+
+
+def uses_mesh(cfg: Config) -> bool:
+    """True when the run trains on a mesh: under torchrun, over a group
+    already running, or with ZeRO-1 or the int8 collectives."""
+    import torch.distributed as dist
+    return (cfg.train.weight_update != "replicated"
+            or cfg.train.grad_comm != "fp32"
+            or "WORLD_SIZE" in os.environ or dist.is_initialized())
 
 
 def load_data(cfg: DataCfg, num_classes: int
@@ -228,7 +255,15 @@ def build(cfg: Config, **trainer_kw: Any):
             f"model.name={cfg.model.name!r} is not in the port yet (the rest "
             f"of the zoo, LeNet's mnist_cnn among it, is ROADMAP Queue 1 "
             f"item 8); it has {', '.join(MODELS.keys())}")
-    dev = resolve_device(cfg.train.device)
+    mesh = None
+    if uses_mesh(cfg):
+        from ..parallel.mesh import (MeshConfig, build_mesh,
+                                     initialize_distributed)
+        initialize_distributed(device=cfg.train.device)
+        mesh = build_mesh(MeshConfig(data=-1))
+        dev = mesh.device
+    else:
+        dev = resolve_device(cfg.train.device)
     gb = cfg.data.global_batch
     if cfg.data.folder:
         from ..data.build import LoaderConfig, build_classification_loaders
@@ -283,9 +318,16 @@ def build(cfg: Config, **trainer_kw: Any):
         model=model, tx=tx,
         batch_stats=dict(model.named_buffers()) if has_bn else None,
         use_ema=cfg.train.ema)
+    if mesh is not None:
+        from .steps import shard_state
+        shard_state(state, mesh,
+                    zero1=cfg.train.weight_update == "zero1")
     base_step = make_train_step(
         make_loss_fn(cfg.train.label_smoothing, has_bn),
-        accum_steps=cfg.train.accum_steps, device=dev)
+        accum_steps=cfg.train.accum_steps, mesh=mesh,
+        weight_update=cfg.train.weight_update,
+        grad_comm=cfg.train.grad_comm,
+        device=None if mesh is not None else dev)
     if cfg.train.mixup:
         def train_step(s, batch, rng):
             # the step's own augmentation stream, apart from its dropout
@@ -296,7 +338,9 @@ def build(cfg: Config, **trainer_kw: Any):
     else:
         train_step = base_step
     kw = dict(state=state, train_step=train_step, train_loader=loader,
-              eval_step=make_eval_step(make_metric_fn(), device=dev),
+              eval_step=(make_eval_step(make_metric_fn(), device=dev)
+                         if mesh is None else
+                         make_eval_step(make_metric_fn(), mesh=mesh)),
               eval_loader=eval_loader, epochs=cfg.train.epochs,
               seed=cfg.train.seed, workdir=cfg.train.workdir,
               log_every=max(steps_per_epoch // 2, 1),
@@ -304,7 +348,9 @@ def build(cfg: Config, **trainer_kw: Any):
               async_checkpoint=cfg.train.async_checkpoint,
               recovery=(None if cfg.train.recovery in ("none", "")
                         else cfg.train.recovery),
-              strict=cfg.train.strict or None)
+              strict=cfg.train.strict or None,
+              weight_update=(cfg.train.weight_update if mesh is not None
+                             else None))
     kw.update(trainer_kw)
     return Trainer(**kw)
 
@@ -313,18 +359,29 @@ def main(argv=None) -> int:
     from ..core.config import config_cli
     cfg = config_cli(Config(), argv, description=__doc__.splitlines()[0])
     from ..elastic import EXIT_PREEMPTED, Preempted
-    trainer = build(cfg)
-    if cfg.train.precompile:
-        trainer.precompile()       # the feed fills while nothing waits
+    started = False
+    if uses_mesh(cfg):
+        from ..parallel.mesh import initialize_distributed
+        check_slice(cfg)
+        started = initialize_distributed(device=cfg.train.device)
     try:
-        trainer.train()
-    except Preempted:
-        # the checkpoint and the flight ring are already flushed; 75 tells
-        # a supervisor "requeue me", not "I crashed"
-        return EXIT_PREEMPTED
-    results = trainer.evaluate()
-    print({k: round(v, 4) for k, v in results.items()})
-    return 0
+        trainer = build(cfg)
+        if cfg.train.precompile:
+            trainer.precompile()       # the feed fills while nothing waits
+        try:
+            trainer.train()
+        except Preempted:
+            # the checkpoint and the flight ring are already flushed; 75
+            # tells a supervisor "requeue me", not "I crashed"
+            return EXIT_PREEMPTED
+        results = trainer.evaluate()
+        if trainer.is_main:
+            print({k: round(v, 4) for k, v in results.items()})
+        return 0
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ leaves the JAX package does.
 
 from __future__ import annotations
 
+import contextlib
 from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
@@ -36,6 +37,7 @@ from ..utils.convert import flax_path
 __all__ = ["GradientTransformation", "chain", "scale_by_adam",
            "add_decayed_weights", "masked", "set_to_zero", "trace",
            "scale_by_learning_rate", "clip_by_global_norm",
+           "global_norm_over",
            "NO_DECAY_PATTERNS", "decay_mask", "freeze_mask", "sgd", "adam",
            "adamw", "build_optimizer", "apply_updates"]
 
@@ -192,6 +194,25 @@ def scale_by_learning_rate(learning_rate: Schedule) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+# the norm of the whole gradient when each rank holds slices of it: a
+# sharded train state sets it around its update (``global_norm_over``)
+_GLOBAL_NORM: Optional[Callable[[Tree], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def global_norm_over(fn: Callable[[Tree], torch.Tensor]):
+    """Inside the block, ``clip_by_global_norm`` takes its norm from
+    ``fn(updates)`` (a sharded state's ``StateSharding.global_norm``, which
+    sums the slices' squares over the ranks) instead of the local
+    leaves."""
+    global _GLOBAL_NORM
+    was, _GLOBAL_NORM = _GLOBAL_NORM, fn
+    try:
+        yield
+    finally:
+        _GLOBAL_NORM = was
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: g * max_norm / ||g|| only where
     ||g|| >= max_norm (the device-side comparison; no host sync)."""
@@ -199,7 +220,8 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def update(updates, state, params=None):
         names = list(updates)
         g = _lists(updates, names)
-        norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+        norm = (torch.sqrt(sum(torch.sum(x * x) for x in g))
+                if _GLOBAL_NORM is None else _GLOBAL_NORM(updates))
         keep = norm < max_norm
         clipped = torch._foreach_mul(torch._foreach_div(g, norm), max_norm)
         out = [torch.where(keep, x, c) for x, c in zip(g, clipped)]

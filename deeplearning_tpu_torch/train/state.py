@@ -10,17 +10,26 @@ EMA in place (no second copy of 86M parameters per step) and
 ``step`` is a host integer: the schedules and Adam's bias correction read
 it on the host, so a step never waits for the card. ``state_dict()`` /
 ``load_state_dict()`` are what ``core.checkpoint`` saves and restores.
+
+A state placed on a mesh (``train.steps.shard_state``) keeps each
+sharded leaf as this rank's slice and its layout in ``sharding``
+(``parallel.sharding.StateSharding``): ``apply_gradients`` then takes
+gradients in the moments' layout, updates the slices and all-gathers
+what the params' layout needs; ``state_dict()`` all-gathers every leaf to
+its global value (every rank must call it) and ``load_state_dict()``
+cuts global values back to this rank's slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 
-from .optim import GradientTransformation, apply_updates
+from .optim import GradientTransformation, apply_updates, global_norm_over
 
 __all__ = ["TrainState"]
 
@@ -38,6 +47,7 @@ class TrainState:
         self.batch_stats = batch_stats if batch_stats is not None else {}
         self.ema_params = ema_params
         self.ema_decay = ema_decay
+        self.sharding = None     # a StateSharding once placed on a mesh
 
     @classmethod
     def create(cls, *, model: nn.Module, tx: GradientTransformation,
@@ -75,9 +85,17 @@ class TrainState:
         d = decay * (1 - exp(-(step + 1) / 2000)) on the step before the
         increment (the YOLOX warmup EMA)."""
         params = self.params
-        updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                 params)
-        apply_updates(params, updates)
+        sh = self.sharding
+        views = params if sh is None else sh.update_views(params)
+        norm = (global_norm_over(sh.global_norm)
+                if sh is not None and sh.any_sharded
+                else contextlib.nullcontext())
+        with norm:
+            updates, self.opt_state = self.tx.update(grads, self.opt_state,
+                                                     views)
+        apply_updates(views, updates)
+        if sh is not None:
+            sh.complete_update(params, views)
         if self.ema_params is not None:
             d = self.ema_decay * (1.0 - math.exp(-(self.step + 1) / 2000.0))
             names = list(self.ema_params)
@@ -97,11 +115,13 @@ class TrainState:
         buffers (BN statistics: ``batch_stats`` are those buffers), the
         optimizer state and the EMA. Tensors are the live ones; saving
         copies them."""
-        return {"step": self.step,
+        tree = {"step": self.step,
                 "params": {n: p.detach() for n, p in self.params.items()},
                 "buffers": dict(self.model.named_buffers()),
                 "opt_state": self.opt_state,
                 "ema_params": self.ema_params}
+        return tree if self.sharding is None else \
+            self.sharding.gather_tree(tree)
 
     def load_state_dict(self, tree: Dict[str, Any]) -> None:
         """Restore a ``state_dict()`` in place: params, buffers and EMA
@@ -109,6 +129,8 @@ class TrainState:
         state is moved to the params' device."""
         if (self.ema_params is None) != (tree["ema_params"] is None):
             raise ValueError("the checkpoint and the state disagree on EMA")
+        if self.sharding is not None:
+            tree = self.sharding.slice_tree(tree)
         with torch.no_grad():
             for name, p in self.params.items():
                 p.copy_(tree["params"][name])

@@ -24,12 +24,40 @@ bit-equal from run to run at any thread count, and slower; the card's
 path is untouched. Batches may be
 numpy arrays or tensors; they are moved to the step's device. JAX's
 ``donate`` flags are accepted: the port updates the state in place
-anyway. ``mesh``, ``weight_update="zero1"`` and ``grad_comm="int8"`` come
-with the multi-GPU slice (ROADMAP Queue 1 item 7).
+anyway.
+
+With a ``mesh`` (``parallel.mesh.build_mesh``) the step is the JAX
+step's GSPMD data parallelism written out over ``torch.distributed``,
+on a state placed by ``shard_state``:
+
+- each rank takes its own slice of the global batch (the loader's) and
+  draws its masks from the step key folded with its data index;
+- parameters a rule shards (FSDP) are all-gathered before the forward;
+  a training BatchNorm normalises with the moments of the global batch
+  (``models.layers.sync_batch_stats``);
+- the float32 gradients are mean-reduced over data x fsdp: all-reduced
+  for a replicated moment, reduce-scattered to a sharded one (ZeRO-1 or
+  FSDP), one packed call a layout; with ``grad_comm="int8"`` through the
+  EQuARX collectives (``parallel.collectives.quantized_reduce``:
+  reduce-scatter for leaves whose ZeRO-1 spec splits dim 0, psum for the
+  rest), then divided by n;
+- the optimizer updates this rank's slices and ZeRO-1's updated slices
+  are all-gathered back into the replicated parameters;
+- loss and metrics are averaged over the ranks in float32, and
+  ``grad_norm`` (and ``clip_grad_norm``) is the norm of the whole
+  gradient, its slices' squares summed over the ranks.
+
+At one rank the all-reduce copies and the division is by one, so the
+replicated and ZeRO-1 steps equal the step without a mesh bit for bit.
+Tensor, sequence and pipeline parallelism (a rule or a mesh axis over
+``model``, ``seq`` or ``expert``) come with ROADMAP Queue 1 item 7b;
+``shard_state`` places a ``model`` rule all the same, which a
+checkpoint restore onto a data x model mesh needs.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -37,12 +65,22 @@ import torch
 
 from ..core import rng as rng_mod
 from ..core.device import resolve_device
+from ..models.layers import sync_batch_stats
+from ..parallel import collectives
+from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS,
+                             SEQ_AXIS, Mesh)
+from ..parallel.sharding import (Rules, StateSharding, gather_global,
+                                 local_slice, map_tree, opt_state_shardings,
+                                 replicated, shard_params_tree,
+                                 zero1_shardings)
 from .state import TrainState
 
-__all__ = ["make_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_eval_step", "shard_state"]
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict]]
-_MULTI_GPU = ("come with the multi-GPU slice (ROADMAP Queue 1 item 7)")
+_ITEM_7B = ("tensor, sequence and pipeline parallelism come with ROADMAP "
+            "Queue 1 item 7b")
+_DP = (DATA_AXIS, FSDP_AXIS)
 
 
 def _to_device(batch: Any, device: torch.device) -> Any:
@@ -74,75 +112,194 @@ def _value_and_grad(loss_fn: LossFn, params: Dict[str, torch.Tensor],
             else g.float()) for n, g in zip(names, grads)}
 
 
-def make_train_step(loss_fn: LossFn, mesh: Any = None, accum_steps: int = 1,
-                    donate: bool = True, donate_batch: bool = False,
+def _rule_axes(rules: Optional[Rules]) -> set:
+    out = set()
+    for _, spec in rules or ():
+        for entry in spec:
+            if entry is not None:
+                out.update((entry,) if isinstance(entry, str) else entry)
+    return out
+
+
+def _data_parallel_only(mesh: Mesh, rules: Optional[Rules]) -> None:
+    """The step splits work over data x fsdp only: a rule or a mesh axis
+    over model, seq or expert is item 7b's."""
+    later = (MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
+    ruled = sorted(_rule_axes(rules) & set(later))
+    if ruled:
+        raise NotImplementedError(f"rules over {ruled}: {_ITEM_7B}")
+    wide = [a for a in later if mesh.shape[a] > 1]
+    if wide:
+        raise NotImplementedError(f"mesh axes {wide} > 1: {_ITEM_7B}")
+
+
+def _reduce_fp32(grads: Dict[str, torch.Tensor], sh: StateSharding,
+                 mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The SUM over data x fsdp of this rank's gradients, each in its
+    moments' layout, packed as DDP packs its buckets: every replicated
+    leaf in one flat all-reduce, and the leaves split over the same axes
+    in one reduce-scatter over those axes' group (each leaf's split dim
+    moved first and cut into n rows, the rows laid side by side), then
+    all-reduced over the data x fsdp axes they are not split over. One
+    call a layout instead of one a leaf: a call costs the host far more
+    than the bytes cost the link."""
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for name, g in grads.items():
+        dims = sh.moments[name].dims()
+        if len(dims) > 1:
+            raise NotImplementedError(f"a gradient split along "
+                                      f"{len(dims)} dims: {_ITEM_7B}")
+        by_axes.setdefault(dims[0][1] if dims else (), []).append(name)
+    out: Dict[str, torch.Tensor] = {}
+    for axes, names in by_axes.items():
+        if not axes:
+            flat = torch.cat([grads[nm].reshape(-1) for nm in names])
+            collectives.all_reduce(flat, mesh.group(_DP))
+            for nm, piece in zip(names, flat.split(
+                    [grads[nm].numel() for nm in names])):
+                out[nm] = piece.view(grads[nm].shape)
+            continue
+        n = mesh.axis_size(axes)
+        moved = {}
+        for nm in names:
+            d = sh.moments[nm].dims()[0][0]
+            moved[nm] = (d, grads[nm].movedim(d, 0))
+        rows = torch.cat([m.reshape(n, -1) for _, m in moved.values()],
+                         dim=1)
+        mine = torch.empty(rows.shape[1], dtype=rows.dtype,
+                           device=rows.device)
+        collectives.reduce_scatter_dim0(mine.view(1, -1), rows,
+                                        mesh.group(axes))
+        rest = tuple(a for a in _DP if a not in axes and mesh.shape[a] > 1)
+        if rest:
+            collectives.all_reduce(mine, mesh.group(rest))
+        for nm, piece in zip(names, mine.split(
+                [m.numel() // n for _, m in moved.values()])):
+            d, m = moved[nm]
+            out[nm] = piece.view((m.shape[0] // n,) + tuple(m.shape[1:])
+                                 ).movedim(0, d).contiguous()
+    return {nm: out[nm] for nm in grads}
+
+
+def _reduce_int8(grads: Dict[str, torch.Tensor], sh: StateSharding,
+                 zero1: bool, group, n: int, block: int
+                 ) -> Dict[str, torch.Tensor]:
+    """JAX's ``_int8_value_and_grad`` reduction: leaves whose ZeRO-1 spec
+    splits dim 0 (and whose dim 0 the n ranks divide) take the int8
+    reduce-scatter and come out in the moments' layout; the rest take the
+    int8 psum and are cut to their moments' layout."""
+    names = list(grads)
+
+    def scatter(name):
+        spec = sh.moments[name].spec
+        g = grads[name]
+        return (zero1 and len(spec) > 0 and spec[0] is not None
+                and g.shape[0] % n == 0)
+
+    flags = [scatter(nm) for nm in names]
+    out = collectives.quantized_reduce([grads[nm] for nm in names], flags,
+                                       group, block)
+    return {nm: (g if rs else local_slice(g, sh.moments[nm]))
+            for nm, g, rs in zip(names, out, flags)}
+
+
+def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None,
+                    accum_steps: int = 1, donate: bool = True,
+                    donate_batch: bool = False,
                     weight_update: str = "replicated",
-                    grad_comm: str = "fp32", rules: Any = None,
+                    grad_comm: str = "fp32", rules: Optional[Rules] = None,
                     comm_block: int = 256,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Callable[[TrainState, Any, int],
                                   Tuple[TrainState, Dict]]:
     """Build the train step. ``batch`` leaves have a leading batch dim
-    divisible by ``accum_steps``; ``rng`` is the run's key
-    (``core.rng.root_key(seed)``)."""
-    del donate, donate_batch, comm_block
+    (this rank's slice of the global batch with a mesh) divisible by
+    ``accum_steps``; ``rng`` is the run's key (``core.rng.root_key(seed)``).
+
+    ``weight_update="zero1"`` (needs ``mesh``; pair it with
+    ``shard_state(..., zero1=True)``) keeps the optimizer moments split
+    over the data axes; ``rules`` must be the rules the state was placed
+    with. ``grad_comm="int8"`` (needs ``mesh``, ``accum_steps == 1``, no
+    ``rules`` and a loss without batch statistics) reduces the gradients
+    with block-scaled int8 collectives (blocks of ``comm_block``)."""
+    del donate, donate_batch
     if weight_update not in ("replicated", "zero1"):
         raise ValueError(f"weight_update must be 'replicated' or 'zero1', "
                          f"got {weight_update!r}")
     if grad_comm not in ("fp32", "int8"):
         raise ValueError(f"grad_comm must be 'fp32' or 'int8', "
                          f"got {grad_comm!r}")
+    if (weight_update == "zero1" or grad_comm == "int8") and mesh is None:
+        raise ValueError("weight_update='zero1' / grad_comm='int8' need "
+                         "a mesh")
+    if grad_comm == "int8" and accum_steps != 1:
+        raise ValueError("grad_comm='int8' requires accum_steps == 1 "
+                         "(the accumulation is float32; quantizing "
+                         "microbatch partial sums would stack quantization "
+                         "error accum_steps times)")
+    if grad_comm == "int8" and rules:
+        raise ValueError("grad_comm='int8' is data-parallel only: TP/FSDP "
+                         "rules shard params, but the int8 gradient path "
+                         "replicates them")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if mesh is not None or rules or weight_update != "replicated" \
-            or grad_comm != "fp32":
-        raise NotImplementedError(
-            f"mesh / rules / weight_update={weight_update!r} / "
-            f"grad_comm={grad_comm!r}: sharded training and quantized "
-            f"collectives {_MULTI_GPU}")
-    dev = resolve_device(device)
+    if mesh is None:
+        if rules:
+            raise ValueError("rules place a state on a mesh: pass mesh=")
+        dev = resolve_device(device)
+    else:
+        _data_parallel_only(mesh, rules)
+        dev = mesh.device
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's {dev}")
 
     def step_fn(state: TrainState, batch: Any, rng: int
                 ) -> Tuple[TrainState, Dict]:
+        run = run_step if mesh is None else run_mesh_step
         if dev.type != "cpu":
-            return run_step(state, batch, rng)
+            return run(state, batch, rng)
         was = torch.backends.mkldnn.enabled
         torch.backends.mkldnn.enabled = False
         try:
-            return run_step(state, batch, rng)
+            return run(state, batch, rng)
         finally:
             torch.backends.mkldnn.enabled = was
 
-    def run_step(state: TrainState, batch: Any, rng: int
-                 ) -> Tuple[TrainState, Dict]:
-        gen = rng_mod.step_key(rng, state.step, dev)
-        batch = _to_device(batch, dev)
-        params = state.params
+    def local_grads(state: TrainState, params: Dict[str, torch.Tensor],
+                    batch: Any, gen: torch.Generator):
+        """This process's loss, aux, metrics and float32 gradients."""
         if accum_steps == 1:
             loss, aux, grads = _value_and_grad(loss_fn, params, state, batch,
                                                gen)
             metrics = {k: v.detach()
                        for k, v in aux.get("metrics", {}).items()}
-        else:
-            grads, loss, metrics, aux = None, 0.0, {}, {}
-            for i in range(accum_steps):
-                l, aux, g = _value_and_grad(
-                    loss_fn, params, state,
-                    _microbatch(batch, accum_steps, i), gen)
-                if grads is None:
-                    grads = g
-                else:
-                    names = list(grads)
-                    torch._foreach_add_([grads[n] for n in names],
-                                        [g[n] for n in names])
-                loss = loss + l
-                for k, v in aux.get("metrics", {}).items():
-                    metrics[k] = metrics.get(k, 0.0) + v.detach()
-            names = list(grads)
-            torch._foreach_div_([grads[n] for n in names], accum_steps)
-            loss = loss / accum_steps
-            metrics = {k: v / accum_steps for k, v in metrics.items()}
+            return loss, aux, metrics, grads
+        grads, loss, metrics, aux = None, 0.0, {}, {}
+        for i in range(accum_steps):
+            l, aux, g = _value_and_grad(
+                loss_fn, params, state,
+                _microbatch(batch, accum_steps, i), gen)
+            if grads is None:
+                grads = g
+            else:
+                names = list(grads)
+                torch._foreach_add_([grads[n] for n in names],
+                                    [g[n] for n in names])
+            loss = loss + l
+            for k, v in aux.get("metrics", {}).items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach()
+        names = list(grads)
+        torch._foreach_div_([grads[n] for n in names], accum_steps)
+        loss = loss / accum_steps
+        metrics = {k: v / accum_steps for k, v in metrics.items()}
+        return loss, aux, metrics, grads
 
+    def run_step(state: TrainState, batch: Any, rng: int
+                 ) -> Tuple[TrainState, Dict]:
+        gen = rng_mod.step_key(rng, state.step, dev)
+        batch = _to_device(batch, dev)
+        loss, aux, metrics, grads = local_grads(state, state.params, batch,
+                                                gen)
         state.apply_gradients(grads, aux.get("batch_stats"))
         out = {"loss": loss.float(), **metrics}
         out["grad_norm"] = torch.linalg.vector_norm(
@@ -151,23 +308,119 @@ def make_train_step(loss_fn: LossFn, mesh: Any = None, accum_steps: int = 1,
         out["bad_step"] = (~torch.isfinite(loss)).to(torch.int32)
         return state, out
 
+    def run_mesh_step(state: TrainState, batch: Any, rng: int
+                      ) -> Tuple[TrainState, Dict]:
+        sh = state.sharding
+        if sh is None or sh.mesh is not mesh:
+            raise ValueError("place the state on this mesh first: "
+                             "shard_state(state, mesh, rules, zero1)")
+        group, n = mesh.group(_DP), mesh.axis_size(_DP)
+        # each rank its own masks: the step key folded with its data index
+        gen = rng_mod.step_key(rng_mod.fold_in(rng, state.step),
+                               mesh.axis_index(_DP), dev)
+        batch = _to_device(batch, dev)
+        params = {}
+        for name, p in state.params.items():
+            psh = sh.params[name]
+            params[name] = (p if psh.is_fully_replicated else
+                            gather_global(p.detach(), psh).requires_grad_())
+        sync = (sync_batch_stats(group) if n > 1 and grad_comm == "fp32"
+                else contextlib.nullcontext())
+        with sync:
+            loss, aux, metrics, grads = local_grads(state, params, batch,
+                                                    gen)
+        if grad_comm == "int8":
+            if "batch_stats" in aux:
+                raise ValueError(
+                    "grad_comm='int8' does not support batch_stats losses: "
+                    "BN statistics would need their own cross-replica "
+                    "reduction (use a model without BatchNorm or fp32 comm)")
+            grads = _reduce_int8(grads, sh, weight_update == "zero1",
+                                 group, n, comm_block)
+        else:
+            grads = _reduce_fp32(grads, sh, mesh)
+        names = list(grads)
+        torch._foreach_div_([grads[nm] for nm in names], n)
+        # loss and metrics averaged over the ranks, in float32
+        keys = list(metrics)
+        vals = torch.stack([loss.float()]
+                           + [metrics[k].float() for k in keys])
+        vals = collectives.all_reduce(vals, group) / n
+        state.apply_gradients(grads, aux.get("batch_stats"))
+        out = {"loss": vals[0], **dict(zip(keys, vals[1:]))}
+        out["grad_norm"] = (
+            sh.global_norm(grads) if sh.any_sharded else
+            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                [grads[nm] for nm in names]))))
+        out["bad_step"] = (~torch.isfinite(vals[0])).to(torch.int32)
+        return state, out
+
     return step_fn
 
 
-def make_eval_step(metric_fn: Callable[..., Dict], mesh: Any = None,
-                   use_ema: bool = True,
+def make_eval_step(metric_fn: Callable[..., Dict],
+                   mesh: Optional[Mesh] = None, use_ema: bool = True,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Callable[[TrainState, Any], Dict]:
     """``metric_fn(params, state, batch)`` returns per-batch metric SUMS
     (summing, not averaging, lets callers weight by true batch size). The
-    EMA params are used when the state keeps them and ``use_ema``."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh {_MULTI_GPU}")
-    dev = resolve_device(device)
+    EMA params are used when the state keeps them and ``use_ema``. With a
+    ``mesh`` each rank scores its slice of the batch with the gathered
+    parameters and the sums are added over data x fsdp."""
+    dev = resolve_device(device) if mesh is None else mesh.device
 
     def step_fn(state: TrainState, batch: Any) -> Dict:
         with torch.no_grad():
             params = state.eval_params if use_ema else state.params
-            return metric_fn(params, state, _to_device(batch, dev))
+            if mesh is None:
+                return metric_fn(params, state, _to_device(batch, dev))
+            sh = state.sharding
+            if sh is None or sh.mesh is not mesh:
+                raise ValueError("place the state on this mesh first: "
+                                 "shard_state(state, mesh, rules, zero1)")
+            layout = (sh.ema if use_ema and state.ema_params is not None
+                      else sh.params)
+            params = {k: (p if layout[k].is_fully_replicated
+                          else gather_global(p, layout[k]))
+                      for k, p in params.items()}
+            out = metric_fn(params, state, _to_device(batch, dev))
+            return collectives.psum_tree(out, mesh.group(_DP))
 
     return step_fn
+
+
+def shard_state(state: TrainState, mesh: Mesh,
+                rules: Optional[Rules] = None,
+                zero1: bool = False) -> TrainState:
+    """Place ``state`` on ``mesh``, in place: the model moves to the
+    mesh's device, every parameter (and its EMA) is cut to this rank's
+    slice of its layout under ``rules`` (default: replicated, pure data
+    parallel), and the optimizer moments (the state's dicts keyed by every
+    parameter) follow the params' layout, or with ``zero1`` are split over
+    the data axes where a dim divides (the rest stay replicated, as
+    ``shard_layout_summary`` shows). Counts and other leaves stay
+    replicated. Returns the state, its layout in ``state.sharding``."""
+    if state.sharding is not None:
+        raise ValueError("the state is already placed on a mesh")
+    state.model.to(mesh.device)
+    params = state.params
+    rep = replicated(mesh)
+    param_sh = shard_params_tree(params, mesh, rules)
+    moment_sh = zero1_shardings(params, mesh, rules) if zero1 else param_sh
+    opt_sh = opt_state_shardings(state.opt_state, list(params), moment_sh,
+                                 rep)
+    ema_sh = dict(param_sh) if state.ema_params is not None else None
+
+    def place(t: torch.Tensor, sh) -> torch.Tensor:
+        t = t.to(mesh.device)
+        return t if sh.is_fully_replicated else local_slice(t, sh)
+
+    with torch.no_grad():
+        for name, p in params.items():
+            if not param_sh[name].is_fully_replicated:
+                p.data = local_slice(p.data, param_sh[name])
+        state.opt_state = map_tree(place, state.opt_state, opt_sh)
+        if state.ema_params is not None:
+            state.ema_params = map_tree(place, state.ema_params, ema_sh)
+    state.sharding = StateSharding(mesh, param_sh, moment_sh, opt_sh, ema_sh)
+    return state

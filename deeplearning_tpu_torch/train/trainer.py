@@ -44,9 +44,16 @@ the rollbacks, and ``metrics_port`` serves it as ``/metrics``,
 loop, advertised in ``DLTPU_ENDPOINT_FILE`` when set. The scrape reads
 the host copies the log line reads: it adds no fetch from the card.
 
-What the JAX Trainer takes and this one does not, and the slice that
-brings it (ROADMAP Queue 1):
-- ``weight_update`` (ZeRO-1 and the topology sidecar): item 7.
+On a mesh (the step from ``make_train_step(mesh=...)``, the state
+placed by ``shard_state``): ``weight_update`` ("replicated" / "zero1",
+None to read it off the state's layout) goes into every checkpoint's
+``topology.json`` with the mesh and the layout (JAX's sidecar); the
+checkpoint gathers the slices on every rank and rank 0 writes it; rank 0
+alone writes the logs, the flight and trace files, the heartbeat and the
+metrics port; a preemption lands at the step rank 0 reports
+(``agree_preempt_step``), and rank 0 decides whether it still has to be
+saved.
+
 Fixed here, where the JAX Trainer takes an option: a checkpoint every
 epoch (``save_every_epochs``), ``best`` by ``top1`` (``best_metric``),
 the count-normalised eval (``metric_reducer``: no caller of the JAX
@@ -84,6 +91,8 @@ from ..elastic.preempt import (Preempted, PreemptionGuard,
 from ..obs import flight, spans
 from ..obs import metrics as obs_metrics
 from ..obs.spans import span, step_span
+from ..parallel.collectives import broadcast_from_host0
+from ..parallel.mesh import rank
 from . import recovery as recovery_mod
 from .async_metrics import DeferredMetrics, fetch_scalars
 from .recovery import RecoveryExhausted, RecoveryManager, RecoveryPolicy
@@ -151,8 +160,14 @@ class Trainer:
         hbm_sample_s: float = 0.25,
         hbm_alert_frac: Optional[float] = None,
         metrics_port="auto",
+        weight_update: Optional[str] = None,
     ):
         self.state = state
+        # rank 0 alone writes logs, traces, the heartbeat and the port
+        self.is_main = rank() == 0
+        # "replicated" / "zero1", recorded in every checkpoint's topology
+        # sidecar; None lets the sidecar read it off the state's layout
+        self.weight_update = weight_update
         # strict mode: "transfers" arms the sync guard around every step
         # region, "nans" NaN detection for the whole run; None defers to
         # DLTPU_STRICT in the environment
@@ -186,7 +201,8 @@ class Trainer:
         self._beat_writer: Optional[hb.HeartbeatWriter] = None
         # observability: spans + flight recorder, "auto" = on whenever the
         # run has a workdir to dump trace.json / flightrec.json into
-        self.obs_enabled = bool(workdir) if obs == "auto" else bool(obs)
+        self.obs_enabled = self.is_main and (
+            bool(workdir) if obs == "auto" else bool(obs))
         self.run_config = run_config
         self._obs_owns_tracer = False
         self._obs_started = False
@@ -197,7 +213,9 @@ class Trainer:
         self.hbm_alert_frac = hbm_alert_frac
         self._hbm = None
         self.hbm_watermark: Dict[str, float] = {}
-        if metrics_port == "auto":
+        if not self.is_main:
+            self.metrics_port = None
+        elif metrics_port == "auto":
             raw = os.environ.get("DLTPU_METRICS_PORT")
             self.metrics_port = int(raw) if raw not in (None, "") else None
         else:
@@ -222,7 +240,8 @@ class Trainer:
         self.callbacks = callbacks or Callbacks()
         self.workdir = workdir
         self.logger = create_logger("dltpu", workdir)
-        self.hub = LoggerHub(workdir, log_backends)
+        self.hub = LoggerHub(workdir if self.is_main else None,
+                             log_backends)
         self.tb = self.hub.tb
         self.meters = MetricLogger()
         self.rng = rng_mod.root_key(seed)
@@ -348,7 +367,7 @@ class Trainer:
                 guard.add_flush(self.ckpt.flush)
             if guard.install():
                 self.preempt_guard = guard
-        if self._beat_writer is None:
+        if self._beat_writer is None and self.is_main:
             path = self._heartbeat_opt
             if path == "auto":
                 path = os.environ.get(hb.ENV_VAR)
@@ -387,7 +406,8 @@ class Trainer:
         flight ring with the reason 'preempted'."""
         if self.ckpt:
             step = agree_preempt_step(int(self.state.step))
-            if self.ckpt.latest_step() != step:
+            # one decision for every rank: the save is collective
+            if broadcast_from_host0(self.ckpt.latest_step() != step):
                 self._save()
             self.ckpt.flush()
             self.logger.info(
@@ -720,7 +740,7 @@ class Trainer:
         with span("checkpoint", step=step, best=is_best):
             self.ckpt.save(step, self.state,
                            metrics={BEST_METRIC: self.best_value},
-                           is_best=is_best)
+                           is_best=is_best, topology=self._topology())
         if faults.consume("ckpt_corrupt", "checkpoint", step=step):
             # flush FIRST so the checksums record the intact files: the
             # bit flip after the commit is the silent on-disk corruption
@@ -731,6 +751,13 @@ class Trainer:
                 f"fault: corrupted checkpoint step {step} "
                 f"({len(hit)} file(s))")
         self.callbacks.fire("on_checkpoint", self, step=step)
+
+    def _topology(self) -> Dict[str, Any]:
+        """The checkpoint sidecar's fingerprint: what a cross-topology
+        resume reports it reshards from."""
+        from ..elastic.topology import current_topology
+        return current_topology(state=self.state,
+                                weight_update=self.weight_update)
 
     # -------------------------------------------------- throughput mode
     def throughput(self, n_iters: int = 30, lag: int = 3) -> float:

@@ -379,13 +379,30 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
 
 @pytest.mark.parametrize("opt,item", [
     ("train.strict=threads", "8"), ("train.strict=all", "8"),
-    ("train.mesh_model_axis=2", "7"), ("train.mesh_seq_axis=2", "7"),
-    ("train.seq_parallel=ulysses", "7"), ("train.pipeline_stages=2", "7"),
-    ("train.microbatches=4", "7"), ("train.weight_update=zero1", "7"),
-    ("train.grad_comm=int8", "7")])
-def test_cli_later_slice_options_name_their_slice(opt, item):
-    with pytest.raises(ValueError, match=f"item {item}"):
-        cli.main(CLI_TINY + [opt])
+    ("train.mesh_model_axis=2", "7b"), ("train.mesh_seq_axis=2", "7b"),
+    ("train.seq_parallel=ulysses", "7b"), ("train.pipeline_stages=2", "7b"),
+    ("train.microbatches=4", "7b"), ("train.weight_update=zero1", None),
+    ("train.grad_comm=int8", None)])
+def test_cli_later_slice_options_name_their_slice(opt, item, tmp_path,
+                                                  capsys):
+    """Item 7b's options raise naming it; ZeRO-1 and the int8 gradient
+    collectives run: a one-process gloo world, the mesh step, and a
+    checkpoint whose topology sidecar names the weight-update mode (the
+    process group is gone after the run)."""
+    import torch.distributed as dist
+    if item is not None:
+        with pytest.raises(ValueError, match=f"item {item}"):
+            cli.main(CLI_TINY + [opt])
+        assert not dist.is_initialized()
+        return
+    assert cli.main(CLI_TINY + [opt, f"train.workdir={tmp_path}"]) == 0
+    assert not dist.is_initialized()
+    assert "top1" in capsys.readouterr().out.strip().splitlines()[-1]
+    with open(tmp_path / "ckpt" / "topology.json") as f:
+        (step, doc), = json.load(f).items()
+    assert int(step) == 2 and doc["process_count"] == 1
+    assert doc["weight_update"] == ("zero1" if "zero1" in opt
+                                    else "replicated")
 
 
 def test_cli_device_defaults_to_the_card(monkeypatch):

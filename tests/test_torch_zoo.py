@@ -485,6 +485,37 @@ def test_brownout_standby_and_drain_give_jax_reasons():
         scenario_brownout_standby_drain(jserve)
 
 
+def test_a_freed_byte_is_counted_once():
+    """The reading falls by a victim's bytes when it is evicted (the
+    card's own reading does, since an eviction empties the engine's
+    pool). With two idle tenants and a load that fits only once both are
+    gone, the zoo must evict both: subtracting the victim's bytes from a
+    reading that already dropped would admit the load after one."""
+    holder = {}
+
+    def snap():
+        zoo = holder["zoo"]
+        in_use = 100 + sum(zoo._resident_bytes.get(a, 0)
+                           for a in zoo._engines)
+        return {"devices": [{"bytes_limit": 1000, "bytes_in_use": in_use,
+                             "usage_frac": in_use / 1000}]}
+
+    zoo = tserve.ModelZoo(alert_frac=0.8, hbm_snapshot_fn=snap)
+    holder["zoo"] = zoo
+    for alias, nbytes in (("a", 300), ("b", 300), ("c", 450)):
+        zoo.register(alias,
+                     engine_factory=lambda n=nbytes: FakeEngine(nbytes=n),
+                     est_bytes=nbytes, batch_buckets=(1, 4), image_size=8)
+    zoo.load("a", wait=True)
+    zoo.load("b", wait=True)
+    # 0.1 + 0.3 + 0.3 in use; c projects 0.7 + 0.45, then 0.4 + 0.45
+    # after one eviction (still >= 0.8), and 0.1 + 0.45 after both
+    zoo.load("c", wait=True)
+    assert zoo.evictions == 2
+    assert [zoo.state(a) for a in ("a", "b", "c")] == [
+        "evicted", "evicted", "warm"]
+
+
 def test_demote_residency_flips_the_spec_and_evicts():
     out = {}
     for key, pkg in (("jax", jserve), ("port", tserve)):

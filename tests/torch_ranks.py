@@ -1,0 +1,318 @@
+"""gloo ranks of the port for the CPU tests of its parallel half.
+
+``run_ranks(name, n, tmp_path, payload)`` starts ``n`` processes of this
+file; each joins a gloo group through a file under ``tmp_path`` (no TCP
+port: several test workers run at once), runs the scenario ``name`` on
+one torch thread, and leaves what it returns in ``tmp_path``. The ranks
+import torch and the port only, never JAX: the test module holds their
+results against the JAX package in its own process.
+
+    python tests/torch_ranks.py <name> <rank> <n> <dir>
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+# the tiny ViT of the step scenarios (float32, dims the ranks divide)
+TINY_VIT = dict(img_size=16, patch_size=4, num_classes=10, embed_dim=64,
+                depth=2, num_heads=2)
+STEPS = 3
+SGD = dict(lr=0.05, momentum=0.9, weight_decay=1e-4, clip=1.0)
+# the seeded resnet18's first gradient has a norm near 200: a small rate
+# keeps the second step from amplifying float32 rounding
+RESNET_LR = 1e-3
+# (name, mesh fsdp extent, weight_update, grad_comm, FSDP rules)
+MODES = (("replicated", 1, "replicated", "fp32", False),
+         ("zero1", 1, "zero1", "fp32", False),
+         ("fsdp", 2, "replicated", "fp32", True),
+         ("int8", 1, "replicated", "int8", False),
+         ("zero1_int8", 1, "zero1", "int8", False))
+
+
+def run_ranks(name, n, tmp_path, payload, timeout=300):
+    """Run scenario ``name`` on ``n`` gloo ranks; their results, by rank."""
+    d = str(tmp_path)
+    torch.save(payload, os.path.join(d, f"{name}_in.pt"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, HERE, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), name, str(r), str(n), d],
+        env=env, cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(n)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} of {name}:\n{log[-6000:]}"
+    return [torch.load(os.path.join(d, f"{name}_out{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+# ------------------------------------------------------------ scenarios
+def collectives(rank, n, payload, d):
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    t = {k: torch.from_numpy(v[rank]) for k, v in payload.items()}
+    mesh = build_mesh(MeshConfig(data=2, fsdp=2), device="cpu")
+    coll.reset_launch_counts()
+    out = {
+        "psum_ints": coll.quantized_psum(t["ints"], block=16),
+        "rs_ints": coll.quantized_reduce_scatter(t["rs_ints"], block=16),
+        "tree_ints": coll.quantized_psum_tree(
+            {"a": t["ints"], "b": t["ints2"]}, block=16),
+        "psum_gauss": coll.quantized_psum(t["gauss_a"]),
+        "tree_gauss": coll.quantized_psum_tree(
+            {"a": t["gauss_a"], "b": t["gauss_b"]}),
+        "rs_gauss": coll.quantized_reduce_scatter(t["gauss_rs"]),
+        "fsdp_ints": coll.quantized_psum(t["ints"], mesh.group("fsdp"),
+                                         block=16),
+        "data_ints": coll.quantized_psum(t["ints"], mesh.group("data"),
+                                         block=16),
+        "psum_tree": coll.psum_tree({"a": t["ints"], "b": t["gauss_b"]}),
+        "pmean_tree": coll.pmean_tree({"a": t["ints"], "b": t["gauss_b"]}),
+        "allgather": coll.host_allgather({"r": np.array([rank, 7])}),
+        "broadcast": coll.broadcast_from_host0({"rank": rank}),
+        "coords": (mesh.coords["data"], mesh.coords["fsdp"],
+                   mesh.axis_index(("data", "fsdp"))),
+    }
+    counts = coll.launch_counts()
+    out = coll._map(lambda x: _np(x) if isinstance(x, torch.Tensor)
+                    else x, out)
+    out["counts"] = counts
+    return out
+
+
+def _vit_state(sd, opt="sgd"):
+    from deeplearning_tpu_torch.models.classification.vit import (
+        VisionTransformer)
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    model = VisionTransformer(**TINY_VIT, dtype=torch.float32,
+                              attn_fn=get_attn_fn("naive"))
+    model.load_state_dict(sd)
+    params = dict(model.named_parameters())
+    if opt == "sgd":
+        tx = build_optimizer("sgd", SGD["lr"], momentum=SGD["momentum"],
+                             weight_decay=SGD["weight_decay"],
+                             clip_grad_norm=SGD["clip"], params=params)
+    else:
+        tx = build_optimizer("adamw", 1e-3, params=params)
+    return TrainState.create(model=model, tx=tx)
+
+
+def _local(batch, rank, n):
+    b = batch["image"].shape[0] // n
+    return {k: torch.from_numpy(v[rank * b:(rank + 1) * b])
+            for k, v in batch.items()}
+
+
+def _vit_modes(rank, n, payload, d):
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.sharding import (
+        FSDP_RULES, shard_layout_summary, tree_bytes_per_device)
+    from deeplearning_tpu_torch.train import make_eval_step
+    from deeplearning_tpu_torch.train.classification import (
+        make_loss_fn, make_metric_fn)
+    from deeplearning_tpu_torch.train.steps import (make_train_step,
+                                                     shard_state)
+    out = {}
+    record = {}
+    real = coll.quantized_reduce
+
+    def spy(leaves, scatter, group=None, block=256):
+        got = real(leaves, scatter, group, block)
+        if "local" not in record:
+            record["local"] = [_np(x) for x in leaves]
+            record["scatter"] = list(scatter)
+            record["reduced"] = [_np(x) for x in got]
+        return got
+
+    coll.quantized_reduce = spy
+    for name, fsdp, wu, comm, fsdp_rules in MODES:
+        mesh = build_mesh(MeshConfig(data=n // fsdp, fsdp=fsdp),
+                          device="cpu")
+        rules = FSDP_RULES if fsdp_rules else None
+        state = shard_state(_vit_state(payload["vit"]), mesh, rules,
+                            zero1=wu == "zero1")
+        step = make_train_step(make_loss_fn(), mesh=mesh, weight_update=wu,
+                               grad_comm=comm, rules=rules)
+        record.clear()
+        coll.reset_launch_counts()
+        losses, norms = [], []
+        for i in range(STEPS):
+            state, m = step(state, _local(payload["batches"][i], rank, n),
+                            0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        counts = coll.launch_counts()
+        ev = make_eval_step(make_metric_fn(), mesh=mesh)(
+            state, _local(payload["batches"][0], rank, n))
+        tree = state.state_dict()
+        out[name] = {
+            "losses": losses, "grad_norms": norms, "counts": counts,
+            "params": {k: _np(v) for k, v in tree["params"].items()},
+            "eval": {k: float(v) for k, v in ev.items()},
+            "local_params": {k: tuple(p.shape)
+                             for k, p in state.params.items()},
+            "moment_layout": shard_layout_summary(state.sharding.opt_state),
+            "opt_bytes": tree_bytes_per_device(state.opt_state),
+            "int8": dict(record)}
+    coll.quantized_reduce = real
+    # ZeRO-1 moment bytes of an AdamW state, beside replicated
+    mesh = build_mesh(MeshConfig(), device="cpu")
+    for zero1 in (False, True):
+        st = shard_state(_vit_state(payload["vit"], "adamw"), mesh,
+                         zero1=zero1)
+        out[f"adam_bytes_{zero1}"] = tree_bytes_per_device(st.opt_state)
+        out[f"adam_layout_{zero1}"] = shard_layout_summary(
+            st.sharding.opt_state)
+    return out
+
+
+def _resnet_step(rank, n, payload):
+    from deeplearning_tpu_torch import models  # noqa: F401
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.parallel.mesh import build_mesh
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    from deeplearning_tpu_torch.train.steps import (make_train_step,
+                                                     shard_state)
+    model = MODELS.build("resnet18", num_classes=10, dtype=torch.float32)
+    model.load_state_dict(payload["resnet"])
+    tx = build_optimizer("sgd", RESNET_LR, momentum=0.9,
+                         params=dict(model.named_parameters()))
+    state = TrainState.create(model=model, tx=tx,
+                              batch_stats=dict(model.named_buffers()))
+    mesh = build_mesh(device="cpu")
+    shard_state(state, mesh)
+    step = make_train_step(make_loss_fn(has_batch_stats=True), mesh=mesh)
+    losses = []
+    for i in range(2):
+        state, m = step(state, _local(payload["resnet_batches"][i], rank,
+                                      n), 0)
+        losses.append(float(m["loss"]))
+    tree = state.state_dict()
+    return {"losses": losses,
+            "params": {k: _np(v) for k, v in tree["params"].items()},
+            "buffers": {k: _np(v) for k, v in tree["buffers"].items()
+                        if "running" in k}}
+
+
+def _checkpoints(rank, n, payload, d):
+    """A ZeRO-1 state after one step saved at dp = n, restored here at
+    dp = n, and the gathered moments for the parent to restore at one
+    process."""
+    from deeplearning_tpu_torch.core.checkpoint import CheckpointManager
+    from deeplearning_tpu_torch.elastic.resume import elastic_restore
+    from deeplearning_tpu_torch.elastic.topology import (current_topology,
+                                                         topology_changed)
+    from deeplearning_tpu_torch.parallel.mesh import build_mesh
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.train.steps import (make_train_step,
+                                                     shard_state)
+    mesh = build_mesh(device="cpu")
+    state = shard_state(_vit_state(payload["vit"], "adamw"), mesh,
+                        zero1=True)
+    step = make_train_step(make_loss_fn(), mesh=mesh, weight_update="zero1")
+    state, _ = step(state, _local(payload["batches"][0], rank, n), 0)
+    ckpt = CheckpointManager(os.path.join(d, "ckpt"))
+    topo = current_topology(state=state, weight_update="zero1")
+    ckpt.save(1, state, topology=topo)
+    saved = state.state_dict()
+    local = [_np(t) for t in _leaves(state.opt_state)]
+    fresh, got = elastic_restore(ckpt, _vit_state(payload["vit"], "adamw"),
+                                 mesh, zero1=True)
+    again = [_np(t) for t in _leaves(fresh.opt_state)]
+    return {"topology": topo, "sidecar": ckpt.topology(1), "step": got,
+            "same_local": all(np.array_equal(a, b)
+                              for a, b in zip(local, again)),
+            "changed_vs_self": topology_changed(ckpt.topology(1), topo),
+            "moments": [_np(t) for t in _leaves(saved["opt_state"])],
+            "params": {k: _np(v) for k, v in saved["params"].items()}}
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _feed_and_eval(rank, n, payload, d):
+    from deeplearning_tpu_torch.data.loader import ArraySource, DataLoader
+    from deeplearning_tpu_torch.elastic.preempt import agree_preempt_step
+    from deeplearning_tpu_torch.evaluation.distributed import (
+        gather_and_evaluate)
+    loader = DataLoader(ArraySource(**payload["feed"]), global_batch=8,
+                        seed=3)
+    loader.set_epoch(1)
+    batches = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+    coco = gather_and_evaluate(payload["shards"][rank], 3, use_cpp=False)
+    return {"batches": batches, "preempt": agree_preempt_step(5 + rank),
+            "coco": coco, "host_batch": loader.host_batch}
+
+
+def _cli(rank, n, payload, d):
+    from deeplearning_tpu_torch.train import __main__ as cli
+    # the log backends are not under test: without tensorboard (its import
+    # pulls TensorFlow, ~10 s) the Trainer's TensorBoard writer is a no-op
+    sys.modules["torch.utils.tensorboard"] = None
+    workdir = os.path.join(d, "cli")
+    rc = cli.main(payload["cli"] + [f"train.workdir={workdir}"])
+    with open(os.path.join(workdir, "ckpt", "topology.json")) as f:
+        import json
+        sidecar = json.load(f)
+    return {"rc": rc, "sidecar": sidecar}
+
+
+def steps(rank, n, payload, d):
+    out = {"vit": _vit_modes(rank, n, payload, d),
+           "resnet": _resnet_step(rank, n, payload),
+           "ckpt": _checkpoints(rank, n, payload, d),
+           "feed": _feed_and_eval(rank, n, payload, d)}
+    out["cli"] = _cli(rank, n, payload, d)
+    return out
+
+
+SCENARIOS = {"collectives": collectives, "steps": steps}
+
+
+def main(name, rank, n, d):
+    torch.set_num_threads(1)
+    sys.path[:0] = [REPO, HERE]
+    from deeplearning_tpu_torch.parallel.mesh import initialize_distributed
+    initialize_distributed(f"file://{os.path.join(d, name + '_store')}", n,
+                           rank, device="cpu")
+    import torch.distributed as dist
+    payload = torch.load(os.path.join(d, f"{name}_in.pt"),
+                         weights_only=False)
+    result = SCENARIOS[name](rank, n, payload, d)
+    torch.save(result, os.path.join(d, f"{name}_out{rank}.pt"))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
