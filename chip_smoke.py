@@ -373,7 +373,38 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    holds half of AdamW's moment bytes plus the leaves no even dim splits.
    Their launches are checked in the processes, not added to the kernels
    line. This shows the layout and the collectives on the card, not a
-   speed: gloo stages every collective through the host.
+   speed: gloo stages every collective through the host;
+44. the ring and Ulysses over one NCCL rank (the world-size-1 group
+   started again, a ``seq = 1`` mesh) at ViT-B/16's training shape (B =
+   128, H = 12, N = 197, D = 64, bf16): ``make_ring_attention`` and
+   ``make_ulysses_attention`` on K1, forward + backward through autograd,
+   each counted from zero just before its call: one K1 forward, one dQ
+   and one dK/dV launch and no collective; the forward bit-equal to K1's
+   ``flash_attention``, dq/dk/dv within phase 5's bf16 tolerance of K1's
+   backward; then the ring's forward + backward and K1's, in turns, by
+   CUDA-graph replay (at one rank the ring issues no collective, so the
+   whole call captures);
+45. two processes of this script on ``cuda:0`` over gloo, a data 1 x seq
+   2 mesh: ViT-B/16 at full width at 240² (N = 226, 113 a rank; 6 heads
+   a rank for Ulysses), batch 16 (each rank the whole batch), phase 6's
+   AdamW and loss through ``make_train_step(mesh=...)``: 2 steps with
+   ``make_ring_attn_fn(use_flash=True)`` (24 K1 forward, 24 dQ and 24
+   dK/dV launches a step on each rank), then 2 with
+   ``make_ulysses_attn_fn(use_flash=True)`` (12 + 12 + 12); both ranks
+   report one loss, the first within 5e-3 relative and its ``grad_norm``
+   within 5e-2 of the step without sequence parallelism on the same
+   weights and batch (run here first);
+46. two processes on ``cuda:0`` over gloo, ``model = 2``: ViT-B/16 at
+   224², its 12 blocks as 2 GPipe stages of 6 (flash_hb) over 4
+   microbatches of a batch of 32, two steps of
+   ``parallel.pipeline_train.make_pipeline_train_step``: (2 + 4 - 1) x 6
+   = 30 launches of each K1 kernel a step on each rank, both stages report
+   the same metrics, the first loss within 5e-3 of the sequential step's;
+   then the train CLI's Trainer with ``train.pipeline_stages=2
+   train.microbatches=4`` over the same group: 2 steps and an evaluation,
+   its checkpoint holding the whole stacked state. Phases 45-46 check
+   their launches in the processes (not in the kernels line) and log
+   their times as gloo's: layout and parity, not speed.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -387,7 +418,8 @@ phases 22-26 and 33 to phase 9's, each counted from zero just before its
 run. Phases 36-39 add theirs (the Trainer's, the served forwards' at 224²
 and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
 phase 38); the subprocesses' launches are not counted. Phases 40 and 42
-add the mesh runs' K1 launches.
+add the mesh runs' K1 launches, phase 44 the one-rank ring's and
+Ulysses' (the one-head-a-CTA forward, dQ and dK/dV entries).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -475,7 +507,13 @@ def main() -> int:
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    # phases 45 and 46 run two processes of this script, one a rank
+    ap.add_argument("--par-phase", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.par_phase is not None:
+        return PAR_RANKS[args.par_phase](args.mesh_rank, args.mesh_dir,
+                                         args.seed)
     if args.mesh_rank is not None:
         return _mesh_rank(args.mesh_rank, args.mesh_dir, args.seed)
 
@@ -913,9 +951,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     _two_ranks_on_one_card(args.seed, ref_loss, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "smoke_ranks"))
+    log(f"chip_smoke: phases 40-43 in {time.perf_counter() - t40:.1f}s")
+
+    # -------------- 44. the ring and Ulysses over one NCCL rank, on K1
+    phase(44, started)
+    t44 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = _mesh_start()
+    try:
+        _add_launches(kernels, _seq_one_rank(fa, dev, g, mesh))
+    finally:
+        dist.destroy_process_group()
+
+    # ------------ 45. two ranks on the one card: seq = 2, ring, Ulysses
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    phase(45, started)
+    torch.cuda.empty_cache()
+    _seq_two_ranks(args.seed, dev, os.path.join(build_dir, "smoke_seq"))
+
+    # ---------- 46. two ranks on the one card: the GPipe pipeline, S = 2
+    phase(46, started)
+    torch.cuda.empty_cache()
+    _pipeline_two_ranks(args.seed, dev, os.path.join(build_dir,
+                                                     "smoke_pipe"))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 40-43 in {time.perf_counter() - t40:.1f}s; "
+    log(f"chip_smoke: phases 44-46 in {time.perf_counter() - t44:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -1130,24 +1192,28 @@ def _check_backward(fa, dev, g) -> dict:
     return errs
 
 
-def _train_state(attn, seed, dev, lr=None, name=MODEL):
+def _train_state(attn, seed, dev, lr=None, name=MODEL, **model_kw):
     """``name`` (ViT-B/16 or Swin-T) at full width from ``seed`` with the
     bench's optimizer: AdamW wd 0.05 under warmup-cosine (base 1e-3,
     10 000 steps, 100 warmup), or at a constant ``lr``. ``attn`` as the
     CLIs take it: for Swin, "naive" is the unfused window attention and a
-    flash name the fused kernel."""
+    flash name the fused kernel. ``model_kw`` go to the factory (an
+    ``attn_fn`` there wins over ``attn``'s)."""
     from deeplearning_tpu_torch import hub
     from deeplearning_tpu_torch.train import TrainState
+    model, _ = hub.load(name, num_classes=1000, seed=seed, device=dev,
+                        **{**hub.model_kwargs(name, attn), **model_kw})
+    return TrainState.create(model=model, tx=_adamw(model, lr))
+
+
+def _adamw(model, lr=None):
     from deeplearning_tpu_torch.train.optim import build_optimizer
     from deeplearning_tpu_torch.train.schedules import build_schedule
-    model, _ = hub.load(name, num_classes=1000, seed=seed, device=dev,
-                        **hub.model_kwargs(name, attn))
     sched = (build_schedule("constant", base_lr=lr) if lr is not None else
              build_schedule("warmup_cosine", base_lr=1e-3,
                             total_steps=10_000, warmup_steps=100))
-    tx = build_optimizer("adamw", sched, weight_decay=0.05,
-                         params=dict(model.named_parameters()))
-    return TrainState.create(model=model, tx=tx)
+    return build_optimizer("adamw", sched, weight_decay=0.05,
+                           params=dict(model.named_parameters()))
 
 
 def _train_batch(seed, dev):
@@ -5340,6 +5406,382 @@ def _two_ranks_on_one_card(seed, ref_loss, workdir) -> None:
           "both ranks report the averaged loss of the whole batch")
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+# ------ phases 44-46: sequence and pipeline parallelism (multi-GPU, 7b)
+SP_SIZE, SP_BATCH, SP_STEPS = 240, 16, 2   # phase 45: N = 226, 113 a rank
+PP_STAGES, PP_MICRO, PP_BATCH, PP_STEPS = 2, 4, 32, 2     # phase 46
+PAR_LOSS_TOL, PAR_NORM_TOL = 5e-3, 5e-2
+
+
+def _seq_one_rank(fa, dev, g, mesh) -> dict:
+    """Phase 44: the ring and Ulysses on K1 over the one rank of a
+    ``seq = 1`` mesh at ViT-B/16's training shape; returns their K1
+    launches (the kernels line's flash_attn_fwd / _bwd_dq / _bwd_dkv)."""
+    import torch
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attention)
+    from deeplearning_tpu_torch.parallel.ulysses import make_ulysses_attention
+    b, h, n, d = TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM
+    q, k, v, _, _, do = _bwd_inputs(fa, dev, g, b, h, n, d, torch.bfloat16,
+                                    False)
+    names = ["flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"]
+    fns = {"k1": fa.flash_attention,
+           "ring": make_ring_attention(mesh, use_flash=True),
+           "ulysses": make_ulysses_attention(mesh,
+                                             attn_fn=fa.flash_attention)}
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs)
+        return (out,) + torch.autograd.grad(out, xs, do)
+
+    got, launched = {}, {nm: 0 for nm in names}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        coll.reset_launch_counts()
+        got[name] = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        counts, ccounts = fa.launch_counts(), coll.launch_counts()
+        log(f"one rank, {name}: launches {json.dumps(counts)}, collectives "
+            f"{json.dumps(ccounts)}")
+        check({nm: counts[nm] for nm in names} == dict.fromkeys(names, 1)
+              and sum(counts.values()) == 3,
+              f"{name}: one K1 forward, one dQ and one dK/dV launch")
+        check(not any(ccounts.values()),
+              f"{name} over one rank issues no collective")
+        if name != "k1":
+            for nm in names:
+                launched[nm] += counts[nm]
+    for name in ("ring", "ulysses"):
+        check(torch.equal(got[name][0], got["k1"][0]),
+              f"{name}'s forward bit-equal to K1's flash_attention")
+        res = [_grad_err(x, w, "bfloat16")
+               for x, w in zip(got[name][1:], got["k1"][1:])]
+        log(f"one rank, {name} vs K1: forward bit-equal, dq/dk/dv max abs "
+            f"{[f'{e:.3e}' for e, _ in res]} (phase 5's bf16 tolerance)")
+        check(all(ok for _, ok in res), f"{name}'s gradients within "
+              "phase 5's bf16 tolerance of K1's backward")
+    del got
+    # forward + backward in turns (k1, ring, ring, k1); the ring issues no
+    # collective at one rank, so the whole call captures in a CUDA graph
+    times = {"k1": [], "ring": []}
+    for name in ("k1", "ring", "ring", "k1"):
+        times[name].append(graph_ms(lambda: fwd_bwd(fns[name]), calls=5,
+                                    replays=4))
+    nbytes = fa.min_bytes(b, h, n, d, 2) + fa.bwd_min_bytes(b, h, n, d, 2)
+    flops = fa.flops(b, h, n, d) + fa.bwd_flops(b, h, n, d)
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    k1_ms, ring_ms = (statistics.mean(times[x]) for x in ("k1", "ring"))
+    log(f"timing one-rank ring vs K1, forward + backward B={b} H={h} N={n} "
+        f"D={d} bf16 (CUDA-graph replay, in turns): ring {ring_ms:.4f} ms "
+        f"{[round(t, 4) for t in times['ring']]}, K1 {k1_ms:.4f} ms "
+        f"{[round(t, 4) for t in times['k1']]} ({ring_ms / k1_ms:.3f}x), "
+        f"bound {bound:.4f} ms")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _par_spawn(phase_n, seed, workdir) -> tuple:
+    """Two processes of this script on cuda:0, ranks of a gloo group
+    (``--par-phase``); returns (their rank<r>.json, the seconds taken)."""
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--par-phase", str(phase_n), "--mesh-rank", str(r),
+         "--mesh-dir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        check(p.returncode == 0, f"phase {phase_n} rank {r} ran")
+    outs = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return outs, wall
+
+
+def _par_group(rank: int, workdir: str):
+    import torch
+    from deeplearning_tpu_torch.parallel.mesh import initialize_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(
+        f"file://{os.path.join(workdir, 'store')}", MESH_RANKS, rank,
+        device="cuda", local_rank=0, backend="gloo")
+
+
+def _par_done(rank: int, workdir: str, out: dict) -> int:
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _sp_batch(seed, dev):
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.normal(size=(
+                SP_BATCH, SP_SIZE, SP_SIZE, 3)).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.integers(0, 1000,
+                                                   SP_BATCH)).to(dev)}
+
+
+def _sp_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 45's ranks: ViT-B/16 at 240² on a data 1 x seq 2
+    mesh, two steps with the ring on K1 and two with Ulysses on K1."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attn_fn)
+    from deeplearning_tpu_torch.parallel.ulysses import make_ulysses_attn_fn
+    from deeplearning_tpu_torch.train.steps import shard_state
+    dev = torch.device("cuda")
+    _par_group(rank, workdir)
+    mesh = build_mesh(MeshConfig(data=1, seq=MESH_RANKS), device=dev)
+    batch = _sp_batch(seed, dev)
+    out = {"rank": rank}
+    for name, make in (("ring", make_ring_attn_fn),
+                       ("ulysses", make_ulysses_attn_fn)):
+        state = shard_state(_train_state(
+            "flash", seed, dev, img_size=SP_SIZE,
+            attn_fn=make(mesh, use_flash=True)), mesh)
+        step = _mesh_step(mesh, "replicated", "fp32")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        coll.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(SP_STEPS):
+            state, m = step(state, batch, root_key(seed))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        out[name] = {"metrics": metrics,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": fa.launch_counts(),
+                     "collectives": coll.launch_counts()}
+        del state
+        torch.cuda.empty_cache()
+    return _par_done(rank, workdir, out)
+
+
+def _seq_two_ranks(seed, dev, workdir) -> None:
+    """Phase 45: the step without sequence parallelism on the same
+    weights and batch here, then two processes on cuda:0 over gloo."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    state = _train_state("flash_hb", seed, dev, img_size=SP_SIZE)
+    _, m = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)(
+        state, _sp_batch(seed, dev), root_key(seed))
+    ref = _metrics(m)
+    del state
+    torch.cuda.empty_cache()
+    outs, wall = _par_spawn(45, seed, workdir)
+    per_step = {"ring": MESH_RANKS * DEPTH, "ulysses": DEPTH}
+    for o in outs:
+        for name, want in per_step.items():
+            r = o[name]
+            log(f"rank {o['rank']} of {MESH_RANKS} on cuda:0 (gloo), seq = "
+                f"{MESH_RANKS}, {name} on K1, ViT-B/16 {SP_SIZE}² batch "
+                f"{SP_BATCH}: losses {[x['loss'] for x in r['metrics']]}, "
+                f"grad_norm {r['metrics'][0]['grad_norm']:.5f}, "
+                f"{SP_STEPS} steps in {r['seconds']:.2f}s (gloo through "
+                f"the host: layout and parity, not speed), launches "
+                f"{json.dumps(r['launches'])}, collectives "
+                f"{json.dumps(r['collectives'])}")
+            for nm in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                       "flash_attn_bwd_dkv"):
+                check(r["launches"][nm] == want * SP_STEPS,
+                      f"rank {o['rank']} {name}: {nm} == {want} x "
+                      f"{SP_STEPS}")
+            check(all(np.isfinite(v) for m_ in r["metrics"]
+                      for v in m_.values()), "finite metrics")
+    for name in per_step:
+        losses = [[m_["loss"] for m_ in o[name]["metrics"]] for o in outs]
+        first = outs[0][name]["metrics"][0]
+        rel = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+        dn = abs(first["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        log(f"phase 45 {name}: first loss {first['loss']!r} vs "
+            f"{ref['loss']!r} without sequence parallelism (rel {rel:.2e}, "
+            f"tol {PAR_LOSS_TOL}), grad_norm {first['grad_norm']:.5f} vs "
+            f"{ref['grad_norm']:.5f} (rel {dn:.2e}, tol {PAR_NORM_TOL})")
+        check(losses[0] == losses[1], f"{name}: both ranks report one loss")
+        check(rel <= PAR_LOSS_TOL and dn <= PAR_NORM_TOL,
+              f"{name}: first step within tolerance of the plain step")
+    log(f"phase 45: {wall:.1f}s with the processes' start")
+    torch.cuda.empty_cache()
+
+
+def _pp_cfg(workdir):
+    """The train CLI's Config for phase 46: ViT-B/16 at 224² as phase 6,
+    batch 32 in 4 microbatches over 2 stages, one epoch of 2 steps."""
+    import dataclasses
+    cfg = _smoke_cfg(workdir, PP_STEPS)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, global_batch=PP_BATCH,
+                                      n_train=PP_BATCH * PP_STEPS),
+        train=dataclasses.replace(cfg.train, epochs=1,
+                                  pipeline_stages=PP_STAGES,
+                                  microbatches=PP_MICRO))
+
+
+def _pp_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 46's ranks: ViT-B/16's 12 blocks as 2 GPipe stages of
+    6 (flash_hb) on a model = 2 mesh, two pipeline train steps, then the
+    train CLI with train.pipeline_stages=2 on the same group."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.core import checkpoint
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.pipeline_train import (
+        make_pipeline_train_step, shard_pipeline_state, vit_pipeline_module)
+    from deeplearning_tpu_torch.train import TrainState
+    dev = torch.device("cuda")
+    _par_group(rank, workdir)
+    mesh = build_mesh(MeshConfig(data=-1, model=PP_STAGES), device=dev)
+    vit, _ = hub.load(MODEL, num_classes=1000, seed=seed, device=dev,
+                      **hub.model_kwargs(MODEL, "flash_hb"))
+    module, k_per = vit_pipeline_module(vit, PP_STAGES)
+    module.to(dev)
+    tx = _adamw(module)
+    state = shard_pipeline_state(TrainState.create(model=module, tx=tx),
+                                 mesh)
+    step, _ = make_pipeline_train_step(vit, mesh, tx, PP_STAGES, k_per,
+                                       PP_MICRO, label_smoothing=0.1)
+    batch = {k: v[:PP_BATCH] for k, v in _train_batch(seed, dev).items()}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    coll.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(PP_STEPS):
+        state, m = step(state, batch, 0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    out = {"rank": rank, "metrics": metrics, "k_per": k_per,
+           "seconds": time.perf_counter() - t0,
+           "launches": fa.launch_counts(),
+           "collectives": coll.launch_counts(),
+           "stage_bytes": sum(p.numel() * 4 for n, p in state.params.items()
+                              if n.startswith("stages."))}
+    del state, module, vit
+    torch.cuda.empty_cache()
+    # the train CLI over the running group
+    cli = _cli()
+    ckpt_dir = os.path.join(workdir, "cli")
+    trainer = cli.build(_pp_cfg(ckpt_dir))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    out["cli_eval"] = trainer.evaluate()
+    torch.cuda.synchronize()
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["cli_launches"] = fa.launch_counts()
+    out["cli_eval_batches"] = len(trainer.eval_loader)
+    out["cli_steps"] = trainer.state.step
+    trainer.ckpt.wait_until_finished()
+    step_dir = trainer.ckpt._step_dir(trainer.ckpt.latest_step())
+    tree = torch.load(os.path.join(step_dir, checkpoint._STATE_FILE),
+                      map_location="cpu", weights_only=True)
+    out["ckpt_qkv"] = list(tree["params"]["stages.sub0.attn.qkv.weight"]
+                           .shape)
+    del trainer
+    return _par_done(rank, workdir, out)
+
+
+def _pipeline_two_ranks(seed, dev, workdir) -> None:
+    """Phase 46: the sequential step on the same weights and batch here,
+    then two processes on cuda:0 over gloo."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    state = _train_state("flash_hb", seed, dev)
+    batch = {k: v[:PP_BATCH] for k, v in _train_batch(seed, dev).items()}
+    _, m = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)(
+        state, batch, root_key(seed))
+    ref = _metrics(m)
+    del state
+    torch.cuda.empty_cache()
+    outs, wall = _par_spawn(46, seed, workdir)
+    ticks = PP_STAGES + PP_MICRO - 1
+    for o in outs:
+        want = ticks * o["k_per"]
+        log(f"rank {o['rank']} of {MESH_RANKS} on cuda:0 (gloo), GPipe "
+            f"stage {o['rank']} of {PP_STAGES} ({o['k_per']} blocks, "
+            f"{PP_MICRO} microbatches), ViT-B/16 224² batch {PP_BATCH}: "
+            f"losses {[x['loss'] for x in o['metrics']]}, grad_norm "
+            f"{o['metrics'][0]['grad_norm']:.5f}, {PP_STEPS} steps in "
+            f"{o['seconds']:.2f}s (gloo through the host: layout and "
+            f"parity, not speed), launches {json.dumps(o['launches'])}, "
+            f"collectives {json.dumps(o['collectives'])}, stage params "
+            f"{o['stage_bytes']} bytes")
+        for nm in ("flash_attn_fwd_hb", "flash_attn_bwd_dq_hb",
+                   "flash_attn_bwd_dkv_hb"):
+            check(o["launches"][nm] == want * PP_STEPS,
+                  f"rank {o['rank']}: {nm} == ({PP_STAGES} + {PP_MICRO} - 1)"
+                  f" x {o['k_per']} x {PP_STEPS}")
+        check(all(np.isfinite(v) for m_ in o["metrics"]
+                  for v in m_.values()), "finite metrics")
+        # the Trainer evaluates at its one epoch's end, and evaluate() once
+        # more after train()
+        cli_want = {"flash_attn_fwd_hb": want * (o["cli_steps"]
+                                                 + 2 * o["cli_eval_batches"]),
+                    "flash_attn_bwd_dq_hb": want * o["cli_steps"],
+                    "flash_attn_bwd_dkv_hb": want * o["cli_steps"]}
+        log(f"rank {o['rank']}: train CLI train.pipeline_stages="
+            f"{PP_STAGES}: {o['cli_steps']} steps + eval in "
+            f"{o['cli_seconds']:.2f}s, eval {json.dumps(o['cli_eval'])}, "
+            f"launches {json.dumps(o['cli_launches'])}, checkpoint's "
+            f"stages.sub0.attn.qkv.weight {o['ckpt_qkv']}")
+        check(o["cli_steps"] == PP_STEPS and all(
+            o["cli_launches"][k] == v for k, v in cli_want.items()),
+            f"rank {o['rank']}: the CLI's K1 launches == {cli_want}")
+        check(o["ckpt_qkv"] == [PP_STAGES, 3 * 768, 768],
+              "the checkpoint holds the whole stacked state")
+    first = outs[0]["metrics"][0]["loss"]
+    rel = abs(first - ref["loss"]) / abs(ref["loss"])
+    log(f"phase 46: first loss {first!r} vs {ref['loss']!r} sequential "
+        f"(rel {rel:.2e}, tol {PAR_LOSS_TOL}); {wall:.1f}s with the "
+        f"processes' start")
+    check(outs[0]["metrics"] == outs[1]["metrics"],
+          "both stages report the same metrics")
+    check(rel <= PAR_LOSS_TOL, "the pipeline's first loss within "
+          "tolerance of the sequential step's")
+    torch.cuda.empty_cache()
+
+
+PAR_RANKS = {45: _sp_rank, 46: _pp_rank}
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

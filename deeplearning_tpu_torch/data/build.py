@@ -11,11 +11,11 @@ copies (classification/mnist/dataLoader/dataSet.py etc.):
   side-stream host-to-card copy (``DevicePrefetcher``);
 - batches are fixed-shape (drop-last), so every step sees one shape.
 
-The JAX builder's ``mesh=`` is ``device=`` (where the loaders move their
-batches), and ``jax.process_count()`` is the ``torch.distributed`` world
-size, or 1 when no group is initialised: each rank's loaders yield its
-slice of every global batch, and the validation split is padded to a
-multiple of the world size as JAX pads it. ``quarantine=`` (a
+``device=`` is where the loaders move their batches, and
+``jax.process_count()`` is the ``torch.distributed`` world size (or 1
+when no group is initialised), or with ``mesh=`` its data x fsdp extent:
+each rank's loaders yield its slice of every global batch, and the
+validation split is padded to a multiple of that count as JAX pads it. ``quarantine=`` (a
 ``QuarantineLog`` or a manifest path) goes to both loaders.
 """
 
@@ -55,7 +55,7 @@ def build_classification_loaders(
         device=None, class_indices_path: Optional[str] = None,
         train_transform: Optional[Callable] = None,
         eval_transform: Optional[Callable] = None,
-        quarantine=None,
+        quarantine=None, mesh=None,
 ) -> Tuple[DataLoader, DataLoader, Dict[str, int]]:
     """(train_loader, val_loader, class_to_idx) from an ImageFolder root.
 
@@ -75,13 +75,14 @@ def build_classification_loaders(
         folder_source(split["train_paths"], split["train_labels"], tt),
         cfg.global_batch, shuffle=True, seed=cfg.seed, device=device,
         num_workers=cfg.num_workers, lookahead=cfg.lookahead,
-        quarantine=quarantine)
+        quarantine=quarantine, mesh=mesh)
     # clamp the val batch so a split smaller than global_batch still
     # yields batches (drop-last would otherwise drop the whole set);
     # keep it divisible by process count, repeating tail paths when the
     # split is smaller than the process count (multi-host degenerate
     # case — a duplicated val image beats an empty evaluation)
-    n_proc = world_size()
+    n_proc = world_size() if mesh is None else mesh.axis_size(
+        ("data", "fsdp"))
     val_paths = list(split["val_paths"])
     val_labels = list(split["val_labels"])
     orig_len = len(val_paths)
@@ -95,7 +96,7 @@ def build_classification_loaders(
         folder_source(val_paths, np.asarray(val_labels), et),
         val_batch, shuffle=False, seed=cfg.seed, device=device,
         num_workers=cfg.num_workers, lookahead=cfg.lookahead,
-        quarantine=quarantine)
+        quarantine=quarantine, mesh=mesh)
     return train, val, split["class_to_idx"]
 
 

@@ -7,12 +7,15 @@ order as the JAX loader's, element for element), and ``DataLoader`` the
 batching loop with ``set_epoch``, ``reseed``, ``element_spec``, threaded
 workers and drop-last batches (every batch has one shape).
 
-The JAX loader's ``mesh=`` is ``device=`` here: the device its batches
-are moved to (a ``torch.device`` or name), or None for host numpy
-batches. Over a ``torch.distributed`` group each rank materialises its
-contiguous ``global_batch / world_size`` slice of every global batch of
-the same shuffled order (the JAX loader's per-process slice), so the
-ranks' slices, concatenated, are the single-process batch.
+``device=`` is the device the batches are moved to (a ``torch.device``
+or name), or None for host numpy batches. Over a ``torch.distributed``
+group each rank materialises its contiguous slice of every global batch
+of the same shuffled order (the JAX loader's per-process slice): with
+``mesh=`` (``parallel.mesh.Mesh``) the slice of its index on data x fsdp,
+``global_batch / (data x fsdp)`` rows, so the ranks that differ only on
+``seq`` or ``model`` read the same rows; without, the slice of its world
+rank. One rank of each data x fsdp index, concatenated, gives the
+single-process batch.
 
 ``quarantine=`` (a ``QuarantineLog`` or a manifest path) switches the
 fetch to one sample at a time: a sample whose fetch raises is logged and
@@ -136,7 +139,7 @@ class DataLoader:
                  seed: int = 0, device: Optional[Device] = None,
                  transform: Optional[Callable[[Dict], Dict]] = None,
                  infinite: bool = False, num_workers: int = 0,
-                 lookahead: int = 4, quarantine=None):
+                 lookahead: int = 4, quarantine=None, mesh=None):
         self.source = source
         self.global_batch = global_batch
         self.shuffle = shuffle
@@ -164,7 +167,10 @@ class DataLoader:
         # total; None on the serial path (the Trainer then uses wall time)
         self.last_data_wait: Optional[float] = None
         self.data_wait_total = 0.0
-        n_proc = world_size()
+        # a mesh cuts the batch by data x fsdp (host_local_slice)
+        self.mesh = mesh
+        n_proc = (world_size() if mesh is None
+                  else mesh.axis_size(("data", "fsdp")))
         if global_batch % n_proc:
             raise ValueError(f"global_batch {global_batch} not divisible by "
                              f"process count {n_proc}")
@@ -188,7 +194,7 @@ class DataLoader:
                             seed=self._effective_seed(), epoch=epoch,
                             drop_last_to=self.global_batch)
         # this rank's contiguous slice of each global batch
-        lo, hi = host_local_slice(self.global_batch)
+        lo, hi = host_local_slice(self.global_batch, self.mesh)
         for start in range(0, len(idx), self.global_batch):
             yield idx[start:start + self.global_batch][lo:hi]
 

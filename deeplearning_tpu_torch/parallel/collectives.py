@@ -16,6 +16,15 @@ read around the train step as the kernels' launch counters are.
   on small integers. ``quantized_reduce_scatter`` stops after the first
   stage (this rank's dim-0 slice of the sum). ``quantized_reduce`` does
   both for many leaves in one packed pass (the train step's gradients).
+- ``ppermute`` (JAX's ``lax.ppermute``) and ``all_to_all_tiled`` (JAX's
+  tiled ``lax.all_to_all`` over chosen split and concat dims): the
+  differentiable moves of ring attention, Ulysses and the pipeline. Both
+  travel as one ``all_to_all_single`` with split sizes (a permutation
+  sends its whole tensor to one rank and receives one), which NCCL and
+  gloo both carry for CUDA tensors: gloo stages its collectives through
+  the host inside the backend, the port adds no copy of its own and
+  switches no path. Over a group of one rank both are the identity and
+  issue no collective.
 - ``host_allgather``, ``broadcast_from_host0``, ``sync_barrier``: host
   objects and the rank-0 broadcast.
 
@@ -38,7 +47,7 @@ XLA's ``log`` may round across the integer and the ceilings can differ.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 __all__ = ["_pad_to", "_quantize_blocks", "_dequantize_blocks",
            "KINDS", "launch_counts", "reset_launch_counts", "all_reduce",
            "all_reduce_autograd",
-           "all_gather_dim0", "reduce_scatter_dim0", "all_to_all",
+           "ppermute", "all_to_all_tiled", "all_gather_dim0", "reduce_scatter_dim0", "all_to_all",
            "pmean_tree", "psum_tree", "quantized_reduce", "quantized_psum",
            "quantized_psum_tree", "quantized_reduce_scatter",
            "host_allgather", "broadcast_from_host0", "sync_barrier"]
@@ -62,7 +71,7 @@ _LN2 = torch.tensor(math.log(2.0), dtype=torch.float32)
 _LN2_ON: Dict[torch.device, torch.Tensor] = {}
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
-         "broadcast", "barrier")
+         "ppermute", "broadcast", "barrier")
 _COUNTS: Dict[str, int] = {k: 0 for k in KINDS}
 
 # torch 2.13 renamed the tensor forms; older releases have only these
@@ -155,6 +164,100 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
+
+
+def _ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+              group) -> torch.Tensor:
+    """``x`` of group rank ``src`` on group rank ``dst`` for each pair;
+    a rank no pair sends to gets zeros."""
+    n = _size(group)
+    if n == 1:
+        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
+    me = dist.get_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    numel = x.numel()
+    send = x.contiguous().view(-1) if dst else x.new_empty(0)
+    recv = x.new_empty(numel if src else 0)
+    _COUNTS["ppermute"] += 1
+    dist.all_to_all_single(
+        recv, send, output_split_sizes=[numel if j in src else 0
+                                        for j in range(n)],
+        input_split_sizes=[numel if j in dst else 0 for j in range(n)],
+        group=group)
+    return recv.view(x.shape) if src else torch.zeros_like(x)
+
+
+def _check_perm(perm: Sequence[Tuple[int, int]], n: int) -> None:
+    srcs = [s for s, _ in perm]
+    dsts = [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+            not all(0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute needs a permutation of the {n} ranks' "
+                         f"indices, got {list(perm)}")
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _ppermute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose: the gradient goes back along the inverse pairs
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _ppermute(g, inverse, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
+             group=None) -> torch.Tensor:
+    """``lax.ppermute``: every (src, dst) pair of group ranks sends src's
+    ``x`` to dst (every rank passes the same shape); a rank that no pair
+    sends to gets zeros. Differentiable: the backward sends the gradient
+    along the inverse pairs."""
+    perm = [(int(s), int(d)) for s, d in perm]
+    _check_perm(perm, _size(group))
+    return _PPermute.apply(x, perm, group)
+
+
+def _all_to_all_dims(x: torch.Tensor, split_dim: int, concat_dim: int,
+                     group) -> torch.Tensor:
+    n = _size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    # chunk j of the split dim first, so that it goes to rank j
+    parts = all_to_all(x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
+                       .contiguous(), group)
+    # chunk i came from rank i: lay them along the concat dim in that order
+    return parts.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all_dims(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all_dims(g, concat_dim, split_dim, ctx.group),
+                None, None, None)
+
+
+def all_to_all_tiled(x: torch.Tensor, split_dim: int, concat_dim: int,
+                     group=None) -> torch.Tensor:
+    """JAX's ``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x`` is cut into n chunks along ``split_dim``, chunk j goes to group
+    rank j, and the chunks received are laid along ``concat_dim`` in rank
+    order. Differentiable: the backward is the same move with the two
+    dims swapped."""
+    d = x.dim()
+    return _AllToAll.apply(x, split_dim % d, concat_dim % d, group)
 
 
 # -------------------------------------------------------- tree reductions

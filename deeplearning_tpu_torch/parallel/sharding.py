@@ -256,11 +256,18 @@ def shard_layout_summary(shardings: Any) -> Dict[str, Any]:
     return {"specs": specs, **counts}
 
 
-def host_local_slice(global_batch: int) -> Tuple[int, int]:
-    """[start, end) of this rank's slice of a global batch."""
-    per_rank = global_batch // world_size()
-    start = rank() * per_rank
-    return start, start + per_rank
+def host_local_slice(global_batch: int,
+                     mesh: Optional[Mesh] = None) -> Tuple[int, int]:
+    """[start, end) of this rank's slice of a global batch: by its index
+    on data x fsdp of ``mesh`` (the ranks that differ only on seq or
+    model read the same rows), or by its world rank without a mesh."""
+    if mesh is None:
+        n, i = world_size(), rank()
+    else:
+        n, i = (mesh.axis_size((DATA_AXIS, FSDP_AXIS)),
+                mesh.axis_index((DATA_AXIS, FSDP_AXIS)))
+    per_rank = global_batch // n
+    return i * per_rank, (i + 1) * per_rank
 
 
 def make_global_array(local_batch: Union[np.ndarray, torch.Tensor],

@@ -48,11 +48,27 @@ global batch and rank 0 logs and writes the checkpoints (with their
   torchrun --nproc_per_node=8 -m deeplearning_tpu_torch.train \
       --cfg configs/vit_b16_imagenet.yaml train.weight_update=zero1
 
-Options of later slices raise a ``ValueError`` naming the ROADMAP Queue 1
-item that brings them (``train.strict=threads`` / ``all`` item 8;
-``train.mesh_model_axis``, ``train.mesh_seq_axis``, ``train.seq_parallel``,
-``train.pipeline_stages`` and ``train.microbatches`` item 7b); the port
-has no ``train.donate_batch`` (it updates the state in place).
+Sequence and pipeline parallelism, as ``tools/train.py`` takes them (the
+mesh is ``data=-1, model=train.pipeline_stages, seq=train.mesh_seq_axis``
+and each rank reads the rows of its data index):
+
+- ``train.mesh_seq_axis=P train.seq_parallel=ring|ulysses`` builds the
+  ViT with the ring or Ulysses ``attn_fn``. With ``model.attn`` a K1
+  route (``flash``, ``flash_hb``) it is their flash path (K1's kernels;
+  N must divide P), with ``model.attn=naive`` their masked plain path
+  (``tools/train.py`` always builds the latter);
+- ``train.pipeline_stages=S train.microbatches=M`` trains the ViT's
+  blocks as S GPipe stages over M microbatches
+  (``parallel.pipeline_train``); the Trainer checkpoints the whole
+  stacked state.
+
+  torchrun --nproc_per_node=2 -m deeplearning_tpu_torch.train \
+      --cfg configs/vit_b16_imagenet.yaml train.mesh_seq_axis=2
+
+Options of later slices raise naming the ROADMAP Queue 1 item that brings
+them (``train.strict=threads`` / ``all`` item 8; ``train.mesh_model_axis``
+item 7c); the port has no ``train.donate_batch`` (it updates the state in
+place).
 """
 
 from __future__ import annotations
@@ -108,14 +124,14 @@ class TrainCfg:
     ema: bool = False
     workdir: Optional[str] = None
     device: str = "cuda"             # cuda | cpu
-    mesh_model_axis: int = 1         # item 7b
-    mesh_seq_axis: int = 1           # item 7b
-    seq_parallel: str = "ring"       # item 7b
+    mesh_model_axis: int = 1         # item 7c
+    mesh_seq_axis: int = 1           # sequence parallelism over 'seq'
+    seq_parallel: str = "ring"       # ring | ulysses
     accum_steps: int = 1             # gradient accumulation microbatches
     mixup: bool = False              # mixup/cutmix soft targets
     async_checkpoint: bool = False   # writes off the loop
-    pipeline_stages: int = 1         # item 7b
-    microbatches: int = 0            # item 7b
+    pipeline_stages: int = 1         # GPipe stages over 'model'
+    microbatches: int = 0            # 0: pipeline_stages
     precompile: bool = True          # start the feed before the first step
     recovery: str = "none"           # none|abort|rollback
     strict: str = ""                 # transfers|nans (threads: item 8)
@@ -131,23 +147,43 @@ class Config:
     train: TrainCfg = dataclasses.field(default_factory=TrainCfg)
 
 
-_ITEM_7B = ("ROADMAP Queue 1 item 7b (tensor, sequence and pipeline "
-            "parallelism)")
+_ITEM_7C = ("ROADMAP Queue 1 item 7c (tensor parallelism and the 3-D "
+            "composition)")
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise on an option whose mechanism comes with a later slice."""
+    """Raise on an option whose mechanism comes with a later slice, and
+    on ``tools/train.py``'s conflicts, with its messages, before any
+    process group starts."""
     t = cfg.train
-    later = [
-        ("train.mesh_model_axis", t.mesh_model_axis > 1, _ITEM_7B),
-        ("train.mesh_seq_axis", t.mesh_seq_axis > 1, _ITEM_7B),
-        ("train.seq_parallel", t.seq_parallel != "ring", _ITEM_7B),
-        ("train.pipeline_stages", t.pipeline_stages > 1, _ITEM_7B),
-        ("train.microbatches", t.microbatches != 0, _ITEM_7B),
-    ]
-    for name, is_set, item in later:
-        if is_set:
-            raise ValueError(f"{name} comes with {item}")
+    pp = t.pipeline_stages
+    if pp > 1 and (t.mesh_model_axis > 1 or t.mesh_seq_axis > 1):
+        raise ValueError("train.pipeline_stages reuses the 'model' mesh "
+                         "axis; unset mesh_model_axis/mesh_seq_axis")
+    if pp > 1 and (t.mixup or t.ema or t.accum_steps > 1):
+        raise ValueError("pipeline_stages does not compose with "
+                         "mixup/ema/accum_steps yet")
+    if t.mesh_model_axis > 1:
+        raise ValueError(f"train.mesh_model_axis comes with {_ITEM_7C}")
+    if (t.weight_update == "zero1" or t.grad_comm == "int8") and (
+            pp > 1 or t.mesh_seq_axis > 1):
+        raise ValueError("train.weight_update=zero1 / train.grad_comm=int8 "
+                         "are data-parallel modes; unset pipeline_stages/"
+                         "mesh_model_axis/mesh_seq_axis")
+    if t.seq_parallel not in ("ring", "ulysses"):
+        raise ValueError(f"unknown train.seq_parallel={t.seq_parallel!r} "
+                         "(ring | ulysses)")
+    if pp > 1:
+        micro = t.microbatches or pp
+        if micro % pp:
+            raise ValueError(
+                f"train.microbatches={micro} must be divisible by "
+                f"train.pipeline_stages={pp} (microbatch storage shards "
+                "over the pipe axis)")
+        if cfg.data.global_batch % micro:
+            raise ValueError(
+                f"data.global_batch={cfg.data.global_batch} must be "
+                f"divisible by train.microbatches={micro}")
     if t.strict:
         from ..analysis import strict
         strict.resolve(t.strict)     # threads / all: item 8
@@ -170,10 +206,12 @@ def check_slice(cfg: Config) -> None:
 
 def uses_mesh(cfg: Config) -> bool:
     """True when the run trains on a mesh: under torchrun, over a group
-    already running, or with ZeRO-1 or the int8 collectives."""
+    already running, with ZeRO-1 or the int8 collectives, or with
+    sequence or pipeline parallelism."""
     import torch.distributed as dist
     return (cfg.train.weight_update != "replicated"
             or cfg.train.grad_comm != "fp32"
+            or cfg.train.mesh_seq_axis > 1 or cfg.train.pipeline_stages > 1
             or "WORLD_SIZE" in os.environ or dist.is_initialized())
 
 
@@ -260,7 +298,15 @@ def build(cfg: Config, **trainer_kw: Any):
         from ..parallel.mesh import (MeshConfig, build_mesh,
                                      initialize_distributed)
         initialize_distributed(device=cfg.train.device)
-        mesh = build_mesh(MeshConfig(data=-1))
+        pp = cfg.train.pipeline_stages
+        # the rank's card, whichever backend runs the group (gloo moves
+        # CUDA tensors too, as two ranks on one card need)
+        on_card = resolve_device(cfg.train.device).type == "cuda"
+        mesh = build_mesh(MeshConfig(
+            data=-1, model=pp if pp > 1 else cfg.train.mesh_model_axis,
+            seq=cfg.train.mesh_seq_axis),
+            device=(torch.device("cuda", torch.cuda.current_device())
+                    if on_card else "cpu"))
         dev = mesh.device
     else:
         dev = resolve_device(cfg.train.device)
@@ -272,7 +318,7 @@ def build(cfg: Config, **trainer_kw: Any):
                             num_workers=cfg.data.num_workers,
                             seed=cfg.train.seed, augment=cfg.data.augment)
         loader, eval_loader, class_to_idx = build_classification_loaders(
-            cfg.data.folder, lcfg, device=dev,
+            cfg.data.folder, lcfg, device=dev, mesh=mesh,
             class_indices_path=(os.path.join(cfg.train.workdir,
                                              "class_indices.json")
                                 if cfg.train.workdir else None))
@@ -289,20 +335,28 @@ def build(cfg: Config, **trainer_kw: Any):
                                    len(tr_images))
         loader = DataLoader(
             classification_source(tr_images, tr_labels, channels),
-            global_batch=gb, seed=cfg.train.seed, device=dev)
+            global_batch=gb, seed=cfg.train.seed, device=dev, mesh=mesh)
         eval_loader = DataLoader(
             classification_source(ev_images, ev_labels, channels),
-            global_batch=gb, shuffle=False, device=dev)
+            global_batch=gb, shuffle=False, device=dev, mesh=mesh)
     numerics.set_exact(cfg.model.exact_gelu)
     model_kw = hub.model_kwargs(cfg.model.name, cfg.model.attn, size)
     if channels != 3:
         model_kw["in_chans"] = channels
+    if cfg.train.mesh_seq_axis > 1:
+        model_kw["attn_fn"] = _seq_attn_fn(cfg, mesh, model_kw)
     model = MODELS.build(
         cfg.model.name, num_classes=cfg.model.num_classes,
         dtype=torch.bfloat16 if cfg.model.precision == "bf16"
         else torch.float32,
         generator=torch.Generator().manual_seed(cfg.train.seed),
         **model_kw).to(dev)
+    pp = cfg.train.pipeline_stages
+    if pp > 1:
+        from ..parallel.pipeline_train import vit_pipeline_module
+        vit = model
+        model, k_per_stage = vit_pipeline_module(vit, pp)
+        model.to(dev)
     params = dict(model.named_parameters())
     steps_per_epoch = n_train // gb
     sched = build_schedule(cfg.optim.schedule, base_lr=cfg.optim.lr,
@@ -318,16 +372,28 @@ def build(cfg: Config, **trainer_kw: Any):
         model=model, tx=tx,
         batch_stats=dict(model.named_buffers()) if has_bn else None,
         use_ema=cfg.train.ema)
-    if mesh is not None:
-        from .steps import shard_state
-        shard_state(state, mesh,
-                    zero1=cfg.train.weight_update == "zero1")
-    base_step = make_train_step(
-        make_loss_fn(cfg.train.label_smoothing, has_bn),
-        accum_steps=cfg.train.accum_steps, mesh=mesh,
-        weight_update=cfg.train.weight_update,
-        grad_comm=cfg.train.grad_comm,
-        device=None if mesh is not None else dev)
+    if pp > 1:
+        from ..parallel.pipeline_train import (make_pipeline_train_step,
+                                               shard_pipeline_state)
+        shard_pipeline_state(state, mesh)
+        base_step, eval_step = make_pipeline_train_step(
+            vit, mesh, tx, num_stages=pp, k_per_stage=k_per_stage,
+            microbatches=cfg.train.microbatches or pp,
+            label_smoothing=cfg.train.label_smoothing)
+    else:
+        if mesh is not None:
+            from .steps import shard_state
+            shard_state(state, mesh,
+                        zero1=cfg.train.weight_update == "zero1")
+        base_step = make_train_step(
+            make_loss_fn(cfg.train.label_smoothing, has_bn),
+            accum_steps=cfg.train.accum_steps, mesh=mesh,
+            weight_update=cfg.train.weight_update,
+            grad_comm=cfg.train.grad_comm,
+            device=None if mesh is not None else dev)
+        eval_step = (make_eval_step(make_metric_fn(), device=dev)
+                     if mesh is None else
+                     make_eval_step(make_metric_fn(), mesh=mesh))
     if cfg.train.mixup:
         def train_step(s, batch, rng):
             # the step's own augmentation stream, apart from its dropout
@@ -338,9 +404,7 @@ def build(cfg: Config, **trainer_kw: Any):
     else:
         train_step = base_step
     kw = dict(state=state, train_step=train_step, train_loader=loader,
-              eval_step=(make_eval_step(make_metric_fn(), device=dev)
-                         if mesh is None else
-                         make_eval_step(make_metric_fn(), mesh=mesh)),
+              eval_step=eval_step,
               eval_loader=eval_loader, epochs=cfg.train.epochs,
               seed=cfg.train.seed, workdir=cfg.train.workdir,
               log_every=max(steps_per_epoch // 2, 1),
@@ -353,6 +417,29 @@ def build(cfg: Config, **trainer_kw: Any):
                              else None))
     kw.update(trainer_kw)
     return Trainer(**kw)
+
+
+def _seq_attn_fn(cfg: Config, mesh, model_kw):
+    """The ring or Ulysses ``attn_fn`` over the mesh's ``seq`` axis: their
+    flash path (K1) for a K1 route of ``model.attn``, their masked plain
+    path for ``naive``."""
+    from ..ops.attention import (flash_attn_adapter, flash_hb_adapter,
+                                 get_attn_fn)
+    fn = get_attn_fn(cfg.model.attn)
+    if "attn_fn" not in model_kw:
+        raise ValueError(f"train.mesh_seq_axis needs a transformer that "
+                         f"takes attn_fn; {cfg.model.name} does not")
+    if fn is not None and fn not in (flash_attn_adapter, flash_hb_adapter):
+        raise ValueError(
+            f"train.mesh_seq_axis runs the {cfg.train.seq_parallel} on K1 "
+            f"(model.attn=flash | flash_hb) or on its plain path "
+            f"(model.attn=naive), not model.attn={cfg.model.attn}")
+    use_flash = fn is not None
+    if cfg.train.seq_parallel == "ring":
+        from ..parallel.ring_attention import make_ring_attn_fn
+        return make_ring_attn_fn(mesh, use_flash=use_flash)
+    from ..parallel.ulysses import make_ulysses_attn_fn
+    return make_ulysses_attn_fn(mesh, use_flash=use_flash)
 
 
 def main(argv=None) -> int:

@@ -49,10 +49,17 @@ on a state placed by ``shard_state``:
 
 At one rank the all-reduce copies and the division is by one, so the
 replicated and ZeRO-1 steps equal the step without a mesh bit for bit.
-Tensor, sequence and pipeline parallelism (a rule or a mesh axis over
-``model``, ``seq`` or ``expert``) come with ROADMAP Queue 1 item 7b;
-``shard_state`` places a ``model`` rule all the same, which a
-checkpoint restore onto a data x model mesh needs.
+
+A ``seq`` axis above one is sequence parallelism inside the model: the
+model's ``attn_fn`` is a ring or Ulysses adapter
+(``parallel.ring_attention`` / ``parallel.ulysses``), the ranks that
+differ only on ``seq`` read the same rows and hold the same gradients,
+and the step reduces over data x fsdp as above; ZeRO-1 and the int8
+collectives are data-parallel modes and refuse it. The pipeline has its
+own step (``parallel.pipeline_train``). Tensor parallelism (a rule or a
+mesh axis over ``model``) comes with ROADMAP Queue 1 item 7c and the
+``expert`` axis with item 8; ``shard_state`` places a ``model`` rule all
+the same, which a checkpoint restore onto a data x model mesh needs.
 """
 
 from __future__ import annotations
@@ -78,8 +85,8 @@ from .state import TrainState
 __all__ = ["make_train_step", "make_eval_step", "shard_state"]
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict]]
-_ITEM_7B = ("tensor, sequence and pipeline parallelism come with ROADMAP "
-            "Queue 1 item 7b")
+_ITEM_7C = ("tensor parallelism comes with ROADMAP Queue 1 item 7c")
+_ITEM_8 = ("the expert axis comes with ROADMAP Queue 1 item 8")
 _DP = (DATA_AXIS, FSDP_AXIS)
 
 
@@ -121,16 +128,24 @@ def _rule_axes(rules: Optional[Rules]) -> set:
     return out
 
 
-def _data_parallel_only(mesh: Mesh, rules: Optional[Rules]) -> None:
-    """The step splits work over data x fsdp only: a rule or a mesh axis
-    over model, seq or expert is item 7b's."""
-    later = (MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
-    ruled = sorted(_rule_axes(rules) & set(later))
-    if ruled:
-        raise NotImplementedError(f"rules over {ruled}: {_ITEM_7B}")
-    wide = [a for a in later if mesh.shape[a] > 1]
-    if wide:
-        raise NotImplementedError(f"mesh axes {wide} > 1: {_ITEM_7B}")
+def _data_parallel_only(mesh: Mesh, rules: Optional[Rules],
+                        weight_update: str, grad_comm: str) -> None:
+    """The step splits the batch over data x fsdp and the attention's
+    tokens over seq: a rule or a mesh axis over model is item 7c's,
+    expert item 8's; ZeRO-1 and int8 are data-parallel modes."""
+    for axis, item in ((MODEL_AXIS, _ITEM_7C), (EXPERT_AXIS, _ITEM_8)):
+        if axis in _rule_axes(rules):
+            raise NotImplementedError(f"rules over {[axis]}: {item}")
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(f"mesh axes {[axis]} > 1: {item}")
+    if SEQ_AXIS in _rule_axes(rules):
+        raise NotImplementedError(f"rules over {[SEQ_AXIS]}: parameters "
+                                  "are replicated over seq")
+    if mesh.shape[SEQ_AXIS] > 1 and (weight_update == "zero1"
+                                     or grad_comm == "int8"):
+        raise ValueError("train.weight_update=zero1 / train.grad_comm=int8 "
+                         "are data-parallel modes; unset pipeline_stages/"
+                         "mesh_model_axis/mesh_seq_axis")
 
 
 def _reduce_fp32(grads: Dict[str, torch.Tensor], sh: StateSharding,
@@ -148,7 +163,7 @@ def _reduce_fp32(grads: Dict[str, torch.Tensor], sh: StateSharding,
         dims = sh.moments[name].dims()
         if len(dims) > 1:
             raise NotImplementedError(f"a gradient split along "
-                                      f"{len(dims)} dims: {_ITEM_7B}")
+                                      f"{len(dims)} dims: {_ITEM_7C}")
         by_axes.setdefault(dims[0][1] if dims else (), []).append(name)
     out: Dict[str, torch.Tensor] = {}
     for axes, names in by_axes.items():
@@ -248,7 +263,7 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None,
             raise ValueError("rules place a state on a mesh: pass mesh=")
         dev = resolve_device(device)
     else:
-        _data_parallel_only(mesh, rules)
+        _data_parallel_only(mesh, rules, weight_update, grad_comm)
         dev = mesh.device
         if device is not None and torch.device(device) != dev:
             raise ValueError(f"device {device} is not the mesh's {dev}")
@@ -400,13 +415,23 @@ def shard_state(state: TrainState, mesh: Mesh,
     the data axes where a dim divides (the rest stay replicated, as
     ``shard_layout_summary`` shows). Counts and other leaves stay
     replicated. Returns the state, its layout in ``state.sharding``."""
+    param_sh = shard_params_tree(state.params, mesh, rules)
+    moment_sh = (zero1_shardings(state.params, mesh, rules) if zero1
+                 else param_sh)
+    return place_state(state, mesh, param_sh, moment_sh)
+
+
+def place_state(state: TrainState, mesh: Mesh,
+                param_sh: Dict[str, Any], moment_sh: Dict[str, Any]
+                ) -> TrainState:
+    """Place ``state`` on ``mesh`` with the given layouts of the params
+    and of the optimizer moments (``shard_state``'s and
+    ``parallel.pipeline_train.shard_pipeline_state``'s second half)."""
     if state.sharding is not None:
         raise ValueError("the state is already placed on a mesh")
     state.model.to(mesh.device)
     params = state.params
     rep = replicated(mesh)
-    param_sh = shard_params_tree(params, mesh, rules)
-    moment_sh = zero1_shardings(params, mesh, rules) if zero1 else param_sh
     opt_sh = opt_state_shardings(state.opt_state, list(params), moment_sh,
                                  rep)
     ema_sh = dict(param_sh) if state.ema_params is not None else None

@@ -303,7 +303,7 @@ def test_dq_kernel_writes_delta(cuda_device, hpc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("n", [1, 49, 64, 65, 197])
+@pytest.mark.parametrize("n", [1, 49, 64, 65, 113, 197])
 def test_flash_chunk_grads_float32_out(cuda_device, n, d, dtype):
     q, k, v, o, lse, do = _bwd_inputs(cuda_device, 2, 4, n, d, dtype,
                                       False, seed=3)
@@ -344,6 +344,66 @@ def test_vit_adapter_trains_through_the_kernels(cuda_device):
     (want,) = torch.autograd.grad(ref, qkv, dout.float())
     torch.cuda.synchronize()
     assert _close(grad, want)
+
+
+@pytest.fixture
+def one_rank_mesh(cuda_device):
+    """A world of one (gloo) and its mesh on the card: the ring and
+    Ulysses over one seq rank issue no collective."""
+    import torch.distributed as dist
+    from deeplearning_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                      initialize_distributed)
+    started = initialize_distributed(device="cpu")
+    try:
+        yield build_mesh(MeshConfig(data=1, seq=1), device=cuda_device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [113, 197])
+@pytest.mark.parametrize("flavor", ["ring", "ulysses"])
+def test_seq_parallel_on_k1_matches_plain(one_rank_mesh, flavor, n, dtype):
+    """The ring and Ulysses on K1 (use_flash / the flash inner attention)
+    at ViT-B/16's chunk lengths (113 = 226 / 2 at 240², 197 at 224²):
+    one forward, one dQ and one dK/dV launch a call, and the output and
+    dq/dk/dv against the same flavor's plain path (bf16 norm-relative
+    1e-2, float32 max-abs 1e-4)."""
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attention)
+    from deeplearning_tpu_torch.parallel.ulysses import make_ulysses_attention
+    mesh = one_rank_mesh
+    q, k, v, _, _, do = _bwd_inputs(mesh.device, 2, 12, n, 64, dtype, False,
+                                    seed=n)
+    if flavor == "ring":
+        kernel, plain = (make_ring_attention(mesh, use_flash=True),
+                         make_ring_attention(mesh))
+    else:
+        kernel, plain = (make_ulysses_attention(mesh,
+                                                attn_fn=fa.flash_attention),
+                         make_ulysses_attention(mesh))
+
+    def run(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs)
+        return out, torch.autograd.grad(out, xs, do)
+    before = fa.launch_counts()
+    got = run(kernel)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    want = run(plain)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == after      # the plain path launches none
+    for g, w in zip((got[0],) + got[1], (want[0],) + want[1]):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        if dtype == torch.bfloat16:
+            assert _close(g, w)
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -519,12 +519,21 @@ def test_step_arguments_as_jax():
     with pytest.raises(ValueError, match="data-parallel only"):
         make_train_step(loss_fn, mesh=m, grad_comm="int8",
                         rules=tsharding.FSDP_RULES)
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         make_train_step(loss_fn, mesh=m,
                         rules=tsharding.TRANSFORMER_TP_RULES)
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         make_train_step(loss_fn, mesh=tmesh.build_mesh(
             tmesh.MeshConfig(data=1, model=2), 2, 0, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(loss_fn, mesh=tmesh.build_mesh(
+            tmesh.MeshConfig(data=1, expert=2), 2, 0, device="cpu"))
+    seq = tmesh.build_mesh(tmesh.MeshConfig(data=1, seq=2), 2, 0,
+                           device="cpu")
+    make_train_step(loss_fn, mesh=seq)       # sequence parallelism runs
+    for kw in (dict(weight_update="zero1"), dict(grad_comm="int8")):
+        with pytest.raises(ValueError, match="data-parallel modes"):
+            make_train_step(loss_fn, mesh=seq, **kw)
     for kw in (dict(weight_update="zero2"), dict(grad_comm="bf16")):
         with pytest.raises(ValueError):
             make_train_step(loss_fn, mesh=m, **kw)

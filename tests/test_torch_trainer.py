@@ -377,21 +377,27 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("opt,item", [
-    ("train.strict=threads", "8"), ("train.strict=all", "8"),
-    ("train.mesh_model_axis=2", "7b"), ("train.mesh_seq_axis=2", "7b"),
-    ("train.seq_parallel=ulysses", "7b"), ("train.pipeline_stages=2", "7b"),
-    ("train.microbatches=4", "7b"), ("train.weight_update=zero1", None),
+@pytest.mark.parametrize("opt,error", [
+    ("train.strict=threads", "item 8"), ("train.strict=all", "item 8"),
+    ("train.mesh_model_axis=2", "item 7c"),
+    ("train.mesh_seq_axis=2", "1 devices not divisible by fixed axes 2"),
+    ("train.seq_parallel=ulysses", None),
+    ("train.pipeline_stages=2", "1 devices not divisible by fixed axes 2"),
+    ("train.microbatches=4", None), ("train.weight_update=zero1", None),
     ("train.grad_comm=int8", None)])
-def test_cli_later_slice_options_name_their_slice(opt, item, tmp_path,
+def test_cli_later_slice_options_name_their_slice(opt, error, tmp_path,
                                                   capsys):
-    """Item 7b's options raise naming it; ZeRO-1 and the int8 gradient
-    collectives run: a one-process gloo world, the mesh step, and a
-    checkpoint whose topology sidecar names the weight-update mode (the
+    """At a one-process world: strict threads / all name item 8 and a
+    model axis item 7c; a seq axis or pipeline stages of two need two
+    ranks (JAX's mesh error, from a gloo world the CLI starts and
+    destroys); train.seq_parallel without a seq axis and train.microbatches
+    without stages run as JAX's CLI runs them; ZeRO-1 and the int8
+    gradient collectives run: a one-process gloo world, the mesh step, and
+    a checkpoint whose topology sidecar names the weight-update mode (the
     process group is gone after the run)."""
     import torch.distributed as dist
-    if item is not None:
-        with pytest.raises(ValueError, match=f"item {item}"):
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
             cli.main(CLI_TINY + [opt])
         assert not dist.is_initialized()
         return
@@ -401,8 +407,10 @@ def test_cli_later_slice_options_name_their_slice(opt, item, tmp_path,
     with open(tmp_path / "ckpt" / "topology.json") as f:
         (step, doc), = json.load(f).items()
     assert int(step) == 2 and doc["process_count"] == 1
-    assert doc["weight_update"] == ("zero1" if "zero1" in opt
-                                    else "replicated")
+    # the mesh runs record their weight-update mode; the others no mesh
+    assert doc.get("weight_update") == {
+        "train.weight_update=zero1": "zero1",
+        "train.grad_comm=int8": "replicated"}.get(opt)
 
 
 def test_cli_device_defaults_to_the_card(monkeypatch):

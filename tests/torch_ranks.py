@@ -297,7 +297,277 @@ def steps(rank, n, payload, d):
     return out
 
 
-SCENARIOS = {"collectives": collectives, "steps": steps}
+# ------------------------------------ sequence and pipeline parallelism
+# the tiny ViT of the sequence-parallel steps: N = 9 + 1 = 10 tokens (even:
+# the flash paths need N to divide the seq axis), 2 heads (Ulysses)
+SP_VIT = dict(img_size=12, patch_size=4, num_classes=10, embed_dim=32,
+              depth=2, num_heads=2)
+# tests/test_pipeline_train.py's ViT: 4 blocks, 16 wide, 5 tokens
+PP_VIT = dict(img_size=16, patch_size=8, num_classes=3, embed_dim=16,
+              depth=4, num_heads=2)
+# SGD, not Adam, in the comparison: the key bias's gradient is zero in exact
+# arithmetic (softmax ignores a shift shared by every key), and Adam would
+# scale its round-off up to a full step of either sign
+PP_LR = 0.05
+# the CLI runs (vit_micro_patch4_56 at 12 px: 10 tokens, 4 heads, 6 blocks)
+SP_CLI = ["train.device=cpu", "model.name=vit_micro_patch4_56",
+          "model.precision=f32", "data.image_size=12", "data.channels=3",
+          "data.n_train=16", "data.global_batch=8", "train.epochs=1"]
+
+
+def _grads_of(fn, *xs):
+    """fn(*xs) and the gradients of sum(fn(*xs) ** 2) w.r.t. xs."""
+    xs = [x.clone().requires_grad_() for x in xs]
+    out = fn(*xs)
+    torch.autograd.backward((out.float() ** 2).sum())
+    return _np(out), [_np(x.grad) for x in xs]
+
+
+def _try(fn):
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _attention_cases(rank, n, payload):
+    """Ring and Ulysses on this rank's chunks, and the attn_fn adapters on
+    the replicated (B, N, H, D) inputs."""
+    from deeplearning_tpu_torch.ops.flash_attention import flash_attention
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attention, make_ring_attn_fn, ring_attention)
+    from deeplearning_tpu_torch.parallel.ulysses import (
+        make_ulysses_attention, make_ulysses_attn_fn, ulysses_attention)
+    mesh = build_mesh(MeshConfig(data=1, seq=n), device="cpu")
+    group = mesh.group("seq")
+    q, k, v = (torch.from_numpy(x) for x in payload["qkv"])
+    nl = q.shape[2] // n
+    mine = [x[:, :, rank * nl:(rank + 1) * nl] for x in (q, k, v)]
+    out = {}
+    for name, fn in (
+            ("ring", make_ring_attention(mesh)),
+            ("ring_flash", make_ring_attention(mesh, use_flash=True)),
+            ("ulysses", make_ulysses_attention(mesh)),
+            ("ulysses_flash", make_ulysses_attention(
+                mesh, attn_fn=flash_attention, check_vma=False))):
+        out[name] = _grads_of(fn, *mine)
+    full = [torch.from_numpy(x) for x in payload["bnhd"]]
+    odd = [x[:, :payload["odd_n"]] for x in full]
+    for name, fn, xs in (
+            ("ring_fn", make_ring_attn_fn(mesh), odd),
+            ("ulysses_fn", make_ulysses_attn_fn(mesh), odd),
+            ("ring_fn_flash", make_ring_attn_fn(mesh, use_flash=True), full),
+            ("ulysses_fn_flash", make_ulysses_attn_fn(mesh, use_flash=True),
+             full)):
+        out[name] = _grads_of(fn, *xs)
+    h6 = [torch.zeros(1, 3 * n // 2 if n > 2 else 3, nl, 8)] * 3
+    out["errors"] = {
+        "heads": _try(lambda: make_ulysses_attention(mesh)(*h6)),
+        "valid_len": _try(lambda: ulysses_attention(
+            *mine, group, attn_fn=flash_attention, valid_len=1)),
+        "sm_scale": _try(lambda: ulysses_attention(
+            *mine, group, sm_scale=0.5, attn_fn=lambda a, b, c: a)),
+        "ring_mask": _try(lambda: ring_attention(
+            *mine, group, use_flash=True,
+            kv_mask=torch.ones(nl, dtype=torch.bool))),
+        "flash_pad": _try(lambda: make_ring_attn_fn(mesh, use_flash=True)(
+            *odd)),
+        "flash_pad_ulysses": _try(lambda: make_ulysses_attn_fn(
+            mesh, use_flash=True)(*odd)),
+        "dropout": _try(lambda: make_ring_attn_fn(mesh)(
+            *odd, dropout_rate=0.1, deterministic=False))}
+    return out
+
+
+def _sp_steps(rank, n, payload):
+    """One SGD step of the tiny ViT with each adapter on a data x seq
+    mesh (data = n / 2, seq = 2), flash and plain paths."""
+    from deeplearning_tpu_torch.models.classification.vit import (
+        VisionTransformer)
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attn_fn)
+    from deeplearning_tpu_torch.parallel.sharding import host_local_slice
+    from deeplearning_tpu_torch.parallel.ulysses import make_ulysses_attn_fn
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    from deeplearning_tpu_torch.train.steps import (make_train_step,
+                                                     shard_state)
+    mesh = build_mesh(MeshConfig(data=n // 2, seq=2), device="cpu")
+    lo, hi = host_local_slice(8, mesh)
+    batch = {k: torch.from_numpy(v[lo:hi])
+             for k, v in payload["sp_batch"].items()}
+    out = {"rows": (lo, hi)}
+    for name, make in (("ring", make_ring_attn_fn),
+                       ("ulysses", make_ulysses_attn_fn)):
+        for flash in (False, True):
+            model = VisionTransformer(**SP_VIT, dtype=torch.float32,
+                                      attn_fn=make(mesh, use_flash=flash))
+            model.load_state_dict(payload["sp_vit"])
+            tx = build_optimizer("sgd", SGD["lr"], momentum=SGD["momentum"],
+                                 params=dict(model.named_parameters()))
+            state = shard_state(TrainState.create(model=model, tx=tx), mesh)
+            state, m = make_train_step(make_loss_fn(), mesh=mesh)(
+                state, batch, 0)
+            out[f"{name}_{'flash' if flash else 'plain'}"] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "params": {k: _np(p) for k, p in state.params.items()}}
+    return out
+
+
+def _pipelines(rank, n, payload):
+    """pipeline_apply forward and gradients at (S, M) = (n, M) for the
+    payload's cases, and the heterogeneous path at S = n."""
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.pipeline import (
+        pipeline_apply, pipeline_apply_heterogeneous)
+    mesh = build_mesh(MeshConfig(data=-1, model=n), device="cpu")
+    out = {}
+
+    def stage_fn(p, act):
+        return torch.tanh(act @ p["w"] + p["b"])
+
+    for m in payload["pp_micro"][n]:
+        case = payload[f"pp_{n}_{m}"]
+        params = {k: torch.from_numpy(v[rank:rank + 1]).requires_grad_()
+                  for k, v in case["params"].items()}
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        y = pipeline_apply(stage_fn, params, x, mesh)
+        (y ** 2).sum().backward()
+        out[f"pp_{m}"] = {"y": _np(y), "dx": _np(x.grad),
+                          "dparams": {k: _np(p.grad)
+                                      for k, p in params.items()}}
+    het = payload["het"]
+    fns = [lambda p, a: torch.tanh(a @ p["w1"] @ p["w2"]),
+           lambda p, a: torch.tanh(a @ p["w"] + p["b"])]
+    if n == 2:
+        plist = [{k: torch.from_numpy(v).requires_grad_()
+                  for k, v in st.items()} for st in het["params"]]
+        x = torch.from_numpy(het["x"])
+        y = pipeline_apply_heterogeneous(fns, plist, x, mesh)
+        (y ** 2).sum().backward()
+        out["het"] = {"y": _np(y), "dparams": {
+            k: _np(p.grad) for k, p in plist[rank].items()}}
+    out["bad_micro"] = _try(lambda: pipeline_apply(
+        stage_fn, {k: torch.from_numpy(v[rank:rank + 1])
+                   for k, v in payload[f"pp_{n}_{n}"]["params"].items()},
+        torch.zeros(n + 1, 2, 8), mesh))
+    return out
+
+
+def _pp_state(payload, n, microbatches=4):
+    from deeplearning_tpu_torch.models.classification.vit import (
+        VisionTransformer)
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.pipeline_train import (
+        make_pipeline_train_step, shard_pipeline_state, vit_pipeline_module)
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    mesh = build_mesh(MeshConfig(data=-1, model=n), device="cpu")
+    vit = VisionTransformer(**PP_VIT, dtype=torch.float32)
+    vit.load_state_dict(payload["pp_vit"])
+    module, k_per = vit_pipeline_module(vit, n)
+    tx = build_optimizer("sgd", PP_LR, momentum=0.9,
+                         params=dict(module.named_parameters()))
+    state = shard_pipeline_state(TrainState.create(model=module, tx=tx),
+                                 mesh)
+    step, eval_step = make_pipeline_train_step(
+        vit, mesh, tx, num_stages=n, k_per_stage=k_per,
+        microbatches=microbatches)
+    return vit, mesh, k_per, state, step, eval_step
+
+
+def _pipeline_train(rank, n, payload):
+    """The pipelined ViT's loss and gradients, then two Adam steps of the
+    pipeline train step and its eval counts, at S = n."""
+    from deeplearning_tpu_torch.ops import losses
+    from deeplearning_tpu_torch.parallel.pipeline_train import (
+        make_vit_pipeline_forward)
+    vit, mesh, k_per, state, step, eval_step = _pp_state(payload, n)
+    batch = {k: torch.from_numpy(v) for k, v in payload["pp_batch"].items()}
+    forward = make_vit_pipeline_forward(vit, mesh, n, k_per, microbatches=4)
+    params = state.params
+    loss = losses.cross_entropy(forward(params, batch["image"]),
+                                batch["label"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    out = {"loss": float(loss), "grads": {
+        k: _np(g) for k, g in zip(params, grads)}}
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, batch, 0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["metrics"] = metrics
+    out["eval"] = {k: int(v) for k, v in eval_step(state, batch).items()}
+    out["state"] = {k: _np(v) for k, v in
+                    state.state_dict()["params"].items()}
+    return out
+
+
+def _loader_slices(rank, n, payload):
+    from deeplearning_tpu_torch.data.loader import ArraySource, DataLoader
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    mesh = build_mesh(MeshConfig(data=n // 2, seq=2), device="cpu")
+    loader = DataLoader(ArraySource(**payload["feed"]), global_batch=8,
+                        seed=3, mesh=mesh)
+    loader.set_epoch(1)
+    return {"batches": [{k: np.asarray(v) for k, v in b.items()}
+                        for b in loader],
+            "coords": dict(mesh.coords), "host_batch": loader.host_batch}
+
+
+def _seq_cli(rank, n, payload, d):
+    """The train CLI's Trainer with ring, Ulysses and the pipeline on this
+    group; the pipeline run's checkpoint holds the whole stacked state
+    and restores into a fresh placed state."""
+    from deeplearning_tpu_torch.core import checkpoint
+    from deeplearning_tpu_torch.core.config import config_cli
+    from deeplearning_tpu_torch.train import __main__ as cli
+    sys.modules["torch.utils.tensorboard"] = None
+    # a K1 route takes the flash path, which needs N (17) to divide seq
+    out = {"flash_odd": _try(lambda: cli.build(config_cli(
+        cli.Config(), SP_CLI + ["train.mesh_seq_axis=2",
+                                "data.image_size=16"])).train())}
+    for name, extra in payload["cli_runs"]:
+        workdir = os.path.join(d, f"cli_{name}")
+        trainer = cli.build(config_cli(cli.Config(), SP_CLI + extra + [
+            f"train.workdir={workdir}"]))
+        trainer.train()
+        out[name] = {"eval": trainer.evaluate(), "step": trainer.state.step}
+        if name == "pipeline":
+            ckpt = trainer.ckpt
+            ckpt.wait_until_finished()
+            step = ckpt.latest_step()
+            tree = torch.load(os.path.join(ckpt._step_dir(step),
+                                           checkpoint._STATE_FILE),
+                              weights_only=True)
+            out[name]["shapes"] = {k: tuple(v.shape)
+                                   for k, v in tree["params"].items()}
+            saved = trainer.state.state_dict()
+            fresh = cli.build(config_cli(cli.Config(), SP_CLI + extra))
+            ckpt.restore(fresh.state, step)
+            again = fresh.state.state_dict()
+            out[name]["restored"] = fresh.state.step == step and all(
+                torch.equal(again["params"][k], saved["params"][k])
+                for k in saved["params"])
+    return out
+
+
+def seq_pipe(rank, n, payload, d):
+    out = {"attention": _attention_cases(rank, n, payload),
+           "sp_steps": _sp_steps(rank, n, payload),
+           "pipelines": _pipelines(rank, n, payload),
+           "pipeline_train": _pipeline_train(rank, n, payload),
+           "loader": _loader_slices(rank, n, payload)}
+    if n == 2:
+        out["cli"] = _seq_cli(rank, n, payload, d)
+    return out
+
+
+SCENARIOS = {"collectives": collectives, "steps": steps,
+             "seq_pipe": seq_pipe}
 
 
 def main(name, rank, n, d):
