@@ -137,12 +137,14 @@ def _drop_rates(model) -> list:
     return rates
 
 
-def make_vit_pipeline_forward(model, mesh: Mesh, num_stages: int,
-                              k_per_stage: int, microbatches: int,
+def make_vit_pipeline_forward(model, mesh: Mesh, k_per_stage: int,
+                              microbatches: int,
                               axis_name: str = PIPE_AXIS) -> Callable:
     """``forward(params, images) -> logits``, pipelined: ``params`` the
     pipeline module's named parameters (``outer.*``, ``stages.*``);
-    ``model`` the ViT whose modules (and ``attn_fn``) run them."""
+    ``model`` the ViT whose modules (and ``attn_fn``) run them. Its own
+    parameters are never read: move them to ``meta`` once
+    ``vit_pipeline_module`` has copied them."""
     if any(_drop_rates(model)):
         raise ValueError(
             "pipeline_stages currently requires drop_rate = "
@@ -171,8 +173,8 @@ def make_vit_pipeline_forward(model, mesh: Mesh, num_stages: int,
     return forward
 
 
-def make_pipeline_train_step(model, mesh: Mesh, tx, num_stages: int,
-                             k_per_stage: int, microbatches: int,
+def make_pipeline_train_step(model, mesh: Mesh, k_per_stage: int,
+                             microbatches: int,
                              label_smoothing: float = 0.0,
                              axis_name: str = PIPE_AXIS):
     """(train_step, eval_step) over a ``TrainState`` of
@@ -181,15 +183,13 @@ def make_pipeline_train_step(model, mesh: Mesh, tx, num_stages: int,
     ``grad_norm`` and ``bad_step`` of the train step's metrics; the
     gradients are this rank's stage's and the outer parameters' (equal on
     every stage), averaged over data x fsdp when that extent is above
-    one. ``eval_step`` returns ``top1`` / ``count`` sums. ``tx`` is the
-    state's optimizer (JAX's signature; the state applies it)."""
+    one. ``eval_step`` returns ``top1`` / ``count`` sums; the state
+    applies its own optimizer."""
     from ..ops import losses
     from ..evaluation.metrics import topk_correct
     from . import collectives
-    del tx
-    forward = make_vit_pipeline_forward(model, mesh, num_stages,
-                                        k_per_stage, microbatches,
-                                        axis_name)
+    forward = make_vit_pipeline_forward(model, mesh, k_per_stage,
+                                        microbatches, axis_name)
     dev = mesh.device
     n_dp = mesh.axis_size(_DP)
 

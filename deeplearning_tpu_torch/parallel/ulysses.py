@@ -85,13 +85,10 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def make_ulysses_attention(mesh: Mesh, axis_name: str = SEQ_AXIS,
-                           attn_fn: Optional[Callable] = None,
-                           check_vma: bool = True):
+                           attn_fn: Optional[Callable] = None):
     """Ulysses over ``mesh``'s ``axis_name`` ranks: ``fn(q, k, v)`` takes
     this rank's (B, H, N / P, D) chunks and returns its chunk of the
-    output. ``check_vma`` is JAX's shard_map flag, accepted so callers
-    run unchanged; the port has no such check."""
-    del check_vma
+    output."""
     group = mesh.group(axis_name)
 
     def fn(q, k, v):

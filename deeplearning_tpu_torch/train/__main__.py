@@ -350,13 +350,14 @@ def build(cfg: Config, **trainer_kw: Any):
         dtype=torch.bfloat16 if cfg.model.precision == "bf16"
         else torch.float32,
         generator=torch.Generator().manual_seed(cfg.train.seed),
-        **model_kw).to(dev)
+        **model_kw)
     pp = cfg.train.pipeline_stages
     if pp > 1:
         from ..parallel.pipeline_train import vit_pipeline_module
         vit = model
         model, k_per_stage = vit_pipeline_module(vit, pp)
-        model.to(dev)
+        vit.to("meta")       # a template only: the stages hold the weights
+    model.to(dev)
     params = dict(model.named_parameters())
     steps_per_epoch = n_train // gb
     sched = build_schedule(cfg.optim.schedule, base_lr=cfg.optim.lr,
@@ -377,7 +378,7 @@ def build(cfg: Config, **trainer_kw: Any):
                                                shard_pipeline_state)
         shard_pipeline_state(state, mesh)
         base_step, eval_step = make_pipeline_train_step(
-            vit, mesh, tx, num_stages=pp, k_per_stage=k_per_stage,
+            vit, mesh, k_per_stage=k_per_stage,
             microbatches=cfg.train.microbatches or pp,
             label_smoothing=cfg.train.label_smoothing)
     else:

@@ -519,7 +519,8 @@ def test_cli_seq_and_pipeline_runs(ranks):
     path, N = 10; plain path, N = 17 padded), Ulysses and the pipeline (2
     stages, 4 microbatches) each train an epoch and evaluate; both ranks
     agree; the pipeline's checkpoint holds the whole stacked state and
-    restores bit-equal into a fresh placed state."""
+    restores bit-equal into a fresh placed state; the unsplit ViT the
+    pipeline runs its modules from holds no weights (meta)."""
     outs = [o["cli"] for o in ranks[2]]
     assert outs[0]["flash_odd"] == (
         "ValueError: the seq axis size (2) must divide N=17 for the flash "
@@ -531,6 +532,7 @@ def test_cli_seq_and_pipeline_runs(ranks):
             list(ev.values())).all() and "top1" in ev
     pipe = outs[0]["pipeline"]
     assert pipe["restored"]
+    assert pipe["vit_devices"] == ["meta"]
     assert pipe["shapes"]["stages.sub0.attn.qkv.weight"] == (2, 384, 128)
     assert pipe["shapes"]["outer.head.weight"] == (10, 128)
     # the ring's and Ulysses' flash paths train to the same weights

@@ -351,7 +351,7 @@ def _attention_cases(rank, n, payload):
             ("ring_flash", make_ring_attention(mesh, use_flash=True)),
             ("ulysses", make_ulysses_attention(mesh)),
             ("ulysses_flash", make_ulysses_attention(
-                mesh, attn_fn=flash_attention, check_vma=False))):
+                mesh, attn_fn=flash_attention))):
         out[name] = _grads_of(fn, *mine)
     full = [torch.from_numpy(x) for x in payload["bnhd"]]
     odd = [x[:, :payload["odd_n"]] for x in full]
@@ -470,13 +470,13 @@ def _pp_state(payload, n, microbatches=4):
     vit = VisionTransformer(**PP_VIT, dtype=torch.float32)
     vit.load_state_dict(payload["pp_vit"])
     module, k_per = vit_pipeline_module(vit, n)
+    vit.to("meta")
     tx = build_optimizer("sgd", PP_LR, momentum=0.9,
                          params=dict(module.named_parameters()))
     state = shard_pipeline_state(TrainState.create(model=module, tx=tx),
                                  mesh)
     step, eval_step = make_pipeline_train_step(
-        vit, mesh, tx, num_stages=n, k_per_stage=k_per,
-        microbatches=microbatches)
+        vit, mesh, k_per_stage=k_per, microbatches=microbatches)
     return vit, mesh, k_per, state, step, eval_step
 
 
@@ -488,7 +488,7 @@ def _pipeline_train(rank, n, payload):
         make_vit_pipeline_forward)
     vit, mesh, k_per, state, step, eval_step = _pp_state(payload, n)
     batch = {k: torch.from_numpy(v) for k, v in payload["pp_batch"].items()}
-    forward = make_vit_pipeline_forward(vit, mesh, n, k_per, microbatches=4)
+    forward = make_vit_pipeline_forward(vit, mesh, k_per, microbatches=4)
     params = state.params
     loss = losses.cross_entropy(forward(params, batch["image"]),
                                 batch["label"])
@@ -552,7 +552,20 @@ def _seq_cli(rank, n, payload, d):
             out[name]["restored"] = fresh.state.step == step and all(
                 torch.equal(again["params"][k], saved["params"][k])
                 for k in saved["params"])
+            out[name]["vit_devices"] = _live_vit_devices()
     return out
+
+
+def _live_vit_devices():
+    """The devices of every live VisionTransformer's parameters (the
+    pipeline's unsplit template keeps none on a device)."""
+    import gc
+    from deeplearning_tpu_torch.models.classification.vit import (
+        VisionTransformer)
+    gc.collect()
+    return sorted({p.device.type for o in gc.get_objects()
+                   if isinstance(o, VisionTransformer)
+                   for p in o.parameters()})
 
 
 def seq_pipe(rank, n, payload, d):
