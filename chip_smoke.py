@@ -121,10 +121,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (buckets 1/8/32) and ``MicroBatcher``: 64 requests from 8 threads. The
    K3 counters are zeroed just before and read just after: each kernel once
    a batch dispatched. Every answer has ``max_det`` rows with class -1
-   exactly on the invalid ones, and equals ``engine.infer`` of the same
-   image at the bucket it was served in (no op mixes images; across buckets
-   the top-20 overlap is logged only, since the calibrated random network
-   amplifies bf16 rounding differences between cuDNN's per-shape
+   exactly on the invalid ones, and equals ``engine.run`` of the batch it
+   went out in, at its row (an image's bits depend on its row in the
+   batch, so ``engine.infer`` in index order is no reference; against
+   bucket 1 the top-20 overlap is logged only, since the calibrated random
+   network amplifies bf16 rounding differences between cuDNN's per-shape
    algorithms). On one bucket-32 batch the head's raw output goes through
    the postprocess with K3 and with the plain blocked sweep: equal
    detections, at ``max_det`` 100 and over all 8 400 candidates (where the
@@ -150,8 +151,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    at bucket 8 and score 0, one K3 launch a batch. Each through
    ``MicroBatcher``: 16 requests from 8 threads, the K3 counter zeroed just
    before and read just after; every answer ``max_det`` (100) rows with
-   class -1 exactly on the invalid ones and equal to ``engine.infer`` of
-   the same image at the bucket it was served in; on one batch of the
+   class -1 exactly on the invalid ones and equal to ``engine.run`` of
+   the batch it went out in, at its row; on one batch of the
    largest bucket, the proposals and detections through K3 equal those
    through the plain blocked sweep on one forward;
 17. measure: each detector's per-bucket served latency, K3 and plain
@@ -428,6 +429,7 @@ The last three lines: the card's name and power limit (nvidia-smi), one
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -1838,6 +1840,57 @@ def _yolox_counts(nms_ops, raw, centers, strides, max_det):
     return int((score > 0.0).sum()), int(dets["auto"]["valid"].sum())
 
 
+@contextlib.contextmanager
+def _recorded_runs(engine):
+    """Inside the block, every ``engine.run(bucket, batch)`` (the batcher's
+    dispatch) is recorded as (bucket, batch) in dispatch order."""
+    runs, inner = [], engine.run
+
+    def recording(bucket, images):
+        runs.append((bucket, images))
+        return inner(bucket, images)
+    engine.run = recording
+    try:
+        yield runs
+    finally:
+        del engine.run
+
+
+def _hold_served_rows(name, engine, images, rows, runs, batches) -> None:
+    """Every served answer against ``engine.run`` of the batch it went out
+    in, at its row of that batch: bit-equal, each request in exactly one
+    batch. The reference is the dispatched batch itself, not
+    ``engine.infer`` in index order: on the card an image's bits depend on
+    its row in the batch (the Faster R-CNN pyramid differs by up to 0.09 in
+    bf16 when an image moves from row 7 to row 0 of the same batch, and
+    greedy NMS turns that into other boxes), so the batcher, which fills a
+    batch in arrival order, is held to the batch it really ran."""
+    check(len(runs) == batches, f"{name}: one engine.run a batch dispatched")
+    where = {}
+    for r, (_, batch) in enumerate(runs):
+        for j in range(batch.shape[0]):
+            where.setdefault(batch[j, 0, :8].tobytes(), []).append((r, j))
+    refs = [{k: v.cpu().numpy() for k, v in engine.run(b, batch).items()}
+            for b, batch in runs]
+    moved = 0
+    for i, row in enumerate(rows):
+        at = [(r, j) for r, j in where.get(images[i, 0, :8].tobytes(), [])
+              if np.array_equal(runs[r][1][j], images[i])]
+        check(len(at) == 1, f"{name}: request {i} went out in one batch")
+        r, j = at[0]
+        moved += int(j != i % runs[r][0])
+        check(all(np.array_equal(row[k], refs[r][k][j]) for k in row),
+              f"{name}: every served answer == engine.run of its batch, "
+              f"at its row")
+    sizes = {}
+    for b, _ in runs:
+        sizes[b] = sizes.get(b, 0) + 1
+    log(f"{name} served vs engine.run of the batch it went out in, at its "
+        f"row: equal {len(rows)}/{len(rows)}; batches by bucket "
+        f"{json.dumps({str(b): n for b, n in sorted(sizes.items())})}, "
+        f"requests off their index-order row {moved}")
+
+
 def _serve_yolox(nms_ops, dev, seed):
     """Phase 13: YOLOX-S served through the batcher with K3. Returns K3's
     launches and what phase 14 measures on."""
@@ -1865,7 +1918,8 @@ def _serve_yolox(nms_ops, dev, seed):
     images = rng.normal(size=(64, YOLOX_SIZE, YOLOX_SIZE, 3)).astype(
         np.float32)
     engine = engines["auto"]
-    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+    with _recorded_runs(engine) as runs, \
+            MicroBatcher(engine, max_wait_ms=5.0) as mb:
         torch.cuda.synchronize()
         nms_ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1893,32 +1947,17 @@ def _serve_yolox(nms_ops, dev, seed):
               and np.isfinite(row["boxes"]).all()
               and bool(((row["labels"] == -1) == ~row["valid"]).all()),
               "max_det rows an answer, class -1 exactly on invalid rows")
-    # served vs engine.infer of the same image at the bucket it was served
-    # in: exact, since no op of the forward or of K3 mixes images. A batch
-    # may have gone out in any bucket, so each answer is held against the
-    # engine's answer at each bucket and must equal one. Across buckets the
-    # answers differ: the calibrated random network amplifies the bf16
-    # rounding differences of cuDNN's per-shape algorithms through its ~70
-    # layers (a 1e-3 input change moves its raw outputs by up to ~3 on the
-    # CPU), so the top-20 overlap with bucket 1 is logged, not gated.
-    refs = {}
-    for bucket in engine.buckets:
-        parts = [engine.infer(images[i:i + bucket])
-                 for i in range(0, len(images), bucket)]
-        refs[bucket] = {k: np.concatenate([p[k] for p in parts])
-                        for k in parts[0]}
-    equal_at = []
-    for i, row in enumerate(rows):
-        hit = [b for b, ref in refs.items()
-               if all(np.array_equal(row[k], ref[k][i]) for k in row)]
-        equal_at.append(hit[0] if hit else None)
-    log(f"{YOLOX} served vs engine.infer of the same image: equal at bucket "
-        f"{json.dumps({str(b): equal_at.count(b) for b in engine.buckets})}"
-        f", equal at none {equal_at.count(None)}")
-    check(None not in equal_at, "every served answer == engine.infer")
+    # served vs engine.run of the batch each answer went out in, exact.
+    # Across buckets the answers differ: the calibrated random network
+    # amplifies the bf16 rounding differences of cuDNN's per-shape
+    # algorithms through its ~70 layers (a 1e-3 input change moves its raw
+    # outputs by up to ~3 on the CPU), so the top-20 overlap with bucket 1
+    # is logged, not gated.
+    _hold_served_rows(YOLOX, engine, images, rows, runs, batches)
+    ref1 = [engine.infer(img) for img in images]
     matched = total = 0
     for i, row in enumerate(rows):
-        one = {k: v[i] for k, v in refs[1].items()}
+        one = {k: v[0] for k, v in ref1[i].items()}
         top = min(20, int(row["valid"].sum()))
         ref_n = int(one["valid"].sum())
         iou = box_iou(torch.from_numpy(row["boxes"][:top]),
@@ -2201,8 +2240,8 @@ def _serve_detector(nms_ops, dev, seed, name, size, buckets, per_batch):
     batcher with K3: DET_REQUESTS requests from 8 threads, the K3 counter
     zeroed just before and read just after (``per_batch`` launches a batch
     dispatched), every answer ``DET_MAX`` rows with class -1 exactly on the
-    invalid ones and equal to ``engine.infer`` of the same image at the
-    bucket it was served in; on one batch of the largest bucket, the
+    invalid ones and equal to ``engine.run`` of the batch it went out in,
+    at its row; on one batch of the largest bucket, the
     detections through K3 equal those through the plain sweep. Returns
     K3's launches and what phase 17 measures on."""
     import torch
@@ -2227,7 +2266,8 @@ def _serve_detector(nms_ops, dev, seed, name, size, buckets, per_batch):
     images = rng.normal(size=(DET_REQUESTS, size, size, 3)).astype(
         np.float32)
     engine = engines["auto"]
-    with MicroBatcher(engine, max_wait_ms=5.0) as mb:
+    with _recorded_runs(engine) as runs, \
+            MicroBatcher(engine, max_wait_ms=5.0) as mb:
         torch.cuda.synchronize()
         nms_ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2256,24 +2296,9 @@ def _serve_detector(nms_ops, dev, seed, name, size, buckets, per_batch):
               and bool(((row["labels"] == -1) == ~row["valid"]).all())
               and bool((row["labels"] < classes).all()),
               f"{name}: max_det rows, class -1 exactly on invalid rows")
-    refs = {}
-    for bucket in engine.buckets:
-        parts = [engine.infer(images[i:i + bucket])
-                 for i in range(0, len(images), bucket)]
-        refs[bucket] = {k: np.concatenate([p[k] for p in parts])
-                        for k in parts[0]}
-    equal_at = []
-    for i, row in enumerate(rows):
-        hit = [b for b, ref in refs.items()
-               if all(np.array_equal(row[k], ref[k][i]) for k in row)]
-        equal_at.append(hit[0] if hit else None)
+    _hold_served_rows(name, engine, images, rows, runs, batches)
     valid = sum(int(r["valid"].sum()) for r in rows)
-    log(f"{name} served vs engine.infer of the same image: equal at bucket "
-        f"{json.dumps({str(b): equal_at.count(b) for b in engine.buckets})}"
-        f", equal at none {equal_at.count(None)}; valid rows {valid}/"
-        f"{DET_REQUESTS * DET_MAX}")
-    check(None not in equal_at, f"{name}: every served answer == "
-                                f"engine.infer")
+    log(f"{name}: valid rows {valid}/{DET_REQUESTS * DET_MAX}")
     check(valid > 0, f"{name}: some detection passes score {score}")
 
     top = max(buckets)

@@ -376,3 +376,52 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
     assert _forbidden("deeplearning_tpu.ops") and not _forbidden(
         "deeplearning_tpu_torch.ops")
+
+
+# ---------------------------------- chip_smoke: served rows vs their batch
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _RowEngine:
+    """An engine whose answer for an image depends on its row in the batch,
+    as a detector's bits do on the card."""
+
+    def run(self, bucket, batch):
+        assert batch.shape[0] == bucket
+        return {"score": torch.from_numpy(batch.sum(axis=(1, 2, 3))
+                                          + np.arange(bucket))}
+
+
+def test_served_rows_held_at_their_batch_row():
+    cs = _chip_smoke()
+    engine = _RowEngine()
+    images = np.random.default_rng(0).normal(size=(5, 4, 4, 3))
+    pad = np.zeros((2, 4, 4, 3))
+    # arrival order, not index order: image 3 rode row 0 of the first batch
+    runs = [(4, images[[3, 0, 4, 1]]),
+            (4, np.concatenate([images[[2]], pad, pad[:1]]))]
+    rows = [None] * 5
+    for b, batch in runs:
+        out = engine.run(b, batch)["score"].numpy()
+        for j in range(b):
+            hit = [i for i in range(5) if np.array_equal(batch[j], images[i])]
+            if hit:
+                rows[hit[0]] = {"score": out[j]}
+    cs._hold_served_rows("row engine", engine, images, rows, runs, 2)
+    # the same answers against index-order rows would not hold
+    index_order = {"score": engine.run(4, images[:4])["score"].numpy()}
+    assert not np.array_equal(rows[3]["score"], index_order["score"][3])
+    swapped = list(rows)
+    swapped[0], swapped[1] = rows[1], rows[0]
+    with pytest.raises(RuntimeError, match="engine.run of its batch"):
+        cs._hold_served_rows("row engine", engine, images, swapped, runs, 2)
+    with pytest.raises(RuntimeError, match="one engine.run a batch"):
+        cs._hold_served_rows("row engine", engine, images, rows, runs, 3)
+    with pytest.raises(RuntimeError, match="went out in one batch"):
+        cs._hold_served_rows("row engine", engine, images, rows, runs[:1], 1)
