@@ -403,9 +403,35 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the same metrics, the first loss within 5e-3 of the sequential step's;
    then the train CLI's Trainer with ``train.pipeline_stages=2
    train.microbatches=4`` over the same group: 2 steps and an evaluation,
-   its checkpoint holding the whole stacked state. Phases 45-46 check
-   their launches in the processes (not in the kernels line) and log
-   their times as gloo's: layout and parity, not speed.
+   its checkpoint holding the whole stacked state;
+47. two processes on ``cuda:0`` over gloo, ``model = 2``: ViT-B/16 at
+   224² (flash_hb) placed under ``TRANSFORMER_TP_RULES``, its blocks
+   Megatron's column- and row-parallel layers on 6 heads a rank, batch 8
+   (each rank the whole batch), phase 6's AdamW and loss, two steps of
+   ``make_train_step(mesh=...)`` in float32, then two in bf16: 12 K1
+   forward, 12 dQ and 12 dK/dV launches a step on each rank, 4 x 12 + 3
+   all-reduces a step (proj's and fc2's partial sums, the gradients of
+   the qkv and fc1 inputs, then the packed gradients, the metrics and the
+   norm's sum); against the steps without a mesh on the same weights and
+   batch (run here first) the float32 first loss within 1e-5 and its
+   ``grad_norm`` within 1e-4, relative, bf16 within 1e-3 (a row-parallel
+   split sums in another order, which flips a few bf16 roundings in a
+   thousand: the floor, measured on an H100, is 2.3e-4); the leaves the
+   layout does not split bit-equal on both ranks after the steps; the bf16
+   state's bytes beside the replicated state's; ``make_eval_step(mesh)``
+   on it; a checkpoint holding the whole ViT in the plain state's layout,
+   which cuts back to each rank's slices; then the train CLI with
+   ``train.mesh_model_axis=2`` over the same group (a model axis,
+   replicated as ``tools/train.py`` places it): 2 steps and an
+   evaluation;
+48. four processes on ``cuda:0`` over gloo, a model 2 x seq 2 mesh:
+   ViT-B/16 at 240² under the TP rules with ``make_ring_attn_fn(
+   use_flash=True)`` on 6 heads of 113-token chunks, batch 8, two steps
+   in float32 and two in bf16: 24 K1 forward, 24 dQ and 24 dK/dV launches
+   a step on each rank, one set of metrics on the four ranks, held as
+   phase 47's. Phases 45-48 check their launches in the processes
+   (not in the kernels line) and log their times as gloo's: layout and
+   parity, not speed.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -509,7 +535,7 @@ def main() -> int:
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
-    # phases 45 and 46 run two processes of this script, one a rank
+    # phases 45-48 run two or four processes of this script, one a rank
     ap.add_argument("--par-phase", type=int, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -977,9 +1003,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     _pipeline_two_ranks(args.seed, dev, os.path.join(build_dir,
                                                      "smoke_pipe"))
+    log(f"chip_smoke: phases 44-46 in {time.perf_counter() - t44:.1f}s")
+
+    # ---------- 47. two ranks on the one card: tensor parallel, model = 2
+    phase(47, started)
+    t47 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _tp_two_ranks(args.seed, dev, os.path.join(build_dir, "smoke_tp"))
+
+    # ------------ 48. four ranks on the one card: model 2 x seq 2, ring
+    phase(48, started)
+    torch.cuda.empty_cache()
+    _tp_seq_four_ranks(args.seed, dev, os.path.join(build_dir,
+                                                    "smoke_tp_seq"))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 44-46 in {time.perf_counter() - t44:.1f}s; "
+    log(f"chip_smoke: phases 47-48 in {time.perf_counter() - t47:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -5515,8 +5554,8 @@ def _seq_one_rank(fa, dev, g, mesh) -> dict:
     return launched
 
 
-def _par_spawn(phase_n, seed, workdir) -> tuple:
-    """Two processes of this script on cuda:0, ranks of a gloo group
+def _par_spawn(phase_n, seed, workdir, ranks=MESH_RANKS) -> tuple:
+    """``ranks`` processes of this script on cuda:0, ranks of a gloo group
     (``--par-phase``); returns (their rank<r>.json, the seconds taken)."""
     import shutil
     shutil.rmtree(workdir, ignore_errors=True)
@@ -5527,7 +5566,7 @@ def _par_spawn(phase_n, seed, workdir) -> tuple:
          "--par-phase", str(phase_n), "--mesh-rank", str(r),
          "--mesh-dir", workdir],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(MESH_RANKS)]
+        for r in range(ranks)]
     logs = []
     try:
         for p in procs:
@@ -5543,20 +5582,20 @@ def _par_spawn(phase_n, seed, workdir) -> tuple:
             log(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
         check(p.returncode == 0, f"phase {phase_n} rank {r} ran")
     outs = []
-    for r in range(MESH_RANKS):
+    for r in range(ranks):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             outs.append(json.load(f))
     shutil.rmtree(workdir, ignore_errors=True)
     return outs, wall
 
 
-def _par_group(rank: int, workdir: str):
+def _par_group(rank: int, workdir: str, ranks: int = MESH_RANKS):
     import torch
     from deeplearning_tpu_torch.parallel.mesh import initialize_distributed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     initialize_distributed(
-        f"file://{os.path.join(workdir, 'store')}", MESH_RANKS, rank,
+        f"file://{os.path.join(workdir, 'store')}", ranks, rank,
         device="cuda", local_rank=0, backend="gloo")
 
 
@@ -5897,7 +5936,305 @@ def _state_bytes(state) -> int:
     return walk([state.params, state.opt_state, state.ema_params])
 
 
-PAR_RANKS = {45: _sp_rank, 46: _pp_rank}
+# ------------ phases 47-48: tensor parallelism (multi-GPU, the rest, 7c)
+TP_BATCH, TP_STEPS = 8, 2            # phases 47-48: each rank the batch
+TP_SEQ_RANKS = 4                     # phase 48: model 2 x seq 2
+# relative, against the plain steps: float32 holds the split's arithmetic
+# (the first loss, its grad_norm); bf16 its own floor. A row-parallel
+# product sums its halves in another order than the unsplit GEMM, which
+# flips the bf16 rounding of ~0.1% of its outputs, and a bf16 network
+# carries such flips everywhere: on an H100, fc2's split alone moved
+# ViT-B/16's first loss by 1.20e-04, all four splits by 2.32e-04, and
+# no split of qkv, fc1 or the heads moved it (PR 18 call 5)
+TP_LOSS_TOL, TP_NORM_TOL = 1e-5, 1e-4
+TP_BF16_TOL = 1e-3
+TP_DTYPES = (("float32", "float32"), ("bf16", "bfloat16"))
+
+
+def _tp_cli_cfg(workdir):
+    """The train CLI's Config for phase 47: phase 6's set-up at batch 8,
+    one epoch of 2 steps, a model axis of 2 (replicated, as JAX's CLI)."""
+    import dataclasses
+    cfg = _smoke_cfg(workdir, TP_STEPS)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, global_batch=TP_BATCH,
+                                      n_train=TP_BATCH * TP_STEPS),
+        train=dataclasses.replace(cfg.train, epochs=1,
+                                  mesh_model_axis=MESH_RANKS))
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _tp_steps(state, mesh, batch, seed) -> dict:
+    """TP_STEPS mesh steps, K1's and the collectives' counters zeroed just
+    before and read just after; the digests of the leaves the layout does
+    not split."""
+    import torch
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    step = _mesh_step(mesh, "replicated", "fp32")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    coll.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TP_STEPS):
+        state, m = step(state, batch, root_key(seed))
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    sh = state.sharding
+    return {"metrics": metrics, "seconds": time.perf_counter() - t0,
+            "launches": fa.launch_counts(),
+            "collectives": coll.launch_counts(), "native": len(sh.native),
+            "replicated": {k: _digest(p) for k, p in state.params.items()
+                           if sh.params[k].is_fully_replicated}}
+
+
+def _tp_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 47's ranks: ViT-B/16 at 224² (flash_hb) under
+    TRANSFORMER_TP_RULES on a model = 2 mesh: two steps in float32, two in
+    bf16, then on the bf16 state the eval step and a checkpoint; then the
+    train CLI with train.mesh_model_axis=2."""
+    import torch
+    from deeplearning_tpu_torch.core import checkpoint
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, local_slice)
+    from deeplearning_tpu_torch.train import make_eval_step
+    from deeplearning_tpu_torch.train.classification import make_metric_fn
+    from deeplearning_tpu_torch.train.steps import shard_state
+    dev = torch.device("cuda")
+    _par_group(rank, workdir)
+    mesh = build_mesh(MeshConfig(data=1, model=MESH_RANKS), device=dev)
+    batch = {k: v[:TP_BATCH].clone()
+             for k, v in _train_batch(seed, dev).items()}
+    out = {"rank": rank}
+    for tag, dtype in TP_DTYPES:
+        state = _train_state("flash_hb", seed, dev,
+                             dtype=getattr(torch, dtype))
+        out["replicated_bytes"] = _state_bytes(state)
+        out["shapes"] = {k: list(p.shape) for k, p in state.params.items()}
+        state = shard_state(state, mesh, TRANSFORMER_TP_RULES)
+        torch.cuda.empty_cache()
+        out[tag] = _tp_steps(state, mesh, batch, seed)
+        if tag != "bf16":
+            del state
+            torch.cuda.empty_cache()
+    out["state_bytes"] = _state_bytes(state)
+    out["allocated"] = torch.cuda.memory_allocated()
+    sh = state.sharding
+    out["eval"] = {k: float(v) for k, v in make_eval_step(
+        make_metric_fn(), mesh=mesh)(state, batch).items()}
+    ckpt = checkpoint.CheckpointManager(os.path.join(workdir, "ckpt"))
+    ckpt.save(TP_STEPS, state)
+    ckpt.wait_until_finished()
+    tree = torch.load(os.path.join(ckpt._step_dir(TP_STEPS),
+                                   checkpoint._STATE_FILE),
+                      map_location="cpu", weights_only=True)
+    out["ckpt_shapes"] = {k: list(v.shape)
+                          for k, v in tree["params"].items()}
+    out["ckpt_slices_equal"] = all(
+        torch.equal(local_slice(tree["params"][k].to(dev), sh.params[k]),
+                    p.detach()) for k, p in state.params.items())
+    out["qkv_slice"] = list(state.params["blocks.0.attn.qkv.weight"].shape)
+    del state, tree
+    torch.cuda.empty_cache()
+    # the train CLI over the running group: a model axis, no rules
+    trainer = _cli().build(_tp_cli_cfg(os.path.join(workdir, "cli")))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    out["cli_eval"] = trainer.evaluate()
+    torch.cuda.synchronize()
+    out.update(cli_seconds=time.perf_counter() - t0,
+               cli_launches=fa.launch_counts(),
+               cli_steps=trainer.state.step,
+               cli_eval_batches=len(trainer.eval_loader),
+               cli_native=len(trainer.state.sharding.native),
+               cli_mesh=dict(trainer.state.sharding.mesh.shape))
+    del trainer
+    return _par_done(rank, workdir, out)
+
+
+def _hold_tp(what, got, ref, loss_tol, norm_tol) -> None:
+    """The first step's loss within ``loss_tol`` and its grad_norm within
+    ``norm_tol``, relative, of the plain step's; the second loss within
+    the larger of ``loss_tol`` and PAR_LOSS_TOL (AdamW's first update is
+    about lr x sign(g))."""
+    rels = [abs(g["loss"] - r["loss"]) / abs(r["loss"])
+            for g, r in zip(got, ref)]
+    dn = abs(got[0]["grad_norm"] - ref[0]["grad_norm"]) / ref[0]["grad_norm"]
+    later = max(loss_tol, PAR_LOSS_TOL)
+    log(f"{what}: losses {[g['loss'] for g in got]} vs "
+        f"{[r['loss'] for r in ref]} without a mesh (rel "
+        f"{[f'{x:.2e}' for x in rels]}, tol {loss_tol} then {later}), "
+        f"first grad_norm {got[0]['grad_norm']!r} vs "
+        f"{ref[0]['grad_norm']!r} (rel {dn:.2e}, tol {norm_tol})")
+    check(len(got) == len(ref) and rels[0] <= loss_tol
+          and max(rels) <= later and dn <= norm_tol,
+          f"{what}: the losses and the first grad_norm within tolerance of "
+          "the plain steps")
+
+
+def _tp_refs(seed, dev, batch, **model_kw) -> dict:
+    """The plain steps in each of TP_DTYPES on ``batch``."""
+    import torch
+    return {tag: _plain_steps(seed, dev, batch, TP_STEPS,
+                              dtype=getattr(torch, dtype), **model_kw)
+            for tag, dtype in TP_DTYPES}
+
+
+def _hold_tp_runs(what, outs, refs) -> None:
+    """Both dtypes' runs: one set of metrics on every rank, the leaves the
+    layout does not split bit-equal on every rank, float32 at
+    TP_LOSS_TOL / TP_NORM_TOL and bf16 at TP_BF16_TOL of the plain steps."""
+    for tag, _ in TP_DTYPES:
+        runs = [o[tag] for o in outs]
+        check(all(r["metrics"] == runs[0]["metrics"] for r in runs),
+              f"{what} {tag}: every rank reports the same metrics")
+        check(all(r["replicated"] == runs[0]["replicated"] for r in runs)
+              and len(runs[0]["replicated"]) > 0,
+              f"{what} {tag}: the {len(runs[0]['replicated'])} leaves the "
+              "layout does not split bit-equal on every rank")
+        tols = ((TP_LOSS_TOL, TP_NORM_TOL) if tag == "float32"
+                else (TP_BF16_TOL, TP_BF16_TOL))
+        _hold_tp(f"{what} {tag}", runs[0]["metrics"], refs[tag], *tols)
+
+
+def _tp_two_ranks(seed, dev, workdir) -> None:
+    """Phase 47: the plain steps on the same weights and batch here, then
+    two processes on cuda:0 over gloo."""
+    import torch
+    batch = {k: v[:TP_BATCH] for k, v in _train_batch(seed, dev).items()}
+    refs = _tp_refs(seed, dev, batch)
+    del batch
+    outs, wall = _par_spawn(47, seed, workdir)
+    # each block: two forward all-reduces (proj, fc2) and two backward
+    # (the inputs of qkv and fc1); then the packed gradients, the metrics
+    # and the norm's sum over model
+    reduces = 4 * DEPTH + 3
+    names = ("flash_attn_fwd_hb", "flash_attn_bwd_dq_hb",
+             "flash_attn_bwd_dkv_hb")
+    for o in outs:
+        for tag, _ in TP_DTYPES:
+            r = o[tag]
+            log(f"rank {o['rank']} of {MESH_RANKS} on cuda:0 (gloo), model "
+                f"= {MESH_RANKS}, ViT-B/16 224² batch {TP_BATCH} {tag} "
+                f"flash_hb on {HEADS // MESH_RANKS} heads: losses "
+                f"{[x['loss'] for x in r['metrics']]}, grad_norm "
+                f"{r['metrics'][0]['grad_norm']!r}, {TP_STEPS} steps in "
+                f"{r['seconds']:.2f}s (gloo through the host: layout and "
+                f"parity, not speed), launches {json.dumps(r['launches'])}, "
+                f"collectives {json.dumps(r['collectives'])}, "
+                f"{r['native']} leaves on slices")
+            for nm in names:
+                check(r["launches"][nm] == DEPTH * TP_STEPS,
+                      f"rank {o['rank']} {tag}: {nm} == {DEPTH} x "
+                      f"{TP_STEPS}")
+            check(r["collectives"]["all_reduce"] == reduces * TP_STEPS
+                  and r["collectives"]["reduce_scatter"] == 0,
+                  f"rank {o['rank']} {tag}: {reduces} all-reduces a step")
+            check(r["native"] == 8 * DEPTH and all(
+                np.isfinite(v) for m_ in r["metrics"] for v in m_.values()),
+                "the blocks on their slices, finite metrics")
+        log(f"rank {o['rank']}: bf16 state {o['state_bytes']} bytes against "
+            f"{o['replicated_bytes']} replicated "
+            f"({o['state_bytes'] / o['replicated_bytes']:.4f}), "
+            f"memory_allocated {o['allocated']} bytes, eval "
+            f"{json.dumps(o['eval'])}, qkv slice {o['qkv_slice']}")
+        check(o["qkv_slice"] == [3 * 768 // MESH_RANKS, 768]
+              and o["state_bytes"] < 0.55 * o["replicated_bytes"],
+              f"rank {o['rank']}: qkv's heads split, the state about half "
+              "the replicated one")
+        check(0 <= o["eval"]["top1"] <= TP_BATCH
+              and np.isfinite(o["eval"]["loss_sum"]), "a finite eval")
+        check(o["ckpt_shapes"] == o["shapes"] and o["ckpt_slices_equal"],
+              f"rank {o['rank']}: the checkpoint holds the whole ViT in the "
+              "plain state's layout, and cuts back to the rank's slices")
+        cli_want = {nm: DEPTH * (o["cli_steps"] + 2 * o["cli_eval_batches"])
+                    if "fwd" in nm else DEPTH * o["cli_steps"]
+                    for nm in names}
+        log(f"rank {o['rank']}: train CLI train.mesh_model_axis="
+            f"{MESH_RANKS}: mesh {json.dumps(o['cli_mesh'])}, "
+            f"{o['cli_steps']} steps + eval in {o['cli_seconds']:.2f}s, eval "
+            f"{json.dumps(o['cli_eval'])}, launches "
+            f"{json.dumps(o['cli_launches'])}")
+        check(o["cli_steps"] == TP_STEPS and o["cli_native"] == 0
+              and o["cli_mesh"]["model"] == MESH_RANKS
+              and all(o["cli_launches"][k] == v for k, v in cli_want.items()),
+              f"rank {o['rank']}: the CLI's model axis replicates, K1 "
+              f"launches == {cli_want}")
+    check(outs[0]["cli_eval"] == outs[1]["cli_eval"],
+          "both model ranks report the same CLI eval")
+    _hold_tp_runs("phase 47 tensor parallel", outs, refs)
+    log(f"phase 47: {wall:.1f}s with the processes' start")
+    torch.cuda.empty_cache()
+
+
+def _tp_seq_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 48's ranks: ViT-B/16 at 240² under the TP rules on a
+    model 2 x seq 2 mesh, the ring on K1 over its 6 heads' 113-token
+    chunks: two steps in float32, two in bf16."""
+    import torch
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attn_fn)
+    from deeplearning_tpu_torch.parallel.sharding import TRANSFORMER_TP_RULES
+    from deeplearning_tpu_torch.train.steps import shard_state
+    dev = torch.device("cuda")
+    _par_group(rank, workdir, TP_SEQ_RANKS)
+    mesh = build_mesh(MeshConfig(data=1, seq=2, model=2), device=dev)
+    batch = {k: v[:TP_BATCH] for k, v in _sp_batch(seed, dev).items()}
+    out = {"rank": rank, "coords": dict(mesh.coords)}
+    for tag, dtype in TP_DTYPES:
+        state = shard_state(_train_state(
+            "flash", seed, dev, img_size=SP_SIZE, dtype=getattr(torch, dtype),
+            attn_fn=make_ring_attn_fn(mesh, use_flash=True)),
+            mesh, TRANSFORMER_TP_RULES)
+        out[tag] = _tp_steps(state, mesh, batch, seed)
+        del state
+        torch.cuda.empty_cache()
+    return _par_done(rank, workdir, out)
+
+
+def _tp_seq_four_ranks(seed, dev, workdir) -> None:
+    """Phase 48: the plain steps at 240² here, then four processes."""
+    import torch
+    batch = {k: v[:TP_BATCH] for k, v in _sp_batch(seed, dev).items()}
+    refs = _tp_refs(seed, dev, batch, img_size=SP_SIZE)
+    del batch
+    outs, wall = _par_spawn(48, seed, workdir, TP_SEQ_RANKS)
+    for o in outs:
+        for tag, _ in TP_DTYPES:
+            r = o[tag]
+            log(f"rank {o['rank']} of {TP_SEQ_RANKS} on cuda:0 (gloo), "
+                f"{json.dumps(o['coords'])}, {tag} ring on K1 over 6 heads "
+                f"x 113 tokens, ViT-B/16 {SP_SIZE}² batch {TP_BATCH}: losses "
+                f"{[x['loss'] for x in r['metrics']]}, grad_norm "
+                f"{r['metrics'][0]['grad_norm']!r}, {TP_STEPS} steps in "
+                f"{r['seconds']:.2f}s (gloo: layout and parity, not speed), "
+                f"launches {json.dumps(r['launches'])}, collectives "
+                f"{json.dumps(r['collectives'])}")
+            for nm in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                       "flash_attn_bwd_dkv"):
+                check(r["launches"][nm] == 2 * DEPTH * TP_STEPS,
+                      f"rank {o['rank']} {tag}: {nm} == 2 x {DEPTH} x "
+                      f"{TP_STEPS}")
+            check(r["native"] == 8 * DEPTH and all(
+                np.isfinite(v) for m_ in r["metrics"] for v in m_.values()),
+                "the blocks on their slices, finite metrics")
+    _hold_tp_runs("phase 48 model x seq (ring)", outs, refs)
+    log(f"phase 48: {wall:.1f}s with the processes' start")
+    torch.cuda.empty_cache()
+
+
+PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank}
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

@@ -32,7 +32,8 @@ mode) in ``topology.json``, which ``topology(step)`` reads back.
 
 Over a process group of more than one rank a step holds global tensors:
 every rank calls ``save`` (a sharded ``TrainState.state_dict()``
-all-gathers its slices), rank 0 alone writes, and the others wait at a
+all-gathers its slices along every split axis, ``model`` included, so a
+tensor-parallel qkv is JAX's whole leaf), rank 0 alone writes, and the others wait at a
 barrier until it has committed (an async write is waited for by the
 next restore instead). ``restore_verified`` runs its walk on rank 0 and
 broadcasts the step it chose; every rank then loads that step's global

@@ -8,8 +8,9 @@ cuts them to its layout), and records a flight ``resume`` event saying
 whether the topology changed and from what, read from the sidecar
 ``CheckpointManager.save(..., topology=...)`` wrote. The optimizer
 moments come along: a ZeRO-1 step saved at one data-parallel extent
-restores at another, or replicated, with the moments bit for bit the
-saved values.
+restores at another, or replicated, and a data-parallel step restores
+onto data x model under ``TRANSFORMER_TP_RULES`` (and back), with the
+moments bit for bit the saved values.
 """
 
 from __future__ import annotations

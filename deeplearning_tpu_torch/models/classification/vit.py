@@ -25,12 +25,25 @@ takes ``rng``, a ``torch.Generator`` (the train step's
 mask is drawn from it. A mask drawn in train mode without one raises.
 ``remat=True`` wraps each Block in non-reentrant activation checkpointing
 (JAX's ``nn.remat``); its recompute replays the forward's draws.
+
+Tensor parallelism (Megatron's layout, JAX's ``TRANSFORMER_TP_RULES``):
+once ``parallel.sharding.bind_tensor_parallel`` sets an ``Attention``'s
+or ``Mlp``'s ``model_group``, its parameters are this rank's slices: qkv
+and fc1 column-parallel (whole heads of q, k and v; a run of fc1's
+outputs), proj and fc2 row-parallel (the matching inputs). The input
+passes ``collectives.copy_to_model``, the row-parallel product is summed
+by ``collectives.reduce_from_model`` and its bias added once, after the
+sum; the dropout after it acts on the sum. Both sums run over float32
+partials (the products' float32 accumulators, and the input gradients'),
+each rounded to the compute dtype once, as the unsplit layer rounds its
+one product. The head count comes from the qkv slice, so ``attn_fn`` sees
+(B, N, H / model, D). Without a group (the default) nothing changes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -50,6 +63,83 @@ def _dense(layer: nn.Linear, x: torch.Tensor,
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) in float32: a low-precision product's float32
+    accumulator before any rounding (``torch.mm``'s ``out_dtype`` on the
+    card; elsewhere the float32 product of the same values, which float32
+    holds exactly)."""
+    if a.dtype == torch.float32:
+        return a.mm(b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float().mm(b.float())
+
+
+class _ColumnLinear(torch.autograd.Function):
+    """``F.linear(x.to(dtype), w, b)`` on a float32 ``x`` (bit-equal to
+    ``_dense``), whose input gradient is the float32 accumulator of
+    ``g @ w``: the model ranks' partial gradients are summed unrounded
+    and rounded once, as the unsplit layer rounds its one product."""
+
+    @staticmethod
+    def forward(ctx, x32, w, b, dtype):
+        x = x32.to(dtype)
+        ctx.save_for_backward(x, w)
+        ctx.bias = b is not None
+        return F.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = _mm_f32(g2, w).view(tuple(g.shape[:-1]) + (w.shape[1],))
+        dw = g2.t().mm(x.reshape(-1, x.shape[-1]))
+        return dx, dw, (g2.sum(0) if ctx.bias else None), None
+
+
+class _RowLinear(torch.autograd.Function):
+    """``x @ w.T`` with a float32 output: a row-parallel partial before
+    the all-reduce, accumulated in float32 and not rounded; the backward
+    is ``_dense``'s (its gradient holds ``dtype`` values)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
+        return y.view(tuple(x.shape[:-1]) + (w.shape[0],))
+
+    @staticmethod
+    def backward(ctx, g32):
+        x, w = ctx.saved_tensors
+        g2 = g32.reshape(-1, g32.shape[-1]).to(x.dtype)
+        dx = g2.mm(w).view(x.shape)
+        return dx, g2.t().mm(x.reshape(-1, x.shape[-1]))
+
+
+def _column_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+                     group) -> torch.Tensor:
+    """A column-parallel ``_dense`` on this rank's output slice: the input
+    passes ``copy_to_model`` in float32, so the backward's all-reduce
+    sums float32 partial gradients."""
+    from ...parallel.collectives import copy_to_model
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return _ColumnLinear.apply(copy_to_model(x.float(), group),
+                               layer.weight.to(dtype), bias, dtype)
+
+
+def _row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+                  group) -> torch.Tensor:
+    """A row-parallel ``_dense``: this rank's float32 partial product,
+    summed over the model group, then the (replicated) bias once and one
+    rounding to ``dtype``."""
+    from ...parallel.collectives import reduce_from_model
+    y = reduce_from_model(_RowLinear.apply(x.to(dtype),
+                                           layer.weight.to(dtype)), group)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype).float()
+    return y.to(dtype)
 
 
 def _require(rng: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -82,13 +172,21 @@ class DropPath(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            rng: Optional[torch.Generator] = None,
+            part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
-    kept values by 1 / (1 - rate); the mask is drawn from ``rng``."""
+    kept values by 1 / (1 - rate); the mask is drawn from ``rng``. With
+    ``part=(i, n)`` ``x`` is slice i of n equal slices of its last dim:
+    the whole width's mask is drawn and cut to the slice, so the stream
+    moves on as the unsplit tensor's does."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+    shape = x.shape if part is None else \
+        x.shape[:-1] + (x.shape[-1] * part[1],)
+    keep = torch.empty(shape, device=x.device).bernoulli_(
         1.0 - rate, generator=_require(rng, "dropout")).bool()
+    if part is not None:
+        keep = keep.narrow(-1, part[0] * x.shape[-1], x.shape[-1])
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -156,7 +254,8 @@ def dot_product_attention(q, k, v, dropout_rate=0.0, deterministic=True,
 
 class Attention(nn.Module):
     """Fused-qkv multi-head attention. ``attn_fn`` takes and returns
-    (B, N, H, D); q, k and v are strided views of the fused projection."""
+    (B, N, H, D); q, k and v are strided views of the fused projection.
+    With a ``model_group`` the heads are this rank's (module docstring)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -167,19 +266,34 @@ class Attention(nn.Module):
         self.attn_drop = attn_drop
         self.dtype = dtype
         self.attn_fn = attn_fn
+        self.model_group = None
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_dropout = Dropout(proj_drop)
 
+    def tp_layout(self, n: int):
+        """Megatron's split over n model ranks, (dim, parts) a parameter:
+        qkv by whole heads within q, k and v, proj by its inputs; None
+        when the heads do not divide."""
+        if self.num_heads % n:
+            return None
+        return {"qkv.weight": (0, 3), "qkv.bias": (0, 3),
+                "proj.weight": (1, 1), "proj.bias": None}
+
     def forward(self, x, rng: Optional[torch.Generator] = None):
         b, n, c = x.shape
-        qkv = _dense(self.qkv, x, self.dtype).view(
-            b, n, 3, self.num_heads, c // self.num_heads)
-        q, k, v = qkv.unbind(2)
+        group = self.model_group
+        d = c // self.num_heads
+        qkv = (_dense(self.qkv, x, self.dtype) if group is None
+               else _column_parallel(self.qkv, x, self.dtype, group))
+        heads = qkv.shape[-1] // (3 * d)
+        q, k, v = qkv.view(b, n, 3, heads, d).unbind(2)
         fn = self.attn_fn or dot_product_attention
         out = fn(q, k, v, dropout_rate=self.attn_drop,
                  deterministic=not self.training, rng=rng)
-        out = _dense(self.proj, out.reshape(b, n, c), self.dtype)
+        out = out.reshape(b, n, heads * d)
+        out = (_dense(self.proj, out, self.dtype) if group is None
+               else _row_parallel(self.proj, out, self.dtype, group))
         return self.proj_dropout(out, rng)
 
 
@@ -188,14 +302,32 @@ class Mlp(nn.Module):
                  drop: float = 0.0, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.model_group = None
         self.fc1 = nn.Linear(dim, int(dim * hidden_ratio))
         self.fc2 = nn.Linear(int(dim * hidden_ratio), dim)
         self.drop = Dropout(drop)
 
+    def tp_layout(self, n: int):
+        """Megatron's split over n model ranks: fc1 by its outputs, fc2 by
+        its inputs; None when the hidden width does not divide."""
+        if self.fc1.out_features % n:
+            return None
+        return {"fc1.weight": (0, 1), "fc1.bias": (0, 1),
+                "fc2.weight": (1, 1), "fc2.bias": None}
+
     def forward(self, x, rng: Optional[torch.Generator] = None):
-        x = numerics.gelu(_dense(self.fc1, x, self.dtype))
-        x = self.drop(x, rng)
-        return self.drop(_dense(self.fc2, x, self.dtype), rng)
+        group, part = self.model_group, None
+        if group is None:
+            x = _dense(self.fc1, x, self.dtype)
+        else:
+            import torch.distributed as dist
+            x = _column_parallel(self.fc1, x, self.dtype, group)
+            part = (dist.get_rank(group), dist.get_world_size(group))
+        x = numerics.gelu(x)
+        x = dropout(x, self.drop.rate, not self.training, rng, part)
+        x = (_dense(self.fc2, x, self.dtype) if group is None
+             else _row_parallel(self.fc2, x, self.dtype, group))
+        return self.drop(x, rng)
 
 
 class Block(nn.Module):

@@ -3,9 +3,11 @@ group and the five-axis mesh (``mesh``), the sharding rules and layouts
 (``sharding``), the collectives with the block-scaled int8 payloads of
 EQuARX and the differentiable ``ppermute`` / tiled all-to-all
 (``collectives``), sequence parallelism inside the model (``ring_attention``,
-``ulysses``) and the GPipe pipeline (``pipeline``, ``pipeline_train``).
-Tensor parallelism comes with ROADMAP Queue 1 item 7c and the mixture of
-experts with item 8."""
+``ulysses``), tensor parallelism (Megatron's column- and row-parallel ViT
+blocks: ``sharding.bind_tensor_parallel``, ``collectives.copy_to_model`` /
+``reduce_from_model``) and the GPipe pipeline (``pipeline``,
+``pipeline_train``). The mixture of experts comes with ROADMAP Queue 1
+item 8."""
 
 from .mesh import (DATA_AXIS, EXPERT_AXIS, FSDP_AXIS,  # noqa: F401
                    MODEL_AXIS, SEQ_AXIS, Mesh, MeshConfig, build_mesh,

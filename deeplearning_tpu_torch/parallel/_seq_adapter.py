@@ -26,6 +26,11 @@ edges have the transposes of a replicated value, not of a sum:
 
 The parameter gradients then come out equal on every seq rank, and the
 train step reduces them over data x fsdp only.
+
+Beside a ``model`` axis (tensor parallelism) the adapter sees this
+rank's heads, (B, N, H / model, D), and runs over the seq group of its
+model index; the model group's collectives sit outside it, in the
+blocks' column- and row-parallel layers.
 """
 
 from __future__ import annotations

@@ -25,6 +25,14 @@ read around the train step as the kernels' launch counters are.
   the host inside the backend, the port adds no copy of its own and
   switches no path. Over a group of one rank both are the identity and
   issue no collective.
+- ``copy_to_model`` and ``reduce_from_model``: Megatron's two operators
+  around a column- and row-parallel pair of layers over the ``model``
+  group. The first is the identity forward and all-reduces the input's
+  gradient in the backward (every model rank's slice of the layer
+  contributes to it); the second all-reduces the row-parallel partial
+  sums forward and passes the gradient through (the sum is replicated,
+  so each rank's partial has the whole gradient). Over a group of one
+  rank both issue no collective.
 - ``host_allgather``, ``broadcast_from_host0``, ``sync_barrier``: host
   objects and the rank-0 broadcast.
 
@@ -57,7 +65,9 @@ import torch.nn.functional as F
 __all__ = ["_pad_to", "_quantize_blocks", "_dequantize_blocks",
            "KINDS", "launch_counts", "reset_launch_counts", "all_reduce",
            "all_reduce_autograd",
-           "ppermute", "all_to_all_tiled", "all_gather_dim0", "reduce_scatter_dim0", "all_to_all",
+           "ppermute", "all_to_all_tiled", "all_gather_dim0",
+           "reduce_scatter_dim0", "all_to_all", "copy_to_model",
+           "reduce_from_model",
            "pmean_tree", "psum_tree", "quantized_reduce", "quantized_psum",
            "quantized_psum_tree", "quantized_reduce_scatter",
            "host_allgather", "broadcast_from_host0", "sync_barrier"]
@@ -258,6 +268,47 @@ def all_to_all_tiled(x: torch.Tensor, split_dim: int, concat_dim: int,
     dims swapped."""
     d = x.dim()
     return _AllToAll.apply(x, split_dim % d, concat_dim % d, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` (replicated over the model group) as the
+    input of column-parallel layers; the backward all-reduces its
+    gradient over the group."""
+    if _size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the sum over the model group of the
+    row-parallel partials ``x``; the backward passes the gradient
+    through."""
+    if _size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)
 
 
 # -------------------------------------------------------- tree reductions

@@ -21,6 +21,16 @@ slice holds the elements of JAX's shard on device r: a Dense kernel
 ``P(None, None, None, X)`` is dim 0), and a ViT patch projection is a 2-D
 Linear weight whose dim 0 is the kernel's O.
 
+One layout differs from JAX's shard on purpose: a fused ``qkv``
+projection split over ``model`` along its output dim. Megatron's
+column-parallel attention needs whole heads of q, k and v on each rank,
+and a contiguous cut of ``3 * D`` outputs would give rank 0 all of q and
+half of k. Its ``NamedSharding`` records the dim as split within each of
+its 3 equal parts (``parts``): rank r holds rows ``[r * D / n, (r + 1) *
+D / n)`` of q, of k and of v, laid one after the other. ``gather_global``
+puts them back, so the gathered leaf equals JAX's whole leaf bit for bit;
+``shard_layout_summary`` reports the spec alone, as JAX does.
+
 ZeRO-1 (``zero1_partition_spec``) shards the first dim of the port's own
 shape that the data-parallel extent divides. Whether such a dim exists
 does not depend on the order of the dims, so the same leaves stay
@@ -45,7 +55,8 @@ import torch
 
 from ..utils.convert import flax_path
 from . import collectives
-from .mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, rank, world_size
+from .mesh import (AXES, DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, rank,
+                   world_size)
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "Rules", "batch_spec",
            "batch_sharding", "replicated", "logical_to_sharding",
@@ -54,6 +65,7 @@ __all__ = ["PartitionSpec", "P", "NamedSharding", "Rules", "batch_spec",
            "opt_state_shardings", "tree_bytes_per_device",
            "shard_layout_summary", "host_local_slice", "make_global_array",
            "local_slice", "gather_global", "map_tree", "StateSharding",
+           "bind_tensor_parallel",
            "DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS"]
 
 
@@ -81,14 +93,36 @@ def _axes(entry: Any) -> Tuple[str, ...]:
 @dataclasses.dataclass(frozen=True, eq=False)
 class NamedSharding:
     """A leaf's layout on ``mesh``: dim d is split over ``spec[d]``'s
-    axes (row-major over them), the dims past the spec are whole."""
+    axes (row-major over them), the dims past the spec are whole. A
+    ``(d, k)`` pair of ``parts`` splits dim d within each of its k equal
+    parts (a fused qkv's q, k and v) instead of as one run."""
     mesh: Mesh
     spec: PartitionSpec
+    parts: Tuple[Tuple[int, int], ...] = ()
 
     def dims(self) -> List[Tuple[int, Tuple[str, ...]]]:
         """(dim, axes) of every dim split over more than one rank."""
         return [(d, _axes(e)) for d, e in enumerate(self.spec)
                 if _axes(e) and self.mesh.axis_size(_axes(e)) > 1]
+
+    def parts_of(self, dim: int) -> int:
+        """The equal parts dim ``dim`` is split within (1: one run)."""
+        return dict(self.parts).get(dim, 1)
+
+    def over(self, axes: Sequence[str]) -> "NamedSharding":
+        """This layout with only the splits over ``axes`` (a dim split
+        over these and other axes at once is refused)."""
+        spec: List[Any] = []
+        for d, e in enumerate(self.spec):
+            mine = tuple(a for a in _axes(e) if a in axes)
+            if mine and len(mine) != len(_axes(e)):
+                raise ValueError(f"dim {d} is split over {_axes(e)} at "
+                                 f"once; the port splits a dim over "
+                                 f"{tuple(axes)} alone")
+            spec.append(e if mine else None)
+        kept = {d for d, e in enumerate(spec) if e is not None}
+        return NamedSharding(self.mesh, P(*spec),
+                             tuple(p for p in self.parts if p[0] in kept))
 
     @property
     def is_fully_replicated(self) -> bool:
@@ -97,16 +131,19 @@ class NamedSharding:
     def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         out = list(shape)
         for d, axes in self.dims():
-            n = self.mesh.axis_size(axes)
-            if out[d] % n:
+            n, k = self.mesh.axis_size(axes), self.parts_of(d)
+            if out[d] % (n * k):
                 raise ValueError(
                     f"dim {d} of a {tuple(shape)} leaf is {out[d]}, not "
-                    f"divisible by the {n} ranks of {axes}")
+                    f"divisible by the {n} ranks of {axes}"
+                    + (f" in each of its {k} parts" if k > 1 else ""))
             out[d] //= n
         return tuple(out)
 
     def same_layout(self, other: "NamedSharding") -> bool:
-        return self.dims() == other.dims()
+        split = {d for d, _ in self.dims()}
+        return self.dims() == other.dims() and all(
+            self.parts_of(d) == other.parts_of(d) for d in split)
 
 
 def batch_spec() -> PartitionSpec:
@@ -127,6 +164,17 @@ def replicated(mesh: Mesh) -> NamedSharding:
 # the default is replicated.
 # ---------------------------------------------------------------------------
 
+# fused projections whose output dim (the port's dim 0) holds equal parts
+# that a split over ``model`` cuts one by one: (flax path, parts)
+FUSED_PARTS = ((re.compile(r"(^|/)qkv/(kernel|bias)$"), 3),)
+
+
+def _parts(path: str, spec: PartitionSpec) -> Tuple[Tuple[int, int], ...]:
+    if not spec or MODEL_AXIS not in _axes(spec[0]):
+        return ()
+    return tuple((0, k) for pat, k in FUSED_PARTS if pat.search(path))
+
+
 def logical_to_sharding(mesh: Mesh, rules: Optional[Rules]
                         ) -> Callable[[str, torch.Tensor], NamedSharding]:
     compiled = [(re.compile(pat), spec) for pat, spec in (rules or [])]
@@ -135,7 +183,7 @@ def logical_to_sharding(mesh: Mesh, rules: Optional[Rules]
         path = flax_path(name, leaf.dim())
         for pat, spec in compiled:
             if pat.search(path) and len(spec) <= leaf.dim():
-                return NamedSharding(mesh, spec)
+                return NamedSharding(mesh, spec, _parts(path, spec))
         return NamedSharding(mesh, P())
     return lookup
 
@@ -232,7 +280,8 @@ def opt_state_shardings(opt_state: Any, param_names: Sequence[str],
 
 
 def tree_bytes_per_device(tree: Any) -> int:
-    """Bytes ONE rank holds for a tree: the port keeps local slices, so
+    """Bytes ONE rank holds for a tree: the port keeps local slices (a
+    qkv split within its parts holds as many as a contiguous cut), so
     this is the sum of its tensors' bytes."""
     return sum(int(t.numel()) * t.element_size()
                for _, t in tree_paths(tree) if isinstance(t, torch.Tensor))
@@ -241,7 +290,8 @@ def tree_bytes_per_device(tree: Any) -> int:
 def shard_layout_summary(shardings: Any) -> Dict[str, Any]:
     """The spec of every split leaf of a tree of ``NamedSharding``s
     (keyed by path) and the leaf counts, as JAX's summary of a placed
-    tree."""
+    tree (the spec alone: a qkv's ``parts`` are the port's layout of the
+    same spec)."""
     specs: Dict[str, str] = {}
     counts = {"leaves": 0, "replicated": 0, "sharded": 0}
     for path, sh in tree_paths(shardings):
@@ -291,24 +341,35 @@ def make_global_array(local_batch: Union[np.ndarray, torch.Tensor],
 def local_slice(x: torch.Tensor, sh: NamedSharding,
                 view: bool = False) -> torch.Tensor:
     """This rank's slice of the global ``x`` (a copy, or with ``view`` a
-    view into ``x``)."""
+    view into ``x``, which a dim split within its parts cannot give)."""
     out = x
     shape = sh.shard_shape(x.shape)
     for d, axes in sh.dims():
-        i = sh.mesh.axis_index(axes)
-        out = out.narrow(d, i * shape[d], shape[d])
+        i, k = sh.mesh.axis_index(axes), sh.parts_of(d)
+        if k == 1:
+            out = out.narrow(d, i * shape[d], shape[d])
+            continue
+        if view:
+            raise ValueError(f"dim {d} is split within its {k} parts: "
+                             "its slice is not a view")
+        m = shape[d] // k
+        out = out.unflatten(d, (k, -1)).narrow(d + 1, i * m, m).flatten(
+            d, d + 1)
     return out if view or out is x else out.clone()
 
 
 def gather_global(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
     """The global value of this rank's slice ``x`` (an all-gather along
-    each split dim over its axes' group)."""
+    each split dim over its axes' group; a dim split within its parts
+    has each part's rows put back in rank order)."""
     for d, axes in reversed(sh.dims()):
-        n = sh.mesh.axis_size(axes)
+        n, k = sh.mesh.axis_size(axes), sh.parts_of(d)
         src = x.movedim(d, 0).contiguous()
         out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
         collectives.all_gather_dim0(out, src, sh.mesh.group(axes))
+        if k > 1:      # (rank, part, row) -> (part, rank, row)
+            out = out.unflatten(0, (n, k, -1)).transpose(0, 1).flatten(0, 2)
         x = out.movedim(0, d)
     return x.contiguous()
 
@@ -327,20 +388,72 @@ def map_tree(fn: Callable[[torch.Tensor, NamedSharding], torch.Tensor],
     return tree
 
 
+def _model_split(sh: NamedSharding) -> Optional[Tuple[int, int]]:
+    """(dim, parts) of the one dim ``sh`` splits over ``model``; None
+    when none is; refused when several are."""
+    dims = [d for d, axes in sh.dims() if MODEL_AXIS in axes]
+    if len(dims) > 1:
+        raise ValueError(f"{sh.spec} splits {len(dims)} dims over "
+                         f"{MODEL_AXIS!r}")
+    return (dims[0], sh.parts_of(dims[0])) if dims else None
+
+
+def bind_tensor_parallel(model: torch.nn.Module,
+                         layouts: Dict[str, NamedSharding],
+                         mesh: Mesh) -> frozenset:
+    """Megatron's blocks on ``mesh``'s ``model`` axis: every module with
+    a ``tp_layout(n)`` (the ViT's ``Attention`` and ``Mlp``: each of its
+    parameters' (dim, parts) split over n ranks, None for a replicated
+    one) whose parameters ``layouts`` split exactly so gets the model
+    group as ``model_group`` and runs on its slices; every other module
+    gets None (its split leaves are all-gathered before the forward).
+    Returns the names of the parameters the bound modules use as slices.
+    Collective the first time (the group), so every rank calls it."""
+    n = mesh.shape[MODEL_AXIS]
+    tp = [(prefix, mod) for prefix, mod in model.named_modules()
+          if hasattr(mod, "tp_layout")]
+    group = mesh.group(MODEL_AXIS) if tp and n > 1 else None
+    native: set = set()
+    for prefix, mod in tp:
+        want = (mod.tp_layout(n) if group is not None else None) or {}
+        own = dict(mod.named_parameters())
+        names = {f"{prefix}.{k}" if prefix else k: v
+                 for k, v in want.items() if k in own}
+        bound = bool(names) and all(
+            _model_split(layouts[nm]) == v for nm, v in names.items())
+        mod.model_group = group if bound else None
+        if bound:
+            native.update(names)
+    return frozenset(native)
+
+
 class StateSharding:
     """The layout record of a sharded ``TrainState``: ``params`` and
     ``ema`` are the params' layouts, ``moments`` the optimizer moments'
     (the gradients' layout in the step), ``opt_state`` the mirror of the
-    optimizer state."""
+    optimizer state, ``native`` the parameters that tensor-parallel
+    modules use as this rank's ``model`` slices (``bind_tensor_parallel``)."""
 
     def __init__(self, mesh: Mesh, params: Dict[str, NamedSharding],
                  moments: Dict[str, NamedSharding], opt_state: Any,
-                 ema: Optional[Dict[str, NamedSharding]]):
+                 ema: Optional[Dict[str, NamedSharding]],
+                 native: frozenset = frozenset()):
         self.mesh = mesh
         self.params = params
         self.moments = moments
         self.opt_state = opt_state
         self.ema = ema
+        self.native = frozenset(native)
+
+    def gathered(self, name: str, layout: Dict[str, NamedSharding]
+                 ) -> NamedSharding:
+        """The splits of ``name`` (laid out by ``layout``) that the
+        forward all-gathers: all, or for a ``native`` leaf all but the
+        ``model`` axis's."""
+        if name in self.native:
+            return layout[name].over(tuple(a for a in AXES
+                                           if a != MODEL_AXIS))
+        return layout[name]
 
     def tree(self) -> Dict[str, Any]:
         """The mirror of ``TrainState.state_dict()``'s sharded parts."""

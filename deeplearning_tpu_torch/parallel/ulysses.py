@@ -10,7 +10,9 @@ runs any attention on it (K1's ``flash_attention`` with
 split. Both moves are differentiable (the backward is the same move with
 the dims swapped), so the inner attention trains as it does alone. The
 port runs on every rank of the axis's process group
-(``Mesh.group("seq")``); q, k and v move in one all-to-all.
+(``Mesh.group("seq")``); q, k and v move in one all-to-all. Beside a
+``model`` axis H is the rank's own heads, which must split over ``seq``
+too (JAX's ``ValueError`` otherwise: ViT-B/16 at model 2 has 6 a rank).
 """
 
 from __future__ import annotations

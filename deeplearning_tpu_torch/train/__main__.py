@@ -48,15 +48,21 @@ global batch and rank 0 logs and writes the checkpoints (with their
   torchrun --nproc_per_node=8 -m deeplearning_tpu_torch.train \
       --cfg configs/vit_b16_imagenet.yaml train.weight_update=zero1
 
-Sequence and pipeline parallelism, as ``tools/train.py`` takes them (the
-mesh is ``data=-1, model=train.pipeline_stages, seq=train.mesh_seq_axis``
-and each rank reads the rows of its data index):
+Sequence, model and pipeline axes, as ``tools/train.py`` takes them
+(the mesh is ``data=-1, model=train.pipeline_stages or
+train.mesh_model_axis, seq=train.mesh_seq_axis`` and each rank reads
+the rows of its data index):
 
 - ``train.mesh_seq_axis=P train.seq_parallel=ring|ulysses`` builds the
   ViT with the ring or Ulysses ``attn_fn``. With ``model.attn`` a K1
   route (``flash``, ``flash_hb``) it is their flash path (K1's kernels;
   N must divide P), with ``model.attn=naive`` their masked plain path
   (``tools/train.py`` always builds the latter);
+- ``train.mesh_model_axis=M`` gives the mesh a ``model`` axis and places
+  the state without rules, as ``tools/train.py:268`` does: the model
+  ranks hold replicated parameters and repeat one another's work (the
+  tensor-parallel layout is ``make_train_step`` / ``shard_state`` with
+  ``TRANSFORMER_TP_RULES``, which the JAX CLI does not pass either);
 - ``train.pipeline_stages=S train.microbatches=M`` trains the ViT's
   blocks as S GPipe stages over M microbatches
   (``parallel.pipeline_train``); the Trainer checkpoints the whole
@@ -66,9 +72,8 @@ and each rank reads the rows of its data index):
       --cfg configs/vit_b16_imagenet.yaml train.mesh_seq_axis=2
 
 Options of later slices raise naming the ROADMAP Queue 1 item that brings
-them (``train.strict=threads`` / ``all`` item 8; ``train.mesh_model_axis``
-item 7c); the port has no ``train.donate_batch`` (it updates the state in
-place).
+them (``train.strict=threads`` / ``all`` item 8); the port has no
+``train.donate_batch`` (it updates the state in place).
 """
 
 from __future__ import annotations
@@ -124,7 +129,7 @@ class TrainCfg:
     ema: bool = False
     workdir: Optional[str] = None
     device: str = "cuda"             # cuda | cpu
-    mesh_model_axis: int = 1         # item 7c
+    mesh_model_axis: int = 1         # a 'model' axis (replicated)
     mesh_seq_axis: int = 1           # sequence parallelism over 'seq'
     seq_parallel: str = "ring"       # ring | ulysses
     accum_steps: int = 1             # gradient accumulation microbatches
@@ -147,10 +152,6 @@ class Config:
     train: TrainCfg = dataclasses.field(default_factory=TrainCfg)
 
 
-_ITEM_7C = ("ROADMAP Queue 1 item 7c (tensor parallelism and the 3-D "
-            "composition)")
-
-
 def check_slice(cfg: Config) -> None:
     """Raise on an option whose mechanism comes with a later slice, and
     on ``tools/train.py``'s conflicts, with its messages, before any
@@ -163,10 +164,8 @@ def check_slice(cfg: Config) -> None:
     if pp > 1 and (t.mixup or t.ema or t.accum_steps > 1):
         raise ValueError("pipeline_stages does not compose with "
                          "mixup/ema/accum_steps yet")
-    if t.mesh_model_axis > 1:
-        raise ValueError(f"train.mesh_model_axis comes with {_ITEM_7C}")
     if (t.weight_update == "zero1" or t.grad_comm == "int8") and (
-            pp > 1 or t.mesh_seq_axis > 1):
+            pp > 1 or t.mesh_model_axis > 1 or t.mesh_seq_axis > 1):
         raise ValueError("train.weight_update=zero1 / train.grad_comm=int8 "
                          "are data-parallel modes; unset pipeline_stages/"
                          "mesh_model_axis/mesh_seq_axis")
@@ -206,11 +205,12 @@ def check_slice(cfg: Config) -> None:
 
 def uses_mesh(cfg: Config) -> bool:
     """True when the run trains on a mesh: under torchrun, over a group
-    already running, with ZeRO-1 or the int8 collectives, or with
-    sequence or pipeline parallelism."""
+    already running, with ZeRO-1 or the int8 collectives, or with a
+    model or seq axis or pipeline stages."""
     import torch.distributed as dist
     return (cfg.train.weight_update != "replicated"
             or cfg.train.grad_comm != "fp32"
+            or cfg.train.mesh_model_axis > 1
             or cfg.train.mesh_seq_axis > 1 or cfg.train.pipeline_stages > 1
             or "WORLD_SIZE" in os.environ or dist.is_initialized())
 

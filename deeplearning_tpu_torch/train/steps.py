@@ -27,39 +27,49 @@ numpy arrays or tensors; they are moved to the step's device. JAX's
 anyway.
 
 With a ``mesh`` (``parallel.mesh.build_mesh``) the step is the JAX
-step's GSPMD data parallelism written out over ``torch.distributed``,
-on a state placed by ``shard_state``:
+step's GSPMD parallelism written out over ``torch.distributed``, on a
+state placed by ``shard_state``:
 
-- each rank takes its own slice of the global batch (the loader's) and
-  draws its masks from the step key folded with its data index;
-- parameters a rule shards (FSDP) are all-gathered before the forward;
-  a training BatchNorm normalises with the moments of the global batch
-  (``models.layers.sync_batch_stats``);
-- the float32 gradients are mean-reduced over data x fsdp: all-reduced
-  for a replicated moment, reduce-scattered to a sharded one (ZeRO-1 or
-  FSDP), one packed call a layout; with ``grad_comm="int8"`` through the
-  EQuARX collectives (``parallel.collectives.quantized_reduce``:
+- each rank takes its own slice of the global batch (the loader's, by
+  its data x fsdp index: the ranks that differ only on ``model`` or
+  ``seq`` read the same rows) and draws its masks from the step key
+  folded with its data index, so the masks on the stream replicated over
+  ``model`` and ``seq`` are the same on those ranks;
+- parameters a rule splits (FSDP, or a ``model`` rule on a leaf no
+  tensor-parallel module takes as a slice) are all-gathered before the
+  forward; a training BatchNorm normalises with the moments of the
+  global batch (``models.layers.sync_batch_stats``);
+- tensor parallelism: a ViT placed under ``TRANSFORMER_TP_RULES`` runs
+  its blocks as Megatron's column- and row-parallel layers on this
+  rank's slices (``parallel.sharding.bind_tensor_parallel``), and their
+  gradients come out as this rank's slices. A leaf gathered over
+  ``model`` has the same whole gradient on every model rank, which is
+  cut to this rank's slice without a collective;
+- the float32 gradients are then mean-reduced over data x fsdp only:
+  all-reduced for a moment not split over those axes, reduce-scattered
+  to one split over them (ZeRO-1 or FSDP, also beside a ``model``
+  split), one packed call a layout; with ``grad_comm="int8"`` through
+  the EQuARX collectives (``parallel.collectives.quantized_reduce``:
   reduce-scatter for leaves whose ZeRO-1 spec splits dim 0, psum for the
   rest), then divided by n;
 - the optimizer updates this rank's slices and ZeRO-1's updated slices
   are all-gathered back into the replicated parameters;
 - loss and metrics are averaged over the ranks in float32, and
   ``grad_norm`` (and ``clip_grad_norm``) is the norm of the whole
-  gradient, its slices' squares summed over the ranks.
+  gradient: a split leaf's squares summed over the ranks of its axes, a
+  replicated leaf counted once.
 
 At one rank the all-reduce copies and the division is by one, so the
 replicated and ZeRO-1 steps equal the step without a mesh bit for bit.
 
 A ``seq`` axis above one is sequence parallelism inside the model: the
 model's ``attn_fn`` is a ring or Ulysses adapter
-(``parallel.ring_attention`` / ``parallel.ulysses``), the ranks that
-differ only on ``seq`` read the same rows and hold the same gradients,
+(``parallel.ring_attention`` / ``parallel.ulysses``) on the rank's local
+heads, the ranks that differ only on ``seq`` hold the same gradients,
 and the step reduces over data x fsdp as above; ZeRO-1 and the int8
 collectives are data-parallel modes and refuse it. The pipeline has its
-own step (``parallel.pipeline_train``). Tensor parallelism (a rule or a
-mesh axis over ``model``) comes with ROADMAP Queue 1 item 7c and the
-``expert`` axis with item 8; ``shard_state`` places a ``model`` rule all
-the same, which a checkpoint restore onto a data x model mesh needs.
+own step (``parallel.pipeline_train``); the ``expert`` axis comes with
+ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -76,7 +86,8 @@ from ..models.layers import sync_batch_stats
 from ..parallel import collectives
 from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS,
                              SEQ_AXIS, Mesh)
-from ..parallel.sharding import (Rules, StateSharding, gather_global,
+from ..parallel.sharding import (NamedSharding, Rules, StateSharding,
+                                 bind_tensor_parallel, gather_global,
                                  local_slice, map_tree, opt_state_shardings,
                                  replicated, shard_params_tree,
                                  zero1_shardings)
@@ -85,7 +96,6 @@ from .state import TrainState
 __all__ = ["make_train_step", "make_eval_step", "shard_state"]
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict]]
-_ITEM_7C = ("tensor parallelism comes with ROADMAP Queue 1 item 7c")
 _ITEM_8 = ("the expert axis comes with ROADMAP Queue 1 item 8")
 _DP = (DATA_AXIS, FSDP_AXIS)
 
@@ -128,16 +138,16 @@ def _rule_axes(rules: Optional[Rules]) -> set:
     return out
 
 
-def _data_parallel_only(mesh: Mesh, rules: Optional[Rules],
-                        weight_update: str, grad_comm: str) -> None:
-    """The step splits the batch over data x fsdp and the attention's
-    tokens over seq: a rule or a mesh axis over model is item 7c's,
-    expert item 8's; ZeRO-1 and int8 are data-parallel modes."""
-    for axis, item in ((MODEL_AXIS, _ITEM_7C), (EXPERT_AXIS, _ITEM_8)):
-        if axis in _rule_axes(rules):
-            raise NotImplementedError(f"rules over {[axis]}: {item}")
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(f"mesh axes {[axis]} > 1: {item}")
+def _check_mesh(mesh: Mesh, rules: Optional[Rules], weight_update: str,
+                grad_comm: str) -> None:
+    """The step splits the batch over data x fsdp, the attention's tokens
+    over seq and the parameters by the rules: an expert axis is item 8's;
+    ZeRO-1 and int8 are data-parallel modes."""
+    if EXPERT_AXIS in _rule_axes(rules):
+        raise NotImplementedError(f"rules over {[EXPERT_AXIS]}: {_ITEM_8}")
+    if mesh.shape[EXPERT_AXIS] > 1:
+        raise NotImplementedError(f"mesh axes {[EXPERT_AXIS]} > 1: "
+                                  f"{_ITEM_8}")
     if SEQ_AXIS in _rule_axes(rules):
         raise NotImplementedError(f"rules over {[SEQ_AXIS]}: parameters "
                                   "are replicated over seq")
@@ -148,44 +158,81 @@ def _data_parallel_only(mesh: Mesh, rules: Optional[Rules],
                          "mesh_model_axis/mesh_seq_axis")
 
 
-def _reduce_fp32(grads: Dict[str, torch.Tensor], sh: StateSharding,
-                 mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """The SUM over data x fsdp of this rank's gradients, each in its
-    moments' layout, packed as DDP packs its buckets: every replicated
-    leaf in one flat all-reduce, and the leaves split over the same axes
-    in one reduce-scatter over those axes' group (each leaf's split dim
-    moved first and cut into n rows, the rows laid side by side), then
-    all-reduced over the data x fsdp axes they are not split over. One
-    call a layout instead of one a leaf: a call costs the host far more
-    than the bytes cost the link."""
+def _forward_params(params: Dict[str, torch.Tensor], sh: StateSharding,
+                    layout: Dict[str, NamedSharding], grad: bool
+                    ) -> Dict[str, torch.Tensor]:
+    """Each parameter as the forward takes it: all-gathered over its
+    split axes, but over ``model`` only where no tensor-parallel module
+    takes it as this rank's slice (``sh.native``); with ``grad`` a
+    gathered copy is a new leaf of autograd."""
+    out = {}
+    for name, p in params.items():
+        gsh = sh.gathered(name, layout)
+        if gsh.is_fully_replicated:
+            out[name] = p
+        else:
+            full = gather_global(p.detach(), gsh)
+            out[name] = full.requires_grad_() if grad else full
+    return out
+
+
+def _model_slices(grads: Dict[str, torch.Tensor], sh: StateSharding
+                  ) -> Dict[str, torch.Tensor]:
+    """Every gradient cut to its moments' ``model`` slice. A native
+    leaf's already is one; a leaf gathered over ``model`` has the same
+    whole gradient on every model rank (the stream is replicated there),
+    so its cut needs no collective."""
+    out = {}
+    for name, g in grads.items():
+        msh = sh.moments[name].over((MODEL_AXIS,))
+        out[name] = (g if name in sh.native or msh.is_fully_replicated
+                     else local_slice(g, msh))
+    return out
+
+
+def _reduce_fp32(grads: Dict[str, torch.Tensor],
+                 layouts: Dict[str, NamedSharding], mesh: Mesh,
+                 axes: Tuple[str, ...] = _DP) -> Dict[str, torch.Tensor]:
+    """The SUM over ``axes`` (data x fsdp) of this rank's gradients, each
+    cut to its ``layouts`` slice, packed as DDP packs its buckets: every
+    leaf not split over ``axes`` in one flat all-reduce, and the leaves
+    split over the same of ``axes`` in one reduce-scatter over those
+    axes' group (each leaf's split dim moved first and cut into n rows,
+    the rows laid side by side), then all-reduced over the rest of
+    ``axes``. One call a layout instead of one a leaf: a call costs the
+    host far more than the bytes cost the link. A layout split over any
+    other axis (``model``, ``seq``) is refused: those slices are not
+    summed."""
     by_axes: Dict[Tuple[str, ...], list] = {}
     for name, g in grads.items():
-        dims = sh.moments[name].dims()
-        if len(dims) > 1:
-            raise NotImplementedError(f"a gradient split along "
-                                      f"{len(dims)} dims: {_ITEM_7C}")
+        dims = layouts[name].dims()
+        other = [a for _, ax in dims for a in ax if a not in axes]
+        if other or len(dims) > 1:
+            raise ValueError(
+                f"{name}: a gradient split as {layouts[name].spec} is "
+                f"reduced over {axes}, one dim at most")
         by_axes.setdefault(dims[0][1] if dims else (), []).append(name)
     out: Dict[str, torch.Tensor] = {}
-    for axes, names in by_axes.items():
-        if not axes:
+    for split, names in by_axes.items():
+        if not split:
             flat = torch.cat([grads[nm].reshape(-1) for nm in names])
-            collectives.all_reduce(flat, mesh.group(_DP))
+            collectives.all_reduce(flat, mesh.group(axes))
             for nm, piece in zip(names, flat.split(
                     [grads[nm].numel() for nm in names])):
                 out[nm] = piece.view(grads[nm].shape)
             continue
-        n = mesh.axis_size(axes)
+        n = mesh.axis_size(split)
         moved = {}
         for nm in names:
-            d = sh.moments[nm].dims()[0][0]
+            d = layouts[nm].dims()[0][0]
             moved[nm] = (d, grads[nm].movedim(d, 0))
         rows = torch.cat([m.reshape(n, -1) for _, m in moved.values()],
                          dim=1)
         mine = torch.empty(rows.shape[1], dtype=rows.dtype,
                            device=rows.device)
         collectives.reduce_scatter_dim0(mine.view(1, -1), rows,
-                                        mesh.group(axes))
-        rest = tuple(a for a in _DP if a not in axes and mesh.shape[a] > 1)
+                                        mesh.group(split))
+        rest = tuple(a for a in axes if a not in split and mesh.shape[a] > 1)
         if rest:
             collectives.all_reduce(mine, mesh.group(rest))
         for nm, piece in zip(names, mine.split(
@@ -263,7 +310,7 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None,
             raise ValueError("rules place a state on a mesh: pass mesh=")
         dev = resolve_device(device)
     else:
-        _data_parallel_only(mesh, rules, weight_update, grad_comm)
+        _check_mesh(mesh, rules, weight_update, grad_comm)
         dev = mesh.device
         if device is not None and torch.device(device) != dev:
             raise ValueError(f"device {device} is not the mesh's {dev}")
@@ -334,11 +381,7 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None,
         gen = rng_mod.step_key(rng_mod.fold_in(rng, state.step),
                                mesh.axis_index(_DP), dev)
         batch = _to_device(batch, dev)
-        params = {}
-        for name, p in state.params.items():
-            psh = sh.params[name]
-            params[name] = (p if psh.is_fully_replicated else
-                            gather_global(p.detach(), psh).requires_grad_())
+        params = _forward_params(state.params, sh, sh.params, grad=True)
         sync = (sync_batch_stats(group) if n > 1 and grad_comm == "fp32"
                 else contextlib.nullcontext())
         with sync:
@@ -353,7 +396,9 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None,
             grads = _reduce_int8(grads, sh, weight_update == "zero1",
                                  group, n, comm_block)
         else:
-            grads = _reduce_fp32(grads, sh, mesh)
+            grads = _reduce_fp32(
+                _model_slices(grads, sh),
+                {nm: sh.moments[nm].over(_DP) for nm in grads}, mesh)
         names = list(grads)
         torch._foreach_div_([grads[nm] for nm in names], n)
         # loss and metrics averaged over the ranks, in float32
@@ -380,8 +425,9 @@ def make_eval_step(metric_fn: Callable[..., Dict],
     """``metric_fn(params, state, batch)`` returns per-batch metric SUMS
     (summing, not averaging, lets callers weight by true batch size). The
     EMA params are used when the state keeps them and ``use_ema``. With a
-    ``mesh`` each rank scores its slice of the batch with the gathered
-    parameters and the sums are added over data x fsdp."""
+    ``mesh`` each rank scores its slice of the batch with the parameters
+    as the train step's forward takes them (gathered, a tensor-parallel
+    block's slices kept) and the sums are added over data x fsdp."""
     dev = resolve_device(device) if mesh is None else mesh.device
 
     def step_fn(state: TrainState, batch: Any) -> Dict:
@@ -395,9 +441,7 @@ def make_eval_step(metric_fn: Callable[..., Dict],
                                  "shard_state(state, mesh, rules, zero1)")
             layout = (sh.ema if use_ema and state.ema_params is not None
                       else sh.params)
-            params = {k: (p if layout[k].is_fully_replicated
-                          else gather_global(p, layout[k]))
-                      for k, p in params.items()}
+            params = _forward_params(params, sh, layout, grad=False)
             out = metric_fn(params, state, _to_device(batch, dev))
             return collectives.psum_tree(out, mesh.group(_DP))
 
@@ -412,13 +456,20 @@ def shard_state(state: TrainState, mesh: Mesh,
     slice of its layout under ``rules`` (default: replicated, pure data
     parallel), and the optimizer moments (the state's dicts keyed by every
     parameter) follow the params' layout, or with ``zero1`` are split over
-    the data axes where a dim divides (the rest stay replicated, as
-    ``shard_layout_summary`` shows). Counts and other leaves stay
-    replicated. Returns the state, its layout in ``state.sharding``."""
+    the data axes where a dim divides (a leaf a rule splits keeps the
+    rule's layout; the rest stay replicated, as ``shard_layout_summary``
+    shows). Counts and other leaves stay replicated. The model's
+    tensor-parallel modules whose parameters the rules split in
+    Megatron's layout over ``model`` run on their slices
+    (``bind_tensor_parallel``). Returns the state, its layout in
+    ``state.sharding``."""
     param_sh = shard_params_tree(state.params, mesh, rules)
     moment_sh = (zero1_shardings(state.params, mesh, rules) if zero1
                  else param_sh)
-    return place_state(state, mesh, param_sh, moment_sh)
+    place_state(state, mesh, param_sh, moment_sh)
+    state.sharding.native = bind_tensor_parallel(state.model, param_sh,
+                                                 mesh)
+    return state
 
 
 def place_state(state: TrainState, mesh: Mesh,

@@ -407,6 +407,46 @@ def test_seq_parallel_on_k1_matches_plain(one_rank_mesh, flavor, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("attn", ["flash", "flash_hb"])
+@pytest.mark.parametrize("h,n", [(6, 197), (3, 197), (6, 113)])
+def test_tensor_parallel_heads_on_k1_match_plain(cuda_device, h, n, attn,
+                                                 dtype):
+    """K1 through the ViT's adapters at the local heads of ViT-B/16's
+    Megatron blocks: 6 heads a rank at model 2, 3 at model 4 (flash_hb
+    falls to one head a CTA), 6 heads of 113-token ring chunks. q, k, v
+    are strided views of the rank's fused qkv slice; one forward, one dQ
+    and one dK/dV launch (the head block's kernels), the output and the
+    gradients against the plain version (bf16 norm-relative 1e-2,
+    float32 max-abs 1e-4)."""
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    g = torch.Generator(device=cuda_device).manual_seed(h * n)
+    qkv = torch.randn(2, n, 3, h, 64, device=cuda_device,
+                      generator=g).to(dtype).requires_grad_()
+    dout = torch.randn(2, n, h, 64, device=cuda_device, generator=g).to(dtype)
+    hpc = fa._head_block(h, 4) if attn == "flash_hb" else 1
+    before = fa.launch_counts()
+    out = get_attn_fn(attn)(*qkv.unbind(2))
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    names = [fa.KERNEL_NAMES[hpc], fa.BWD_KERNEL_NAMES["dq"][hpc],
+             fa.BWD_KERNEL_NAMES["dkv"][hpc]]
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict.fromkeys(names, 1)
+    ref_in = qkv.detach().float().requires_grad_()
+    ref = fa.flash_attention_reference(
+        *(x.transpose(1, 2) for x in ref_in.unbind(2)))[0].transpose(1, 2)
+    (want,) = torch.autograd.grad(ref, ref_in, dout.float())
+    for got, w in ((out, ref), (grad, want)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        if dtype == torch.bfloat16:
+            assert _close(got, w)
+        else:
+            torch.testing.assert_close(got, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
 def test_k1_launches_from_a_fresh_thread(cuda_device):
     """The first K1 launch of a thread that has run no CUDA work yet (as
     autograd's worker, before its first kernel) still encodes its tensor

@@ -519,12 +519,16 @@ def test_step_arguments_as_jax():
     with pytest.raises(ValueError, match="data-parallel only"):
         make_train_step(loss_fn, mesh=m, grad_comm="int8",
                         rules=tsharding.FSDP_RULES)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        make_train_step(loss_fn, mesh=m,
+    # tensor parallelism (item 7c): the rules and a model axis build steps
+    make_train_step(loss_fn, mesh=m, rules=tsharding.TRANSFORMER_TP_RULES)
+    tp = tmesh.build_mesh(tmesh.MeshConfig(data=1, model=2), 2, 0,
+                          device="cpu")
+    for kw in (dict(), dict(weight_update="zero1",
+                            rules=tsharding.TRANSFORMER_TP_RULES)):
+        make_train_step(loss_fn, mesh=tp, **kw)
+    with pytest.raises(ValueError, match="data-parallel only"):
+        make_train_step(loss_fn, mesh=tp, grad_comm="int8",
                         rules=tsharding.TRANSFORMER_TP_RULES)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        make_train_step(loss_fn, mesh=tmesh.build_mesh(
-            tmesh.MeshConfig(data=1, model=2), 2, 0, device="cpu"))
     with pytest.raises(NotImplementedError, match="item 8"):
         make_train_step(loss_fn, mesh=tmesh.build_mesh(
             tmesh.MeshConfig(data=1, expert=2), 2, 0, device="cpu"))

@@ -221,12 +221,16 @@ JAX_ERRORS = [
     ["train.seq_parallel=nope", "train.mesh_seq_axis=2"],
     ["train.pipeline_stages=2", "train.microbatches=3"],
     ["train.pipeline_stages=2", "train.microbatches=4",
-     "data.global_batch=6", "data.n_train=12"]]
+     "data.global_batch=6", "data.n_train=12"],
+    ["train.pipeline_stages=2", "train.mesh_model_axis=2"],
+    ["train.weight_update=zero1", "train.mesh_model_axis=2"],
+    ["train.grad_comm=int8", "train.mesh_model_axis=2"]]
 
 
 @pytest.mark.parametrize("opts", JAX_ERRORS,
                          ids=["pp_seq", "pp_ema", "pp_accum", "zero1_seq",
-                              "int8_pp", "flavor", "micro_pp", "batch_micro"])
+                              "int8_pp", "flavor", "micro_pp", "batch_micro",
+                              "pp_model", "zero1_model", "int8_model"])
 def test_cli_raises_jax_errors(opts):
     """Each of tools/train.py's ValueErrors, with its message, before any
     process group starts."""
@@ -241,8 +245,14 @@ def test_cli_raises_jax_errors(opts):
 
 
 def test_cli_tensor_parallel_names_item_7c_and_sdpa_is_refused():
-    with pytest.raises(ValueError, match="item 7c"):
+    """A model axis (item 7c) runs as tools/train.py builds it: at one
+    process, JAX's mesh error from the gloo world the CLI starts and
+    destroys; the ring on model.attn=sdpa is refused."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by fixed axes 2"):
         cli.main(SP_CLI + ["train.mesh_model_axis=2"])
+    assert not dist.is_initialized()
     cfg = cli.Config()
     mesh_kw = {"attn_fn": None}
     bad = cli.Config(model=cli.ModelCfg(attn="sdpa"),

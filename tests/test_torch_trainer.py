@@ -379,7 +379,10 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
 
 @pytest.mark.parametrize("opt,error", [
     ("train.strict=threads", "item 8"), ("train.strict=all", "item 8"),
-    ("train.mesh_model_axis=2", "item 7c"),
+    # item 7c's model axis now runs: at one process JAX's mesh error
+    pytest.param("train.mesh_model_axis=2",
+                 "1 devices not divisible by fixed axes 2",
+                 id="train.mesh_model_axis=2-item 7c"),
     ("train.mesh_seq_axis=2", "1 devices not divisible by fixed axes 2"),
     ("train.seq_parallel=ulysses", None),
     ("train.pipeline_stages=2", "1 devices not divisible by fixed axes 2"),
@@ -387,10 +390,9 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
     ("train.grad_comm=int8", None)])
 def test_cli_later_slice_options_name_their_slice(opt, error, tmp_path,
                                                   capsys):
-    """At a one-process world: strict threads / all name item 8 and a
-    model axis item 7c; a seq axis or pipeline stages of two need two
-    ranks (JAX's mesh error, from a gloo world the CLI starts and
-    destroys); train.seq_parallel without a seq axis and train.microbatches
+    """At a one-process world: strict threads / all name item 8; a model
+    or seq axis or pipeline stages of two need two ranks (JAX's mesh
+    error, from a gloo world the CLI starts and destroys); train.seq_parallel without a seq axis and train.microbatches
     without stages run as JAX's CLI runs them; ZeRO-1 and the int8
     gradient collectives run: a one-process gloo world, the mesh step, and
     a checkpoint whose topology sidecar names the weight-update mode (the

@@ -579,8 +579,281 @@ def seq_pipe(rank, n, payload, d):
     return out
 
 
+# ------------------------------------------------- tensor parallelism
+# JAX's test_3d_parallel_train_step ViT (tests/test_seq_parallel_cli.py):
+# 32², patch 8, embed 32, depth 2, 4 heads; N = 16 + 1 = 17 tokens
+TP_VIT = dict(img_size=32, patch_size=8, num_classes=4, embed_dim=32,
+              depth=2, num_heads=4)
+TP_SWIN = dict(patch_size=4, num_classes=4, embed_dim=32, depths=(2, 2),
+               num_heads=(2, 4), window=4, img_size=32, drop_path_rate=0.0)
+TP_LR = 0.01            # JAX's 3-D test: optax.sgd(0.01)
+# fsdp x model in the port's layouts: qkv / fc1 by output over model and
+# input over fsdp, proj / fc2 the other way round (JAX's P(fsdp, model) and
+# P(model, fsdp) on its (in, out) kernels)
+FSDP_TP_RULES = (
+    (r"(qkv|mlp/fc1)/kernel$", ("model", "fsdp")),
+    (r"(attn/proj|mlp/fc2)/kernel$", ("fsdp", "model")),
+    (r"(qkv|mlp/fc1)/bias$", ("model",)),
+)
+# the CLI's runs: vit_micro_patch4_56 (4 heads, 6 blocks) at 12 px
+TP_CLI = SP_CLI + ["train.mesh_model_axis=2"]
+
+
+def _tp_vit_state(sd, opt="sgd", attn_fn=None, **model_kw):
+    from deeplearning_tpu_torch.models.classification.vit import (
+        VisionTransformer)
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    model = VisionTransformer(**{**TP_VIT, **model_kw}, dtype=torch.float32,
+                              attn_fn=attn_fn or get_attn_fn("naive"))
+    model.load_state_dict(sd)
+    params = dict(model.named_parameters())
+    if opt == "sgd":
+        tx = build_optimizer("sgd", SGD["lr"], momentum=SGD["momentum"],
+                             weight_decay=SGD["weight_decay"],
+                             clip_grad_norm=SGD["clip"], params=params)
+    elif opt == "sgd0":
+        tx = build_optimizer("sgd", TP_LR, momentum=0.0, params=params)
+    else:
+        tx = build_optimizer("adamw", 1e-3, params=params)
+    return TrainState.create(model=model, tx=tx)
+
+
+def _rules(spec_rules):
+    from deeplearning_tpu_torch.parallel.sharding import P
+    return tuple((pat, P(*spec)) for pat, spec in spec_rules)
+
+
+def _named_moments(tree, out=None):
+    """{"<moment>/<param name>": array} of every param-keyed moment dict
+    (SGD's ``trace``, Adam's ``mu`` / ``nu``) in an optimizer state."""
+    out = {} if out is None else out
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in ("trace", "mu", "nu"):
+                out.update({f"{k}/{n}": _np(t) for n, t in v.items()})
+            else:
+                _named_moments(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _named_moments(v, out)
+    return out
+
+
+def _gathered(state):
+    tree = state.state_dict()
+    return {"params": {k: _np(v) for k, v in tree["params"].items()},
+            "moments": _named_moments(tree["opt_state"])}
+
+
+def _tp_step(state, mesh, batch, steps=1, **kw):
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.train.steps import make_train_step
+    step = make_train_step(make_loss_fn(), mesh=mesh, **kw)
+    coll.reset_launch_counts()
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, batch, 0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, {"metrics": metrics, "counts": coll.launch_counts(),
+                   **_gathered(state)}
+
+
+def _tp_batch(payload, mesh):
+    from deeplearning_tpu_torch.parallel.sharding import host_local_slice
+    lo, hi = host_local_slice(len(payload["tp_batch"]["label"]), mesh)
+    return {k: torch.from_numpy(v[lo:hi])
+            for k, v in payload["tp_batch"].items()}
+
+
+def _tp_eval(state, mesh, batch):
+    from deeplearning_tpu_torch.train import make_eval_step
+    from deeplearning_tpu_torch.train.classification import make_metric_fn
+    ev = make_eval_step(make_metric_fn(), mesh=mesh)(state, batch)
+    return {k: float(v) for k, v in ev.items()}
+
+
+def _replicated(state):
+    """This rank's copy of every leaf the layout does not split."""
+    return {k: _np(p) for k, p in state.params.items()
+            if state.sharding.params[k].is_fully_replicated}
+
+
+def _tp_layouts(rank, n, payload):
+    """model = 2: the slices, the gathered leaves, one SGD step and an
+    eval, ZeRO-1 (data 1: nothing to split), the masks at drop-path and
+    dropout 0.1 against the same mesh without rules, Swin through the
+    gather path, and the reduction's refusal of a model split."""
+    from deeplearning_tpu_torch.models.classification.swin import (
+        SwinTransformer)
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, NamedSharding, P, shard_layout_summary,
+        tree_bytes_per_device)
+    from deeplearning_tpu_torch.train import TrainState
+    from deeplearning_tpu_torch.train.optim import build_optimizer
+    from deeplearning_tpu_torch.train.steps import _reduce_fp32, shard_state
+    rules = TRANSFORMER_TP_RULES
+    mesh = build_mesh(MeshConfig(data=1, model=2), device="cpu")
+    batch = _tp_batch(payload, mesh)
+    st = shard_state(_tp_vit_state(payload["tp_vit"]), mesh, rules)
+    out = {"native": sorted(st.sharding.native),
+           "slices": {k: _np(p) for k, p in st.params.items()},
+           "summary": shard_layout_summary(st.sharding.params),
+           "bytes": tree_bytes_per_device(st.params),
+           "opt_bytes": tree_bytes_per_device(st.opt_state),
+           "groups": {k: m.model_group is not None
+                      for k, m in st.model.named_modules()
+                      if hasattr(m, "tp_layout")},
+           "start": _gathered(st)["params"]}
+    st, out["sgd"] = _tp_step(st, mesh, batch, rules=rules)
+    out["eval"] = _tp_eval(st, mesh, batch)
+    z = shard_state(_tp_vit_state(payload["tp_vit"]), mesh, rules,
+                    zero1=True)
+    _, out["zero1"] = _tp_step(z, mesh, batch, weight_update="zero1",
+                               rules=rules)
+    # masks at drop-path 0.1 and dropout 0.1: two steps with the rules and
+    # two on the same mesh without them (both ranks replicate the model)
+    for name, r in (("drop_tp", rules), ("drop_rep", None)):
+        d = shard_state(_tp_vit_state(payload["tp_vit"], drop_path_rate=0.1,
+                                      drop_rate=0.1), mesh, r)
+        d, out[name] = _tp_step(d, mesh, batch, steps=2, rules=r)
+        out[name]["replicated"] = _replicated(d)
+    # Swin: its window attention's qkv / proj are gathered, its Mlps bound
+    for name, r in (("swin_tp", rules), ("swin_rep", None)):
+        model = SwinTransformer(**TP_SWIN, dtype=torch.float32)
+        model.load_state_dict(payload["tp_swin"])
+        tx = build_optimizer("sgd", SGD["lr"], momentum=SGD["momentum"],
+                             params=dict(model.named_parameters()))
+        sw = shard_state(TrainState.create(model=model, tx=tx), mesh, r)
+        native = sorted(sw.sharding.native)
+        sw, out[name] = _tp_step(sw, mesh, batch, rules=r)
+        out[name]["native"] = native
+        out[name]["split"] = shard_layout_summary(sw.sharding.params)
+    out["refused"] = _try(lambda: _reduce_fp32(
+        {"w": torch.ones(4)}, {"w": NamedSharding(mesh, P("model"))}, mesh))
+    return out
+
+
+def _tp_checkpoints(rank, n, payload, d):
+    """A data-parallel AdamW state after one step, saved; restored onto
+    data 1 x model 2 under the rules; one step there, saved; restored back
+    onto data 2 without rules."""
+    from deeplearning_tpu_torch.core.checkpoint import CheckpointManager
+    from deeplearning_tpu_torch.elastic.resume import elastic_restore
+    from deeplearning_tpu_torch.elastic.topology import current_topology
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.sharding import TRANSFORMER_TP_RULES
+    from deeplearning_tpu_torch.train.steps import shard_state
+    dp = build_mesh(MeshConfig(data=2), device="cpu")
+    tp = build_mesh(MeshConfig(data=1, model=2), device="cpu")
+    st = shard_state(_tp_vit_state(payload["tp_vit"], "adamw"), dp)
+    st, _ = _tp_step(st, dp, _tp_batch(payload, dp))
+    ck_dp = CheckpointManager(os.path.join(d, "ckpt_dp"))
+    ck_dp.save(1, st, topology=current_topology(state=st))
+    saved = _gathered(st)
+    onto, got = elastic_restore(
+        ck_dp, _tp_vit_state(payload["tp_other"], "adamw"), tp,
+        rules=TRANSFORMER_TP_RULES)
+    out = {"step": got, "saved": saved, "onto_tp": _gathered(onto),
+           "tp_qkv": _np(onto.params["blocks.0.attn.qkv.weight"]),
+           "tp_qkv_mu": _named_moments(onto.opt_state)[
+               "mu/blocks.0.attn.qkv.weight"]}
+    onto, out["tp_step"] = _tp_step(onto, tp, _tp_batch(payload, tp))
+    ck_tp = CheckpointManager(os.path.join(d, "ckpt_tp"))
+    ck_tp.save(2, onto, topology=current_topology(state=onto))
+    back, got = elastic_restore(
+        ck_tp, _tp_vit_state(payload["tp_other"], "adamw"), dp)
+    out["back_step"] = got
+    out["back"] = _gathered(back)
+    out["sidecar"] = ck_tp.topology(2)
+    return out
+
+
+def _tp_cli(rank, n, payload, d):
+    """The train CLI with train.mesh_model_axis=2 over this group."""
+    from deeplearning_tpu_torch.core.config import config_cli
+    from deeplearning_tpu_torch.train import __main__ as cli
+    sys.modules["torch.utils.tensorboard"] = None
+    trainer = cli.build(config_cli(cli.Config(), TP_CLI + [
+        f"train.workdir={os.path.join(d, 'cli')}"]))
+    trainer.train()
+    return {"eval": trainer.evaluate(), "step": trainer.state.step,
+            "native": sorted(trainer.state.sharding.native),
+            "mesh": dict(trainer.state.sharding.mesh.shape)}
+
+
+def _tp_four(rank, n, payload):
+    """data 2 x model 2 (SGD, then ZeRO-1 with SGD's momentum split), and
+    fsdp 2 x model 2 with a two-dim spec."""
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.sharding import (
+        TRANSFORMER_TP_RULES, shard_layout_summary, tree_bytes_per_device)
+    from deeplearning_tpu_torch.train.steps import shard_state
+    rules = TRANSFORMER_TP_RULES
+    out = {}
+    mesh = build_mesh(MeshConfig(data=2, model=2), device="cpu")
+    batch = _tp_batch(payload, mesh)
+    st = shard_state(_tp_vit_state(payload["tp_vit"]), mesh, rules)
+    st, out["dp_tp"] = _tp_step(st, mesh, batch, rules=rules)
+    out["dp_tp"]["eval"] = _tp_eval(st, mesh, batch)
+    z = shard_state(_tp_vit_state(payload["tp_vit"]), mesh, rules,
+                    zero1=True)
+    out["zero1_layout"] = shard_layout_summary(z.sharding.opt_state)
+    out["zero1_bytes"] = tree_bytes_per_device(z.opt_state)
+    z, out["zero1"] = _tp_step(z, mesh, batch, steps=2,
+                               weight_update="zero1", rules=rules)
+    mesh = build_mesh(MeshConfig(data=1, fsdp=2, model=2), device="cpu")
+    fr = _rules(FSDP_TP_RULES)
+    f = shard_state(_tp_vit_state(payload["tp_vit"]), mesh, fr)
+    out["fsdp_native"] = sorted(f.sharding.native)
+    out["fsdp_qkv"] = tuple(f.params["blocks.0.attn.qkv.weight"].shape)
+    f, out["fsdp_tp"] = _tp_step(f, mesh, _tp_batch(payload, mesh),
+                                 rules=fr)
+    return out
+
+
+def _tp_three_d(rank, n, payload):
+    """JAX's test_3d_parallel_train_step: data 2 x model 2 x seq 2, the
+    ring adapter (plain path: 17 tokens padded) and the TP rules, one step
+    of SGD at 0.01."""
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.ring_attention import (
+        make_ring_attn_fn)
+    from deeplearning_tpu_torch.parallel.sharding import TRANSFORMER_TP_RULES
+    from deeplearning_tpu_torch.train.steps import shard_state
+    mesh = build_mesh(MeshConfig(data=2, model=2, seq=2), device="cpu")
+    st = shard_state(_tp_vit_state(payload["tp_vit"], "sgd0",
+                                   attn_fn=make_ring_attn_fn(mesh)),
+                     mesh, TRANSFORMER_TP_RULES)
+    _, out = _tp_step(st, mesh, _tp_batch(payload, mesh),
+                      rules=TRANSFORMER_TP_RULES)
+    out["coords"] = dict(mesh.coords)
+    # Ulysses splits the rank's 2 local heads over seq = 4: JAX's refusal
+    from deeplearning_tpu_torch.parallel.ulysses import make_ulysses_attn_fn
+    mesh = build_mesh(MeshConfig(data=1, seq=4, model=2), device="cpu")
+    st = shard_state(_tp_vit_state(payload["tp_vit"], "sgd0",
+                                   attn_fn=make_ulysses_attn_fn(mesh)),
+                     mesh, TRANSFORMER_TP_RULES)
+    out["ulysses_heads"] = _try(lambda: _tp_eval(
+        st, mesh, _tp_batch(payload, mesh)))
+    return out
+
+
+def tensor_parallel(rank, n, payload, d):
+    if n == 2:
+        return {"layouts": _tp_layouts(rank, n, payload),
+                "ckpt": _tp_checkpoints(rank, n, payload, d),
+                "cli": _tp_cli(rank, n, payload, d)}
+    if n == 4:
+        return _tp_four(rank, n, payload)
+    return _tp_three_d(rank, n, payload)
+
+
 SCENARIOS = {"collectives": collectives, "steps": steps,
-             "seq_pipe": seq_pipe}
+             "seq_pipe": seq_pipe, "tensor_parallel": tensor_parallel}
 
 
 def main(name, rank, n, d):
