@@ -404,8 +404,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    then the train CLI's Trainer with ``train.pipeline_stages=2
    train.microbatches=4`` over the same group: 2 steps and an evaluation,
    its checkpoint holding the whole stacked state;
-47. two processes on ``cuda:0`` over gloo, ``model = 2``: ViT-B/16 at
-   224² (flash_hb) placed under ``TRANSFORMER_TP_RULES``, its blocks
+47. first, here, K1's forward and both backward kernels against their
+   plain versions at the head counts only tensor parallelism gives them
+   (batch 8: 6 heads x 197 tokens at model 2, 2 heads a CTA and 1; 3
+   heads at model 4, 1 a CTA; 6 heads x 113 tokens, the ring's chunks,
+   with the chunk gradients), bf16 and float32, at phases 2 and 5's
+   tolerances; then two processes on ``cuda:0`` over gloo, ``model =
+   2``: ViT-B/16 at 224² (flash_hb) placed under ``TRANSFORMER_TP_RULES``, its blocks
    Megatron's column- and row-parallel layers on 6 heads a rank, batch 8
    (each rank the whole batch), phase 6's AdamW and loss, two steps of
    ``make_train_step(mesh=...)`` in float32, then two in bf16: 12 K1
@@ -416,7 +421,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    batch (run here first) the float32 first loss within 1e-5 and its
    ``grad_norm`` within 1e-4, relative, bf16 within 1e-3 (a row-parallel
    split sums in another order, which flips a few bf16 roundings in a
-   thousand: the floor, measured on an H100, is 2.3e-4); the leaves the
+   thousand: on an H100 it moved the first loss by 2.3e-4 with float32
+   partials, 3.5e-5 with the bf16 partials summed here); the leaves the
    layout does not split bit-equal on both ranks after the steps; the bf16
    state's bytes beside the replicated state's; ``make_eval_step(mesh)``
    on it; a checkpoint holding the whole ViT in the plain state's layout,
@@ -5944,8 +5950,8 @@ TP_SEQ_RANKS = 4                     # phase 48: model 2 x seq 2
 # product sums its halves in another order than the unsplit GEMM, which
 # flips the bf16 rounding of ~0.1% of its outputs, and a bf16 network
 # carries such flips everywhere: on an H100, fc2's split alone moved
-# ViT-B/16's first loss by 1.20e-04, all four splits by 2.32e-04, and
-# no split of qkv, fc1 or the heads moved it (PR 18 call 5)
+# ViT-B/16's first loss by 1.20e-04, all four splits by 2.32e-04
+# (float32 partials), and no split of qkv, fc1 or the heads moved it
 TP_LOSS_TOL, TP_NORM_TOL = 1e-5, 1e-4
 TP_BF16_TOL = 1e-3
 TP_DTYPES = (("float32", "float32"), ("bf16", "bfloat16"))
@@ -6107,10 +6113,71 @@ def _hold_tp_runs(what, outs, refs) -> None:
         _hold_tp(f"{what} {tag}", runs[0]["metrics"], refs[tag], *tols)
 
 
-def _tp_two_ranks(seed, dev, workdir) -> None:
-    """Phase 47: the plain steps on the same weights and batch here, then
-    two processes on cuda:0 over gloo."""
+# K1 at the shapes only tensor parallelism gives it (ViT-B/16's 12 heads
+# cut over model): (what, B, H, N, heads-per-CTA instantiations)
+TP_K1_CASES = (("model 2", TP_BATCH, 6, TOKENS),
+               ("model 4", TP_BATCH, 3, TOKENS),
+               ("model 2 x seq 2 ring chunk", TP_BATCH, 6, 113))
+
+
+def _check_tp_k1(fa, dev, g) -> None:
+    """K1's forward and both backward kernels against their plain versions
+    at TP_K1_CASES, each heads-per-CTA the adapters pick there (flash: 1,
+    flash_hb: _head_block(H, 4)), bf16 and float32, q/k/v strided slices
+    of one fused qkv; at the ring's chunk also its chunk gradients (global
+    LSE and delta, float32 out). Forward 2e-2 / 1e-4 and LSE 1e-3, the
+    gradients at _grad_err's tolerances, as phases 2 and 5."""
     import torch
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        tag = str(dtype)[6:]
+        for what, b, h, n in TP_K1_CASES:
+            hpcs = sorted({1, fa._head_block(h, 4)})
+            q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, HEAD_DIM,
+                                              dtype, False)
+            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+            for hpc in hpcs:
+                out, got_lse = fa._attention(q, k, v, sm_scale=None,
+                                             causal=False, heads_per_cta=hpc)
+                got = fa._attention_bwd(q, k, v, o, lse, do, sm_scale=None,
+                                        causal=False, heads_per_cta=hpc)
+                torch.cuda.synchronize()
+                err = (out.float() - o.float()).abs().max().item()
+                lse_err = (got_lse - lse).abs().max().item()
+                res = [_grad_err(x, w, tag) for x, w in zip(got, want)]
+                log(f"kernel-vs-plain {what} hpc={hpc} {tag} B={b} H={h} "
+                    f"N={n} D={HEAD_DIM}: fwd max_abs_err {err:.3e} (tol "
+                    f"{tol}) lse {lse_err:.3e}; bwd dq {res[0][0]:.3e} dk "
+                    f"{res[1][0]:.3e} dv {res[2][0]:.3e}")
+                check(err <= tol and lse_err <= 1e-3
+                      and all(ok for _, ok in res) and all(
+                          torch.isfinite(x).all().item() for x in got),
+                      f"K1 hpc={hpc} disagrees with the plain version at "
+                      f"{what} ({h} heads, {n} tokens)")
+            if n != TOKENS:
+                delta = (do.float() * o.float()).sum(-1)
+                got = fa.flash_chunk_grads(q, k, v, do, lse, delta)
+                want = fa.flash_attention_bwd_reference(
+                    q, k, v, None, lse, do, delta=delta,
+                    out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                res = [_grad_err(x, w, tag) for x, w in zip(got, want)]
+                log(f"kernel-vs-plain flash_chunk_grads {what} {tag} B={b} "
+                    f"H={h} N={n}: max_abs_err "
+                    f"{max(e for e, _ in res):.3e}")
+                check(all(x.dtype == torch.float32 for x in got)
+                      and all(ok for _, ok in res),
+                      f"flash_chunk_grads disagrees at {what}")
+            del q, k, v, o, lse, do, want, got
+    torch.cuda.empty_cache()
+
+
+def _tp_two_ranks(seed, dev, workdir) -> None:
+    """Phase 47: K1 at the tensor-parallel head counts against its plain
+    version, the plain steps on the same weights and batch here, then two
+    processes on cuda:0 over gloo."""
+    import torch
+    from deeplearning_tpu_torch.ops import flash_attention as fa
+    _check_tp_k1(fa, dev, torch.Generator(device=dev).manual_seed(seed))
     batch = {k: v[:TP_BATCH] for k, v in _train_batch(seed, dev).items()}
     refs = _tp_refs(seed, dev, batch)
     del batch

@@ -32,16 +32,18 @@ or ``Mlp``'s ``model_group``, its parameters are this rank's slices: qkv
 and fc1 column-parallel (whole heads of q, k and v; a run of fc1's
 outputs), proj and fc2 row-parallel (the matching inputs). The input
 passes ``collectives.copy_to_model``, the row-parallel product is summed
-by ``collectives.reduce_from_model`` and its bias added once, after the
-sum; the dropout after it acts on the sum. Both sums run over float32
-partials (the products' float32 accumulators, and the input gradients'),
-each rounded to the compute dtype once, as the unsplit layer rounds its
-one product. The head count comes from the qkv slice, so ``attn_fn`` sees
-(B, N, H / model, D). Without a group (the default) nothing changes.
+by ``collectives.reduce_from_model`` in the compute dtype, as GSPMD and
+Megatron sum it, and its bias added once, after the sum; the dropout
+after it acts on the sum. A mask on a slice (the attention weights of the
+rank's heads, fc1's outputs) is cut from the whole tensor's mask, so
+every rank draws what the unsplit module draws. The head count comes
+from the qkv slice, so ``attn_fn`` sees (B, N, H / model, D). Without a
+group (the default) nothing changes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -65,81 +67,30 @@ def _dense(layer: nn.Linear, x: torch.Tensor,
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D) in float32: a low-precision product's float32
-    accumulator before any rounding (``torch.mm``'s ``out_dtype`` on the
-    card; elsewhere the float32 product of the same values, which float32
-    holds exactly)."""
-    if a.dtype == torch.float32:
-        return a.mm(b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float().mm(b.float())
-
-
-class _ColumnLinear(torch.autograd.Function):
-    """``F.linear(x.to(dtype), w, b)`` on a float32 ``x`` (bit-equal to
-    ``_dense``), whose input gradient is the float32 accumulator of
-    ``g @ w``: the model ranks' partial gradients are summed unrounded
-    and rounded once, as the unsplit layer rounds its one product."""
-
-    @staticmethod
-    def forward(ctx, x32, w, b, dtype):
-        x = x32.to(dtype)
-        ctx.save_for_backward(x, w)
-        ctx.bias = b is not None
-        return F.linear(x, w, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
-        dx = _mm_f32(g2, w).view(tuple(g.shape[:-1]) + (w.shape[1],))
-        dw = g2.t().mm(x.reshape(-1, x.shape[-1]))
-        return dx, dw, (g2.sum(0) if ctx.bias else None), None
-
-
-class _RowLinear(torch.autograd.Function):
-    """``x @ w.T`` with a float32 output: a row-parallel partial before
-    the all-reduce, accumulated in float32 and not rounded; the backward
-    is ``_dense``'s (its gradient holds ``dtype`` values)."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
-        return y.view(tuple(x.shape[:-1]) + (w.shape[0],))
-
-    @staticmethod
-    def backward(ctx, g32):
-        x, w = ctx.saved_tensors
-        g2 = g32.reshape(-1, g32.shape[-1]).to(x.dtype)
-        dx = g2.mm(w).view(x.shape)
-        return dx, g2.t().mm(x.reshape(-1, x.shape[-1]))
-
-
 def _column_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
                      group) -> torch.Tensor:
-    """A column-parallel ``_dense`` on this rank's output slice: the input
-    passes ``copy_to_model`` in float32, so the backward's all-reduce
-    sums float32 partial gradients."""
+    """A column-parallel ``_dense`` on this rank's output slice; the
+    backward all-reduces the input's gradient over the model group."""
     from ...parallel.collectives import copy_to_model
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return _ColumnLinear.apply(copy_to_model(x.float(), group),
-                               layer.weight.to(dtype), bias, dtype)
+    return _dense(layer, copy_to_model(x, group), dtype)
 
 
 def _row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
                   group) -> torch.Tensor:
-    """A row-parallel ``_dense``: this rank's float32 partial product,
-    summed over the model group, then the (replicated) bias once and one
-    rounding to ``dtype``."""
+    """A row-parallel ``_dense``: this rank's partial product, summed over
+    the model group, then the (replicated) bias once."""
     from ...parallel.collectives import reduce_from_model
-    y = reduce_from_model(_RowLinear.apply(x.to(dtype),
-                                           layer.weight.to(dtype)), group)
-    if layer.bias is not None:
-        y = y + layer.bias.to(dtype).float()
-    return y.to(dtype)
+    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)),
+                          group)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def _part(group) -> Optional[Tuple[int, int]]:
+    """(this rank, ranks) of a model group; None without one."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def _require(rng: Optional[torch.Generator], what: str) -> torch.Generator:
@@ -239,15 +190,22 @@ class PatchEmbed(nn.Module):
 
 
 def dot_product_attention(q, k, v, dropout_rate=0.0, deterministic=True,
-                          rng=None):
+                          rng=None, head_part=None):
     """Naive softmax attention — the reference path the kernel is tested
-    against. q, k, v: (B, N, H, D)."""
+    against. q, k, v: (B, N, H, D). With ``head_part=(i, n)`` the heads
+    are slice i of n equal slices: the dropout mask of all n·H heads is
+    drawn and cut to the slice."""
     scale = q.shape[-1] ** -0.5
     attn = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
     attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
     if dropout_rate > 0 and not deterministic:
-        keep = torch.empty_like(attn).bernoulli_(
+        shape = attn.shape if head_part is None else (
+            attn.shape[0], attn.shape[1] * head_part[1]) + attn.shape[2:]
+        keep = torch.empty(shape, dtype=attn.dtype,
+                           device=attn.device).bernoulli_(
             1.0 - dropout_rate, generator=_require(rng, "attention dropout"))
+        if head_part is not None:
+            keep = keep.narrow(1, head_part[0] * attn.shape[1], attn.shape[1])
         attn = attn * keep / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
@@ -288,7 +246,8 @@ class Attention(nn.Module):
                else _column_parallel(self.qkv, x, self.dtype, group))
         heads = qkv.shape[-1] // (3 * d)
         q, k, v = qkv.view(b, n, 3, heads, d).unbind(2)
-        fn = self.attn_fn or dot_product_attention
+        fn = self.attn_fn or functools.partial(dot_product_attention,
+                                               head_part=_part(group))
         out = fn(q, k, v, dropout_rate=self.attn_drop,
                  deterministic=not self.training, rng=rng)
         out = out.reshape(b, n, heads * d)
@@ -316,15 +275,11 @@ class Mlp(nn.Module):
                 "fc2.weight": (1, 1), "fc2.bias": None}
 
     def forward(self, x, rng: Optional[torch.Generator] = None):
-        group, part = self.model_group, None
-        if group is None:
-            x = _dense(self.fc1, x, self.dtype)
-        else:
-            import torch.distributed as dist
-            x = _column_parallel(self.fc1, x, self.dtype, group)
-            part = (dist.get_rank(group), dist.get_world_size(group))
+        group = self.model_group
+        x = (_dense(self.fc1, x, self.dtype) if group is None
+             else _column_parallel(self.fc1, x, self.dtype, group))
         x = numerics.gelu(x)
-        x = dropout(x, self.drop.rate, not self.training, rng, part)
+        x = dropout(x, self.drop.rate, not self.training, rng, _part(group))
         x = (_dense(self.fc2, x, self.dtype) if group is None
              else _row_parallel(self.fc2, x, self.dtype, group))
         return self.drop(x, rng)

@@ -21,14 +21,16 @@ slice holds the elements of JAX's shard on device r: a Dense kernel
 ``P(None, None, None, X)`` is dim 0), and a ViT patch projection is a 2-D
 Linear weight whose dim 0 is the kernel's O.
 
-One layout differs from JAX's shard on purpose: a fused ``qkv``
-projection split over ``model`` along its output dim. Megatron's
-column-parallel attention needs whole heads of q, k and v on each rank,
-and a contiguous cut of ``3 * D`` outputs would give rank 0 all of q and
-half of k. Its ``NamedSharding`` records the dim as split within each of
-its 3 equal parts (``parts``): rank r holds rows ``[r * D / n, (r + 1) *
-D / n)`` of q, of k and of v, laid one after the other. ``gather_global``
-puts them back, so the gathered leaf equals JAX's whole leaf bit for bit;
+One layout differs from JAX's shard on purpose: the fused ``qkv`` of an
+attention that runs Megatron's blocks (``bind_tensor_parallel``), split
+over ``model`` along its output dim. Column-parallel attention needs
+whole heads of q, k and v on each rank, and a contiguous cut of ``3 * D``
+outputs would give rank 0 all of q and half of k. The module's
+``tp_layout`` says so, and the binding records the dim in its
+``NamedSharding`` as split within each of its 3 equal parts (``parts``):
+rank r holds rows ``[r * D / n, (r + 1) * D / n)`` of q, of k and of v,
+laid one after the other. ``gather_global`` puts them back, so the
+gathered leaf equals JAX's whole leaf bit for bit;
 ``shard_layout_summary`` reports the spec alone, as JAX does.
 
 ZeRO-1 (``zero1_partition_spec``) shards the first dim of the port's own
@@ -164,17 +166,6 @@ def replicated(mesh: Mesh) -> NamedSharding:
 # the default is replicated.
 # ---------------------------------------------------------------------------
 
-# fused projections whose output dim (the port's dim 0) holds equal parts
-# that a split over ``model`` cuts one by one: (flax path, parts)
-FUSED_PARTS = ((re.compile(r"(^|/)qkv/(kernel|bias)$"), 3),)
-
-
-def _parts(path: str, spec: PartitionSpec) -> Tuple[Tuple[int, int], ...]:
-    if not spec or MODEL_AXIS not in _axes(spec[0]):
-        return ()
-    return tuple((0, k) for pat, k in FUSED_PARTS if pat.search(path))
-
-
 def logical_to_sharding(mesh: Mesh, rules: Optional[Rules]
                         ) -> Callable[[str, torch.Tensor], NamedSharding]:
     compiled = [(re.compile(pat), spec) for pat, spec in (rules or [])]
@@ -183,7 +174,7 @@ def logical_to_sharding(mesh: Mesh, rules: Optional[Rules]
         path = flax_path(name, leaf.dim())
         for pat, spec in compiled:
             if pat.search(path) and len(spec) <= leaf.dim():
-                return NamedSharding(mesh, spec, _parts(path, spec))
+                return NamedSharding(mesh, spec)
         return NamedSharding(mesh, P())
     return lookup
 
@@ -248,13 +239,15 @@ def zero1_partition_spec(shape: Tuple[int, ...], dp: int) -> PartitionSpec:
 
 
 def zero1_shardings(params: Dict[str, torch.Tensor], mesh: Mesh,
-                    rules: Optional[Rules] = None
+                    rules: Optional[Rules] = None,
+                    base: Optional[Dict[str, NamedSharding]] = None
                     ) -> Dict[str, NamedSharding]:
     """The moments' layouts under ZeRO-1: a leaf a rule shards keeps the
-    rule's layout, a rule-replicated leaf shards over the whole
-    data-parallel extent where a dim divides."""
+    rule's layout (``base``'s, default the rules'), a rule-replicated leaf
+    shards over the whole data-parallel extent where a dim divides."""
     dp = mesh.axis_size((DATA_AXIS, FSDP_AXIS))
-    base = shard_params_tree(params, mesh, rules)
+    if base is None:
+        base = shard_params_tree(params, mesh, rules)
     return {n: (sh if not sh.is_fully_replicated else NamedSharding(
         mesh, zero1_partition_spec(tuple(params[n].shape), dp)))
         for n, sh in base.items()}
@@ -388,27 +381,29 @@ def map_tree(fn: Callable[[torch.Tensor, NamedSharding], torch.Tensor],
     return tree
 
 
-def _model_split(sh: NamedSharding) -> Optional[Tuple[int, int]]:
-    """(dim, parts) of the one dim ``sh`` splits over ``model``; None
-    when none is; refused when several are."""
+def _model_dim(sh: NamedSharding) -> Optional[int]:
+    """The one dim ``sh`` splits over ``model``; None when none is;
+    refused when several are."""
     dims = [d for d, axes in sh.dims() if MODEL_AXIS in axes]
     if len(dims) > 1:
         raise ValueError(f"{sh.spec} splits {len(dims)} dims over "
                          f"{MODEL_AXIS!r}")
-    return (dims[0], sh.parts_of(dims[0])) if dims else None
+    return dims[0] if dims else None
 
 
 def bind_tensor_parallel(model: torch.nn.Module,
                          layouts: Dict[str, NamedSharding],
                          mesh: Mesh) -> frozenset:
-    """Megatron's blocks on ``mesh``'s ``model`` axis: every module with
-    a ``tp_layout(n)`` (the ViT's ``Attention`` and ``Mlp``: each of its
+    """Megatron's blocks on ``mesh``'s ``model`` axis. Every module with a
+    ``tp_layout(n)`` (the ViT's ``Attention`` and ``Mlp``: each of its
     parameters' (dim, parts) split over n ranks, None for a replicated
-    one) whose parameters ``layouts`` split exactly so gets the model
-    group as ``model_group`` and runs on its slices; every other module
-    gets None (its split leaves are all-gathered before the forward).
-    Returns the names of the parameters the bound modules use as slices.
-    Collective the first time (the group), so every rank calls it."""
+    one) whose parameters ``layouts`` split over ``model`` along exactly
+    those dims gets the model group as ``model_group`` and runs on its
+    slices, and ``layouts`` records their ``parts`` in place; every other
+    module gets None (its split leaves are all-gathered before the
+    forward). Returns the names of the parameters the bound modules use
+    as slices. Collective the first time (the group), so every rank calls
+    it, before the state is cut to the layouts."""
     n = mesh.shape[MODEL_AXIS]
     tp = [(prefix, mod) for prefix, mod in model.named_modules()
           if hasattr(mod, "tp_layout")]
@@ -420,10 +415,15 @@ def bind_tensor_parallel(model: torch.nn.Module,
         names = {f"{prefix}.{k}" if prefix else k: v
                  for k, v in want.items() if k in own}
         bound = bool(names) and all(
-            _model_split(layouts[nm]) == v for nm, v in names.items())
+            _model_dim(layouts[nm]) == (v[0] if v else None)
+            for nm, v in names.items())
         mod.model_group = group if bound else None
-        if bound:
-            native.update(names)
+        if not bound:
+            continue
+        native.update(names)
+        for nm, v in names.items():
+            if v and v[1] > 1:
+                layouts[nm] = dataclasses.replace(layouts[nm], parts=(v,))
     return frozenset(native)
 
 

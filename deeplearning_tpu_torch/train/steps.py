@@ -464,11 +464,11 @@ def shard_state(state: TrainState, mesh: Mesh,
     (``bind_tensor_parallel``). Returns the state, its layout in
     ``state.sharding``."""
     param_sh = shard_params_tree(state.params, mesh, rules)
-    moment_sh = (zero1_shardings(state.params, mesh, rules) if zero1
-                 else param_sh)
+    native = bind_tensor_parallel(state.model, param_sh, mesh)
+    moment_sh = (zero1_shardings(state.params, mesh, rules, base=param_sh)
+                 if zero1 else param_sh)
     place_state(state, mesh, param_sh, moment_sh)
-    state.sharding.native = bind_tensor_parallel(state.model, param_sh,
-                                                 mesh)
+    state.sharding.native = native
     return state
 
 

@@ -184,7 +184,10 @@ def _hold(got, jstate, jmetrics, what, moments=False):
 def test_qkv_slices_follow_the_heads_and_gather_back():
     """``local_slice`` / ``gather_global`` of a leaf split within its 3
     parts, at one rank of 2 and 4 (no collective: the slices are joined
-    here), against the head rows of q, k and v."""
+    here), against the head rows of q, k and v. The rules alone give
+    JAX's spec, a contiguous cut: the parts are the bound Attention's
+    (``tp_layout``), recorded by ``bind_tensor_parallel``."""
+    from deeplearning_tpu_torch.models.classification.vit import Attention
     from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     x = torch.arange(3 * 8 * 5, dtype=torch.float32).reshape(24, 5)
     for n in (2, 4):
@@ -192,9 +195,12 @@ def test_qkv_slices_follow_the_heads_and_gather_back():
         slices = []
         for r in range(n):
             m = build_mesh(MeshConfig(data=1, model=n), n, r, device="cpu")
-            lay = tsharding.logical_to_sharding(
+            rule = tsharding.logical_to_sharding(
                 m, tsharding.TRANSFORMER_TP_RULES)(
                 "blocks.0.attn.qkv.weight", x)
+            assert rule.spec == tsharding.P("model", None) and not rule.parts
+            lay = tsharding.NamedSharding(
+                m, rule.spec, (Attention(8, 4).tp_layout(n)["qkv.weight"],))
             slices.append(tsharding.local_slice(x, lay))
         assert lay.parts == ((0, 3),) and lay.shard_shape(x.shape) == (
             24 // n, 5)
@@ -306,10 +312,11 @@ def test_zero1_with_tp_rules_at_model_two(ranks, inputs):
 
 
 def test_masks_are_the_unsplit_models_and_replicas_stay_equal(ranks):
-    """Two steps at drop-path and dropout 0.1 with the rules equal two on
-    the same mesh without them (the hidden dropout's mask is the whole
-    width's, cut to the slice; the stream's masks follow the data index
-    only); the leaves the layout does not split are bit-equal on the two
+    """Two steps at drop-path, dropout and attention dropout 0.1 with the
+    rules equal two on the same mesh without them (the hidden dropout's
+    mask is the whole width's and the attention dropout's all heads',
+    cut to the slice; the stream's masks follow the data index only); the
+    leaves the layout does not split are bit-equal on the two
     model ranks."""
     outs = [o["layouts"] for o in ranks[2]]
     for r, lay in enumerate(outs):

@@ -683,9 +683,10 @@ def _replicated(state):
 
 def _tp_layouts(rank, n, payload):
     """model = 2: the slices, the gathered leaves, one SGD step and an
-    eval, ZeRO-1 (data 1: nothing to split), the masks at drop-path and
-    dropout 0.1 against the same mesh without rules, Swin through the
-    gather path, and the reduction's refusal of a model split."""
+    eval, ZeRO-1 (data 1: nothing to split), the masks at drop-path,
+    dropout and attention dropout 0.1 against the same mesh without
+    rules, Swin through the gather path, and the reduction's refusal of a
+    model split."""
     from deeplearning_tpu_torch.models.classification.swin import (
         SwinTransformer)
     from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
@@ -714,11 +715,13 @@ def _tp_layouts(rank, n, payload):
                     zero1=True)
     _, out["zero1"] = _tp_step(z, mesh, batch, weight_update="zero1",
                                rules=rules)
-    # masks at drop-path 0.1 and dropout 0.1: two steps with the rules and
-    # two on the same mesh without them (both ranks replicate the model)
+    # masks at drop-path, dropout and attention dropout 0.1: two steps with
+    # the rules and two on the same mesh without them (both ranks
+    # replicate the model)
     for name, r in (("drop_tp", rules), ("drop_rep", None)):
         d = shard_state(_tp_vit_state(payload["tp_vit"], drop_path_rate=0.1,
-                                      drop_rate=0.1), mesh, r)
+                                      drop_rate=0.1, attn_drop_rate=0.1),
+                        mesh, r)
         d, out[name] = _tp_step(d, mesh, batch, steps=2, rules=r)
         out[name]["replicated"] = _replicated(d)
     # Swin: its window attention's qkv / proj are gathered, its Mlps bound
