@@ -437,7 +437,43 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    a step on each rank, one set of metrics on the four ranks, held as
    phase 47's. Phases 45-48 check their launches in the processes
    (not in the kernels line) and log their times as gloo's: layout and
-   parity, not speed.
+   parity, not speed;
+49. Swin-MoE-T (full width and depth, 224², 8 experts in every second
+   block: 6 MoE layers, 88.77 M parameters) from
+   ``configs/swin_moe_tiny.yaml`` (batch 128, bf16, AdamW, EMA,
+   ``model.attn`` flash_hb: the fused K2) through the train CLI's
+   Trainer under ``train.strict=transfers``: one epoch of 4 steps and an
+   eval, K2 counted from zero just before ``train()``: 12 launches a
+   forward; one strict section a step and no sync outside the lagged
+   fetches (no routing op syncs); every logged loss finite,
+   ``moe/drop_rate`` in [0, 1], ``moe/capacity_util`` in (0, 1],
+   ``moe/max_expert_load`` >= 1. Then 6 steps of a fixed batch at
+   constant lr 1e-4 (the loss with its aux terms falls; 12 K2 launches a
+   step), the step timed (CUDA events, and the profiler's device time)
+   and its 6 MoE layers alone on their captured inputs, forward and
+   forward + backward (CUDA events). Then the CLI's checkpoint served by
+   ``hub.serve`` (buckets 1/32) through ``MicroBatcher``: 40 requests from
+   8 threads, K2 12 a batch, every answer equal to ``engine.run`` of the
+   batch it went out in, at its row; the walls at buckets 1 and 32;
+50. two processes on ``cuda:0`` over gloo, ``expert = 2``: Swin-MoE-T at
+   224² (drop path off) placed under ``MOE_RULES``, 4 experts a rank,
+   batch 8 (each rank the whole batch), two steps of
+   ``make_train_step(mesh=...)`` in float32 and two in bf16: 12 K2
+   launches a step on each rank, one set of metrics on both, the
+   replicated leaves bit-equal across them, the first loss and
+   ``grad_norm`` within ``EP_TOL`` of the unsplit steps on the same
+   weights and batch (run here first), a rank's expert bytes half the
+   unsplit model's, ``make_eval_step(mesh)`` equal on both;
+51. the CNN zoo: ``mnist_cnn`` trained from ``configs/mnist_smoke.yaml``
+   through the train CLI (its default model, on the card) and served
+   through the serve CLI's stdin mode (``--size 28``); then VGG-11/13/16/19,
+   GoogLeNet, ShuffleNet-V2, MobileNet-V2, EfficientNet-B0 … B7,
+   ConvNeXt-T/S/B, CoAtNet-0, RepVGG-A0/A1/A2/B0/B1 and TransFG-small built
+   at full width on the card: one bf16 eval forward at 224² (finite (2,
+   1000) logits; RepVGG's ``reparameterize`` deploy form against the train
+   form's eval forward, float32 and bf16, within ``REPVGG_TOL``), and but
+   for TransFG (a dict output no loss trains) one train step of batch 8
+   with a finite loss; the seconds each.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -448,7 +484,7 @@ flash_hb K1 entries add phase 19's launches to phase 3's (forward) and
 phase 6's (dQ, dK/dV), and those of phases 32-35 (the zoo's loads and
 traffic, the Trainer of phase 35). The K2 entry adds the launches of
 phases 22-26 and 33 to phase 9's, each counted from zero just before its
-run. Phases 36-39 add theirs (the Trainer's, the served forwards' at 224²
+run, and phase 49's (the Trainer's and the served batches'). Phases 36-39 add theirs (the Trainer's, the served forwards' at 224²
 and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
 phase 38); the subprocesses' launches are not counted. Phases 40 and 42
 add the mesh runs' K1 launches, phase 44 the one-rank ring's and
@@ -1022,9 +1058,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     _tp_seq_four_ranks(args.seed, dev, os.path.join(build_dir,
                                                     "smoke_tp_seq"))
+    log(f"chip_smoke: phases 47-48 in {time.perf_counter() - t47:.1f}s")
+
+    # ---- 49. Swin-MoE-T trained through the train CLI, then served (K2)
+    phase(49, started)
+    t49 = time.perf_counter()
+    torch.cuda.empty_cache()
+    k2["launches"] += _swin_moe(wa, dev, args.seed,
+                                os.path.join(build_dir, "smoke_moe"))
+
+    # ----------- 50. two ranks on the one card: expert parallel, expert = 2
+    phase(50, started)
+    torch.cuda.empty_cache()
+    _ep_two_ranks(args.seed, dev, os.path.join(build_dir, "smoke_ep"))
+
+    # ------------------------------------------------ 51. the CNN zoo
+    phase(51, started)
+    torch.cuda.empty_cache()
+    _cnn_zoo(dev, args.seed, os.path.join(build_dir, "smoke_zoo"))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 47-48 in {time.perf_counter() - t47:.1f}s; "
+    log(f"chip_smoke: phases 49-51 in {time.perf_counter() - t49:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -1909,13 +1963,17 @@ def _hold_served_rows(name, engine, images, rows, runs, batches) -> None:
     its row in the batch (the Faster R-CNN pyramid differs by up to 0.09 in
     bf16 when an image moves from row 7 to row 0 of the same batch, and
     greedy NMS turns that into other boxes), so the batcher, which fills a
-    batch in arrival order, is held to the batch it really ran."""
+    batch in arrival order, is held to the batch it really ran. A
+    classifier's probabilities are held as one output, "probs"."""
+    def outputs(out):
+        return out if isinstance(out, dict) else {"probs": out}
     check(len(runs) == batches, f"{name}: one engine.run a batch dispatched")
     where = {}
     for r, (_, batch) in enumerate(runs):
         for j in range(batch.shape[0]):
             where.setdefault(batch[j, 0, :8].tobytes(), []).append((r, j))
-    refs = [{k: v.cpu().numpy() for k, v in engine.run(b, batch).items()}
+    refs = [{k: v.cpu().numpy()
+             for k, v in outputs(engine.run(b, batch)).items()}
             for b, batch in runs]
     moved = 0
     for i, row in enumerate(rows):
@@ -1923,6 +1981,7 @@ def _hold_served_rows(name, engine, images, rows, runs, batches) -> None:
               if np.array_equal(runs[r][1][j], images[i])]
         check(len(at) == 1, f"{name}: request {i} went out in one batch")
         r, j = at[0]
+        row = outputs(row)
         moved += int(j != i % runs[r][0])
         check(all(np.array_equal(row[k], refs[r][k][j]) for k in row),
               f"{name}: every served answer == engine.run of its batch, "
@@ -6301,7 +6360,513 @@ def _tp_seq_four_ranks(seed, dev, workdir) -> None:
     torch.cuda.empty_cache()
 
 
-PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank}
+# ------- phases 49-51: the rest of classification (item 8a): the mixture
+# of experts with expert parallelism, and the CNN zoo
+SWIN_MOE = "swin_moe_tiny_patch4_window7_224"
+MOE_CFG = "configs/swin_moe_tiny.yaml"
+MOE_LAYERS = 6                   # depths 2/2/6/2: every second block
+MOE_STEPS, MOE_HAND_STEPS = 4, 6
+MOE_BUCKETS, MOE_REQUESTS = (1, 32), 40
+EP_BATCH, EP_STEPS = 8, 2        # phase 50: each rank the whole batch
+# the mesh step folds the data index into its key, so its masks are not the
+# plain step's: phase 50 turns Swin's drop path off on both sides
+EP_MODEL = {"name": SWIN_MOE, "drop_path_rate": 0.0}
+# relative, against the unsplit steps: the forward is the unsplit one
+# expert for expert, and at top-1 a token's expert gradient comes from one
+# rank (the other adds 0), so on an H100 both dtypes' first losses were
+# bit-equal and only the norm's summation order moved grad_norm (6.2e-08,
+# float32); held at 1e-6, a few times that floor (PERF.md §6)
+EP_TOL = 1e-6
+ZOO_CNN = ("vgg11", "vgg13", "vgg16", "vgg19", "googlenet",
+           "shufflenet_v2_x1_0", "mobilenet_v2",
+           *(f"efficientnet_b{i}" for i in range(8)),
+           "convnext_tiny", "convnext_small", "convnext_base", "coatnet_0",
+           "repvgg_a0", "repvgg_a1", "repvgg_a2", "repvgg_b0", "repvgg_b1",
+           "transfg_small")
+ZOO_BATCH = 8
+# RepVGG's fold against its train form's eval forward: max |d| over the
+# largest logit; float32 holds the fold, bf16 its rounding through 22-28
+# blocks of three convs against one. On an H100 the five factories
+# measured 1.37e-06-1.75e-06 and 4.6e-03-6.0e-03 (PERF.md §6): held a
+# few times above
+REPVGG_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _moe_cli_cfg(workdir=None, *overrides):
+    """configs/swin_moe_tiny.yaml through the train CLI's config reader
+    (Swin-MoE-T, 224², batch 128, bf16, AdamW, EMA, model.attn flash_hb:
+    the fused K2), one epoch of MOE_STEPS steps of its synthetic data."""
+    from deeplearning_tpu_torch.core.config import config_cli
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--cfg", os.path.join(here, MOE_CFG),
+            f"data.n_train={TRAIN_BATCH * MOE_STEPS}", "train.epochs=1",
+            *overrides]
+    if workdir:
+        argv.append(f"train.workdir={workdir}")
+    return config_cli(_cli().Config(), argv)
+
+
+def _moe_layer_ms(state, batch) -> dict:
+    """The MoE layers' device time in one train step of ``state``: each
+    layer's input captured in a forward, then the layer alone on it,
+    forward and forward + backward (CUDA events, eager as the step runs
+    it, inside ``collect_moe()`` as the loss runs it), summed over the
+    layers."""
+    import torch
+    from deeplearning_tpu_torch.parallel.moe import MoEMlp, collect_moe
+    layers = [m for m in state.model.modules() if isinstance(m, MoEMlp)]
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, i=i: seen.setdefault(i, args[0].detach()))
+        for i, m in enumerate(layers)]
+    with torch.no_grad(), collect_moe():
+        state.model.train()
+        state.model(batch["image"], rng=torch.Generator(
+            device=batch["image"].device).manual_seed(0))
+    for h in hooks:
+        h.remove()
+    fwd = bwd = 0.0
+    for i, layer in enumerate(layers):
+        x = seen[i].clone().requires_grad_()
+
+        def forward():
+            with collect_moe():
+                return layer(x)
+
+        def both():
+            out, aux = forward()
+            (out.float().square().mean() + aux).backward()
+        fwd += _time_ms(lambda: forward(), iters=10, warmup=3)
+        bwd += _time_ms(both, iters=10, warmup=3)
+    layer_params = [p for m in layers for p in m.parameters()]
+    for p in layer_params + [t for t in seen.values()]:
+        p.grad = None
+    return {"layers": len(layers), "tokens": [int(seen[i].shape[0]
+                                                 * seen[i].shape[1])
+                                             for i in range(len(layers))],
+            "forward": fwd, "forward_backward": bwd}
+
+
+def _device_ms(fn, iters=2) -> float:
+    """The profiler's device ms a call of ``fn`` (its kernels and
+    copies), after one call outside the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning_tpu_torch.serve.profile import _device_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "the profiler recorded device time")
+    return total / 1e3 / iters
+
+
+def _swin_moe(wa, dev, seed, workdir) -> int:
+    """Phase 49: Swin-MoE-T from configs/swin_moe_tiny.yaml through the
+    train CLI's Trainer under strict=transfers, a hand loop whose loss
+    falls, the step and its MoE layers timed, then the CLI's checkpoint
+    served through ``hub.serve`` and the batcher. Returns K2's launches
+    (the Trainer's and the served batches', each counted from zero just
+    before its run)."""
+    import shutil
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.obs import flight
+    from deeplearning_tpu_torch.serve import MicroBatcher
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = _moe_cli_cfg(workdir, "train.strict=transfers")
+    check(cfg.model.name == SWIN_MOE and cfg.train.ema
+          and cfg.model.precision == "bf16" and cfg.optim.name == "adamw"
+          and cfg.data.global_batch == TRAIN_BATCH,
+          f"{MOE_CFG}: Swin-MoE-T, bf16, AdamW, EMA, batch {TRAIN_BATCH}")
+    trainer = cli.build(cfg, eval_every_epochs=1)
+    moes = [m for m in trainer.state.model.modules()
+            if type(m).__name__ == "MoEMlp"]
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    n_expert = sum(p.numel() for k, p in trainer.state.params.items()
+                   if ".experts." in k)
+    guard = _NoSyncBetweenLogPoints(trainer)
+    flight.get_recorder().clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trained = wa.launch_counts()[wa.KERNEL_NAME]
+    evals = len(trainer.eval_loader)
+    logged = [e["metrics"] for e in flight.get_recorder().events("step")]
+    keys = ("loss", "moe/drop_rate", "moe/capacity_util",
+            "moe/max_expert_load")
+    log(f"Swin-MoE-T ({MOE_CFG}, {len(moes)} MoE layers of 8 experts, "
+        f"{n_params / 1e6:.2f} M parameters, {n_expert / 1e6:.2f} M in the "
+        f"experts) through the train CLI's Trainer, strict=transfers: "
+        f"{MOE_STEPS} steps + {evals} eval batches in {wall:.2f}s, "
+        f"{trainer.strict_sections} strict sections, {guard.armed_steps} "
+        f"steps under the epoch guard, K2 launches {trained} (want "
+        f"{SWIN_BLOCKS} x {MOE_STEPS + evals}), eval "
+        f"{json.dumps(trainer._last_eval)}, peak device memory "
+        f"{_gib(torch.cuda.max_memory_allocated()):.3f} GiB; logged "
+        f"{json.dumps([{k: m[k] for k in keys} for m in logged])}")
+    check(len(moes) == MOE_LAYERS, f"{MOE_LAYERS} MoE layers")
+    check(trained == SWIN_BLOCKS * (MOE_STEPS + evals),
+          f"K2 launches == {SWIN_BLOCKS} x (steps + eval batches)")
+    check(trainer.strict_sections == MOE_STEPS
+          and guard.armed_steps == MOE_STEPS,
+          "every step ran in a strict section: no routing op syncs")
+    check(len(logged) == MOE_STEPS and all(
+        np.isfinite(m["loss"]) and 0.0 <= m["moe/drop_rate"] <= 1.0
+        and 0.0 < m["moe/capacity_util"] <= 1.0
+        and m["moe/max_expert_load"] >= 1.0 for m in logged),
+        "finite losses, moe/drop_rate in [0, 1], moe/capacity_util in "
+        "(0, 1], moe/max_expert_load >= 1 on every logged step")
+    step_dir = os.path.join(workdir, "ckpt", str(trainer.ckpt.latest_step()))
+    check(os.path.isdir(step_dir), "the CLI wrote its checkpoint")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the loss with its aux terms falls: a fixed batch at constant lr 1e-4
+    state = _train_state("flash_hb", seed, dev, lr=1e-4, name=SWIN_MOE)
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    batch, key = _train_batch(seed, dev), root_key(seed)
+    torch.cuda.synchronize()
+    wa.reset_launch_counts()
+    hand = []
+    for _ in range(MOE_HAND_STEPS):
+        state, m = step(state, batch, key)
+        hand.append(_metrics(m))
+    torch.cuda.synchronize()
+    hand_launches = wa.launch_counts()[wa.KERNEL_NAME]
+    log(f"Swin-MoE-T hand loop, constant lr 1e-4 on a fixed batch of "
+        f"{TRAIN_BATCH}: losses {[round(h['loss'], 5) for h in hand]}, "
+        f"moe/* {json.dumps({k: hand[0][k] for k in keys[1:]})}, K2 "
+        f"launches {hand_launches}")
+    check(hand[-1]["loss"] < hand[0]["loss"], "the loss falls")
+    check(hand_launches == SWIN_BLOCKS * MOE_HAND_STEPS,
+          f"K2 launches == {SWIN_BLOCKS} a step")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batch, key)
+
+    step_ms = _time_ms(one, iters=3, warmup=1)
+    busy_ms = _device_ms(one)
+    moe_ms = _moe_layer_ms(state, batch)
+    log(f"Swin-MoE-T train step, batch {TRAIN_BATCH} bf16 (AdamW, no EMA): "
+        f"{step_ms:.2f} ms (CUDA events, 3 steps), device busy "
+        f"{busy_ms:.2f} ms (profiler), {TRAIN_BATCH / step_ms * 1e3:.1f} "
+        f"img/s; its {moe_ms['layers']} MoE layers alone on their inputs "
+        f"(tokens {moe_ms['tokens']}): forward {moe_ms['forward']:.2f} ms "
+        f"({moe_ms['forward'] / step_ms * 100:.1f}% of the step), forward "
+        f"+ backward {moe_ms['forward_backward']:.2f} ms "
+        f"({moe_ms['forward_backward'] / step_ms * 100:.1f}%)")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the CLI's checkpoint served: hub.serve and the batcher
+    served = hub.serve(SWIN_MOE, ckpt=step_dir, num_classes=1000,
+                       image_size=224, batch_buckets=MOE_BUCKETS,
+                       attn="flash_hb", device=dev)
+    images = np.random.default_rng(seed + 49).normal(
+        size=(MOE_REQUESTS, 224, 224, 3)).astype(np.float32)
+    with MicroBatcher(served, max_wait_ms=5.0) as mb, \
+            _recorded_runs(served) as runs:
+        torch.cuda.synchronize()
+        wa.reset_launch_counts()
+
+        def client(part):
+            handles = [mb.submit(img) for img in part]
+            return [h.result(timeout=120.0) for h in handles]
+
+        with ThreadPoolExecutor(8) as pool:
+            rows = [r for part in pool.map(client,
+                                           np.array_split(images, 8))
+                    for r in part]
+        torch.cuda.synchronize()
+        serve_launches = wa.launch_counts()[wa.KERNEL_NAME]
+        batches = mb.dispatched
+    log(f"Swin-MoE-T served from the CLI's checkpoint: {len(rows)}/"
+        f"{MOE_REQUESTS} answers in {batches} batches, K2 launches "
+        f"{serve_launches} (want {SWIN_BLOCKS} x {batches}); "
+        f"{json.dumps(served.stats())}")
+    check(len(rows) == MOE_REQUESTS and all(
+        r.shape == (1000,) and np.isfinite(r).all() for r in rows),
+        "every answer arrives, finite (1000,) probabilities")
+    check(serve_launches == SWIN_BLOCKS * batches,
+          f"K2 launches == {SWIN_BLOCKS} x batches dispatched")
+    _hold_served_rows("Swin-MoE-T", served, images, rows, runs, batches)
+    walls = {}
+    for b in MOE_BUCKETS:
+        x = images[:b]
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            served.run(b, x).cpu()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        walls[b] = statistics.median(times)
+    log(f"Swin-MoE-T served walls (engine.run + copy back, median of 10): "
+        f"{json.dumps({f'bucket_{b}_ms': round(v, 3) for b, v in walls.items()})}")
+    del served
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return trained + serve_launches
+
+
+def _expert_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for k, p in params.items()
+               if ".experts." in k)
+
+
+def _ep_rank(rank: int, workdir: str, seed: int) -> int:
+    """One of phase 50's ranks: Swin-MoE-T at 224² (the fused K2) under
+    MOE_RULES on an expert = 2 mesh, 4 experts a rank: two steps in
+    float32, two in bf16, then the eval step."""
+    import torch
+    from deeplearning_tpu_torch.ops import window_attention as wa
+    from deeplearning_tpu_torch.parallel import collectives as coll
+    from deeplearning_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from deeplearning_tpu_torch.parallel.moe import MOE_RULES
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.train import make_eval_step, make_train_step
+    from deeplearning_tpu_torch.train.classification import (make_loss_fn,
+                                                             make_metric_fn)
+    from deeplearning_tpu_torch.train.steps import shard_state
+    dev = torch.device("cuda")
+    _par_group(rank, workdir)
+    mesh = build_mesh(MeshConfig(data=1, expert=MESH_RANKS), device=dev)
+    batch = {k: v[:EP_BATCH].clone()
+             for k, v in _train_batch(seed, dev).items()}
+    out = {"rank": rank, "coords": dict(mesh.coords)}
+    for tag, dtype in TP_DTYPES:
+        state = _train_state("flash_hb", seed, dev, **EP_MODEL,
+                             dtype=getattr(torch, dtype))
+        out["expert_bytes_unsplit"] = _expert_bytes(state.params)
+        state = shard_state(state, mesh, MOE_RULES)
+        out["expert_bytes"] = _expert_bytes(state.params)
+        step = make_train_step(make_loss_fn(label_smoothing=0.1), mesh=mesh,
+                               rules=MOE_RULES)
+        torch.cuda.synchronize()
+        wa.reset_launch_counts()
+        coll.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(EP_STEPS):
+            state, m = step(state, batch, root_key(seed))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        sh = state.sharding
+        out[tag] = {"metrics": metrics, "seconds": time.perf_counter() - t0,
+                    "launches": wa.launch_counts()[wa.KERNEL_NAME],
+                    "collectives": coll.launch_counts(),
+                    "native": len(sh.native),
+                    "replicated": {k: _digest(p)
+                                   for k, p in state.params.items()
+                                   if sh.params[k].is_fully_replicated}}
+        if tag == "bf16":
+            out["eval"] = {k: float(v) for k, v in make_eval_step(
+                make_metric_fn(), mesh=mesh)(state, batch).items()}
+        del state, step
+        torch.cuda.empty_cache()
+    return _par_done(rank, workdir, out)
+
+
+def _ep_two_ranks(seed, dev, workdir) -> None:
+    """Phase 50: the unsplit steps on the same weights and batch here,
+    then two processes on cuda:0 over gloo at expert = 2."""
+    import torch
+    batch = {k: v[:EP_BATCH] for k, v in _train_batch(seed, dev).items()}
+    refs = {tag: _plain_steps(seed, dev, batch, EP_STEPS, **EP_MODEL,
+                              dtype=getattr(torch, dtype))
+            for tag, dtype in TP_DTYPES}
+    del batch
+    outs, wall = _par_spawn(50, seed, workdir)
+    for o in outs:
+        for tag, _ in TP_DTYPES:
+            r = o[tag]
+            first = r["metrics"][0]
+            rel_loss = abs(first["loss"] - refs[tag][0]["loss"]) \
+                / abs(refs[tag][0]["loss"])
+            rel_norm = abs(first["grad_norm"] - refs[tag][0]["grad_norm"]) \
+                / refs[tag][0]["grad_norm"]
+            log(f"rank {o['rank']} of {MESH_RANKS} on cuda:0 (gloo), expert "
+                f"= {MESH_RANKS}, Swin-MoE-T 224² batch {EP_BATCH} {tag}: "
+                f"first loss rel err {rel_loss:.3e}, grad_norm rel err "
+                f"{rel_norm:.3e}; losses {[x['loss'] for x in r['metrics']]}"
+                f", moe/* {json.dumps({k: v for k, v in first.items() if k.startswith('moe/')})}"
+                f"; {EP_STEPS} steps in {r['seconds']:.2f}s (gloo through "
+                f"the host: layout and parity, not speed), K2 launches "
+                f"{r['launches']}, collectives {json.dumps(r['collectives'])}"
+                f", {r['native']} expert leaves on slices")
+            check(r["launches"] == SWIN_BLOCKS * EP_STEPS,
+                  f"rank {o['rank']} {tag}: K2 == {SWIN_BLOCKS} x {EP_STEPS}")
+            check(r["native"] == 4 * MOE_LAYERS and all(
+                np.isfinite(v) for m_ in r["metrics"] for v in m_.values()),
+                "the experts on their slices, finite metrics")
+        ratio = o["expert_bytes"] / o["expert_bytes_unsplit"]
+        log(f"rank {o['rank']}: expert bytes {o['expert_bytes']} against "
+            f"{o['expert_bytes_unsplit']} unsplit ({ratio:.4f}); eval "
+            f"{json.dumps(o['eval'])}")
+        check(ratio == 0.5, "a rank holds half the experts' bytes")
+        check(0 <= o["eval"]["top1"] <= EP_BATCH
+              and np.isfinite(o["eval"]["loss_sum"]), "a finite eval")
+    check(outs[0]["eval"] == outs[1]["eval"],
+          "both expert ranks report the same eval")
+    for tag, _ in TP_DTYPES:
+        runs = [o[tag] for o in outs]
+        check(all(r["metrics"] == runs[0]["metrics"] for r in runs),
+              f"phase 50 {tag}: every rank reports the same metrics")
+        check(all(r["replicated"] == runs[0]["replicated"] for r in runs),
+              f"phase 50 {tag}: the leaves the layout does not split "
+              "bit-equal on every rank")
+        _hold_tp(f"phase 50 expert parallel {tag}", runs[0]["metrics"],
+                 refs[tag], EP_TOL, EP_TOL)
+    log(f"phase 50: {wall:.1f}s with the processes' start")
+    torch.cuda.empty_cache()
+
+
+def _cnn_zoo(dev, seed, workdir) -> None:
+    """Phase 51: mnist_cnn trained from configs/mnist_smoke.yaml through
+    the train CLI and served through the serve CLI's stdin mode; every
+    other new factory built at full width on the card, one bf16 eval
+    forward at 224² (RepVGG also reparameterized), one train step."""
+    import io
+    import shutil
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.models.classification.repvgg import (
+        reparameterize)
+    from deeplearning_tpu_torch.serve import __main__ as serve_cli
+    from deeplearning_tpu_torch.train import TrainState, make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.core.config import config_cli
+    cli = _cli()
+    shutil.rmtree(workdir, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = config_cli(cli.Config(), [
+        "--cfg", os.path.join(here, "configs/mnist_smoke.yaml"),
+        "train.epochs=1", f"train.workdir={os.path.join(workdir, 'mnist')}"])
+    check(cfg.model.name == "mnist_cnn" and cfg.train.device == "cuda",
+          "mnist_smoke.yaml: the CLI's default model, on the card")
+    t0 = time.perf_counter()
+    trainer = cli.build(cfg)
+    trainer.train()
+    ev = trainer.evaluate()
+    steps = trainer.state.step
+    log(f"mnist_cnn ({cfg.data.channels} channel, {cfg.data.image_size}², "
+        f"batch {cfg.data.global_batch}) through the train CLI: {steps} "
+        f"steps + eval in {time.perf_counter() - t0:.2f}s, eval "
+        f"{json.dumps(ev)}")
+    check(steps == cfg.data.n_train // cfg.data.global_batch
+          and np.isfinite(ev["loss_sum"]) and ev["top1"] >= 0,
+          "mnist_cnn trains through the CLI, a finite eval")
+    del trainer
+    npy = os.path.join(workdir, "digits.npy")
+    np.save(npy, np.random.default_rng(seed + 51).normal(
+        size=(2, 28, 28, 3)).astype(np.float32))
+    printed = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(f"{npy}\n")
+    try:
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = serve_cli.main(["--model", "mnist_cnn", "--num-classes",
+                                 "10", "--size", "28", "--buckets", "1,4",
+                                 "--topk", "3"])
+    finally:
+        sys.stdin = stdin
+    answers = [json.loads(line) for line in
+               printed.getvalue().strip().splitlines()]
+    log(f"serve CLI (stdin) --model mnist_cnn --size 28: {answers[:2]}")
+    check(rc == 0 and [a.get("image") for a in answers[:2]] == [0, 1]
+          and all(len(a["top"]) == 3 for a in answers[:2]),
+          "the serve CLI answers mnist_cnn")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    g = np.random.default_rng(seed)
+    x = torch.from_numpy(g.normal(size=(2, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    batch = {"image": torch.from_numpy(g.normal(
+        size=(ZOO_BATCH, 224, 224, 3)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(g.integers(0, 1000, ZOO_BATCH)).to(dev)}
+    times = {}
+    for name in ZOO_CNN:
+        t0 = time.perf_counter()
+        kw = hub.model_kwargs(name, "flash_hb", 224)
+
+        def build(**extra):
+            with torch.device(dev):
+                return MODELS.build(
+                    name, num_classes=1000, generator=torch.Generator(
+                        device=dev).manual_seed(seed), **kw, **extra)
+        model = build(dtype=torch.bfloat16).eval()
+        with torch.no_grad():
+            out = model(x)
+        logits = out["logits"] if isinstance(out, dict) else out
+        torch.cuda.synchronize()
+        check(tuple(logits.shape) == (2, 1000)
+              and bool(torch.isfinite(logits).all()),
+              f"{name}: a finite (2, 1000) eval forward")
+        note = ""
+        if name.startswith("repvgg"):
+            sd = reparameterize(model.state_dict())
+            errs = {}
+            for dtype in ("float32", "bfloat16"):
+                train_form = build(dtype=getattr(torch, dtype)).eval()
+                train_form.load_state_dict(model.state_dict())
+                deploy = build(dtype=getattr(torch, dtype), deploy=True)
+                deploy.load_state_dict(sd)
+                with torch.no_grad():
+                    want = train_form(x).float()
+                    got = deploy.eval()(x).float()
+                errs[dtype] = float((got - want).abs().max()
+                                    / want.abs().max())
+                del train_form, deploy
+            note = f", deploy form vs train form {json.dumps(errs)}"
+            check(all(errs[k] <= REPVGG_TOL[k] for k in errs),
+                  f"{name}: the reparameterized forward equals the train "
+                  f"form's within {REPVGG_TOL}")
+        if name != "transfg_small":
+            model.train()
+            has_bn = any(isinstance(m, torch.nn.BatchNorm2d)
+                         for m in model.modules())
+            state = TrainState.create(
+                model=model, tx=_adamw(model),
+                batch_stats=dict(model.named_buffers()) if has_bn else None)
+            step = make_train_step(make_loss_fn(has_batch_stats=has_bn),
+                                   device=dev)
+            _, m = step(state, batch, root_key(seed))
+            m = _metrics(m)
+            note += f", train step loss {m['loss']:.4f}"
+            del state, step
+        n = sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        log(f"{name}: {n / 1e6:.2f} M parameters, eval forward at 224² "
+            f"bf16 finite{note}; {times[name]:.2f}s")
+        torch.cuda.empty_cache()
+    log(f"phase 51 zoo: {len(times)} factories in "
+        f"{sum(times.values()):.1f}s")
+
+
+PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank,
+             50: _ep_rank}
 
 
 def _compare(probs: np.ndarray, ref: np.ndarray, what: str) -> None:

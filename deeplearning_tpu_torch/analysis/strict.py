@@ -16,7 +16,7 @@ is anomaly mode with ``check_nan``.
 
 Differences from the JAX module, by decision:
 - ``threads`` (the runtime thread sanitizer, ``analysis/threadsan.py``)
-  comes with ROADMAP Queue 1 item 8: asking for it raises ``ValueError``
+  comes with ROADMAP Queue 1 item 8c: asking for it raises ``ValueError``
   naming the item, and so does a bare ``"all"``, which arms it too.
 - The sync debug mode is one switch for the process, not one a kind: the
   ``kind`` of ``no_transfers`` is checked and every kind arms it. It has
@@ -49,7 +49,7 @@ MODES = ("transfers", "nans", "threads")
 # what a bare opt-in ("1", "true", "on") arms
 _DEFAULT_MODES = frozenset({"transfers"})
 _KINDS = ("device_to_host", "host_to_device", "all")
-_LATER = {"threads": "ROADMAP Queue 1 item 8 (the thread sanitizer, "
+_LATER = {"threads": "ROADMAP Queue 1 item 8c (the thread sanitizer, "
                      "analysis/threadsan.py)"}
 
 

@@ -10,7 +10,7 @@
   and a supervisor reads.
 - ``faults``     — ``DLTPU_FAULTS`` injection.
 - ``supervisor`` — the slow-vs-wedged detector; the rest of the JAX
-  supervisor comes with ROADMAP Queue 1 item 8.
+  supervisor comes with ROADMAP Queue 1 item 8c.
 - ``topology``   — the fingerprint a checkpoint's ``topology.json``
   records (mesh, ranks, layout, weight-update mode).
 - ``resume``     — ``elastic_restore``: the newest checkpoint onto the

@@ -3,7 +3,7 @@
 Only ``WedgeDetector`` is here: the serving health check
 (``serve/health.DispatchWatch``) classifies a frozen dispatch stream
 with it. The run supervisor itself (launch, requeue) comes with ROADMAP
-Queue 1 item 8.
+Queue 1 item 8c.
 """
 
 from __future__ import annotations

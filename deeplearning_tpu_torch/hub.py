@@ -38,21 +38,30 @@ def list_models(filter: str = "") -> list:
     return [n for n in names if filter in n] if filter else names
 
 
+# the families whose parameter shapes follow the input size (a position
+# table, a Dense after a flatten, Swin's windows): their factories take
+# ``img_size``, where flax infers the shapes at init
+_SIZED = ("vit_", "swin", "mnist_", "vgg", "googlenet", "transfg")
+
+
 def model_kwargs(name: str, attn: str = "flash_hb",
                  size: Optional[int] = None) -> Dict[str, Any]:
     """The factory keywords behind a CLI's ``--attn`` and ``--size`` for
     registry model ``name``. A ViT takes ``attn_fn`` (``ops.attention``'s
     names). A Swin model takes ``use_pallas``: "naive" runs the unfused
     window attention, any flash name the fused window-attention kernel;
-    "sdpa" raises. Both take ``img_size`` when ``size`` is given. A
-    detector takes neither: it has no attention and reads its input size
-    off the batch."""
+    "sdpa" raises. They, LeNet, VGG, GoogLeNet and TransFG take
+    ``img_size`` when ``size`` is given. The other CNNs (CoAtNet and
+    TransFG attend plainly, as in JAX) and the detectors take neither:
+    their shapes do not follow the input size."""
     from .models.detection.predict import is_detection_model
     from .ops.attention import get_attn_fn, sdpa_adapter
     if is_detection_model(name):
         return {}
     fn = get_attn_fn(attn)
-    kw: Dict[str, Any] = {} if size is None else {"img_size": int(size)}
+    kw: Dict[str, Any] = ({"img_size": int(size)}
+                          if size is not None and name.startswith(_SIZED)
+                          else {})
     if name.startswith("vit_"):
         kw["attn_fn"] = fn
     elif name.startswith("swin"):

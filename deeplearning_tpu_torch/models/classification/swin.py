@@ -30,7 +30,14 @@ The host-side tables (the relative-position index, v2's log-spaced
 coordinates, each shifted block's mask) are non-persistent buffers:
 ``state_dict()`` holds the converted flax tree and nothing else, and they
 move to the card with the model, so an eager forward builds and uploads
-no table. MoE blocks (``moe=True``) are not ported yet.
+no table.
+
+``moe=True`` puts ``parallel.moe.MoEMlp`` (``moe_mlp``: ``num_experts``
+experts, hidden ratio ``mlp_ratio``) in place of the Mlp of every second
+block of a stage (``i % 2 == 1``), as in JAX. Its weighted load-balance
+loss is what JAX sows as ``losses/moe_aux``: the block records it in the
+innermost ``parallel.moe.collect_moe()`` (the classification loss adds
+it), and the routing metrics too.
 """
 
 from __future__ import annotations
@@ -52,10 +59,6 @@ from .vit import (DropPath, Dropout, LayerNorm, Mlp, _dense, _lecun_normal_,
 
 __all__ = ["WindowAttention", "SwinBlock", "SwinMLPBlock", "PatchMerging",
            "SwinTransformer"]
-
-_MOE = ("MoE MLP blocks (moe=True) need parallel/moe.py, which is not "
-        "ported yet: it comes with the MoE slice of the port")
-
 
 def _log_coords_table(window: int) -> np.ndarray:
     """v2's log-spaced relative coordinates, ((2w-1)^2, 2) float32."""
@@ -171,9 +174,6 @@ class SwinBlock(nn.Module):
                  use_pallas: bool = False, moe: bool = False,
                  num_experts: int = 8):
         super().__init__()
-        if moe:
-            raise NotImplementedError(_MOE)
-        del num_experts
         self.input_resolution = tuple(input_resolution)
         self.window, self.shift = _window_and_shift(window, shift,
                                                     self.input_resolution)
@@ -187,7 +187,13 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, self.window, num_heads, qkv_bias,
                                     v2, dtype, use_pallas)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, mlp_ratio, drop, dtype)
+        if moe:
+            from ...parallel.moe import MoEMlp
+            self.moe_mlp = MoEMlp(dim, num_experts, hidden_ratio=mlp_ratio,
+                                  drop=drop)
+        else:
+            self.mlp = Mlp(dim, mlp_ratio, drop, dtype)
+        self.moe = moe
         self.drop_path1 = DropPath(drop_path_rate)
         self.drop_path2 = DropPath(drop_path_rate)
 
@@ -212,7 +218,13 @@ class SwinBlock(nn.Module):
         x = shortcut + self.drop_path1(x, rng)
 
         y = x if self.v2 else self.norm2(x)
-        y = self.mlp(y, rng)
+        if self.moe:
+            from ...parallel.moe import sow
+            y, aux = self.moe_mlp(y, rng)
+            if aux is not None:
+                sow("losses", aux)
+        else:
+            y = self.mlp(y, rng)
         if self.v2:
             y = self.norm2(y)
         return x + self.drop_path2(y, rng)
@@ -309,9 +321,6 @@ class SwinTransformer(nn.Module):
                  img_size: int = 224, in_chans: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe:
-            raise NotImplementedError(_MOE)
-        del num_experts
         self.patch_size, self.dtype, self.remat = patch_size, dtype, remat
         self.num_classes, self.img_size = num_classes, img_size
         self.use_pallas = use_pallas
@@ -337,7 +346,8 @@ class SwinTransformer(nn.Module):
                     blk = SwinBlock(dim, res, heads, window, shift,
                                     mlp_ratio, qkv_bias, drop_rate,
                                     float(dpr[block_idx]), v2, dtype,
-                                    use_pallas)
+                                    use_pallas, moe and i % 2 == 1,
+                                    num_experts)
                 self.add_module(f"stage{stage}_block{i}", blk)
                 block_idx += 1
             if stage < len(depths) - 1:
@@ -352,8 +362,10 @@ class SwinTransformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """flax's initialisers: lecun-normal Dense kernels with zero
-        biases, trunc-normal 0.02 bias tables, position embedding and head."""
+        """flax's initialisers: lecun-normal Dense and expert kernels with
+        zero biases, trunc-normal 0.02 bias tables, position embedding and
+        head."""
+        from ...parallel.moe import ExpertMlp
         def trunc02(t):
             nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
@@ -365,6 +377,8 @@ class SwinTransformer(nn.Module):
                     _lecun_normal_(module.weight, generator)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
+            elif isinstance(module, ExpertMlp):
+                module.init_weights(generator)
             elif isinstance(module, WindowAttention) and not module.v2:
                 trunc02(module.relative_position_bias_table)
             elif isinstance(module, SwinMLPBlock):

@@ -15,14 +15,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["BatchNorm", "conv", "dense", "lecun_normal_", "init_flax_",
-           "calibrate_batchnorm", "sync_batch_stats"]
+           "calibrate_batchnorm", "sync_batch_stats", "pad_same",
+           "max_pool", "nhwc_flatten"]
 
 # the process group whose ranks' batches a training BatchNorm normalises
 # over together; None: this rank's batch alone
@@ -97,6 +98,33 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
     """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def pad_same(x: torch.Tensor, k: int, s: int,
+             value: float = 0.0) -> torch.Tensor:
+    """``x`` (NCHW) padded as flax's ``padding="SAME"`` pads a ``k`` x
+    ``k`` window at stride ``s``: ceil(size / s) outputs, the odd pixel
+    after (no copy when that is nothing)."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value) if any(pads) else x
+
+
+def max_pool(x: torch.Tensor, k: int, s: int,
+             padding: Union[str, int] = "VALID") -> torch.Tensor:
+    """flax ``nn.max_pool`` over NCHW: "VALID", "SAME" or a symmetric
+    pad, the padding at −inf."""
+    if padding == "SAME":
+        return F.max_pool2d(pad_same(x, k, s, float("-inf")), k, s)
+    return F.max_pool2d(x, k, s, 0 if padding == "VALID" else padding)
+
+
+def nhwc_flatten(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H·W·C): the order flax's ``reshape(b, -1)``
+    flattens an NHWC map in, which the Dense after it is laid out for."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 class BatchNorm(nn.BatchNorm2d):

@@ -57,8 +57,8 @@ import torch
 
 from ..utils.convert import flax_path
 from . import collectives
-from .mesh import (AXES, DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh, rank,
-                   world_size)
+from .mesh import (AXES, DATA_AXIS, EXPERT_AXIS, FSDP_AXIS, MODEL_AXIS,
+                   Mesh, rank, world_size)
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "Rules", "batch_spec",
            "batch_sharding", "replicated", "logical_to_sharding",
@@ -449,10 +449,10 @@ class StateSharding:
                  ) -> NamedSharding:
         """The splits of ``name`` (laid out by ``layout``) that the
         forward all-gathers: all, or for a ``native`` leaf all but the
-        ``model`` axis's."""
+        ``model`` and ``expert`` axes'."""
         if name in self.native:
-            return layout[name].over(tuple(a for a in AXES
-                                           if a != MODEL_AXIS))
+            return layout[name].over(tuple(
+                a for a in AXES if a not in (MODEL_AXIS, EXPERT_AXIS)))
         return layout[name]
 
     def tree(self) -> Dict[str, Any]:

@@ -72,7 +72,7 @@ the rows of its data index):
       --cfg configs/vit_b16_imagenet.yaml train.mesh_seq_axis=2
 
 Options of later slices raise naming the ROADMAP Queue 1 item that brings
-them (``train.strict=threads`` / ``all`` item 8); the port has no
+them (``train.strict=threads`` / ``all`` item 8c); the port has no
 ``train.donate_batch`` (it updates the state in place).
 """
 
@@ -139,7 +139,7 @@ class TrainCfg:
     microbatches: int = 0            # 0: pipeline_stages
     precompile: bool = True          # start the feed before the first step
     recovery: str = "none"           # none|abort|rollback
-    strict: str = ""                 # transfers|nans (threads: item 8)
+    strict: str = ""                 # transfers|nans (threads: item 8c)
     weight_update: str = "replicated"  # replicated | zero1: shard adam
     grad_comm: str = "fp32"          # fp32 | int8: EQuARX block-scaled
 
@@ -185,7 +185,7 @@ def check_slice(cfg: Config) -> None:
                 f"divisible by train.microbatches={micro}")
     if t.strict:
         from ..analysis import strict
-        strict.resolve(t.strict)     # threads / all: item 8
+        strict.resolve(t.strict)     # threads / all: item 8c
     if t.recovery not in ("none", "", "abort", "rollback"):
         raise ValueError(f"train.recovery={t.recovery!r} "
                          "(none | abort | rollback)")
@@ -290,9 +290,9 @@ def build(cfg: Config, **trainer_kw: Any):
     check_slice(cfg)
     if cfg.model.name not in MODELS:
         raise ValueError(
-            f"model.name={cfg.model.name!r} is not in the port yet (the rest "
-            f"of the zoo, LeNet's mnist_cnn among it, is ROADMAP Queue 1 "
-            f"item 8); it has {', '.join(MODELS.keys())}")
+            f"model.name={cfg.model.name!r} is not in the port yet (the "
+            f"zoo_extra families, Xception to SENet-154, are ROADMAP Queue "
+            f"1 item 8b); it has {', '.join(MODELS.keys())}")
     mesh = None
     if uses_mesh(cfg):
         from ..parallel.mesh import (MeshConfig, build_mesh,

@@ -6,10 +6,13 @@
 them: integer labels with optional label smoothing, mixup soft targets
 (labels with the logits' rank), and models that return
 ``(logits, aux_logits)`` in train mode (the 0.3-weighted GoogLeNet aux
-heads). The harvest of model-internal auxiliary losses (the JAX
-``losses`` / ``moe_metrics`` collections, sown by ``MoEMlp``) comes with
-the port of ``parallel/moe.py``; no model of the port sows any yet (its
-Swin factories with ``moe=True`` raise).
+heads). The forward runs inside ``parallel.moe.collect_moe()``, the
+port's harvest of JAX's ``losses`` / ``moe_metrics`` collections: every
+model-internal auxiliary loss (a Swin-MoE block's load-balance loss) is
+added to the loss, and the MoE layers' routing metrics become
+``moe/drop_rate`` and ``moe/capacity_util`` (mean over the layers) and
+``moe/max_expert_load`` (max over the layers), device tensors like the
+rest.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ..evaluation.metrics import topk_correct
 from ..ops import losses
+from ..parallel.moe import collect_moe
 from .state import TrainState
 
 __all__ = ["make_loss_fn", "make_metric_fn"]
@@ -30,7 +34,9 @@ def make_loss_fn(label_smoothing: float = 0.0, has_batch_stats: bool = False,
     def loss_fn(params: Dict[str, torch.Tensor], state: TrainState,
                 batch: Dict, rng: torch.Generator
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        logits = state.apply_fn(params, batch["image"], train=True, rng=rng)
+        with collect_moe() as sown:
+            logits = state.apply_fn(params, batch["image"], train=True,
+                                    rng=rng)
         aux: Dict[str, Any] = {}
         if has_batch_stats:   # torch BN updates its buffers in place
             aux["batch_stats"] = dict(state.model.named_buffers())
@@ -48,8 +54,15 @@ def make_loss_fn(label_smoothing: float = 0.0, has_batch_stats: bool = False,
             if a is not None and labels.ndim < logits.ndim + 1:
                 loss = loss + aux_weight * losses.cross_entropy(
                     a, acc_labels, label_smoothing)
+        for al in sown["losses"]:
+            loss = loss + al
         acc = (torch.argmax(logits, -1) == acc_labels).float().mean()
         aux["metrics"] = {"accuracy": acc}
+        if sown["moe_metrics"]:
+            for name in ("drop_rate", "capacity_util", "max_expert_load"):
+                vals = torch.stack([m[name] for m in sown["moe_metrics"]])
+                aux["metrics"][f"moe/{name}"] = (
+                    vals.max() if name == "max_expert_load" else vals.mean())
         return loss, aux
     return loss_fn
 

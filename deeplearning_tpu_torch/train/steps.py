@@ -68,8 +68,18 @@ model's ``attn_fn`` is a ring or Ulysses adapter
 heads, the ranks that differ only on ``seq`` hold the same gradients,
 and the step reduces over data x fsdp as above; ZeRO-1 and the int8
 collectives are data-parallel modes and refuse it. The pipeline has its
-own step (``parallel.pipeline_train``); the ``expert`` axis comes with
-ROADMAP Queue 1 item 8.
+own step (``parallel.pipeline_train``).
+
+An ``expert`` axis is expert parallelism under ``parallel.moe.MOE_RULES``:
+the batch is split over data x fsdp only, so the ranks of one expert
+group see the same tokens; every ``MoEMlp`` routes over the global batch
+(its token group, data x fsdp) and runs its own slice of the experts
+(``parallel.moe.bind_expert_parallel``), the combine gathering the
+experts' outputs over the expert group. The expert slices' gradients are
+this rank's slices, averaged over data x fsdp and never summed over
+``expert``; a leaf gathered over ``expert`` (or ``model``) has the same
+whole gradient on every rank of that axis and is cut without a
+collective.
 """
 
 from __future__ import annotations
@@ -96,7 +106,6 @@ from .state import TrainState
 __all__ = ["make_train_step", "make_eval_step", "shard_state"]
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict]]
-_ITEM_8 = ("the expert axis comes with ROADMAP Queue 1 item 8")
 _DP = (DATA_AXIS, FSDP_AXIS)
 
 
@@ -141,13 +150,8 @@ def _rule_axes(rules: Optional[Rules]) -> set:
 def _check_mesh(mesh: Mesh, rules: Optional[Rules], weight_update: str,
                 grad_comm: str) -> None:
     """The step splits the batch over data x fsdp, the attention's tokens
-    over seq and the parameters by the rules: an expert axis is item 8's;
-    ZeRO-1 and int8 are data-parallel modes."""
-    if EXPERT_AXIS in _rule_axes(rules):
-        raise NotImplementedError(f"rules over {[EXPERT_AXIS]}: {_ITEM_8}")
-    if mesh.shape[EXPERT_AXIS] > 1:
-        raise NotImplementedError(f"mesh axes {[EXPERT_AXIS]} > 1: "
-                                  f"{_ITEM_8}")
+    over seq and the parameters by the rules; ZeRO-1 and int8 are
+    data-parallel modes."""
     if SEQ_AXIS in _rule_axes(rules):
         raise NotImplementedError(f"rules over {[SEQ_AXIS]}: parameters "
                                   "are replicated over seq")
@@ -156,6 +160,10 @@ def _check_mesh(mesh: Mesh, rules: Optional[Rules], weight_update: str,
         raise ValueError("train.weight_update=zero1 / train.grad_comm=int8 "
                          "are data-parallel modes; unset pipeline_stages/"
                          "mesh_model_axis/mesh_seq_axis")
+    if mesh.shape[EXPERT_AXIS] > 1 and grad_comm == "int8":
+        raise ValueError("grad_comm='int8' is data-parallel only: the "
+                         "expert axis shards the experts, the int8 path "
+                         "replicates every parameter")
 
 
 def _forward_params(params: Dict[str, torch.Tensor], sh: StateSharding,
@@ -178,13 +186,13 @@ def _forward_params(params: Dict[str, torch.Tensor], sh: StateSharding,
 
 def _model_slices(grads: Dict[str, torch.Tensor], sh: StateSharding
                   ) -> Dict[str, torch.Tensor]:
-    """Every gradient cut to its moments' ``model`` slice. A native
-    leaf's already is one; a leaf gathered over ``model`` has the same
-    whole gradient on every model rank (the stream is replicated there),
-    so its cut needs no collective."""
+    """Every gradient cut to its moments' ``model`` and ``expert`` slice.
+    A native leaf's already is one; a leaf gathered over ``model`` or
+    ``expert`` has the same whole gradient on every rank of that axis (the
+    stream is replicated there), so its cut needs no collective."""
     out = {}
     for name, g in grads.items():
-        msh = sh.moments[name].over((MODEL_AXIS,))
+        msh = sh.moments[name].over((MODEL_AXIS, EXPERT_AXIS))
         out[name] = (g if name in sh.native or msh.is_fully_replicated
                      else local_slice(g, msh))
     return out
@@ -461,10 +469,14 @@ def shard_state(state: TrainState, mesh: Mesh,
     shows). Counts and other leaves stay replicated. The model's
     tensor-parallel modules whose parameters the rules split in
     Megatron's layout over ``model`` run on their slices
-    (``bind_tensor_parallel``). Returns the state, its layout in
-    ``state.sharding``."""
+    (``bind_tensor_parallel``), and so do its MoE layers whose experts
+    the rules split over ``expert`` (``parallel.moe.bind_expert_parallel``,
+    which also gives every MoE layer the data x fsdp group it routes
+    over). Returns the state, its layout in ``state.sharding``."""
+    from ..parallel.moe import bind_expert_parallel
     param_sh = shard_params_tree(state.params, mesh, rules)
-    native = bind_tensor_parallel(state.model, param_sh, mesh)
+    native = (bind_tensor_parallel(state.model, param_sh, mesh)
+              | bind_expert_parallel(state.model, param_sh, mesh))
     moment_sh = (zero1_shardings(state.params, mesh, rules, base=param_sh)
                  if zero1 else param_sh)
     place_state(state, mesh, param_sh, moment_sh)

@@ -8,8 +8,14 @@ Rules, per leaf of a tree of numpy arrays (flax names → port names):
   kw) where the target (``like``) holds a 4-D weight, a ``Conv2d``;
   otherwise it is the patch ``proj/kernel`` (p, p, c, embed) → ``weight``
   (embed, p·p·c), the order PatchEmbed flattens patches in;
-- LayerNorm / BatchNorm ``scale`` → ``weight``; ``bias``, ``cls_token`` and
-  ``pos_embed`` keep their names and shapes;
+  a depthwise or grouped kernel (kh, kw, cin / groups, cout) takes the
+  same transpose, to the (cout, cin / groups, kh, kw) of its grouped
+  ``Conv2d``;
+- LayerNorm / BatchNorm ``scale`` → ``weight``; ``bias``, ``cls_token``,
+  ``pos_embed``, ConvNeXt's layer-scale ``gamma`` and the MoE experts'
+  batched ``fc1_kernel`` (E, d, h) / ``fc2_kernel`` / biases keep their
+  names and shapes (the port's ``ExpertMlp`` keeps JAX's layout, so
+  ``MOE_RULES`` split their dim 0 as JAX's do);
 - the ``batch_stats`` collection, beside ``params``: BatchNorm ``mean`` →
   ``running_mean``, ``var`` → ``running_var``. The port's
   ``num_batches_tracked`` has no flax counterpart; a strict

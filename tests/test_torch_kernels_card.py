@@ -1304,3 +1304,47 @@ def test_hbm_snapshot_adds_no_sync(cuda_device):
         wm.stop()
         torch.cuda.set_sync_debug_mode(0)
     assert wm.samples >= 2 and wm.peak_bytes_in_use >= dev["bytes_in_use"]
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_is_deterministic(cuda_device):
+    """The MoE layer (plain torch: its routing, the slot-table scatter
+    whose dropped tokens share a dummy row, the gathers) at Swin-MoE-T's
+    stage-1 width: with tokens dropped, two identical forwards and
+    backwards on the card are bit-equal; with none dropped, its forward
+    equals the CPU's within bf16 rounding on every token the two float32
+    routers send to the same expert (a near-tie may flip; at most 0.1 %)."""
+    from deeplearning_tpu_torch.parallel.moe import MoEMlp, collect_moe
+    x = torch.randn(4, 3136, 96, generator=torch.Generator().manual_seed(1))
+
+    def run(moe, device):
+        m = moe.to(device)
+        xb = x.to(device, torch.bfloat16).requires_grad_()
+        with collect_moe() as sown:
+            out, aux = m(xb)
+        out.float().square().sum().add(aux).backward()
+        grads = [xb.grad] + [p.grad.clone() for p in m.parameters()]
+        m.zero_grad()
+        choice = torch.argmax(torch.nn.functional.linear(
+            xb.detach().float(), m.router.weight, m.router.bias), -1)
+        return [out.detach(), aux.detach()] + grads, \
+            sown["moe_metrics"][0], choice
+
+    for cf in (1.25, 8.0):
+        torch.manual_seed(0)
+        moe = MoEMlp(96, num_experts=8, capacity_factor=cf)
+        moe.experts.init_weights(torch.Generator().manual_seed(0))
+        first, metrics, choice = run(moe, cuda_device)
+        if cf < 2:
+            second, _, _ = run(moe, cuda_device)
+            for a, b in zip(first, second):
+                assert torch.equal(a, b)
+            assert 0 < float(metrics["drop_rate"]) < 1
+            continue
+        assert float(metrics["drop_rate"]) == 0
+        cpu, _, cpu_choice = run(moe, "cpu")
+        same = (choice.cpu() == cpu_choice).reshape(-1)
+        assert same.float().mean() >= 0.999
+        got = first[0].float().cpu().reshape(-1, 96)[same]
+        want = cpu[0].float().reshape(-1, 96)[same]
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)

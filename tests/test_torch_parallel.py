@@ -529,9 +529,14 @@ def test_step_arguments_as_jax():
     with pytest.raises(ValueError, match="data-parallel only"):
         make_train_step(loss_fn, mesh=tp, grad_comm="int8",
                         rules=tsharding.TRANSFORMER_TP_RULES)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(loss_fn, mesh=tmesh.build_mesh(
-            tmesh.MeshConfig(data=1, expert=2), 2, 0, device="cpu"))
+    # expert parallelism (item 8a): an expert axis and MOE_RULES build
+    # steps; the int8 collectives replicate every parameter and refuse it
+    from deeplearning_tpu_torch.parallel.moe import MOE_RULES
+    ep = tmesh.build_mesh(tmesh.MeshConfig(data=1, expert=2), 2, 0,
+                          device="cpu")
+    make_train_step(loss_fn, mesh=ep, rules=MOE_RULES)
+    with pytest.raises(ValueError, match="data-parallel only"):
+        make_train_step(loss_fn, mesh=ep, grad_comm="int8")
     seq = tmesh.build_mesh(tmesh.MeshConfig(data=1, seq=2), 2, 0,
                            device="cpu")
     make_train_step(loss_fn, mesh=seq)       # sequence parallelism runs

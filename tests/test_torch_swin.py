@@ -172,10 +172,13 @@ def test_remat_gives_the_same_gradients():
 
 
 def test_unported_and_wrong_options_raise():
-    with pytest.raises(NotImplementedError, match="moe"):
-        TMODELS.build("swin_moe_micro_patch2_window7", num_classes=10)
-    with pytest.raises(NotImplementedError, match="moe"):
-        TMODELS.build("swin_micro_patch2_window7", moe=True)
+    # the MoE blocks are ported (item 8a): MoE in every second block
+    for model in (TMODELS.build("swin_moe_micro_patch2_window7",
+                                num_classes=10),
+                  TMODELS.build("swin_micro_patch2_window7", moe=True)):
+        assert [n for n, _ in model.named_children()
+                if hasattr(getattr(model, n), "moe_mlp")] == [
+            "stage0_block1", "stage1_block1"]
     with pytest.raises(NotImplementedError, match="v1"):
         TMODELS.build("swinv2_tiny_patch4_window7_224", use_pallas=True)
     model = TMODELS.build("swin_micro_patch2_window7", num_classes=10,
