@@ -473,7 +473,40 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    1000) logits; RepVGG's ``reparameterize`` deploy form against the train
    form's eval forward, float32 and bf16, within ``REPVGG_TOL``), and but
    for TransFG (a dict output no loss trains) one train step of batch 8
-   with a finite loss; the seconds each.
+   with a finite loss; the seconds each;
+52. MAE ViT-B/16 pretraining on K1. First K1 at MAE's attention shapes
+   against its plain version: (B, H, N, D) = (64, 12, 49, 64) (the
+   encoder's 49 kept tokens of 196), (64, 16, 196, 32) (the decoder), and
+   the task CLI's default (2, 6, 1, 64) and (2, 8, 4, 32); forward (and
+   LSE), dQ and dK/dV, bf16 and float32, one head a CTA and the flash_hb
+   block, q/k/v strided slices of one fused qkv (the tolerances of phases
+   2 and 5). Then ``mae_vit_base_patch16`` at 224², bf16, full depth (12
+   encoder, 8 decoder blocks), ``attn_fn`` flash_hb, weights from the
+   seed, a seeded batch of 64: its first loss against the same weights on
+   the naive attention with the same mask noise (``MAE_LOSS_TOL``
+   relative); 4 AdamW steps with ``mae_pretrain``'s settings (lr 1.5e-4,
+   weight decay 0.05 under ``decay_mask``) and 2 LARS steps
+   (``build_optimizer("lars", ...)``), each counted from zero: 20
+   forward, 20 dQ and 20 dK/dV launches, a finite loss; ``reconstruct``
+   once (finite, the visible patches the input's); the step profiled
+   (device ms, wall ms, images/s, K1's share) and K1 at the two
+   MAE-B/16 shapes timed by graph replay beside the plain version, SDPA
+   and the bound;
+53. the task CLI on the card: ``python -m deeplearning_tpu_torch.train.task``
+   's ``main`` for all seven tasks at the sizes of
+   tests/test_train_task_cli.py (3 steps each, ``train.device`` cuda,
+   ``model.attn`` flash_hb): exit 0 and a ``task_metric`` line each, and
+   the MAE task's K1 launches (6 heads at N = 1 in the encoder, 8 at N = 4
+   in the decoder) above 0;
+54. the 16 new factories at their sources' input sizes (U-Net, FCN,
+   DeepLabV3 and V3+ at 512², batch 4; HRNet-W18/W48 segmentation at
+   512x1024, batch 2; SSPNet one-shot at 321², batch 4; BDB at 384x128,
+   batch 32; ArcFace at 112², batch 64; SupCon-18/50 at 32², batch 256;
+   HRNet-W18/W48 keypoints at 256x192, batch 32; MADNet at 320x1216,
+   batch 1; ``mae_vit_small_patch16`` at 224², batch 64 through K1), each
+   built on the card in bf16 in train mode: one forward and one backward,
+   finite outputs and gradients, the device ms of the pair (CUDA events,
+   after one warm-up pair).
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -488,7 +521,8 @@ run, and phase 49's (the Trainer's and the served batches'). Phases 36-39 add th
 and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
 phase 38); the subprocesses' launches are not counted. Phases 40 and 42
 add the mesh runs' K1 launches, phase 44 the one-rank ring's and
-Ulysses' (the one-head-a-CTA forward, dQ and dK/dV entries).
+Ulysses' (the one-head-a-CTA forward, dQ and dK/dV entries). Phases
+52-54 add MAE's (the flash_hb entries).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -1076,9 +1110,26 @@ def main() -> int:
     phase(51, started)
     torch.cuda.empty_cache()
     _cnn_zoo(dev, args.seed, os.path.join(build_dir, "smoke_zoo"))
+    log(f"chip_smoke: phases 49-51 in {time.perf_counter() - t49:.1f}s")
+
+    # ------------- 52. MAE ViT-B/16 pretraining, every attention on K1
+    phase(52, started)
+    t52 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _mae_pretrain(fa, dev, g, args.seed))
+
+    # ---------------------------------- 53. the task CLI's seven tasks
+    phase(53, started)
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _task_cli(fa))
+
+    # ------------------ 54. the new factories at their sources' sizes
+    phase(54, started)
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _task_factories(fa, dev, args.seed))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 49-51 in {time.perf_counter() - t49:.1f}s; "
+    log(f"chip_smoke: phases 52-54 in {time.perf_counter() - t52:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -6863,6 +6914,359 @@ def _cnn_zoo(dev, seed, workdir) -> None:
         torch.cuda.empty_cache()
     log(f"phase 51 zoo: {len(times)} factories in "
         f"{sum(times.values()):.1f}s")
+
+
+# phases 52-54: MAE-B/16 pretraining on K1, the task CLI, the task families
+MAE_MODEL, MAE_SIZE, MAE_BATCH = "mae_vit_base_patch16", 224, 64
+MAE_BLOCKS = 20                   # 12 encoder + 8 decoder blocks, K1 each
+# K1's (B, H, N, D) on MAE's path: MAE-B/16's encoder (49 kept tokens of
+# 196) and decoder, and the task CLI default's (mae_vit_small_patch16 at
+# 32²: one kept token of 4, 6 heads; the decoder's 4 tokens, 8 heads)
+MAE_SHAPES = [(64, 12, 49, 64), (64, 16, 196, 32), (2, 6, 1, 64),
+              (2, 8, 4, 32)]
+# the first loss through K1 against the naive attention, same weights and
+# mask noise: bf16 through 20 blocks, as phase 6's 5e-3 through 12 with
+# the decoder's 8 more and a loss over normalised pixels
+MAE_LOSS_TOL = 2e-2
+MAE_LR, MAE_WD = 1.5e-4, 0.05     # core/experiment.py's mae_pretrain
+# tests/test_train_task_cli.py's sizes
+TASK_CLI = [
+    ("segmentation", ["model.image_size=32", "data.batch=2"]),
+    ("mae", ["model.image_size=32", "data.batch=2"]),
+    ("supcon", ["model.image_size=32", "data.batch=8"]),
+    ("metric", ["model.image_size=32", "data.batch=8",
+                "model.num_classes=4"]),
+    ("keypoints", ["model.image_size=64", "data.batch=2"]),
+    ("stereo", ["model.image_size=64"]),
+    ("stereo_online", ["model.image_size=64", "data.batch=1",
+                       "train.lr=1e-4"])]
+# each new factory at its source's input size (H, W) and batch
+TASK_FACTORIES = [
+    ("unet", (512, 512), 4), ("fcn_resnet50", (512, 512), 4),
+    ("deeplabv3_resnet50", (512, 512), 4),
+    ("deeplabv3plus_resnet50", (512, 512), 4),
+    ("hrnet_w18_seg", (512, 1024), 2), ("hrnet_w48_seg", (512, 1024), 2),
+    ("sspnet_resnet18", (321, 321), 4), ("bdb_resnet50", (384, 128), 32),
+    ("arcface_resnet18", (112, 112), 64),
+    ("supcon_resnet18", (32, 32), 256), ("supcon_resnet50", (32, 32), 256),
+    ("hrnet_w18_keypoints", (256, 192), 32),
+    ("hrnet_w48_keypoints", (256, 192), 32),
+    ("madnet", (320, 1216), 1), ("mae_vit_small_patch16", (224, 224), 64),
+    ("mae_vit_base_patch16", (224, 224), 64)]
+
+
+def _check_k1_at_mae_shapes(fa, dev, g) -> None:
+    """K1's forward (and LSE), dQ and dK/dV at MAE's shapes against the
+    plain version, bf16 and float32, one head a CTA and the flash_hb
+    block (phases 2 and 5's tolerances)."""
+    import torch
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        tag = str(dtype)[6:]
+        for b, h, n, d in MAE_SHAPES:
+            q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d, dtype,
+                                              False)
+            want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+            for hpc in sorted({1, fa._head_block(h, 4)}):
+                out, got_lse = fa._attention(q, k, v, sm_scale=None,
+                                             causal=False, heads_per_cta=hpc)
+                got = fa._attention_bwd(q, k, v, o, lse, do, sm_scale=None,
+                                        causal=False, heads_per_cta=hpc)
+                torch.cuda.synchronize()
+                err = (out.float() - o.float()).abs().max().item()
+                lse_err = (got_lse - lse).abs().max().item()
+                res = [_grad_err(x, w, tag) for x, w in zip(got, want)]
+                log(f"kernel-vs-plain MAE hpc={hpc} {tag} B={b} H={h} N={n} "
+                    f"D={d}: fwd {err:.3e} (tol {tol}) lse {lse_err:.3e}, "
+                    f"dq {res[0][0]:.3e} dk {res[1][0]:.3e} dv "
+                    f"{res[2][0]:.3e}")
+                check(err <= tol and lse_err <= 1e-3
+                      and all(ok for _, ok in res)
+                      and all(torch.isfinite(x).all().item() for x in got),
+                      f"K1 hpc={hpc} disagrees with the plain version at "
+                      f"MAE's ({b}, {h}, {n}, {d}) {tag}")
+            del q, k, v, o, lse, do, want
+    torch.cuda.empty_cache()
+
+
+def _time_k1_mae(fa, dev, g, b, h, n, d) -> None:
+    """K1 at one of MAE-B/16's shapes, bf16, fused-qkv strides: the
+    forward (both heads-per-CTA) and the dQ + dK/dV pair of the flash_hb
+    block by graph replay, beside the plain version, SDPA (forward; the
+    backward through autograd) and the bounds."""
+    import torch
+    from deeplearning_tpu_torch.ops.flash_bench import graph_ms
+    q, k, v, o, lse, do = _bwd_inputs(fa, dev, g, b, h, n, d,
+                                      torch.bfloat16, False)
+    fwd_bytes = fa.min_bytes(b, h, n, d, 2)
+    fwd_flops = fa.flops(b, h, n, d)
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S,
+                    fwd_flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    plain_ms = _time_ms(lambda: fa.flash_attention_reference(q, k, v),
+                        iters=20, warmup=3)
+    sdpa_ms = graph_ms(lambda: torch.nn.functional.
+                       scaled_dot_product_attention(q, k, v))
+    qb, kb, vb = (x.transpose(1, 2) for x in (q, k, v))
+    by = ("bytes" if fwd_bytes / HBM_BYTES_PER_S
+          >= fwd_flops / PEAK_FLOPS["bfloat16"] else "operations")
+    for name, hpc in (("flash_attn_fwd_hb", fa._head_block(h, 4)),
+                      ("flash_attn_fwd", 1)):
+        ms = graph_ms(lambda: fa.attention_bnhd(qb, kb, vb,
+                                                heads_per_cta=hpc))
+        log(f"timing MAE {name} hpc={hpc} B={b} H={h} N={n} D={d} bf16: "
+            f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
+            f"sdpa {sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x), bound "
+            f"{fwd_bound:.4f} ms ({by}; {fwd_bytes / 1e6:.2f} MB, "
+            f"{fwd_flops / 1e9:.3f} GFLOP)")
+    hpc = fa._head_block(h, 4)
+    lse2 = lse.reshape(b * h, n).contiguous()
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, n).contiguous()
+    grads = [fa._empty_bhnd(q, torch.bfloat16, True) for _ in range(3)]
+    pair_ms = graph_ms(lambda: fa._launch_bwd(
+        q, k, v, do, lse2, delta, *grads, d ** -0.5, False, hpc,
+        kernels=("dq", "dkv"), o=o))
+    plain_bwd = _time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do), iters=10, warmup=2)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), iters=20, warmup=3)
+    bwd_bytes = fa.bwd_min_bytes(b, h, n, d, 2, kernel=None)
+    bwd_flops = fa.bwd_flops(b, h, n, d, kernel=None)
+    bound = max(bwd_bytes / HBM_BYTES_PER_S,
+                bwd_flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    log(f"timing MAE backward pair dq + dkv hpc={hpc} B={b} H={h} N={n} "
+        f"D={d} bf16: kernels {pair_ms:.4f} ms (graph replay), plain "
+        f"{plain_bwd:.4f} ms, sdpa backward {sdpa_bwd:.4f} ms "
+        f"({pair_ms / sdpa_bwd:.2f}x), bound {bound:.4f} ms "
+        f"({bwd_bytes / 1e6:.2f} MB, {bwd_flops / 1e9:.3f} GFLOP)")
+    del q, k, v, o, lse, do, grads, qs, ks, vs, out
+    torch.cuda.empty_cache()
+
+
+def _mae_pretrain(fa, dev, g, seed) -> dict:
+    """Phase 52: K1 at MAE's shapes, then MAE-B/16 at 224² trained on K1
+    (module docstring). Returns the K1 launches of its steps."""
+    import torch
+    from deeplearning_tpu_torch import models  # noqa: F401
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.core.rng import root_key, step_key
+    from deeplearning_tpu_torch.ops.attention import flash_hb_adapter
+    from deeplearning_tpu_torch.train.optim import (apply_updates,
+                                                    build_optimizer)
+    from deeplearning_tpu_torch.train.profile import profile_steps
+    _check_k1_at_mae_shapes(fa, dev, g)
+
+    def build(attn_fn):
+        with torch.device(dev):
+            return MODELS.build(MAE_MODEL, attn_fn=attn_fn,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(seed))
+    t0 = time.perf_counter()
+    model = build(flash_hb_adapter).train()
+    n_tok = (MAE_SIZE // 16) ** 2
+    r = np.random.default_rng(seed + 52)
+    x = torch.from_numpy(r.normal(size=(MAE_BATCH, MAE_SIZE, MAE_SIZE, 3))
+                         .astype(np.float32)).to(dev)
+    noise = torch.from_numpy(r.uniform(size=(MAE_BATCH, n_tok)).astype(
+        np.float32)).to(dev)
+    plain = build(None).train()
+    plain.load_state_dict(model.state_dict())
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        plain_loss = float(plain(x, mask_noise=noise)[0])
+    torch.cuda.synchronize()
+    check(not any(fa.launch_counts().values()),
+          "MAE on the naive attention launches no K1 kernel")
+    del plain
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{MAE_MODEL}: {n_params / 1e6:.2f} M parameters, built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    params = dict(model.named_parameters())
+    key = root_key(seed)
+
+    def make_step(tx):
+        def step(state, batch, key):
+            opt, i = state
+            loss, _, _ = model(batch, rng=step_key(key, i, dev),
+                               mask_noise=noise if i == 0 else None)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            updates, opt = tx.update(dict(zip(params, grads)), opt, params)
+            apply_updates(params, updates)
+            return (opt, i + 1), {"loss": loss.detach()}
+        return step
+
+    want = {fa.KERNEL_NAMES[4]: MAE_BLOCKS,
+            fa.BWD_KERNEL_NAMES["dq"][4]: MAE_BLOCKS,
+            fa.BWD_KERNEL_NAMES["dkv"][4]: MAE_BLOCKS}
+    total: dict = {}
+    losses = []
+    i = 0
+    for opt_name, steps in (("adamw", 4), ("lars", 2)):
+        tx = build_optimizer(opt_name, MAE_LR, params=params,
+                             weight_decay=MAE_WD)
+        state = (tx.init(params), i)
+        step = make_step(tx)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            state, m = step(state, x, key)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in fa.launch_counts().items() if v}
+            _add(total, launched)
+            losses.append(loss)
+            log(f"MAE-B/16 {opt_name} step {i}: loss {loss:.5f}, K1 "
+                f"{json.dumps(launched)}")
+            check(np.isfinite(loss) and launched == want,
+                  f"a MAE step: a finite loss and {MAE_BLOCKS} launches of "
+                  f"each K1 kernel")
+            i += 1
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"MAE-B/16 first loss on K1 {losses[0]:.6f} vs naive attention "
+        f"{plain_loss:.6f}: relative {rel:.3e} (tol {MAE_LOSS_TOL})")
+    check(rel <= MAE_LOSS_TOL, "MAE's first loss on K1 equals the plain "
+          "route's")
+
+    keep = torch.argsort(noise[:8], dim=1)[:, :n_tok // 4]
+    rec = model.reconstruct(x[:8], mask_noise=noise[:8])
+    patches = rec.reshape(8, 14, 16, 14, 16, 3).permute(0, 1, 3, 2, 4, 5)
+    orig = x[:8].reshape(8, 14, 16, 14, 16, 3).permute(0, 1, 3, 2, 4, 5)
+    rows = torch.arange(8, device=dev)[:, None]
+    same = bool((patches.reshape(8, n_tok, -1)[rows, keep]
+                 == orig.reshape(8, n_tok, -1)[rows, keep]).all())
+    log(f"MAE-B/16 reconstruct: {tuple(rec.shape)}, finite "
+        f"{bool(torch.isfinite(rec).all())}, visible patches the input's "
+        f"{same}")
+    check(rec.shape == x[:8].shape and bool(torch.isfinite(rec).all())
+          and same, "reconstruct: finite, the visible patches kept")
+
+    tx = build_optimizer("adamw", MAE_LR, params=params, weight_decay=MAE_WD)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    prof = profile_steps(make_step(tx), (tx.init(params), i), x, key,
+                         iters=3)
+    torch.cuda.synchronize()
+    _add(total, {k: v for k, v in fa.launch_counts().items() if v})
+    k1_ms = prof["by_kind"].get("flash attention", [0.0, 0.0])
+    kinds = {k: round(v[0], 3) for k, v in prof["by_kind"].items()}
+    log(f"MAE-B/16 train step, batch {MAE_BATCH} bf16 flash_hb: device "
+        f"{prof['device_ms']:.2f} ms, wall {prof['wall_ms']:.2f} ms, "
+        f"{MAE_BATCH / prof['wall_ms'] * 1e3:.1f} images/s, idle "
+        f"{prof['idle_share']:.3f}; K1 {k1_ms[0]:.3f} ms "
+        f"({k1_ms[1]:.3f} of the device time); by kind {json.dumps(kinds)}")
+    del model, params, x
+    torch.cuda.empty_cache()
+    for b, h, n, d in MAE_SHAPES[:2]:
+        _time_k1_mae(fa, dev, g, b, h, n, d)
+    log(f"phase 52 K1 launches: {json.dumps(total)}")
+    return total
+
+
+def _task_cli(fa) -> dict:
+    """Phase 53: the task CLI's ``main`` runs every task on the card;
+    MAE's K1 launches counted from zero just before its run."""
+    import io
+    import torch
+    from deeplearning_tpu_torch.train import task as ptask
+    total: dict = {}
+    for task, overrides in TASK_CLI:
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = ptask.main(["--task", task, "train.steps=3"] + overrides)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in fa.launch_counts().items() if v}
+        lines = [ln for ln in printed.getvalue().splitlines()
+                 if ln.startswith(("task_metric", "loss "))]
+        log(f"task CLI --task {task}: rc {rc} in "
+            f"{time.perf_counter() - t0:.2f}s, {lines}, K1 "
+            f"{json.dumps(launched)}")
+        check(rc == 0 and any(ln.startswith("task_metric") for ln in lines),
+              f"the task CLI runs {task} on the card")
+        if task == "mae":      # 2 encoder + 2 decoder blocks, 3 steps
+            check(launched == {fa.KERNEL_NAMES[4]: 12,
+                               fa.BWD_KERNEL_NAMES["dq"][4]: 12,
+                               fa.BWD_KERNEL_NAMES["dkv"][4]: 12},
+                  "the MAE task's attention runs on K1")
+            _add(total, launched)
+        else:
+            check(not launched, f"{task} runs no attention")
+    return total
+
+
+def _task_factories(fa, dev, seed) -> dict:
+    """Phase 54: every new factory built on the card in bf16 at its
+    source's input size, one train-mode forward and backward (after one
+    warm-up pair), finite outputs and gradients, the pair's device ms."""
+    import torch
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch import models  # noqa: F401
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.core.rng import step_key
+    total: dict = {}
+    r = np.random.default_rng(seed + 54)
+
+    def arr(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(
+            np.float32)).to(dev)
+    for name, (h, w), b in TASK_FACTORIES:
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            model = MODELS.build(name, generator=torch.Generator(
+                device=dev).manual_seed(seed), **hub.model_kwargs(
+                    name, "flash_hb", h if name.startswith("mae") else None))
+        model.train()
+        if name == "sspnet_resnet18":
+            inputs = (arr(b, 1, h, w, 3),
+                      (arr(b, 1, h, w) > 0).float(), arr(b, h, w, 3))
+        elif name == "madnet":
+            left = arr(b, h, w, 3)
+            inputs = (left, torch.roll(left, -3, dims=2))
+        else:
+            inputs = (arr(b, h, w, 3),)
+
+        def pair(i):
+            out = model(*inputs, rng=step_key(seed, i, dev))
+            if isinstance(out, dict):
+                out = [v for v in out.values() if torch.is_tensor(v)] + \
+                    list(out.get("pyramid", []))
+            elif not isinstance(out, (tuple, list)):
+                out = [out]
+            out = [o for o in out if o.is_floating_point()]
+            loss = sum(o.float().mean() for o in out)
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+            return out, loss
+        pair(0)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, loss = pair(1)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in fa.launch_counts().items() if v}
+        _add(total, launched)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        finite = (all(bool(torch.isfinite(o).all()) for o in out)
+                  and all(bool(torch.isfinite(g_).all()) for g_ in grads))
+        n = sum(p.numel() for p in model.parameters())
+        log(f"{name} at {h}x{w}, batch {b}, bf16: {n / 1e6:.2f} M "
+            f"parameters, outputs {[tuple(o.shape) for o in out[:3]]}, "
+            f"forward + backward {start.elapsed_time(end):.2f} ms (CUDA "
+            f"events), finite {finite}, K1 {json.dumps(launched)}; "
+            f"{time.perf_counter() - t0:.2f}s")
+        check(finite and grads and np.isfinite(float(loss.detach())),
+              f"{name}: finite outputs and gradients")
+        if name.startswith("mae"):
+            check(launched.get(fa.KERNEL_NAMES[4], 0) > 0,
+                  f"{name} attends on K1")
+        del model, inputs, out, loss, grads
+        torch.cuda.empty_cache()
+    return total
 
 
 PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank,

@@ -6,8 +6,9 @@ samplers (copies of the JAX package's), mixup / cutmix on tensors and
 the detection mosaic (``mixup``), class-folder datasets (``datasets``),
 the zip source and memmap cache (``zip_cache``), the native libjpeg
 decode (``native_decode``), the folder loaders (``build``), the
-COCO detection source with its mosaic mode (``coco``) and the
-annotation converters (``label_convert``).
+COCO detection source with its mosaic mode (``coco``), the
+annotation converters (``label_convert``) and the pose crops
+(``keypoint_transforms``, a copy of the JAX package's).
 """
 
 from .device_prefetch import DevicePrefetcher

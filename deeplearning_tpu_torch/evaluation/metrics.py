@@ -3,18 +3,21 @@
 rates, stay on the device: the caller divides by the number of examples
 once, on the host), and the host-side precision helpers of detection,
 ``interp_precision_at_recall`` (COCO's interpolated precision, which
-``coco_eval`` accumulates with) and ``precision_recall_curve`` (numpy).
-The confusion-matrix and dice helpers come with the segmentation slice.
+``coco_eval`` accumulates with) and ``precision_recall_curve`` (numpy);
+and segmentation's (JAX ``evaluation/metrics.py:36-68``):
+``confusion_matrix`` (counts on the device), ``miou_from_confusion``
+(numpy, host-side) and ``dice_counts``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["topk_correct", "interp_precision_at_recall",
+__all__ = ["topk_correct", "confusion_matrix", "miou_from_confusion",
+           "dice_counts", "interp_precision_at_recall",
            "precision_recall_curve"]
 
 
@@ -32,6 +35,40 @@ def topk_correct(logits: torch.Tensor, labels: torch.Tensor,
     out["count"] = torch.tensor(labels.shape[0], dtype=torch.int32,
                                 device=logits.device)
     return out
+
+
+def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """(C, C) int64 counts, rows = truth, columns = prediction; labels < 0
+    or >= C are ignored (FCN ConfusionMatrix.update)."""
+    valid = (labels >= 0) & (labels < num_classes)
+    idx = labels.long() * num_classes + preds.long()
+    idx = torch.where(valid.reshape(idx.shape), idx,
+                      torch.full_like(idx, num_classes * num_classes))
+    counts = torch.bincount(idx.reshape(-1),
+                            minlength=num_classes * num_classes + 1)
+    return counts[:-1].reshape(num_classes, num_classes)
+
+
+def miou_from_confusion(mat) -> Dict[str, np.ndarray]:
+    """Global accuracy, per-class accuracy and IoU, and mean IoU of a
+    confusion matrix (FCN distributed_utils.py compute)."""
+    mat = np.asarray(mat.cpu() if isinstance(mat, torch.Tensor) else mat,
+                     np.float64)
+    diag = np.diag(mat)
+    global_acc = diag.sum() / np.maximum(mat.sum(), 1)
+    class_acc = diag / np.maximum(mat.sum(1), 1)
+    union = mat.sum(1) + mat.sum(0) - diag
+    iou = diag / np.maximum(union, 1)
+    return {"global_acc": global_acc, "class_acc": class_acc,
+            "iou": iou, "miou": iou.mean()}
+
+
+def dice_counts(probs: torch.Tensor, onehot: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Numerator and denominator sums of a dataset-level dice score."""
+    inter = torch.sum(probs * onehot)
+    return 2 * inter, torch.sum(probs) + torch.sum(onehot)
 
 
 def interp_precision_at_recall(precision: np.ndarray, recall: np.ndarray,

@@ -41,16 +41,19 @@ def list_models(filter: str = "") -> list:
 # the families whose parameter shapes follow the input size (a position
 # table, a Dense after a flatten, Swin's windows): their factories take
 # ``img_size``, where flax infers the shapes at init
-_SIZED = ("vit_", "swin", "mnist_", "vgg", "googlenet", "transfg")
+_SIZED = ("vit_", "mae_", "swin", "mnist_", "vgg", "googlenet",
+          "transfg")
 
 
 def model_kwargs(name: str, attn: str = "flash_hb",
                  size: Optional[int] = None) -> Dict[str, Any]:
     """The factory keywords behind a CLI's ``--attn`` and ``--size`` for
-    registry model ``name``. A ViT takes ``attn_fn`` (``ops.attention``'s
+    registry model ``name``. A ViT and the MAE factories
+    (``mae_vit_base_patch16``, ``mae_vit_small_patch16``, whose encoder and
+    decoder blocks are ViT blocks) take ``attn_fn`` (``ops.attention``'s
     names). A Swin model takes ``use_pallas``: "naive" runs the unfused
     window attention, any flash name the fused window-attention kernel;
-    "sdpa" raises. They, LeNet, VGG, GoogLeNet and TransFG take
+    "sdpa" raises. They, MAE, LeNet, VGG, GoogLeNet and TransFG take
     ``img_size`` when ``size`` is given. The other CNNs (CoAtNet and
     TransFG attend plainly, as in JAX) and the detectors take neither:
     their shapes do not follow the input size."""
@@ -62,7 +65,7 @@ def model_kwargs(name: str, attn: str = "flash_hb",
     kw: Dict[str, Any] = ({"img_size": int(size)}
                           if size is not None and name.startswith(_SIZED)
                           else {})
-    if name.startswith("vit_"):
+    if name.startswith(("vit_", "mae_")):
         kw["attn_fn"] = fn
     elif name.startswith("swin"):
         if fn is sdpa_adapter:

@@ -8,8 +8,10 @@ classification loss and metric functions (``classification``),
 (``python -m deeplearning_tpu_torch.train.bench``) and profiler
 (``train.profile``), divergence rollback (``recovery``) and the LR range
 test (``lr_finder``), the detection CLI
-(``python -m deeplearning_tpu_torch.train.detection``) and hyperparameter
-evolution (``evolve``).
+(``python -m deeplearning_tpu_torch.train.detection``), hyperparameter
+evolution (``evolve``) and the task CLI of the segmentation, SSL,
+metric-learning, pose and stereo families
+(``python -m deeplearning_tpu_torch.train.task``).
 """
 
 from .recovery import RecoveryExhausted, RecoveryManager, RecoveryPolicy

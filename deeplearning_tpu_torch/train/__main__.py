@@ -292,7 +292,7 @@ def build(cfg: Config, **trainer_kw: Any):
         raise ValueError(
             f"model.name={cfg.model.name!r} is not in the port yet (the "
             f"zoo_extra families, Xception to SENet-154, are ROADMAP Queue "
-            f"1 item 8b); it has {', '.join(MODELS.keys())}")
+            f"1 item 8b2); it has {', '.join(MODELS.keys())}")
     mesh = None
     if uses_mesh(cfg):
         from ..parallel.mesh import (MeshConfig, build_mesh,

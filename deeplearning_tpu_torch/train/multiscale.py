@@ -12,7 +12,8 @@ the separable triangle kernel that ``jax.image.resize(..., "bilinear")``
 computes (``jax.image.scale_and_translate``): half-pixel centres, the
 kernel widened by the downscale factor (antialiasing), weights
 normalised over the input pixels they reach; each axis is one matmul
-with its weight matrix. ``F.interpolate``'s antialiased bilinear differs
+with its weight matrix (``ops/resize.triangle_weights``, the one copy
+of those weights). ``F.interpolate``'s antialiased bilinear differs
 from it by up to ~3e-5 on [0, 1] images at these ratios; this differs by
 the order of float32 sums only. The box coordinates scale by the same
 ratios.
@@ -24,6 +25,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.resize import triangle_weights
 
 __all__ = ["YOLOX_SIZES", "MultiScaleSchedule", "resize_detection_batch",
            "make_multiscale_step"]
@@ -58,26 +61,6 @@ class MultiScaleSchedule:
             step += 1
 
 
-def _weight_mat(n_in: int, n_out: int, device: torch.device
-                ) -> torch.Tensor:
-    """(n_in, n_out) float32 weights of jax.image's triangle kernel."""
-    inv_scale = float(np.float32(1.0 / (n_out / n_in)))
-    kernel_scale = max(inv_scale, 1.0)      # widened only to downscale
-    # (i + 0.5)·inv − 0.5 rounded once, as XLA's fused multiply-add does
-    # it: a sample near 640 moves by its float32 ulp (6e-5) otherwise
-    sample_f = ((torch.arange(n_out, dtype=torch.float64, device=device)
-                 + 0.5) * inv_scale - 0.5).float()
-    src = torch.arange(n_in, dtype=torch.float32, device=device)
-    x = torch.abs(sample_f[None, :] - src[:, None]) / kernel_scale
-    weights = torch.clamp(1.0 - x, min=0.0)
-    total = weights.sum(dim=0, keepdim=True)
-    eps = 1000.0 * float(np.finfo(np.float32).eps)
-    weights = torch.where(torch.abs(total) > eps,
-                          weights / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return torch.where(inside[None, :], weights, 0.0)
-
-
 def _resize_images(images: torch.Tensor, hw: Tuple[int, int]
                    ) -> torch.Tensor:
     """(B, H, W, C) float images to (B, h, w, C), on their device."""
@@ -85,10 +68,10 @@ def _resize_images(images: torch.Tensor, hw: Tuple[int, int]
     out = images
     if h != hw[0]:
         out = torch.einsum("bhwc,hk->bkwc", out,
-                           _weight_mat(h, hw[0], images.device))
+                           triangle_weights(h, hw[0], images.device))
     if w != hw[1]:
         out = torch.einsum("bhwc,wk->bhkc", out,
-                           _weight_mat(w, hw[1], images.device))
+                           triangle_weights(w, hw[1], images.device))
     return out.contiguous()
 
 

@@ -13,8 +13,9 @@ dicts named after optax's fields (``count``, ``mu``, ``nu``, ``trace``,
 
 Updates run under ``torch.no_grad`` with ``torch._foreach_*`` ops (a few
 multi-tensor launches per transform, no host sync: counts are host
-integers and learning rates host floats). ``lars`` (MAE pretraining)
-comes with the slice that trains MAE.
+integers and learning rates host floats). ``lars`` (MAE pretraining) is
+optax.lars: decoupled weight decay under ``decay_mask``, the layer-wise
+trust ratio, the learning rate, then momentum.
 
 Masks are judged on the flax path of each parameter
 (``utils/convert.flax_path``: ``blocks.0.attn.qkv.weight`` ->
@@ -36,10 +37,11 @@ from ..utils.convert import flax_path
 
 __all__ = ["GradientTransformation", "chain", "scale_by_adam",
            "add_decayed_weights", "masked", "set_to_zero", "trace",
-           "scale_by_learning_rate", "clip_by_global_norm",
+           "scale_by_learning_rate", "scale_by_trust_ratio",
+           "clip_by_global_norm",
            "global_norm_over",
            "NO_DECAY_PATTERNS", "decay_mask", "freeze_mask", "sgd", "adam",
-           "adamw", "build_optimizer", "apply_updates"]
+           "adamw", "lars", "build_optimizer", "apply_updates"]
 
 Tree = Dict[str, torch.Tensor]
 Schedule = Union[float, Callable[[int], float]]
@@ -107,10 +109,13 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def masked(inner: GradientTransformation,
-           mask: Dict[str, bool]) -> GradientTransformation:
+           mask: Union[Dict[str, bool], bool]) -> GradientTransformation:
     """optax.masked: ``inner`` sees only the leaves where ``mask`` is
-    True; the others pass through unchanged."""
+    True (``mask=True``: every leaf); the others pass through
+    unchanged."""
     def pick(tree):
+        if mask is True:
+            return dict(tree)
         return {n: x for n, x in tree.items() if mask[n]}
 
     def init(params):
@@ -125,7 +130,7 @@ def masked(inner: GradientTransformation,
 
 
 def add_decayed_weights(weight_decay: float,
-                        mask: Optional[Dict[str, bool]] = None
+                        mask: Union[Dict[str, bool], bool, None] = None
                         ) -> GradientTransformation:
     """optax.add_decayed_weights: update + weight_decay * param."""
     def init(params):
@@ -192,6 +197,29 @@ def scale_by_learning_rate(learning_rate: Schedule) -> GradientTransformation:
         out = torch._foreach_mul(_lists(updates, names), step)
         return dict(zip(names, out)), {"count": state["count"] + 1}
     return GradientTransformation(init, update)
+
+
+def scale_by_trust_ratio(trust_coefficient: float = 1.0,
+                         eps: float = 0.0) -> GradientTransformation:
+    """optax.scale_by_trust_ratio: each leaf's update times
+    trust_coefficient · ||param|| / (||update|| + eps), or times 1 where
+    either norm is 0."""
+    @torch.no_grad()
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_trust_ratio needs the params")
+        names = list(updates)
+        u = _lists(updates, names)
+        p_norm = torch._foreach_norm(_lists(params, names))
+        u_norm = torch._foreach_norm(u)
+        out = []
+        for x, pn, un in zip(u, p_norm, u_norm):
+            ratio = trust_coefficient * pn / (un + eps)
+            ratio = torch.where((pn == 0) | (un == 0),
+                                torch.ones_like(ratio), ratio)
+            out.append(x * ratio)
+        return dict(zip(names, out)), state
+    return GradientTransformation(lambda params: {}, update)
 
 
 # the norm of the whole gradient when each rank holds slices of it: a
@@ -295,6 +323,21 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.999,
                  scale_by_learning_rate(schedule))
 
 
+@OPTIMIZERS.register("lars")
+def lars(schedule, momentum: float = 0.9, weight_decay: float = 0.0,
+         trust_coefficient: float = 0.001, params: Optional[Tree] = None,
+         **_):
+    """LARS for large-batch SSL pretraining (MAE's LARS.py LARC), as
+    optax.lars: decayed weights where ``decay_mask`` holds (every leaf
+    when ``params`` is not given), the trust ratio on every leaf, the
+    learning rate, then momentum (``trace``) on the scaled updates."""
+    return chain(add_decayed_weights(weight_decay,
+                                     decay_mask(params)
+                                     if params is not None else True),
+                 masked(scale_by_trust_ratio(trust_coefficient), True),
+                 scale_by_learning_rate(schedule), trace(momentum))
+
+
 def build_optimizer(name: str, schedule: Schedule,
                     clip_grad_norm: Optional[float] = None,
                     params: Optional[Tree] = None,
@@ -304,9 +347,6 @@ def build_optimizer(name: str, schedule: Schedule,
     optional freezing: frozen gradients are zeroed BEFORE the clip (they
     must not shrink everyone else's clip budget) and the final updates
     AFTER the optimizer (decoupled weight decay would still move them)."""
-    if name == "lars":
-        raise NotImplementedError(
-            "lars comes with the MAE training slice (ROADMAP Queue 1)")
     tx = OPTIMIZERS.build(name, schedule, params=params, **kwargs)
     if clip_grad_norm and clip_grad_norm > 0:
         tx = chain(clip_by_global_norm(clip_grad_norm), tx)

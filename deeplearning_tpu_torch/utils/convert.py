@@ -11,15 +11,26 @@ Rules, per leaf of a tree of numpy arrays (flax names → port names):
   a depthwise or grouped kernel (kh, kw, cin / groups, cout) takes the
   same transpose, to the (cout, cin / groups, kh, kw) of its grouped
   ``Conv2d``;
-- LayerNorm / BatchNorm ``scale`` → ``weight``; ``bias``, ``cls_token``,
-  ``pos_embed``, ConvNeXt's layer-scale ``gamma`` and the MoE experts'
+  a dilated kernel (ASPP's) the same transpose (the dilation lives in
+  the module, not the weight); MAE's conv ``patch_embed`` kernel (p, p,
+  c, embed) goes to its 2-D linear ``weight`` (embed, p·p·c), as a patch
+  ``proj``; U-Net's ``ConvTranspose`` kernel is kept as a ``Conv2d``
+  weight (OIHW) and run flipped by the module;
+- LayerNorm / BatchNorm ``scale`` → ``weight`` (HRNet's ``ConvBN`` and
+  the FCN's ``aux_head`` are plain conv + BatchNorm pairs); ``bias``,
+  ``cls_token``, ``pos_embed``, MAE's ``enc_pos`` / ``dec_pos`` (1, N, d)
+  and ``mask_token`` (1, 1, d), ArcFace's ``arcface_centers`` (D, C),
+  ConvNeXt's layer-scale ``gamma`` and the MoE experts'
   batched ``fc1_kernel`` (E, d, h) / ``fc2_kernel`` / biases keep their
   names and shapes (the port's ``ExpertMlp`` keeps JAX's layout, so
   ``MOE_RULES`` split their dim 0 as JAX's do);
 - the ``batch_stats`` collection, beside ``params``: BatchNorm ``mean`` →
-  ``running_mean``, ``var`` → ``running_var``. The port's
-  ``num_batches_tracked`` has no flax counterpart; a strict
-  ``load_state_dict`` fills it in by itself.
+  ``running_mean``, ``var`` → ``running_var`` (also the 1-D BatchNorms
+  over embeddings of BDB and ArcFace, which the port runs as 2-D ones).
+  The port's ``num_batches_tracked`` has no flax counterpart; a strict
+  ``load_state_dict`` fills it in by itself;
+- a module list named as flax names ``name_k`` (HRNet's
+  ``down{j}to{i}_{k}``) is ``name.k``.
 
 ``load_npz`` reads a flattened ``.npz`` of such a tree (keys joined by
 ``/``, with or without the leading ``params``; a ``batch_stats/...`` key

@@ -936,8 +936,15 @@ def test_experiments_equal_jax():
     model = texp.get_exp(exp_name="yolox_nano").merge(
         ["num_classes=3"]).get_model()
     assert isinstance(model, tyolox.YOLOX)
-    with pytest.raises(KeyError):          # not ported yet: the registry
-        texp.get_exp(exp_name="mae_pretrain").get_model()
+    # MAE-B/16's widths on the meta device (no initialisation to pay for)
+    with torch.device("meta"):
+        mae = texp.get_exp(exp_name="mae_pretrain").get_model()
+    from deeplearning_tpu_torch.models.ssl.mae import MAE
+    assert isinstance(mae, MAE) and mae.enc_pos.shape == (1, 196, 768)
+    assert (mae.depth, mae.decoder_depth) == (12, 8)
+    assert mae.dec_pos.shape == (1, 196, 512)
+    assert mae.enc_block0.attn.num_heads == 12
+    assert mae.dec_block0.attn.num_heads == 16
 
 
 # ---------------------------------------------------------- COCO data

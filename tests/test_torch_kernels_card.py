@@ -1348,3 +1348,92 @@ def test_moe_layer_on_the_card_is_deterministic(cuda_device):
         got = first[0].float().cpu().reshape(-1, 96)[same]
         want = cpu[0].float().reshape(-1, 96)[same]
         torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+# MAE's attention shapes (B, H, N, D): MAE-B/16 at 224² (the encoder's 49
+# kept tokens of 196, 12 heads of 64; the decoder's 196 tokens, 16 heads of
+# 32) and the task CLI's default mae_vit_small_patch16 at 32² (one kept
+# token of 4, 6 heads; the decoder's 4 tokens, 8 heads of 32)
+MAE_SHAPES = [(64, 12, 49, 64), (64, 16, 196, 32), (2, 6, 1, 64),
+              (2, 8, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hpc", [1, 2, 4])
+@pytest.mark.parametrize("shape", MAE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in MAE_SHAPES])
+def test_k1_at_mae_shapes_matches_plain(cuda_device, shape, hpc, dtype):
+    """K1 forward, dQ and dK/dV at MAE's shapes, q, k, v strided views of
+    one fused qkv as MAE's blocks hand them over, at every heads-per-CTA
+    that divides H: one launch of each kernel, the output and the qkv
+    gradient against the plain version (bf16 norm-relative 1e-2, float32
+    max-abs 1e-4)."""
+    b, h, n, d = shape
+    if h % hpc:
+        pytest.skip(f"{hpc} heads a CTA do not divide H = {h}")
+    g = torch.Generator(device=cuda_device).manual_seed(b * h + n + d)
+    qkv = torch.randn(b, n, 3, h, d, device=cuda_device,
+                      generator=g).to(dtype).requires_grad_()
+    dout = torch.randn(b, n, h, d, device=cuda_device, generator=g).to(dtype)
+    before = fa.launch_counts()
+    out = fa.attention_bnhd(*qkv.unbind(2), heads_per_cta=hpc)
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    names = [fa.KERNEL_NAMES[hpc], fa.BWD_KERNEL_NAMES["dq"][hpc],
+             fa.BWD_KERNEL_NAMES["dkv"][hpc]]
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == dict.fromkeys(names, 1)
+    ref_in = qkv.detach().float().requires_grad_()
+    ref = fa.flash_attention_reference(
+        *(x.transpose(1, 2) for x in ref_in.unbind(2)))[0].transpose(1, 2)
+    (want,) = torch.autograd.grad(ref, ref_in, dout.float())
+    for got, w in ((out, ref), (grad, want)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        if dtype == torch.bfloat16:
+            assert _close(got, w)
+        else:
+            torch.testing.assert_close(got, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["flash", "flash_hb"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_mae_base_on_k1_matches_its_plain_route(cuda_device, attn, dtype,
+                                                tol):
+    """MAE-B/16 at 224², full depth, batch 4: its loss and its gradient's
+    norm through K1 against the same model on the naive attention, the
+    same weights and mask noise (relative ``tol``); 20 launches of each
+    kernel a step (12 encoder and 8 decoder blocks)."""
+    from deeplearning_tpu_torch import models  # noqa: F401
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    x = torch.randn(4, 224, 224, 3, device=cuda_device, generator=g)
+    noise = torch.rand(4, 196, device=cuda_device, generator=g)
+    results = []
+    for fn in (get_attn_fn(attn), None):
+        with torch.device(cuda_device):
+            model = MODELS.build("mae_vit_base_patch16", dtype=dtype,
+                                 attn_fn=fn, generator=torch.Generator(
+                                     device=cuda_device).manual_seed(0))
+        before = fa.launch_counts()
+        loss, _, _ = model.train()(x, mask_noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in fa.launch_counts().items()
+                    if v != before[k]}
+        norm = torch.sqrt(sum(p.grad.float().square().sum()
+                              for p in model.parameters()))
+        results.append((loss.item(), norm.item(), launched))
+    (lk, nk, launched), (lp, np_, none) = results
+    hpc = fa._head_block(12, 4) if attn == "flash_hb" else 1
+    assert none == {} and launched == {
+        fa.KERNEL_NAMES[hpc]: 20, fa.BWD_KERNEL_NAMES["dq"][hpc]: 20,
+        fa.BWD_KERNEL_NAMES["dkv"][hpc]: 20}
+    assert math.isfinite(lk) and abs(lk - lp) <= tol * abs(lp)
+    # the gradient norm within 5e-2 in bf16 (the training phases' bound
+    # through 12 layers), within tol in float32
+    assert abs(nk - np_) <= (5e-2 if dtype == torch.bfloat16 else tol) * np_
