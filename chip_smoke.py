@@ -205,7 +205,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    step 5 with every tensor of the state bit-equal, then trains to the
    end;
 25. async checkpoints: the same 8 steps with ``async_checkpoint`` on and
-   off, in turns, 3 runs each: the seconds the loop blocks in ``save``,
+   off, in turns, 2 runs each: the seconds the loop blocks in ``save``,
    the step time of epoch 1 (beside the async write of epoch 0's
    checkpoint); every written step verifies and restores bit-equal to the
    state at its own step, though the parameters were updated in place
@@ -506,7 +506,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    batch 1; ``mae_vit_small_patch16`` at 224², batch 64 through K1), each
    built on the card in bf16 in train mode: one forward and one backward,
    finite outputs and gradients, the device ms of the pair (CUDA events,
-   after one warm-up pair).
+   after one warm-up pair);
+55. the seven Happy-Whale backbones (``xception``, ``inception_v4``,
+   ``dpn68``, ``dpn92``, ``nasnet_a_mobile``, ``polynet``, ``senet154``)
+   at full width and depth, built on the card in bf16: one eval forward
+   at 224², batch 2 (finite (2, 1000) logits), and one train step at
+   batch 8 (a finite loss), with the seconds and the peak device memory
+   of each; the six ``configs/{dpn92,inception_v4,nasnet_a_mobile,
+   polynet,senet154,xception}.yaml`` through the train CLI's ``build`` at
+   their 64², two steps each and the eval; and the mask crop end to end:
+   a seeded U-Net writes masks for 8 seeded 320x256 images at 256²,
+   ``mask_crop_source`` crops them to 112², ``arcface_resnet18`` embeds
+   the crops (finite embeddings);
+56. configs/vit_b16_imagenet.yaml (ViT-B/16 at full width, batch 32, 8
+   steps an epoch, one epoch) through the train CLI's ``build``: one step
+   in this process, K1 counted from zero just before and read just after
+   (12 forward, 12 dQ, 12 dK/dV of flash_hb); then ``python -m
+   deeplearning_tpu_torch.supervise`` around ``python -m
+   deeplearning_tpu_torch.train`` on that config in a process of its own,
+   with ``DLTPU_FAULTS`` preempting attempt 0 at step 3 and wedging
+   attempt 1 at step 5: exit 0; the supervisor's decision log
+   (``flightrec_supervisor.json``) shows preempted, wedged, completed;
+   every resume starts from a checkpoint its CRCs verify; the wedge kill
+   comes within the deadline and a few polls of the heartbeat's last
+   movement; the supervisor's pid never appears among nvidia-smi's
+   compute apps, each child's does. The wall split per attempt (child
+   start, steps, wedge detection or exit) and the backoff are printed.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -522,7 +547,8 @@ and 384², TTA's, the stdin CLI's; K2 at 384²; K3 in the two evaluations of
 phase 38); the subprocesses' launches are not counted. Phases 40 and 42
 add the mesh runs' K1 launches, phase 44 the one-rank ring's and
 Ulysses' (the one-head-a-CTA forward, dQ and dK/dV entries). Phases
-52-54 add MAE's (the flash_hb entries).
+52-54 add MAE's (the flash_hb entries), and phase 56 its in-process CLI
+step's (the supervised children's launches are not counted).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -535,6 +561,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1072,26 +1099,34 @@ def main() -> int:
                              "build")
     phase(45, started)
     torch.cuda.empty_cache()
+    # phase 46's ranks start now: their start-up overlaps phase 45
+    pipe_ranks = _par_start(46, args.seed, os.path.join(build_dir,
+                                                        "smoke_pipe"))
     _seq_two_ranks(args.seed, dev, os.path.join(build_dir, "smoke_seq"))
 
     # ---------- 46. two ranks on the one card: the GPipe pipeline, S = 2
     phase(46, started)
     torch.cuda.empty_cache()
     _pipeline_two_ranks(args.seed, dev, os.path.join(build_dir,
-                                                     "smoke_pipe"))
+                                                     "smoke_pipe"),
+                        started=pipe_ranks)
     log(f"chip_smoke: phases 44-46 in {time.perf_counter() - t44:.1f}s")
 
     # ---------- 47. two ranks on the one card: tensor parallel, model = 2
     phase(47, started)
     t47 = time.perf_counter()
     torch.cuda.empty_cache()
+    # phase 48's ranks start now: their start-up overlaps phase 47
+    tp_seq_ranks = _par_start(48, args.seed, os.path.join(
+        build_dir, "smoke_tp_seq"), TP_SEQ_RANKS)
     _tp_two_ranks(args.seed, dev, os.path.join(build_dir, "smoke_tp"))
 
     # ------------ 48. four ranks on the one card: model 2 x seq 2, ring
     phase(48, started)
     torch.cuda.empty_cache()
     _tp_seq_four_ranks(args.seed, dev, os.path.join(build_dir,
-                                                    "smoke_tp_seq"))
+                                                    "smoke_tp_seq"),
+                       started=tp_seq_ranks)
     log(f"chip_smoke: phases 47-48 in {time.perf_counter() - t47:.1f}s")
 
     # ---- 49. Swin-MoE-T trained through the train CLI, then served (K2)
@@ -1127,10 +1162,25 @@ def main() -> int:
     phase(54, started)
     torch.cuda.empty_cache()
     _add_launches(kernels, _task_factories(fa, dev, args.seed))
+    log(f"chip_smoke: phases 52-54 in {time.perf_counter() - t52:.1f}s")
+
+    # ---------- 55. the Happy-Whale backbones, their configs, the mask crop
+    phase(55, started)
+    t55 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _zoo_extra(dev, args.seed, os.path.join(build_dir, "smoke_zoo_extra"))
+
+    # -------- 56. the supervise CLI around the train CLI's ViT-B/16 on K1
+    phase(56, started)
+    t56 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _supervised_vit(
+        fa, dev, args.seed, os.path.join(build_dir, "smoke_supervise")))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 52-54 in {time.perf_counter() - t52:.1f}s; "
-        f"all in {time.perf_counter() - started:.1f}s")
+    log(f"chip_smoke: phase 55 in {t56 - t55:.1f}s, phase 56 in "
+        f"{time.perf_counter() - t56:.1f}s; all in "
+        f"{time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2846,11 +2896,11 @@ def _measure_trainer(seed, bare_ms) -> None:
     """Phase 21: the Trainer's step with the feed on (prefetch 2: pinned
     staging, side-stream copies) and off (prefetch 0: the loader copies
     on the loop's thread), epochs of ``MEASURE_STEPS`` steps, in turns
-    (0, 2, 2, 0) twice on one state. The step is the steady one: CUDA
+    (0, 2, 2, 0) on one state. The step is the steady one: CUDA
     events on the loop's stream before step ``STEADY_FROM`` and after the
     last step, so the feed's start-up and the epoch-end drain stay out;
     the epoch's wall less its steps is reported apart as the epoch
-    overhead. Per route: the steady step (median over the four runs),
+    overhead. Per route: the steady step (median over the two runs),
     images/s, the share of the steady window's host time spent waiting
     for batches (the Trainer's ``data_wait`` spans), the device time a
     step from one profiled epoch (kernels only; copies apart) and the
@@ -2910,7 +2960,7 @@ def _measure_trainer(seed, bare_ms) -> None:
     epoch(on)                                  # warm both routes
     epoch(off)
     rows = {name: {"walls": [], "steps": [], "waits": []} for name in routes}
-    for name in ("prefetch=0", "prefetch=2", "prefetch=2", "prefetch=0") * 2:
+    for name in ("prefetch=0", "prefetch=2", "prefetch=2", "prefetch=0"):
         wall, step, wait = epoch(routes[name])
         rows[name]["walls"].append(wall)
         rows[name]["steps"].append(step)
@@ -2961,7 +3011,7 @@ def _measure_trainer(seed, bare_ms) -> None:
 # ------------------------ phases 22-26: the robust half of the Trainer
 FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_SIZE = 1024, 8, 256
 JPEG_IMAGES = 64
-ASYNC_RUNS = (True, False, False, True, True, False)   # in turns, 3 each
+ASYNC_RUNS = (True, False, False, True)   # in turns, 2 each
 
 
 def _swin_cfg(workdir=None, steps=TRAINER_STEPS, **train):
@@ -3201,7 +3251,7 @@ def _preempt_swin(wa, seed, workdir) -> int:
 
 def _async_checkpoints(wa, dev, seed, workdir) -> int:
     """Phase 25: the same 8 Swin-T steps (2 epochs of 4, a checkpoint at
-    each epoch's end) with ``async_checkpoint`` on and off, in turns, 3
+    each epoch's end) with ``async_checkpoint`` on and off, in turns, 2
     runs each, on one state. Per run: the seconds the loop blocks in
     ``save`` and in the Trainer's final ``wait_until_finished`` (which
     joins the last async write), the step time of epoch 1 (CUDA events;
@@ -5670,19 +5720,34 @@ def _seq_one_rank(fa, dev, g, mesh) -> dict:
     return launched
 
 
-def _par_spawn(phase_n, seed, workdir, ranks=MESH_RANKS) -> tuple:
-    """``ranks`` processes of this script on cuda:0, ranks of a gloo group
-    (``--par-phase``); returns (their rank<r>.json, the seconds taken)."""
+def _par_start(phase_n, seed, workdir, ranks=MESH_RANKS) -> dict:
+    """Start ``ranks`` processes of this script on cuda:0, ranks of a gloo
+    group (``--par-phase``). A phase may start the next phase's ranks
+    beside its own work, so their start-up (imports, CUDA, the model build)
+    overlaps it; their results are parity and layout, not timings. Any
+    still running when this process exits are killed."""
+    import atexit
     import shutil
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
          "--par-phase", str(phase_n), "--mesh-rank", str(r),
          "--mesh-dir", workdir],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(ranks)]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"phase": phase_n, "procs": procs, "workdir": workdir,
+            "ranks": ranks, "t0": time.perf_counter()}
+
+
+def _par_spawn(phase_n, seed, workdir, ranks=MESH_RANKS,
+               started=None) -> tuple:
+    """The ranks of ``_par_start`` (or those ``started`` earlier), waited
+    for; returns (their rank<r>.json, the seconds from their start)."""
+    import shutil
+    run = started or _par_start(phase_n, seed, workdir, ranks)
+    procs, t0 = run["procs"], run["t0"]
     logs = []
     try:
         for p in procs:
@@ -5698,10 +5763,10 @@ def _par_spawn(phase_n, seed, workdir, ranks=MESH_RANKS) -> tuple:
             log(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
         check(p.returncode == 0, f"phase {phase_n} rank {r} ran")
     outs = []
-    for r in range(ranks):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+    for r in range(run["ranks"]):
+        with open(os.path.join(run["workdir"], f"rank{r}.json")) as f:
             outs.append(json.load(f))
-    shutil.rmtree(workdir, ignore_errors=True)
+    shutil.rmtree(run["workdir"], ignore_errors=True)
     return outs, wall
 
 
@@ -5975,14 +6040,15 @@ def _pp_rank(rank: int, workdir: str, seed: int) -> int:
     return _par_done(rank, workdir, out)
 
 
-def _pipeline_two_ranks(seed, dev, workdir) -> None:
+def _pipeline_two_ranks(seed, dev, workdir, started=None) -> None:
     """Phase 46: the sequential steps on the same weights and batch here,
-    then two processes on cuda:0 over gloo."""
+    then two processes on cuda:0 over gloo (``started`` beside phase
+    45)."""
     import torch
     batch = {k: v[:PP_BATCH] for k, v in _train_batch(seed, dev).items()}
     ref = _plain_steps(seed, dev, batch, PP_STEPS)
     del batch
-    outs, wall = _par_spawn(46, seed, workdir)
+    outs, wall = _par_spawn(46, seed, workdir, started=started)
     ticks = PP_STAGES + PP_MICRO - 1
     for o in outs:
         want = ticks * o["k_per"]
@@ -6380,13 +6446,15 @@ def _tp_seq_rank(rank: int, workdir: str, seed: int) -> int:
     return _par_done(rank, workdir, out)
 
 
-def _tp_seq_four_ranks(seed, dev, workdir) -> None:
-    """Phase 48: the plain steps at 240² here, then four processes."""
+def _tp_seq_four_ranks(seed, dev, workdir, started=None) -> None:
+    """Phase 48: the plain steps at 240² here, then four processes
+    (``started`` beside phase 47)."""
     import torch
     batch = {k: v[:TP_BATCH] for k, v in _sp_batch(seed, dev).items()}
     refs = _tp_refs(seed, dev, batch, img_size=SP_SIZE)
     del batch
-    outs, wall = _par_spawn(48, seed, workdir, TP_SEQ_RANKS)
+    outs, wall = _par_spawn(48, seed, workdir, TP_SEQ_RANKS,
+                            started=started)
     for o in outs:
         for tag, _ in TP_DTYPES:
             r = o[tag]
@@ -7267,6 +7335,350 @@ def _task_factories(fa, dev, seed) -> dict:
         del model, inputs, out, loss, grads
         torch.cuda.empty_cache()
     return total
+
+
+# phase 55: the Happy-Whale backbones (models/classification/zoo_extra.py),
+# their configs through the train CLI, and the mask crop
+ZOO_EXTRA = ("xception", "inception_v4", "dpn68", "dpn92",
+             "nasnet_a_mobile", "polynet", "senet154")
+ZOO_EXTRA_CONFIGS = ("dpn92", "inception_v4", "nasnet_a_mobile", "polynet",
+                     "senet154", "xception")
+# 8 seeded 320x256 images, masks predicted at 256², crops for ArcFace
+MASK_IMAGES, MASK_SIZE, CROP_SIZE = 8, 256, 112
+
+
+def _forward_flops(name) -> int:
+    """The FLOPs of one 224² forward of registry model ``name``, counted
+    by ``torch.utils.flop_counter`` on the meta device (nothing runs)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from deeplearning_tpu_torch.core.registry import MODELS
+    with torch.device("meta"):
+        model = MODELS.build(name, num_classes=1000).eval()
+        x = torch.zeros(1, 224, 224, 3)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        model(x)
+    return counter.get_total_flops()
+
+
+def _zoo_extra(dev, seed, workdir) -> None:
+    """Phase 55: each zoo_extra factory at full width and depth on the
+    card in bf16, one eval forward at 224² (batch 2) and one train step
+    (batch 8), the seconds and peak device memory of each; the six configs
+    through the train CLI's ``build`` at their 64², two steps each; the
+    mask crop end to end (U-Net masks, ``mask_crop_source``'s crops,
+    ArcFace embeddings)."""
+    import shutil
+    import torch
+    from PIL import Image
+    from deeplearning_tpu_torch.core.config import config_cli
+    from deeplearning_tpu_torch.core.registry import MODELS
+    from deeplearning_tpu_torch.core.rng import root_key
+    from deeplearning_tpu_torch.models.metric.mask_crop import (
+        make_mask_predictor, mask_crop_source, write_masks)
+    from deeplearning_tpu_torch.train import TrainState, make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    shutil.rmtree(workdir, ignore_errors=True)
+    g = np.random.default_rng(seed + 55)
+    x = torch.from_numpy(g.normal(size=(2, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    batch = {"image": torch.from_numpy(g.normal(
+        size=(ZOO_BATCH, 224, 224, 3)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(g.integers(0, 1000, ZOO_BATCH)).to(dev)}
+
+    def build(name, **kw):
+        with torch.device(dev):
+            return MODELS.build(name, generator=torch.Generator(
+                device=dev).manual_seed(seed), **kw)
+    t55 = time.perf_counter()
+    for name in ZOO_EXTRA:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build(name, num_classes=1000, dtype=torch.bfloat16).eval()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(tuple(logits.shape) == (2, 1000)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"{name}: a finite (2, 1000) eval forward")
+        model.train()
+        state = TrainState.create(model=model, tx=_adamw(model),
+                                  batch_stats=dict(model.named_buffers()))
+        step = make_train_step(make_loss_fn(has_batch_stats=True),
+                               device=dev)
+        _, m = step(state, batch, root_key(seed))
+        m = _metrics(m)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n = sum(p.numel() for p in model.parameters())
+        flops = _forward_flops(name)
+        bound_ms = 3 * ZOO_BATCH * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"{name}: {n / 1e6:.2f} M parameters, {flops / 1e9:.2f} GFLOP "
+            f"a 224² forward; built {t1 - t0:.2f}s, eval forward (2 x "
+            f"224², bf16) {t2 - t1:.2f}s, first train step (batch "
+            f"{ZOO_BATCH}, bound {bound_ms:.3f} ms) "
+            f"{t3 - t2:.2f}s, loss {m['loss']:.4f}; peak device memory "
+            f"{_gib(torch.cuda.max_memory_allocated()):.2f} GiB")
+        del model, state, step, logits
+    log(f"phase 55 backbones: {len(ZOO_EXTRA)} in "
+        f"{time.perf_counter() - t55:.1f}s")
+    torch.cuda.empty_cache()
+
+    cli = _cli()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    for name in ZOO_EXTRA_CONFIGS:
+        t1 = time.perf_counter()
+        cfg = config_cli(cli.Config(), [
+            "--cfg", os.path.join(here, f"configs/{name}.yaml"),
+            "data.n_train=128", "train.epochs=1"])
+        check(cfg.model.name == name and cfg.train.device == "cuda"
+              and cfg.data.image_size == 64,
+              f"configs/{name}.yaml: {name} at 64² on the card")
+        trainer = cli.build(cfg)
+        trainer.train()
+        ev = trainer._last_eval
+        check(trainer.state.step == 128 // cfg.data.global_batch == 2
+              and all(np.isfinite(v) for v in ev.values()),
+              f"configs/{name}.yaml trains two steps through the CLI")
+        log(f"configs/{name}.yaml through the train CLI: 2 steps (batch "
+            f"{cfg.data.global_batch}, 64²) + eval in "
+            f"{time.perf_counter() - t1:.2f}s, eval {json.dumps(ev)}")
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"phase 55 configs: {len(ZOO_EXTRA_CONFIGS)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    img_dir = os.path.join(workdir, "images")
+    mask_dir = os.path.join(workdir, "masks")
+    os.makedirs(img_dir)
+    r = np.random.default_rng(seed + 550)
+    paths = []
+    for i in range(MASK_IMAGES):
+        arr = r.integers(0, 255, (MASK_SIZE + 64, MASK_SIZE, 3),
+                         dtype=np.uint8)
+        arr[80:240, 48:208] = 255          # a bright animal-sized block
+        paths.append(os.path.join(img_dir, f"whale{i}.png"))
+        Image.fromarray(arr).save(paths[-1])
+    seg = build("unet", num_classes=1)
+    predict = make_mask_predictor(seg)
+    written = write_masks(predict, paths, mask_dir,
+                          image_size=(MASK_SIZE, MASK_SIZE),
+                          batch=MASK_IMAGES)
+    fg = float(np.mean([np.asarray(Image.open(os.path.join(
+        mask_dir, f"whale{i}.png"))) > 0 for i in range(MASK_IMAGES)]))
+    src = mask_crop_source(paths, np.arange(MASK_IMAGES) % 2, mask_dir,
+                           out_hw=(CROP_SIZE, CROP_SIZE))
+    crops = np.stack([src[i]["image"] for i in range(MASK_IMAGES)])
+    retr = build("arcface_resnet18", num_classes=2).eval()
+    with torch.no_grad():
+        emb = retr(torch.from_numpy(crops).to(dev))["embedding"]
+    torch.cuda.synchronize()
+    log(f"mask crop: {written} U-Net masks at {MASK_SIZE}² (foreground "
+        f"{fg:.3f}), crops {crops.shape}, ArcFace embeddings "
+        f"{tuple(emb.shape)} in {time.perf_counter() - t0:.2f}s")
+    check(written == MASK_IMAGES and crops.shape == (
+        MASK_IMAGES, CROP_SIZE, CROP_SIZE, 3) and np.isfinite(crops).all()
+        and tuple(emb.shape) == (MASK_IMAGES, 512)
+        and bool(torch.isfinite(emb).all()),
+        "the mask crop: masks written, crops made, finite embeddings")
+    del seg, retr, emb
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# phase 56: the supervise CLI around the train CLI's ViT-B/16 on K1
+SUP_OVERRIDES = ["data.global_batch=32", "data.n_train=256",
+                 "train.epochs=1"]                  # 8 steps an epoch
+SUP_FAULTS = "sigterm@step:3@attempt:0;wedge@step:5@attempt:1"
+# the deadline stays well above the longest gap between a healthy child's
+# beats (a resume's checkpoint load and first step: 4.2 s for two steps,
+# PERF.md §6, PR 21)
+SUP_WEDGE_S, SUP_POLL_S, SUP_TIMEOUT_S = 10.0, 0.25, 400.0
+
+
+def _gpu_apps() -> list:
+    """nvidia-smi's compute apps, one pid each (in the driver's pid
+    namespace, which need not be this machine's)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True).stdout
+    return [s.strip() for s in out.splitlines() if s.strip()]
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has an NVIDIA device open: a CUDA context
+    opens ``/dev/nvidia<N>`` (read from ``/proc/<pid>/fd``)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
+
+
+def _supervised_vit(fa, dev, seed, workdir) -> dict:
+    """Phase 56: one step of configs/vit_b16_imagenet.yaml (batch 32)
+    through the train CLI's ``build`` in this process, K1 counted from zero
+    (12 forward, 12 dQ, 12 dK/dV); then ``python -m
+    deeplearning_tpu_torch.supervise`` around ``python -m
+    deeplearning_tpu_torch.train`` on the same config, with
+    ``DLTPU_FAULTS`` preempting attempt 0 at step 3 and wedging attempt 1
+    at step 5: exit 0, preempted / wedged / completed in the supervisor's
+    decision log, every resume from a checkpoint its CRCs verify, the
+    wedge kill within the deadline and a few polls of the last heartbeat
+    movement, the supervisor never holding the card while each child
+    does. nvidia-smi lists compute apps by the driver's pids, which this
+    machine's pid namespace need not share, so a process holds the card
+    when it has an NVIDIA device open (``/proc/<pid>/fd``), and
+    nvidia-smi's list never holds more than this process and one child.
+    The heartbeat, the processes and nvidia-smi are sampled every
+    ``SUP_POLL_S`` for the wall split."""
+    import shutil
+    import signal
+    import torch
+    from deeplearning_tpu_torch.core.checkpoint import CheckpointManager
+    from deeplearning_tpu_torch.core.config import config_cli
+    from deeplearning_tpu_torch.elastic.heartbeat import read_heartbeat
+    cli = _cli()
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    argv = ["--cfg", os.path.join(here, "configs/vit_b16_imagenet.yaml"),
+            *SUP_OVERRIDES]
+    cfg = config_cli(cli.Config(), argv)
+    check(cfg.model.name == MODEL and cfg.model.attn == "flash_hb"
+          and cfg.train.device == "cuda" and cfg.data.image_size == 224,
+          "vit_b16_imagenet.yaml: ViT-B/16 at 224² on flash_hb, on the card")
+    trainer = cli.build(cfg)
+    feed = iter(trainer.train_loader)
+    batch = next(feed)
+    feed.close()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    trainer.state, m = trainer.train_step(trainer.state, batch, trainer.rng)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fa.launch_counts().items() if v}
+    m = _metrics(m)
+    want = {fa.KERNEL_NAMES[4]: DEPTH, fa.BWD_KERNEL_NAMES["dq"][4]: DEPTH,
+            fa.BWD_KERNEL_NAMES["dkv"][4]: DEPTH}
+    log(f"vit_b16_imagenet.yaml (batch 32) one step through the CLI's "
+        f"build: loss {m['loss']:.4f}, launches {json.dumps(counts)}")
+    check(counts == want, f"one CLI step launches {want}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    sup_dir = os.path.join(workdir, "sup")
+    run_dir = os.path.join(workdir, "run")
+    cmd = [sys.executable, "-m", "deeplearning_tpu_torch.supervise",
+           "--workdir", sup_dir, "--max-restarts", "3",
+           "--wedge-deadline", str(SUP_WEDGE_S), "--startup-deadline", "300",
+           "--kill-grace", "1", "--backoff-base", "0.25",
+           "--backoff-max", "0.5", "--",
+           sys.executable, "-m", "deeplearning_tpu_torch.train", *argv,
+           f"train.workdir={run_dir}"]
+    out_path = os.path.join(workdir, "supervise.log")
+    beat_path = os.path.join(sup_dir, "heartbeat.json")
+    moves = []          # (time, pid, step, activity) at each change seen
+    on_card, sup_on_card, samples, apps = set(), False, 0, []
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, DLTPU_FAULTS=SUP_FAULTS),
+                                start_new_session=True)
+        try:
+            while proc.poll() is None:
+                check(time.perf_counter() - t0 < SUP_TIMEOUT_S,
+                      f"the supervised run ends within {SUP_TIMEOUT_S}s")
+                beat = read_heartbeat(beat_path)
+                if beat is not None:
+                    key = (beat.get("pid"), beat.get("step"),
+                           beat.get("activity"))
+                    if not moves or moves[-1][1:] != key:
+                        moves.append((time.time(), *key))
+                    if _holds_card(key[0]):
+                        on_card.add(key[0])
+                sup_on_card |= _holds_card(proc.pid)
+                apps.append(len(_gpu_apps()))
+                samples += 1
+                time.sleep(SUP_POLL_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        tail = f.read()[-4000:]
+    check(proc.returncode == 0, f"the supervise CLI exits 0:\n{tail}")
+    with open(os.path.join(sup_dir, "flightrec_supervisor.json")) as f:
+        rec = json.load(f)
+    events = rec["events"]
+    ending = {"child_exit": lambda e: e["outcome"],
+              "wedge_kill": lambda e: "wedged"}
+    outcomes = [ending[e["kind"]](e) for e in events if e["kind"] in ending]
+    launches = [e for e in events if e["kind"] == "launch"]
+    kill = [e for e in events if e["kind"] == "wedge_kill"]
+    backoff = sum(e["delay_s"] for e in events if e["kind"] == "backoff")
+    child_pids = list(dict.fromkeys(mv[1] for mv in moves))
+    log(f"supervise CLI: exit {proc.returncode} in {wall:.1f}s, outcomes "
+        f"{outcomes}, {len(launches)} launches, backoff {backoff:.2f}s, "
+        f"reason {rec['reason']}; {samples} samples: children "
+        f"{child_pids} held the card {[p in on_card for p in child_pids]},"
+        f" the supervisor ({proc.pid}) {sup_on_card}; nvidia-smi's "
+        f"compute apps {min(apps)}-{max(apps)} (this process and a child)")
+    check(outcomes == ["preempted", "wedged", "completed"]
+          and rec["reason"] == "completed" and len(launches) == 3
+          and len(kill) == 1, "preempted, wedged, then completed")
+    check([e["returncode"] for e in events if e["kind"] == "child_exit"]
+          == [75, 0], "the preempted child exits 75")
+    check(len(child_pids) == 3 and all(p in on_card for p in child_pids)
+          and not sup_on_card and rec["hbm"] is None and max(apps) == 2,
+          "each child holds the card; the supervisor never does")
+    # the wall split: child start (launch -> first beat), steps (-> the
+    # beat's last movement), then the wedge detection or the exit
+    ends = [e["time"] for e in events if e["kind"] in ending]
+    for i, (launch, pid) in enumerate(zip(launches, child_pids)):
+        mine = [mv for mv in moves if mv[1] == pid]
+        log(f"attempt {i} (pid {pid}): child start "
+            f"{mine[0][0] - launch['time']:.2f}s, steps to the last beat "
+            f"{mine[-1][0] - mine[0][0]:.2f}s (step {mine[-1][2]}), then "
+            f"{ends[i] - mine[-1][0]:.2f}s to its end")
+    stalled = kill[0]["time"] - [mv for mv in moves
+                                 if mv[1] == child_pids[1]][-1][0]
+    check(SUP_WEDGE_S - 1.0 <= stalled <= SUP_WEDGE_S + 4 * SUP_POLL_S + 1.0,
+          f"the wedge kill {stalled:.2f}s after the last beat movement "
+          f"(deadline {SUP_WEDGE_S}s plus a few polls)")
+    with open(os.path.join(run_dir, "log_p0.txt")) as f:
+        train_log = f.read()
+    resumes = [int(s) for s in re.findall(r"auto-resume from step (\d+)",
+                                          train_log)]
+    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    recorded = ckpt._read_checksum_file()
+    final = ckpt.latest_step()
+    log(f"resumes from steps {resumes}, checkpoints {ckpt.all_steps()} "
+        f"(CRCs recorded for {sorted(recorded, key=int)}), final step "
+        f"{final}")
+    check(resumes == [3, 3] and all(str(s) in recorded for s in resumes)
+          and "failed integrity check" not in train_log
+          and all(ckpt.verify_step(s) for s in ckpt.all_steps())
+          and final == 3 + 256 // 32,
+          "every resume from the preempted checkpoint, verified by CRC")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return counts
 
 
 PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank,

@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import json
 import os
-import random
 import re
 import shutil
 import threading
@@ -78,8 +77,9 @@ __all__ = ["checksum_dir", "CheckpointManager", "save_pytree",
 _STATE_FILE = "state.pt"
 _TREE_FILE = "tree.pt"
 _POLL_S = 1e-3
-# the retry delay before attempt a+1: min(0.25 * 2**(a-1), 4) s, times
-# 1 + 0.25 * U[0, 1) so that failing writers never retry in lockstep
+# the retry delay before attempt a+1 (``elastic.supervisor.backoff_schedule``):
+# min(0.25 * 2**(a-1), 4) s, times 1 + 0.25 * U[0, 1) so that failing
+# writers never retry in lockstep
 _RETRY_BASE_S, _RETRY_FACTOR = 0.25, 2.0
 _RETRY_MAX_S, _RETRY_JITTER = 4.0, 0.25
 
@@ -379,9 +379,10 @@ class CheckpointManager:
                               attempt=attempt, error=repr(exc))
                 if attempt > self._save_retries:
                     raise
-                delay = min(_RETRY_BASE_S * _RETRY_FACTOR ** (attempt - 1),
-                            _RETRY_MAX_S)
-                delay *= 1.0 + _RETRY_JITTER * random.random()
+                from ..elastic.supervisor import backoff_schedule
+                delay = backoff_schedule(
+                    attempt, base_s=_RETRY_BASE_S, factor=_RETRY_FACTOR,
+                    max_s=_RETRY_MAX_S, jitter=_RETRY_JITTER)
                 self._logger.warning(
                     f"checkpoint save step {step} failed "
                     f"(attempt {attempt}/{self._save_retries + 1}): "

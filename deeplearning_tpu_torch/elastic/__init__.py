@@ -9,8 +9,9 @@
 - ``heartbeat``  — the step/activity watermark file the Trainer feeds
   and a supervisor reads.
 - ``faults``     — ``DLTPU_FAULTS`` injection.
-- ``supervisor`` — the slow-vs-wedged detector; the rest of the JAX
-  supervisor comes with ROADMAP Queue 1 item 8c.
+- ``supervisor`` — launch, watch, classify slow-vs-wedged, kill,
+  requeue with bounded exponential backoff
+  (``python -m deeplearning_tpu_torch.supervise`` is the CLI).
 - ``topology``   — the fingerprint a checkpoint's ``topology.json``
   records (mesh, ranks, layout, weight-update mode).
 - ``resume``     — ``elastic_restore``: the newest checkpoint onto the
@@ -22,6 +23,8 @@ the train step with them.
 
 from . import faults, heartbeat, preempt, signals, supervisor
 from .preempt import EXIT_PREEMPTED, Preempted, PreemptionGuard
+from .supervisor import Supervisor, SupervisorConfig, WedgeDetector
 
 __all__ = ["signals", "preempt", "heartbeat", "faults", "supervisor",
-           "EXIT_PREEMPTED", "Preempted", "PreemptionGuard"]
+           "EXIT_PREEMPTED", "Preempted", "PreemptionGuard",
+           "Supervisor", "SupervisorConfig", "WedgeDetector"]

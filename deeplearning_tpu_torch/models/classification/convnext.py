@@ -8,7 +8,10 @@ OIHW, the layer-scale ``gamma`` as it is). The input is NHWC and
 in float32.
 
 ConvNeXt keeps JAX's NHWC stream: each block's depthwise conv runs on an
-NCHW view of it, then LayerNorm (epsilon 1e-6), the pointwise MLP (GELU
+NCHW copy of it (contiguous, as CoAtNet's conv stages run: on a
+channels-last view the depthwise convolutions took seconds on the card
+on their first call at each shape, PERF.md §6, PR 21), then LayerNorm
+(epsilon 1e-6), the pointwise MLP (GELU
 per ``core.numerics``), the layer scale and drop path (the per-sample mask
 drawn from the step's generator). The stem and the downsampling convs
 pad as flax's "SAME" does; the head's LayerNorm and Dense run in float32,
@@ -63,7 +66,7 @@ class ConvNeXtBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = _nhwc(conv(_nchw(x), self.dwconv, self.dtype))
+        y = _nhwc(conv(_nchw(x).contiguous(), self.dwconv, self.dtype))
         y = dense(self.norm(y), self.pw1, self.dtype)
         y = dense(numerics.gelu(y), self.pw2, self.dtype)
         y = y * self.gamma.to(y.dtype)
@@ -157,7 +160,7 @@ class CoAtNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.dtype
-        x = _nchw(x).to(c)
+        x = _nchw(x).to(c, memory_format=torch.contiguous_format)
         for i in range(self.depths[0]):
             x = conv(x, getattr(self, f"stem{i}"), c)
             x = numerics.gelu(getattr(self, f"stem{i}_bn")(x))

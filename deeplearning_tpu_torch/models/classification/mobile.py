@@ -6,7 +6,10 @@ Same layers, flax names and factories, so a flax tree converts one to one
 (kh, kw, 1, C) → OIHW (C, 1, kh, kw); ``block{b}_{i}`` → ``block{b}.{i}``).
 The input is NHWC and ``dtype`` the compute type over float32
 parameters; the logits come back in float32. The convolutions run in
-NCHW on a channels-last view; ShuffleNet's channel shuffle is JAX's
+contiguous NCHW (the input is copied once into that layout): on a
+channels-last view the depthwise convolutions took seconds on the card
+on their first call at each shape (PERF.md §6, PR 21). ShuffleNet's
+channel shuffle is JAX's
 (channel j·g + i of the output is channel i·C/g + j of the input).
 BatchNorm is flax's ``momentum=0.9`` (torch's 0.1), epsilon 1e-5; the
 squeeze-and-excitation is the port's ``resnet.SEModule``. The dropout
@@ -112,7 +115,7 @@ class ShuffleNetV2(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         del rng
         c = self.dtype
-        x = x.permute(0, 3, 1, 2).to(c)
+        x = x.permute(0, 3, 1, 2).to(c, memory_format=torch.contiguous_format)
         x = F.relu(self.stem_bn(conv(x, self.stem, c)))
         x = max_pool(x, 3, 2, 1)
         for si, reps in enumerate(self.stage_repeats):
@@ -194,7 +197,7 @@ class MobileNetV2(nn.Module):
                 rng: Optional[torch.Generator] = None
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
         c = self.dtype
-        x = x.permute(0, 3, 1, 2).to(c)
+        x = x.permute(0, 3, 1, 2).to(c, memory_format=torch.contiguous_format)
         x = F.relu6(self.stem_bn(conv(x, self.stem, c)))
         feats = {}
         stride = 2                           # after the stem
@@ -250,7 +253,7 @@ class EfficientNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.dtype
-        x = x.permute(0, 3, 1, 2).to(c)
+        x = x.permute(0, 3, 1, 2).to(c, memory_format=torch.contiguous_format)
         x = F.silu(self.stem_bn(conv(x, self.stem, c)))
         for bi in range(len(self.CFG)):
             for blk in getattr(self, f"block{bi}"):

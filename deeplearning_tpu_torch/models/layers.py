@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -100,14 +100,17 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def pad_same(x: torch.Tensor, k: int, s: int,
+def pad_same(x: torch.Tensor, k: Union[int, Tuple[int, int]],
+             s: Union[int, Tuple[int, int]],
              value: float = 0.0) -> torch.Tensor:
     """``x`` (NCHW) padded as flax's ``padding="SAME"`` pads a ``k`` x
-    ``k`` window at stride ``s``: ceil(size / s) outputs, the odd pixel
-    after (no copy when that is nothing)."""
+    ``k`` (or (kh, kw)) window at stride ``s`` (or (sh, sw)): ceil(size /
+    s) outputs, the odd pixel after (no copy when that is nothing)."""
+    kh, kw = (k, k) if isinstance(k, int) else k
+    sh, sw = (s, s) if isinstance(s, int) else s
     pads = []
-    for size in (x.shape[3], x.shape[2]):
-        total = max((-(-size // s) - 1) * s + k - size, 0)
+    for size, kk, ss in ((x.shape[3], kw, sw), (x.shape[2], kh, sh)):
+        total = max((-(-size // ss) - 1) * ss + kk - size, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads, value=value) if any(pads) else x
 

@@ -290,9 +290,8 @@ def build(cfg: Config, **trainer_kw: Any):
     check_slice(cfg)
     if cfg.model.name not in MODELS:
         raise ValueError(
-            f"model.name={cfg.model.name!r} is not in the port yet (the "
-            f"zoo_extra families, Xception to SENet-154, are ROADMAP Queue "
-            f"1 item 8b2); it has {', '.join(MODELS.keys())}")
+            f"unknown model.name={cfg.model.name!r}; the registry has "
+            f"{', '.join(MODELS.keys())}")
     mesh = None
     if uses_mesh(cfg):
         from ..parallel.mesh import (MeshConfig, build_mesh,
