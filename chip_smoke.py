@@ -531,7 +531,48 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    comes within the deadline and a few polls of the heartbeat's last
    movement; the supervisor's pid never appears among nvidia-smi's
    compute apps, each child's does. The wall split per attempt (child
-   start, steps, wedge detection or exit) and the backoff are printed.
+   start, steps, wedge detection or exit) and the backoff are printed;
+57. ViT-B/16 at full width (flash_hb, batch 32, 6 steps an epoch) through
+   the ``Trainer`` with the prefetcher, a heartbeat file and async
+   checkpoints, four runs on one state in turns: ``strict="transfers,
+   threads"`` (the thread sanitizer armed before the run's objects build
+   their locks), ``"transfers"``, ``"transfers"``, ``"transfers,threads"``.
+   Every threads run ends with no ``LockOrderError``; its ``status()``
+   shows patched modules, instrumented locks and acquires above 0, and
+   the static lock graph's edges seeded (the port's static graph, printed
+   first, has locks, spawn sites and no cycle). Each run launches 12 of
+   each flash_hb K1 kernel a step, counted from zero just before it. The
+   step wall (median gap between the host's ``after_iter`` of steps 2-6)
+   of each run is printed beside the others;
+58. the zoo under ``DLTPU_STRICT=threads`` (JAX's
+   tests/test_zoo_serving.py:425): a ViT-B/16 tenant on K1 (flash_hb) and
+   a Swin-T tenant on K2, buckets 1 and 8, behind the batcher; 8 client
+   threads submit, alternating tenants (8 requests each at least, and on
+   until the admin thread is done), while an admin thread evicts Swin-T
+   (retried while a batch of it is in flight) and reloads it, twice. No
+   lock violation, every answer finite, and, counted from zero once both
+   tenants are warm, K1's
+   forward launches 12 × the ViT's forwards and K2 12 × Swin-T's (the
+   batches dispatched and the reloads' warm-ups, each model's forward hook
+   counting);
+59. the audit and the export. ``analysis/audit``'s fake-mode walk on the
+   card's device, nothing launched: ViT-B/16's train step at batch 128
+   (flash_hb, AdamW) shows 12 ``dltpu.flash_fwd``, 12 ``flash_bwd_dq``
+   and 12 ``flash_bwd_dkv`` nodes and 0 transfers, with its peak
+   intermediate; Swin-T's eval forward 12 ``dltpu.window_attn`` nodes;
+   YOLOX-S's predict at 640² one ``dltpu.nms_sweep`` node; then every row
+   of ``run_audits()`` is ok. The custom ops' fake results have the real
+   ones' shapes, strides and dtypes on the card. The host cost of the
+   custom-op dispatch: one K1 forward at (1, 12, 197, 64) bf16 through
+   ``attention_bnhd``, through the launch wrapper and as the bare ctypes
+   call of the C entry point, 2 000 calls each ending in a synchronise, in
+   turns. ViT-B/16 on flash_hb at batch 8 exported (``torch.export``),
+   saved as ``.pt2``, loaded and run: 12 K1 forward launches a call,
+   logits within ``EXPORT_LOGIT_TOL`` of eager's (bit-equality printed);
+   the export, save and load seconds and both forwards' ms (CUDA events,
+   in turns). ``fuse_conv_bn`` on ResNet-50 (float32, 224², batch 8,
+   BatchNorm statistics drawn from the seed): the fused logits within
+   ``FUSE_REL_TOL`` of the largest unfused one.
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -548,7 +589,11 @@ phase 38); the subprocesses' launches are not counted. Phases 40 and 42
 add the mesh runs' K1 launches, phase 44 the one-rank ring's and
 Ulysses' (the one-head-a-CTA forward, dQ and dK/dV entries). Phases
 52-54 add MAE's (the flash_hb entries), and phase 56 its in-process CLI
-step's (the supervised children's launches are not counted).
+step's (the supervised children's launches are not counted). Phase 57
+adds its four Trainer runs' (the flash_hb entries), phase 58 the zoo's
+(flash_hb forward and K2, from both tenants warm), and phase 59 the
+exported program's call (the flash_hb forward; the dispatch-cost loop
+and the fake-stride checks are comparisons, not counted).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -1176,11 +1221,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     _add_launches(kernels, _supervised_vit(
         fa, dev, args.seed, os.path.join(build_dir, "smoke_supervise")))
+    log(f"chip_smoke: phase 55 in {t56 - t55:.1f}s, phase 56 in "
+        f"{time.perf_counter() - t56:.1f}s")
+
+    # ---- 57. ViT-B/16 through the Trainer under the thread sanitizer
+    phase(57, started)
+    t57 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _threads_vit(
+        fa, dev, args.seed, os.path.join(build_dir, "smoke_threads")))
+
+    # --------- 58. the zoo (K1 and K2 tenants) under DLTPU_STRICT=threads
+    phase(58, started)
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _threads_zoo(fa, wa, dev, args.seed))
+
+    # ----------------------------- 59. the audit and the export on K1
+    phase(59, started)
+    torch.cuda.empty_cache()
+    _add_launches(kernels, _audit_export(
+        fa, wa, nms_ops, dev, args.seed, os.path.join(build_dir,
+                                                      "smoke_export")))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phase 55 in {t56 - t55:.1f}s, phase 56 in "
-        f"{time.perf_counter() - t56:.1f}s; all in "
-        f"{time.perf_counter() - started:.1f}s")
+    log(f"chip_smoke: phases 57-59 in {time.perf_counter() - t57:.1f}s; "
+        f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7678,6 +7743,494 @@ def _supervised_vit(fa, dev, seed, workdir) -> dict:
           and final == 3 + 256 // 32,
           "every resume from the preempted checkpoint, verified by CRC")
     shutil.rmtree(workdir, ignore_errors=True)
+    return counts
+
+
+# ---------- phases 57-59: the thread sanitizer, the audit and export (8c, 8c2)
+THREADS_BATCH, THREADS_STEPS = 32, 6
+THREADS_RUNS = (True, False, False, True)       # threads on / off, in turns
+ZOO_THREADS_CLIENTS, ZOO_THREADS_REQUESTS = 8, 8      # a client
+ZOO_THREADS_CYCLES = 2                                # evict + load of Swin-T
+ZOO_THREADS_BUCKETS = (1, 8)
+AUDIT_BATCH, EXPORT_BATCH = 128, 8
+# the exported ViT-B/16 runs the eager forward's kernels in the same order:
+# aimed at equal bits, held at this absolute difference of the logits
+EXPORT_LOGIT_TOL = 1e-3
+# fused Conv + BatchNorm (float32, no TF32): logits within this share of
+# the largest unfused logit
+FUSE_REL_TOL = 1e-4
+DISPATCH_CALLS = 2000         # K1 forward calls a host-cost measurement
+
+
+def _threads_vit(fa, dev, seed, workdir) -> dict:
+    """Phase 57: ViT-B/16 at full width (flash_hb, batch 32, 6 steps)
+    through the Trainer with the prefetcher, a heartbeat file and async
+    checkpoints, with ``strict="transfers,threads"`` and with
+    ``strict="transfers"``, in turns (threads, plain, plain, threads), on
+    one state. Every threads run ends with no ``LockOrderError`` and its
+    ``status()`` shows patched modules, instrumented locks, acquires seen
+    and the static graph's edges seeded; every run launches 12 of each
+    flash_hb K1 kernel a step. The step wall (median gap between the
+    steps' ``after_iter`` on the host, steps 2-6; the host dispatches
+    ahead of the card, so the gap is the slower of the two) beside the
+    plain runs'."""
+    import dataclasses
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.analysis import concurrency, threadsan
+    from deeplearning_tpu_torch.train.trainer import Trainer
+    cli = _cli()
+    cfg = _smoke_cfg(None, THREADS_STEPS)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, global_batch=THREADS_BATCH,
+        n_train=THREADS_BATCH * THREADS_STEPS))
+    base = cli.build(cfg)
+    loader = base.train_loader.loader
+    static = concurrency.lock_order_graph()
+    log(f"static lock graph of the port: {len(static['locks'])} locks, "
+        f"{len(static['edges'])} edges, {len(static['spawn_sites'])} "
+        f"spawn sites, cycles {static['cycles']}")
+    check(static["locks"] and not static["cycles"],
+          "the port's static lock graph has locks and no cycle")
+    walls = {True: [], False: []}
+    counts = {}
+    want = {fa.KERNEL_NAMES[4]: DEPTH * THREADS_STEPS,
+            fa.BWD_KERNEL_NAMES["dq"][4]: DEPTH * THREADS_STEPS,
+            fa.BWD_KERNEL_NAMES["dkv"][4]: DEPTH * THREADS_STEPS}
+    for i, threads in enumerate(THREADS_RUNS):
+        wd = os.path.join(workdir, str(i))
+        shutil.rmtree(wd, ignore_errors=True)
+        threadsan.reset()
+        stamps = []
+        t = Trainer(state=base.state, train_step=base.train_step,
+                    train_loader=loader, prefetch=2, seed=seed, epochs=1,
+                    log_every=THREADS_STEPS, workdir=wd,
+                    async_checkpoint=True, log_backends=("csv",),
+                    heartbeat=os.path.join(wd, "heartbeat.json"),
+                    strict="transfers,threads" if threads else "transfers")
+        t.callbacks.register("after_iter", lambda tr, **_: stamps.append(
+            time.perf_counter()))
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        try:
+            t.train()
+            torch.cuda.synchronize()
+            st, acquires = threadsan.status(), threadsan.acquires()
+        finally:
+            threadsan.disable()
+        run = {k: v for k, v in fa.launch_counts().items() if v}
+        check(run == want, f"run {i}: launches {run} == {want}")
+        for k, v in run.items():
+            counts[k] = counts.get(k, 0) + v
+        gaps = np.diff(stamps)[1:] * 1e3
+        walls[threads].append(float(np.median(gaps)))
+        check(os.path.exists(os.path.join(wd, "heartbeat.json")),
+              "the heartbeat file was written")
+        if threads:
+            log(f"threads run {i}: status {json.dumps(st)}, acquires "
+                f"{acquires}")
+            check(st["enabled"] and st["violations"] == 0
+                  and not st["tripped"], "no lock violation")
+            check(st["modules_patched"] > 0 and st["locks_instrumented"] > 0
+                  and acquires > 0, "patched modules, instrumented locks "
+                  "and acquires seen")
+            check(st["static_edges"] == len({
+                (e["src"], e["dst"]) for e in static["edges"]}),
+                "the static graph's edges seeded")
+        else:
+            check(not st["enabled"], "the plain run arms no sanitizer")
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 57 step wall ms (median of steps 2-{THREADS_STEPS}, batch "
+        f"{THREADS_BATCH}): threads {[round(w, 3) for w in walls[True]]}, "
+        f"plain {[round(w, 3) for w in walls[False]]}; launches "
+        f"{json.dumps(counts)}")
+    del base, loader
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _threads_zoo(fa, wa, dev, seed) -> dict:
+    """Phase 58: the zoo under ``DLTPU_STRICT=threads``, as JAX's
+    tests/test_zoo_serving.py:425 drives it: a ViT-B/16 tenant on K1
+    (flash_hb) and a Swin-T tenant on K2, buckets 1 and 8, behind the
+    batcher; 8 client threads submit (alternating tenants; at least 8
+    requests each, and on until the admin is done) while an admin thread
+    evicts and reloads Swin-T twice. No ``LockOrderError``, every answer
+    arrives, and K1's forward and K2 launch once a block of every
+    forward: 12 × (the warm-up forwards + the batches dispatched) of each
+    tenant."""
+    import threading
+    import torch
+    from deeplearning_tpu_torch.analysis import strict as strict_mod
+    from deeplearning_tpu_torch.analysis import threadsan
+    from deeplearning_tpu_torch.serve import (InferenceEngine, MicroBatcher,
+                                              ModelZoo)
+    os.environ["DLTPU_STRICT"] = "threads"
+    threadsan.reset()
+    try:
+        check(strict_mod.maybe_enable_threads(strict_mod.resolve()),
+              "DLTPU_STRICT=threads arms the sanitizer")
+        forwards = {"vit": 0, "swin": 0}
+        names = {"vit": MODEL, "swin": SWIN}
+
+        def factory(alias):
+            def build():
+                eng = InferenceEngine(names[alias], num_classes=1000,
+                                      batch_buckets=ZOO_THREADS_BUCKETS,
+                                      seed=seed,
+                                      attn="flash_hb", device=dev,
+                                      precompile=False)
+
+                def hook(*_):
+                    forwards[alias] += 1
+                eng.model.register_forward_hook(hook)
+                eng.warmup()
+                return eng
+            return build
+
+        zoo = ModelZoo()
+        check(isinstance(zoo._lock, threadsan.InstrumentedLock),
+              "the zoo's lock is instrumented")
+        for alias in names:
+            zoo.register(alias, engine_factory=factory(alias),
+                         batch_buckets=ZOO_THREADS_BUCKETS, image_size=224)
+            check(zoo.load(alias, wait=True) == "warm", f"{alias} loads")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        wa.reset_launch_counts()
+        for alias in forwards:
+            forwards[alias] = 0
+        images = np.random.default_rng(seed).normal(
+            size=(4, 224, 224, 3)).astype(np.float32)
+        answers, errors, submitted = [], [], []
+        admin_done = threading.Event()
+        t0 = time.perf_counter()
+        with MicroBatcher(zoo=zoo, max_wait_ms=2.0) as mb:
+            def client(i):
+                """At least ZOO_THREADS_REQUESTS requests, and on until
+                the admin thread's cycles are done."""
+                try:
+                    j = 0
+                    while (j < ZOO_THREADS_REQUESTS
+                           or not admin_done.is_set()):
+                        alias = ("vit", "swin")[(i + j) % 2]
+                        submitted.append(alias)     # atomic append
+                        answers.append(mb.submit(
+                            images[j % 4], model=alias).result(timeout=120))
+                        j += 1
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(exc)
+
+            def admin():
+                """Evict Swin-T (refused while a batch of it is in
+                flight: retried) and reload it, twice."""
+                try:
+                    for _ in range(ZOO_THREADS_CYCLES):
+                        deadline = time.monotonic() + 60
+                        while not zoo.evict("swin"):
+                            check(time.monotonic() < deadline,
+                                  "Swin-T evicts within 60 s")
+                            time.sleep(0.01)
+                        zoo.load("swin", wait=True)
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(exc)
+                finally:
+                    admin_done.set()
+            threads = [threading.Thread(target=client, args=(i,),
+                                        daemon=True)
+                       for i in range(ZOO_THREADS_CLIENTS)]
+            threads.append(threading.Thread(target=admin, daemon=True))
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            check(not any(th.is_alive() for th in threads),
+                  "the clients and the admin thread finish")
+            torch.cuda.synchronize()
+            dispatched = mb.dispatched
+        wall = time.perf_counter() - t0
+        check(errors == [], f"no error: {errors[:1]}")
+        n = len(submitted)
+        check(n >= ZOO_THREADS_CLIENTS * ZOO_THREADS_REQUESTS
+              and len(answers) == n and all(
+                  np.isfinite(np.asarray(a)).all() for a in answers),
+              f"every one of the {n} answers arrives, finite")
+        st, acquires = threadsan.status(), threadsan.acquires()
+        check(st["violations"] == 0 and not st["tripped"],
+              "no lock violation")
+        counts = {k: v for d in (fa.launch_counts(), wa.launch_counts())
+                  for k, v in d.items() if v}
+        want = {fa.KERNEL_NAMES[4]: DEPTH * forwards["vit"],
+                wa.KERNEL_NAME: SWIN_BLOCKS * forwards["swin"]}
+        log(f"phase 58: {n} answers in {wall:.2f}s, {dispatched} batches "
+            f"dispatched, forwards {json.dumps(forwards)} (warm-ups of the "
+            f"reloads included), zoo loads {zoo.loads} evictions "
+            f"{zoo.evictions}, status {json.dumps(st)}, acquires {acquires}, "
+            f"launches {json.dumps(counts)}")
+        check(zoo.evictions == ZOO_THREADS_CYCLES, "Swin-T evicted twice")
+        check(counts == want, f"launches {counts} == 12 x forwards {want}")
+        check(forwards["vit"] + forwards["swin"]
+              == dispatched + len(ZOO_THREADS_BUCKETS) * ZOO_THREADS_CYCLES,
+              "forwards = the batches dispatched + the reloads' warm-ups")
+        del zoo
+    finally:
+        threadsan.disable()
+        os.environ.pop("DLTPU_STRICT", None)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> dict:
+    """Phase 59: the fake-mode audit and the export. ViT-B/16's train step
+    at batch 128 (flash_hb) traced on the card's device: 12 forward, 12 dQ
+    and 12 dK/dV kernel nodes, 0 transfers, no launch, its peak
+    intermediate; Swin-T's eval forward: 12 K2 nodes; YOLOX-S's predict
+    at 640²: one K3 node; every row of ``run_audits()`` ok on the card.
+    The custom ops' fake strides equal the real ones on the card. Then
+    ViT-B/16 on flash_hb at batch 8 exported (``torch.export``), saved as
+    ``.pt2``, loaded and run: 12 K1 forward launches a call and its logits
+    against eager's; the export, save and load seconds and both forwards'
+    ms. ``fuse_conv_bn`` on ResNet-50 (float32, 224², BatchNorm
+    statistics drawn from the seed) against the unfused eval logits. And
+    the host cost of the custom-op dispatch: one K1 forward at B = 1
+    through ``attention_bnhd`` beside a direct call of the C entry point,
+    in turns."""
+    import io
+    import shutil
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from deeplearning_tpu_torch import hub
+    from deeplearning_tpu_torch.analysis import audit
+    from deeplearning_tpu_torch.export.fuse import fuse_conv_bn
+    from deeplearning_tpu_torch.models.detection.predict import (
+        build_predict_fn)
+    from deeplearning_tpu_torch.train import make_train_step
+    from deeplearning_tpu_torch.train.classification import make_loss_fn
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    fa.reset_launch_counts()
+    wa.reset_launch_counts()
+    nms_ops.reset_launch_counts()
+
+    # the audit: three graphs, nothing launched
+    t0 = time.perf_counter()
+    mode = audit.fake_mode()
+    state = audit._train_state(MODEL, mode, dev,
+                               attn_fn=get_attn_fn("flash_hb"))
+    batch = {"image": audit.fake_tensor(mode, (AUDIT_BATCH, 224, 224, 3),
+                                        device=dev),
+             "label": audit.fake_tensor(mode, (AUDIT_BATCH,), torch.long,
+                                        dev)}
+    step = make_train_step(make_loss_fn(label_smoothing=0.1), device=dev)
+    want = {"dltpu.flash_fwd": DEPTH, "dltpu.flash_bwd_dq": DEPTH,
+            "dltpu.flash_bwd_dkv": DEPTH}
+    row = audit.Audit("train_step_vit_b16_b128", step, (state, batch, 0),
+                      max_transfers=0, want_ops=want).run()
+    log(f"audit ViT-B/16 train step, batch {AUDIT_BATCH}: "
+        f"{json.dumps(row)} ({time.perf_counter() - t0:.2f}s)")
+    check(row["ok"], "12 forward, 12 dQ, 12 dK/dV nodes and 0 transfers")
+    del state, batch
+    model, _ = hub.load(SWIN, num_classes=1000, seed=seed, device="cpu",
+                        **hub.model_kwargs(SWIN, "flash_hb"))
+    audit.fake_module(model, mode, dev)
+    with torch.no_grad():
+        events = audit.trace(model, audit.fake_tensor(
+            mode, (8, 224, 224, 3), device=dev))
+    n_k2 = sum(ev.name == "dltpu.window_attn" for ev in events)
+    log(f"audit Swin-T eval forward (batch 8): {n_k2} K2 nodes, "
+        f"{sum(ev.transfer for ev in events)} transfers")
+    check(n_k2 == SWIN_BLOCKS, "Swin-T's forward: 12 K2 nodes")
+    model, _ = hub.load(YOLOX, num_classes=YOLOX_CLASSES, seed=seed,
+                        device="cpu")
+    audit.fake_module(model, mode, dev)
+    predict = build_predict_fn(model, YOLOX, YOLOX_CLASSES,
+                               score_thresh=0.0, max_det=YOLOX_MAX_DET)
+    with torch.no_grad():
+        events = audit.trace(predict, audit.fake_tensor(
+            mode, (8, YOLOX_SIZE, YOLOX_SIZE, 3), device=dev))
+    n_k3 = sum(ev.name == "dltpu.nms_sweep" for ev in events)
+    log(f"audit YOLOX-S predict (batch 8, 640²): {n_k3} K3 nodes, "
+        f"{sum(ev.transfer for ev in events)} transfers, peak "
+        f"{max(n for ev in events for n in ev.out_elements)} elements")
+    check(n_k3 == 1, "YOLOX-S's predict: one K3 node a batch")
+    del model, predict, events
+    launched = {k: v for d in (fa.launch_counts(), wa.launch_counts(),
+                               nms_ops.launch_counts())
+                for k, v in d.items() if v}
+    check(launched == {}, f"the fake traces launched nothing: {launched}")
+    t0 = time.perf_counter()
+    rows = audit.run_audits(device=dev)
+    for r in rows:
+        log(f"  run_audits: {json.dumps(r)}")
+    log(f"run_audits() on the card: {len(rows)} rows in "
+        f"{time.perf_counter() - t0:.2f}s")
+    check(rows and all(r["ok"] for r in rows), "every audit row ok")
+
+    # the ops' fake strides are the real ones on the card
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qb = torch.randn(2, 197, 12, 64, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    q = qb.transpose(1, 2)
+    qkv = torch.randn(8, 49, 3, 3, 32, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    bias = torch.zeros(3, 49, 49, device=dev)
+    sboxes, alive0, _, _ = nms_ops.sort_pad_candidates(
+        torch.rand(2, 100, 4, generator=g, device=dev).cumsum(-1),
+        torch.rand(2, 100, generator=g, device=dev), float("-inf"),
+        nms_ops.WORD)
+    calls = [(torch.ops.dltpu.flash_fwd, (q, q, q, 0.125, False, 4, True)),
+             (torch.ops.dltpu.window_attn, (qkv, bias, None, 8)),
+             (torch.ops.dltpu.nms_sweep, (sboxes, alive0, 0.5, 20))]
+    fake = FakeTensorMode()
+    for op, args in calls:
+        real = op(*args)
+        with fake:
+            faked = op(*[fake.from_tensor(a) if isinstance(a, torch.Tensor)
+                         else a for a in args])
+        pairs = zip(real if isinstance(real, tuple) else (real,),
+                    faked if isinstance(faked, tuple) else (faked,))
+        same = all(r.shape == f.shape and r.stride() == f.stride()
+                   and r.dtype == f.dtype for r, f in pairs)
+        check(same, f"{op}: fake shapes, strides and dtypes are the real ones")
+    o, lse = calls[0][0](*calls[0][1])
+    do = torch.randn_like(o)
+    real = torch.ops.dltpu.flash_bwd_dq(q, q, q, o, lse, do, None, 0.125,
+                                        False, 4, False, True)
+    real += torch.ops.dltpu.flash_bwd_dkv(q, q, q, lse, do, real[1], 0.125,
+                                          False, 4, False, True)
+    with fake:
+        fargs = [fake.from_tensor(t) for t in (q, o, lse, do)]
+        fq, fo, flse, fdo = fargs
+        faked = torch.ops.dltpu.flash_bwd_dq(fq, fq, fq, fo, flse, fdo, None,
+                                             0.125, False, 4, False, True)
+        faked += torch.ops.dltpu.flash_bwd_dkv(
+            fq, fq, fq, flse, fdo, faked[1], 0.125, False, 4, False, True)
+    check(all(r.stride() == f.stride() and r.shape == f.shape
+              for r, f in zip(real, faked)),
+          "the backward ops' fake strides are the real ones")
+    log("fake strides equal the real ones on the card: flash_fwd, "
+        "flash_bwd_dq, flash_bwd_dkv, window_attn, nms_sweep")
+
+    # the host cost of the custom-op dispatch: K1's forward at B = 1
+    q1 = torch.randn(1, 197, 12, 64, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    out = fa._empty_bhnd(q1.transpose(1, 2), torch.bfloat16, True)
+    lse1 = torch.empty(12 * 197, device=dev)
+    qt = q1.transpose(1, 2)
+    lib = fa._lib()
+    raw = (qt.data_ptr(), qt.data_ptr(), qt.data_ptr(), out.data_ptr(),
+           lse1.data_ptr(), 1, 12, 197, 64,
+           *[st for t in (qt, qt, qt, out) for st in t.stride()[:3]],
+           0.125, 0, 4, 1, torch.cuda.current_stream().cuda_stream)
+    fns = {"custom op": lambda: fa.attention_bnhd(q1, q1, q1,
+                                                  heads_per_cta=4),
+           "launch wrapper": lambda: fa._launch(qt, qt, qt, out, 0.125,
+                                                False, 4, lse=lse1),
+           "C entry point": lambda: lib.flash_attn_fwd(*raw)}
+    host = {k: [] for k in fns}
+    with torch.no_grad():
+        for name in ("custom op", "launch wrapper", "C entry point",
+                     "C entry point", "launch wrapper", "custom op"):
+            for _ in range(100):
+                fns[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fns[name]()
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) / DISPATCH_CALLS
+                              * 1e6)
+    mean = {k: statistics.mean(v) for k, v in host.items()}
+    rounded = {k: [round(x, 2) for x in v] for k, v in host.items()}
+    log(f"K1 forward at (1, 12, 197, 64) bf16, host us a call (in turns, "
+        f"{DISPATCH_CALLS} calls ending in a synchronise): "
+        f"{json.dumps(rounded)}; the custom op adds "
+        f"{mean['custom op'] - mean['launch wrapper']:.2f} us to the launch "
+        f"wrapper, which adds "
+        f"{mean['launch wrapper'] - mean['C entry point']:.2f} us to the C "
+        f"entry point")
+
+    # export, save, load and run ViT-B/16 on K1
+    model, _ = hub.load(MODEL, num_classes=1000, seed=seed, device=dev,
+                        **hub.model_kwargs(MODEL, "flash_hb"))
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(EXPORT_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = torch.export.export(model, (x,))
+    t_export = time.perf_counter() - t0
+    n_nodes = sum(str(n.target) == "dltpu.flash_fwd.default"
+                  for n in ep.graph.nodes)
+    path = os.path.join(workdir, "vit_b16_flash_hb.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(ep, path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = torch.export.load(path).module()
+    t_load = time.perf_counter() - t0
+    check(n_nodes == DEPTH, f"the exported graph holds {DEPTH} K1 nodes")
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = loaded(x)
+        torch.cuda.synchronize()
+        per_call = fa.launch_counts()[fa.KERNEL_NAMES[4]]
+        want = model(x)
+    err = float((got.float() - want.float()).abs().max())
+    bits = bool(torch.equal(got, want))
+    ms = {}
+    with torch.no_grad():
+        for name, fn in (("exported", loaded), ("eager", model),
+                         ("eager", model), ("exported", loaded)):
+            ms.setdefault(name, []).append(_time_ms(lambda: fn(x), iters=20,
+                                                    warmup=3))
+    counts = {fa.KERNEL_NAMES[4]: per_call}
+    log(f"export ViT-B/16 flash_hb batch {EXPORT_BATCH}: export "
+        f"{t_export:.2f}s, save {t_save:.2f}s ({os.path.getsize(path)} "
+        f"bytes), load {t_load:.2f}s; {per_call} K1 forward launches a call; "
+        f"logits max |exported - eager| {err:.3e} (bit-equal {bits}, tol "
+        f"{EXPORT_LOGIT_TOL}); forward ms exported "
+        f"{[round(v, 4) for v in ms['exported']]}, eager "
+        f"{[round(v, 4) for v in ms['eager']]}")
+    check(per_call == DEPTH, "the loaded program launches 12 K1 forwards")
+    check(np.isfinite(err) and err <= EXPORT_LOGIT_TOL,
+          "exported logits equal eager's")
+    del ep, loaded, model
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # Conv + BatchNorm folding on ResNet-50
+    model, _ = hub.load("resnet50", num_classes=1000, seed=seed, device=dev,
+                        dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.running_mean.numel()
+                for t, v in ((m.running_mean, rng.normal(0, 0.1, c)),
+                             (m.running_var, rng.uniform(0.5, 1.5, c)),
+                             (m.weight, 1 + rng.normal(0, 0.1, c)),
+                             (m.bias, rng.normal(0, 0.1, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    xr = torch.from_numpy(rng.normal(size=(8, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        want = model(xr).float()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    fused = fuse_conv_bn(state, eps=lambda bn: model.get_submodule(bn).eps)
+    t_fuse = time.perf_counter() - t0
+    model.load_state_dict(fused)
+    with torch.no_grad():
+        got = model(xr).float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"fuse_conv_bn ResNet-50 224² (batch 8, float32): {t_fuse:.2f}s, "
+        f"logits max |fused - unfused| {err:.3e} of max |logit| "
+        f"{scale:.3e} (tol {FUSE_REL_TOL} of it)")
+    check(np.isfinite(err) and err <= FUSE_REL_TOL * scale,
+          "fused ResNet-50's logits equal the unfused ones")
+    del model, state, fused
+    torch.cuda.empty_cache()
     return counts
 
 

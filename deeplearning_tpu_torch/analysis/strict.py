@@ -12,12 +12,13 @@ module whose output holds a NaN and gradient hooks that raise at the
 first module whose output's gradient holds one, naming the module (JAX's
 ``jax_debug_nans`` raises at the emitting primitive), with autograd's
 anomaly mode recording each op's trace; ``debug_nans()`` without a model
-is anomaly mode with ``check_nan``.
+is anomaly mode with ``check_nan``. ``strict="threads"``
+(``DLTPU_STRICT=threads``) arms the runtime thread sanitizer
+(``analysis/threadsan.py``) through ``maybe_enable_threads``: instrumented
+Lock/RLock in the serving, elastic and feed modules, lock-order cycle
+detection seeded from the static graph, an autopsy on a violation.
 
 Differences from the JAX module, by decision:
-- ``threads`` (the runtime thread sanitizer, ``analysis/threadsan.py``)
-  comes with ROADMAP Queue 1 item 8c: asking for it raises ``ValueError``
-  naming the item, and so does a bare ``"all"``, which arms it too.
 - The sync debug mode is one switch for the process, not one a kind: the
   ``kind`` of ``no_transfers`` is checked and every kind arms it. It has
   no teeth on the CPU, where there is no card to wait for (the JAX
@@ -42,6 +43,7 @@ import torch
 __all__ = [
     "MODES", "resolve", "no_host_transfers", "no_transfers",
     "debug_nans", "strict_section", "guard_enforced", "unguarded",
+    "maybe_enable_threads",
 ]
 
 MODES = ("transfers", "nans", "threads")
@@ -49,8 +51,6 @@ MODES = ("transfers", "nans", "threads")
 # what a bare opt-in ("1", "true", "on") arms
 _DEFAULT_MODES = frozenset({"transfers"})
 _KINDS = ("device_to_host", "host_to_device", "all")
-_LATER = {"threads": "ROADMAP Queue 1 item 8c (the thread sanitizer, "
-                     "analysis/threadsan.py)"}
 
 
 def resolve(value: Union[str, bool, None] = None,
@@ -58,10 +58,10 @@ def resolve(value: Union[str, bool, None] = None,
     """Normalize a strict spec into the set of armed modes.
 
     ``value`` wins when given (``True``/``"1"`` → transfers;
-    ``"transfers,nans"`` → both; ``False``/``""``/``"0"`` → none);
-    otherwise the ``DLTPU_STRICT`` env var is consulted. ``"threads"``
-    and ``"all"`` (which includes it) raise ``ValueError`` naming the
-    ROADMAP item that brings the thread sanitizer.
+    ``"transfers,nans"`` → both; ``"all"`` → every mode;
+    ``False``/``""``/``"0"`` → none); otherwise the ``DLTPU_STRICT`` env
+    var is consulted, so any entry point gains strict mode without a code
+    change.
     """
     if value is None:
         value = os.environ.get(env, "")
@@ -73,17 +73,27 @@ def resolve(value: Union[str, bool, None] = None,
     if value in ("1", "true", "on"):
         return _DEFAULT_MODES
     if value == "all":
-        modes = frozenset(MODES)
-    else:
-        modes = frozenset(m.strip() for m in value.split(",") if m.strip())
+        return frozenset(MODES)
+    modes = frozenset(m.strip() for m in value.split(",") if m.strip())
     unknown = modes - frozenset(MODES)
     if unknown:
         raise ValueError(
             f"unknown strict mode(s) {sorted(unknown)}; "
             f"valid: {MODES}, '1'/'all', or ''")
-    for mode in sorted(modes & set(_LATER)):
-        raise ValueError(f"strict mode {mode!r} comes with {_LATER[mode]}")
     return modes
+
+
+def maybe_enable_threads(modes: FrozenSet[str]) -> bool:
+    """Arm the runtime thread sanitizer when ``"threads"`` is in the
+    resolved mode set. Called once an entry point (the Trainer, the serve
+    CLI) BEFORE the fleet objects construct their locks: ``enable()``
+    instruments modules' ``threading`` attributes, so locks created
+    earlier stay raw."""
+    if "threads" not in modes:
+        return False
+    from . import threadsan
+    threadsan.enable()
+    return True
 
 
 def _card() -> bool:

@@ -2,8 +2,9 @@
 counterpart of ``deeplearning_tpu/native/build.py``.
 
 Each helper is a plain C-ABI shared object compiled on first use (never
-at import) from ``deeplearning_tpu_torch/native/<name>.cpp`` into
-``<checkout>/build/native/`` (listed in ``.gitignore``), under a name that
+at import) from ``deeplearning_tpu_torch/native/<name>.cpp`` (or
+``.cc``) into ``<checkout>/build/native/`` (listed in ``.gitignore``),
+under a name that
 carries a hash of the source and the flags, so an edited source is never
 served by a stale library. The compiler writes a private temporary name
 that is then renamed into place: a concurrent process never opens a
@@ -39,9 +40,15 @@ def _command(name: str, src: Path, out: str) -> List[str]:
     return ["g++", *_CXX_FLAGS, str(src), "-o", out, *_LINK.get(name, ())]
 
 
+def _source(name: str) -> Path:
+    """``<name>.cpp``, or ``<name>.cc`` where that is the helper's file."""
+    src = NATIVE_DIR / f"{name}.cpp"
+    return src if src.exists() else NATIVE_DIR / f"{name}.cc"
+
+
 def library_path(name: str) -> Path:
     """Where ``lib<name>`` lands: its name hashes the source and flags."""
-    src = NATIVE_DIR / f"{name}.cpp"
+    src = _source(name)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(_command(name, src, "")).encode()
                             ).hexdigest()[:12]
@@ -60,7 +67,7 @@ def _build(name: str) -> Optional[Path]:
             pass
     tmp = str(BUILD_DIR / f".lib{name}-{os.getpid()}.tmp.so")
     try:
-        subprocess.run(_command(name, NATIVE_DIR / f"{name}.cpp", tmp),
+        subprocess.run(_command(name, _source(name), tmp),
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, out)
         return out

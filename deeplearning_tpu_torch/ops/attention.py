@@ -6,7 +6,7 @@
 (B, N, H, D). "flash" runs the kernel with one head per CTA, "flash_hb"
 with four (the short-N path, and the serve and train default); both read
 the fused-qkv slices in place and train through the backward kernels
-(``flash_attention._FlashAttention``). "sdpa" is
+(the ``dltpu::flash_*`` custom ops of ``flash_attention``). "sdpa" is
 ``torch.nn.functional.scaled_dot_product_attention``, the counterpart of
 ``jax.nn.dot_product_attention``: a library call, never the port's main
 path. Attention dropout exists on the naive path only, as in JAX.

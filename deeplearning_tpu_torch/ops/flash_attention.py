@@ -5,13 +5,15 @@ Entry points keep the JAX signatures and the (B, H, N, D) layout:
 ``flash_attention`` (one head per CTA, the ``_fwd_kernel`` and
 ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ports), ``flash_attention_hb``
 (``head_block`` heads per CTA, the ``_hb`` ports), ``flash_attention_bnhd``
-and ``attention_bnhd`` are differentiable through one
-``torch.autograd.Function`` (the counterpart of the JAX ``custom_vjp``):
-its forward launches the forward kernel and saves the row log-sum-exp the
-kernel writes, its backward launches the dQ kernel (which, for bf16,
-computes ``delta = rowsum(dO * O)`` from O and writes it) and then the
-dK/dV kernel, which reads that delta. ``flash_attention_with_lse`` is
-forward-only, as in JAX; ``flash_chunk_grads`` (ring attention's
+and ``attention_bnhd``. Each kernel entry is a ``torch.library`` op
+(``dltpu::``) with a fake implementation, so ``torch.export`` and fake-mode traces show
+each launch as one node: ``dltpu::flash_fwd`` (O and the row log-sum-exp)
+is differentiable through ``register_autograd`` (the counterpart of the
+JAX ``custom_vjp``); its backward is ``dltpu::flash_bwd_dq`` (which, for
+bf16, computes ``delta = rowsum(dO * O)`` from O and returns it) and then
+``dltpu::flash_bwd_dkv``, which reads that delta.
+``flash_attention_with_lse`` is forward-only, as in JAX;
+``flash_chunk_grads`` (ring attention's
 backward) reaches the same backward kernels with caller-supplied global
 statistics. The kernels are ``csrc/flash_attn_fwd.cu`` and
 ``csrc/flash_attn_bwd.cu``, built with nvcc at first use.
@@ -47,8 +49,9 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .kernels import WIDE_GRANULE, kernel_head_dim
+from .kernels import WIDE_GRANULE, define_op, kernel_head_dim
 
 __all__ = ["flash_attention", "flash_attention_hb", "flash_attention_with_lse",
            "flash_attention_bnhd", "flash_attention_reference",
@@ -255,14 +258,21 @@ def _check_out(*outs: torch.Tensor) -> None:
 
 
 def _launch(q, k, v, out, sm_scale: float, causal: bool,
-            heads_per_cta: int) -> torch.Tensor:
+            heads_per_cta: int,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the kernel on CUDA tensors q, k, v, writing ``out`` (all
-    (B, H, N, D), any strides); returns the (B*H, N) float32 LSE."""
+    (B, H, N, D), any strides) and ``lse`` (a contiguous float32 buffer of
+    B*H*N, allocated when not given); returns the LSE as (B*H, N)."""
     b, h, n, d = q.shape
     _check_launch("flash_attn_fwd", q, heads_per_cta)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     _check_out(out)
-    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    if lse is None:
+        lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    elif lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.numel() != b * h * n:
+        raise ValueError("lse must be a contiguous float32 buffer of B*H*N")
+    lse = lse.view(b * h, n)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -290,16 +300,19 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, sm_scale: float,
     float32. Given ``o`` (bf16 only), the dQ kernel computes
     delta = rowsum(dO * O) from it and writes it into ``delta``, a
     contiguous (B*H, N) float32 buffer, which the dK/dV kernel then reads;
-    without, both read ``delta``. ``kernels`` picks one of the two (a
-    timing harness times each alone)."""
+    without, both read ``delta``. ``kernels`` picks one of the two (the
+    custom ops launch one each; a timing harness times each alone), and
+    the gradients the other one writes may be None."""
     b, h, n, d = q.shape
     _check_launch("flash_attn_bwd", q, heads_per_cta)
-    if not (dq.dtype == dk.dtype == dv.dtype) or (
-            dq.dtype != q.dtype and dq.dtype != torch.float32):
+    outs = [g for g in (dq, dk, dv) if g is not None]
+    dtypes = {g.dtype for g in outs}
+    if len(dtypes) != 1 or dtypes - {q.dtype, torch.float32}:
         raise ValueError(f"gradients must share q's dtype or float32, got "
-                         f"{dq.dtype}, {dk.dtype}, {dv.dtype}")
+                         f"{[g.dtype for g in outs]}")
+    out_dtype = outs[0].dtype
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
-    _check_out(dq, dk, dv)
+    _check_out(*outs)
     lse = lse.to(torch.float32).reshape(b * h, n).contiguous()
     if o is None:
         delta = delta.to(torch.float32).reshape(b * h, n).contiguous()
@@ -316,7 +329,7 @@ def _launch_bwd(q, k, v, do, lse, delta, dq, dk, dv, sm_scale: float,
     o_ptr = None if o is None else o.data_ptr()
     o_strides = (0, 0, 0) if o is None else o.stride()[:3]
     codes = (float(sm_scale), int(bool(causal)), heads_per_cta,
-             _DTYPE_CODE[q.dtype], _DTYPE_CODE[dq.dtype])
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         lib = _bwd_lib()
@@ -358,43 +371,17 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError(f"no flash attention for device {q.device}")
 
 
-def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, out=None):
-    """(out, lse (B, H, N)) for (B, H, N, D) q, k, v on one device.
-    ``out``: an optional (B, H, N, D) view to write the result into."""
-    _check_qkv(q, k, v)
-    b, h, n, d = q.shape
-    # the scale of the true D, never of a padded one
-    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    if q.device.type == "cpu":
-        o, lse = flash_attention_reference(q, k, v, sm_scale=scale,
-                                           causal=causal)
-        if out is not None:
-            out.copy_(o)
-            o = out
-        return o, lse
-    d_kernel = _kernel_head_dim(d)
-    if d_kernel != d:
-        o, lse = _attention(*_pad_head_dim((q, k, v), d_kernel),
-                            sm_scale=scale, causal=causal,
-                            heads_per_cta=heads_per_cta)
-        if out is None:
-            return o[..., :d], lse
-        out.copy_(o[..., :d])
-        return out, lse
-    if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if n == 0 or b * h == 0:
-        return out, torch.empty((b, h, n), dtype=torch.float32,
-                                device=q.device)
-    lse = _launch(q, k, v, out, scale, causal, heads_per_cta)
-    return out, lse.view(b, h, n)
+def _scale(d: int, sm_scale: Optional[float]) -> float:
+    """The softmax scale of the true D, never of a padded one."""
+    return d ** -0.5 if sm_scale is None else float(sm_scale)
 
 
 def _empty_bhnd(like: torch.Tensor, dtype: torch.dtype,
                 bnhd: bool) -> torch.Tensor:
     """A (B, H, N, D) buffer for an output or a gradient; ``bnhd``: a view
     of a contiguous (B, N, H, D) tensor, the layout the models hand the
-    kernels."""
+    kernels. Every result of the custom ops below is laid out by this
+    function, in the real and in the fake implementations alike."""
     b, h, n, d = like.shape
     if bnhd:
         return torch.empty((b, n, h, d), dtype=dtype,
@@ -402,67 +389,189 @@ def _empty_bhnd(like: torch.Tensor, dtype: torch.dtype,
     return torch.empty((b, h, n, d), dtype=dtype, device=like.device)
 
 
-def _attention_bwd(q, k, v, o, lse, do, *, sm_scale, causal, heads_per_cta,
-                   out_dtype=None, delta=None, bnhd=False):
-    """(dq, dk, dv) of attention for (B, H, N, D) operands: the plain
-    version on the CPU, the two backward kernels on the card. ``delta``
-    (B, H, N) defaults to rowsum(dO * O): for bf16 the dQ kernel computes
-    it from ``o``; for float32 it is computed here in float32, as the JAX
-    code does outside its kernels."""
+def _rows(q: torch.Tensor) -> torch.Tensor:
+    """A (B, H, N) buffer of the softmax rows' statistics (LSE, delta)."""
+    b, h, n, _ = q.shape
+    return torch.empty((b, h, n), dtype=_compute_dtype(q), device=q.device)
+
+
+# --------------------------------------------------------- the custom ops
+# Each kernel entry is one ``torch.library`` op under ``dltpu::``
+# (``kernels.define_op``): the only binding, for eager runs,
+# ``torch.export`` and fake-mode traces alike. The real implementations
+# dispatch by where the tensors lie (the plain versions on the CPU; on the
+# card the kernel, and the checks that need a card); the fake ones give
+# results of the real ones' shapes, dtypes and strides and launch nothing.
+def _flash_fwd_impl(q, k, v, sm_scale, causal, heads_per_cta, bnhd):
+    """K1's forward: (O (B, H, N, D), LSE (B, H, N) float32)."""
+    _check_qkv(q, k, v)
+    out, lse = _empty_bhnd(q, q.dtype, bnhd), _rows(q)
+    _fwd_into(q, k, v, out, lse, sm_scale, causal, heads_per_cta)
+    return out, lse
+
+
+def _flash_fwd_fake(q, k, v, sm_scale, causal, heads_per_cta, bnhd):
+    _check_qkv(q, k, v)
+    return _empty_bhnd(q, q.dtype, bnhd), _rows(q)
+
+
+def _fwd_into(q, k, v, out, lse, scale: float, causal: bool,
+              heads_per_cta: int) -> None:
+    """Attention of (B, H, N, D) q, k, v into ``out`` and ``lse``."""
     b, h, n, d = q.shape
-    # the scale of the true D, never of a padded one
-    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    dtype = out_dtype or q.dtype
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(
-            q, k, v, o, lse, do, sm_scale=scale, causal=causal,
-            out_dtype=dtype, delta=delta)
+        o, lse_ = flash_attention_reference(q, k, v, sm_scale=scale,
+                                            causal=causal)
+        out.copy_(o)
+        lse.copy_(lse_)
+        return
     d_kernel = _kernel_head_dim(d)
     if d_kernel != d:
-        grads = _attention_bwd(
-            *_pad_head_dim((q, k, v, o), d_kernel), lse,
-            *_pad_head_dim((do,), d_kernel), sm_scale=scale, causal=causal,
-            heads_per_cta=heads_per_cta, out_dtype=dtype, delta=delta)
-        return tuple(g[..., :d] for g in grads)
-    grads = tuple(_empty_bhnd(x, dtype, bnhd) for x in (q, k, v))
+        qp, kp, vp = _pad_head_dim((q, k, v), d_kernel)
+        o = torch.empty_like(qp, memory_format=torch.contiguous_format)
+        _fwd_into(qp, kp, vp, o, lse, scale, causal, heads_per_cta)
+        out.copy_(o[..., :d])
+        return
     if n == 0 or b * h == 0:
-        return grads
-    fold = delta is None and q.dtype == torch.bfloat16
-    if fold:
-        delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    elif delta is None:
-        delta = (do.float() * o.float()).sum(-1)
-    _launch_bwd(q, k, v, do, lse, delta, *grads, scale, causal,
-                heads_per_cta, o=o if fold else None)
-    return grads
+        return
+    _launch(q, k, v, out, scale, causal, heads_per_cta, lse=lse)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Attention with the kernels' backward: the counterpart of the JAX
-    package's ``custom_vjp`` pairs ``_flash`` / ``_flash_hb``. The forward
-    saves q, k, v, O and the LSE the forward kernel writes; the backward
-    recomputes P from them. ``bnhd``: q, k, v are (B, H, N, D) views of
-    (B, N, H, D) tensors, and the output and gradients are laid out the
-    same way, so no transpose is ever copied."""
+def _flash_bwd_dq_impl(q, k, v, o, lse, do, delta, sm_scale, causal,
+                       heads_per_cta, out_f32, bnhd):
+    """K1's dQ kernel: (dQ, delta (B, H, N)). ``delta`` = rowsum(dO * O)
+    when not given: for bf16 the kernel computes it from ``o`` and writes
+    it; for float32 it is computed here in float32, as the JAX code does
+    outside its kernels. A given ``delta`` (ring attention's global one)
+    comes back as a copy."""
+    b, h, n, d = q.shape
+    dq = _empty_bhnd(q, torch.float32 if out_f32 else q.dtype, bnhd)
+    ct = _compute_dtype(q)
+    fold = delta is None and q.dtype == torch.bfloat16 \
+        and q.device.type == "cuda"
+    if delta is None:
+        delta = _rows(q) if fold else \
+            (do.to(ct) * o.to(ct)).sum(-1).reshape(b, h, n)
+    else:
+        delta = delta.to(ct).reshape(b, h, n).clone()
+    if q.device.type == "cpu":
+        dq.copy_(flash_attention_bwd_reference(
+            q, k, v, o, lse, do, sm_scale=sm_scale, causal=causal,
+            out_dtype=dq.dtype, delta=delta)[0])
+        return dq, delta
+    d_kernel = _kernel_head_dim(d)
+    qp, kp, vp, op, dop = _pad_head_dim((q, k, v, o, do), d_kernel) \
+        if d_kernel != d else (q, k, v, o, do)
+    dqp = dq if d_kernel == d else _empty_bhnd(qp, dq.dtype, bnhd)
+    if n and b * h:
+        _launch_bwd(qp, kp, vp, dop, lse, delta, dqp, None, None, sm_scale,
+                    causal, heads_per_cta, kernels=("dq",),
+                    o=op if fold else None)
+    if dqp is not dq:
+        dq.copy_(dqp[..., :d])
+    return dq, delta
 
-    @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, heads_per_cta, bnhd):
-        _check_qkv(q, k, v)
-        out = _empty_bhnd(q, q.dtype, bnhd) if bnhd else None
-        o, lse = _attention(q, k, v, sm_scale=sm_scale, causal=causal,
-                            heads_per_cta=heads_per_cta, out=out)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (sm_scale, causal, heads_per_cta, bnhd)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        sm_scale, causal, heads_per_cta, bnhd = ctx.cfg
-        dq, dk, dv = _attention_bwd(q, k, v, o, lse, do, sm_scale=sm_scale,
-                                    causal=causal,
-                                    heads_per_cta=heads_per_cta, bnhd=bnhd)
-        return dq, dk, dv, None, None, None, None
+def _flash_bwd_dq_fake(q, k, v, o, lse, do, delta, sm_scale, causal,
+                       heads_per_cta, out_f32, bnhd):
+    return (_empty_bhnd(q, torch.float32 if out_f32 else q.dtype, bnhd),
+            _rows(q))
+
+
+def _flash_bwd_dkv_impl(q, k, v, lse, do, delta, sm_scale, causal,
+                        heads_per_cta, out_f32, bnhd):
+    """K1's dK/dV kernel: (dK, dV), reading the dQ op's ``delta``."""
+    b, h, n, d = q.shape
+    dtype = torch.float32 if out_f32 else q.dtype
+    dk, dv = _empty_bhnd(q, dtype, bnhd), _empty_bhnd(q, dtype, bnhd)
+    if q.device.type == "cpu":
+        _, dk_, dv_ = flash_attention_bwd_reference(
+            q, k, v, None, lse, do, sm_scale=sm_scale, causal=causal,
+            out_dtype=dtype, delta=delta)
+        dk.copy_(dk_)
+        dv.copy_(dv_)
+        return dk, dv
+    d_kernel = _kernel_head_dim(d)
+    padded = d_kernel != d
+    qp, kp, vp, dop = _pad_head_dim((q, k, v, do), d_kernel) \
+        if padded else (q, k, v, do)
+    dkp, dvp = (_empty_bhnd(qp, dtype, bnhd) for _ in "kv") \
+        if padded else (dk, dv)
+    if n and b * h:
+        _launch_bwd(qp, kp, vp, dop, lse, delta, None, dkp, dvp, sm_scale,
+                    causal, heads_per_cta, kernels=("dkv",))
+    if padded:
+        dk.copy_(dkp[..., :d])
+        dv.copy_(dvp[..., :d])
+    return dk, dv
+
+
+def _flash_bwd_dkv_fake(q, k, v, lse, do, delta, sm_scale, causal,
+                        heads_per_cta, out_f32, bnhd):
+    dtype = torch.float32 if out_f32 else q.dtype
+    return _empty_bhnd(q, dtype, bnhd), _empty_bhnd(q, dtype, bnhd)
+
+
+def _setup_fwd(ctx, inputs, output) -> None:
+    q, k, v, sm_scale, causal, heads_per_cta, bnhd = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.cfg = (sm_scale, causal, heads_per_cta, bnhd)
+
+
+def _backward_fwd(ctx, do, _dlse):
+    """The counterpart of the JAX ``custom_vjp`` pairs ``_flash`` /
+    ``_flash_hb``: P is recomputed from q, k, v and the saved LSE."""
+    q, k, v, o, lse = ctx.saved_tensors
+    sm_scale, causal, heads_per_cta, bnhd = ctx.cfg
+    dq, dk, dv = _attention_bwd(q, k, v, o, lse, do, sm_scale=sm_scale,
+                                causal=causal, heads_per_cta=heads_per_cta,
+                                bnhd=bnhd)
+    return dq, dk, dv, None, None, None, None
+
+
+# the ops' overloads, bound once: a call through them skips the packet's
+# overload lookup on every launch (the host path of a served forward)
+_FWD = define_op(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, float sm_scale, bool causal, "
+    "int heads_per_cta, bool bnhd) -> (Tensor, Tensor)",
+    _flash_fwd_impl, _flash_fwd_fake, backward=_backward_fwd,
+    setup_context=_setup_fwd)
+_BWD_DQ = define_op(
+    "flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor? o, Tensor lse, "
+    "Tensor do, Tensor? delta, float sm_scale, bool causal, "
+    "int heads_per_cta, bool out_f32, bool bnhd) -> (Tensor, Tensor)",
+    _flash_bwd_dq_impl, _flash_bwd_dq_fake)
+_BWD_DKV = define_op(
+    "flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor do, "
+    "Tensor delta, float sm_scale, bool causal, int heads_per_cta, "
+    "bool out_f32, bool bnhd) -> (Tensor, Tensor)",
+    _flash_bwd_dkv_impl, _flash_bwd_dkv_fake)
+
+
+def _attention(q, k, v, *, sm_scale, causal, heads_per_cta, bnhd=False):
+    """(out, lse (B, H, N)) for (B, H, N, D) q, k, v on one device: one
+    ``dltpu::flash_fwd`` call (which checks its operands)."""
+    return _FWD(q, k, v, _scale(q.shape[-1], sm_scale), bool(causal),
+                int(heads_per_cta), bool(bnhd))
+
+
+def _attention_bwd(q, k, v, o, lse, do, *, sm_scale, causal, heads_per_cta,
+                   out_dtype=None, delta=None, bnhd=False):
+    """(dq, dk, dv) of attention for (B, H, N, D) operands: the
+    ``dltpu::flash_bwd_dq`` op, then ``dltpu::flash_bwd_dkv``, which reads
+    the first one's delta."""
+    scale = _scale(q.shape[-1], sm_scale)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise ValueError(f"gradients come in q's dtype or float32, not "
+                         f"{out_dtype}")
+    out_f32 = out_dtype == torch.float32 and q.dtype != torch.float32
+    dq, delta = _BWD_DQ(
+        q, k, v, o, lse, do, delta, scale, bool(causal), int(heads_per_cta),
+        out_f32, bool(bnhd))
+    dk, dv = _BWD_DKV(
+        q, k, v, lse, do, delta, scale, bool(causal), int(heads_per_cta),
+        out_f32, bool(bnhd))
+    return dq, dk, dv
 
 
 def _head_block(h: int, head_block: int) -> int:
@@ -480,7 +589,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused attention, one head per CTA. q, k, v: (B, H, N, D), any N.
     Differentiable: the backward runs the dQ and dK/dV kernels."""
     del block_q, block_k
-    return _FlashAttention.apply(q, k, v, sm_scale, causal, 1, False)
+    return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                      heads_per_cta=1)[0]
 
 
 def flash_attention_hb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -492,8 +602,8 @@ def flash_attention_hb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     divides H) share one CTA, forward and backward — the short-N path
     (ViT's N = 197)."""
     del block_q, block_k
-    return _FlashAttention.apply(q, k, v, sm_scale, causal,
-                                 _head_block(q.shape[1], head_block), False)
+    return _attention(q, k, v, sm_scale=sm_scale, causal=causal,
+                      heads_per_cta=_head_block(q.shape[1], head_block))[0]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -546,8 +656,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and write the output and the gradients as (B, N, H, D) tensors through
     the matching views. Differentiable."""
     t = lambda x: x.transpose(1, 2)  # noqa: E731
-    return t(_FlashAttention.apply(t(q), t(k), t(v), sm_scale, causal,
-                                   heads_per_cta, True))
+    return t(_attention(t(q), t(k), t(v), sm_scale=sm_scale, causal=causal,
+                        heads_per_cta=heads_per_cta, bnhd=True)[0])
 
 
 def flash_attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -601,3 +711,25 @@ def bwd_min_bytes(b: int, h: int, n: int, d: int, itemsize: int,
     reads, writes, rows = _BWD_IO[kernel]
     return (reads * t * itemsize + rows * b * h * n * 4
             + writes * t * (out_itemsize or itemsize))
+
+
+# K1's operation counts for ``torch.utils.flop_counter.FlopCounterMode``
+# (the formulas get the ops' arguments, each tensor as its shape)
+@register_flop_formula(torch.ops.dltpu.flash_fwd)
+def _fwd_flop_count(q_shape, k_shape, v_shape, sm_scale, causal, *args,
+                    out_shape=None, **kwargs) -> int:
+    return int(flops(*q_shape, causal=causal))
+
+
+@register_flop_formula(torch.ops.dltpu.flash_bwd_dq)
+def _dq_flop_count(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+                   delta_shape, sm_scale, causal, *args, out_shape=None,
+                   **kwargs) -> int:
+    return int(bwd_flops(*q_shape, causal=causal, kernel="dq"))
+
+
+@register_flop_formula(torch.ops.dltpu.flash_bwd_dkv)
+def _dkv_flop_count(q_shape, k_shape, v_shape, lse_shape, do_shape,
+                    delta_shape, sm_scale, causal, *args, out_shape=None,
+                    **kwargs) -> int:
+    return int(bwd_flops(*q_shape, causal=causal, kernel="dkv"))

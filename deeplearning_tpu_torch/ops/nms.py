@@ -20,7 +20,9 @@ oracle):
   (block, N) IoU tile then kills every later candidate a kept box
   overlaps. Stops once ``max_out`` keeps are in.
 - the K3 kernel, ``csrc/nms_sweep.cu``: the same sort and padding around
-  one launch a batch. ``nms_greedy_sweep`` (one CTA an image) walks the
+  one launch a batch, bound as the ``torch.library`` op
+  ``dltpu::nms_sweep`` with a fake implementation (one node in an export
+  or a fake-mode trace). ``nms_greedy_sweep`` (one CTA an image) walks the
   candidates in score order, 64 at a time: each is tested against the
   boxes kept so far, the block's own keeps are resolved in greedy order
   from its 64 x 64 IoU > threshold bits, and the walk stops at ``max_out``
@@ -51,6 +53,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from .boxes import box_iou
+from .kernels import define_op
 
 __all__ = ["DEFAULT_BLOCK_SIZE", "KERNEL_NAMES", "WORD", "set_default_nms_impl",
            "get_default_nms_impl", "nms_reference", "sort_pad_candidates",
@@ -373,20 +376,37 @@ def nms_sweep(sboxes: torch.Tensor, alive0: torch.Tensor,
         raise ValueError("sboxes and alive0 must lie on one device")
     if alive0.dtype != torch.bool:
         raise ValueError(f"alive0 must be bool, got {alive0.dtype}")
-    if sboxes.device.type == "cpu":
-        if sboxes.shape[1] % WORD:
-            raise ValueError(f"the NMS kernel takes candidates padded to a "
-                             f"multiple of {WORD}, got {sboxes.shape[1]}")
-        return nms_sweep_plain(sboxes, alive0, iou_threshold, max_out, WORD)
-    if sboxes.device.type != "cuda":
+    if sboxes.device.type == "cpu" and sboxes.shape[1] % WORD:
+        raise ValueError(f"the NMS kernel takes candidates padded to a "
+                         f"multiple of {WORD}, got {sboxes.shape[1]}")
+    if sboxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS for device {sboxes.device}")
+    return _NMS_SWEEP(sboxes, alive0, float(iou_threshold), int(max_out))
+
+
+# K3 is one ``torch.library`` op, ``dltpu::nms_sweep``
+# (``kernels.define_op``): the only binding, for eager runs,
+# ``torch.export`` and fake-mode traces alike. The real implementation
+# dispatches by where the tensors lie (the plain sweep in 64-wide blocks
+# on the CPU; on the card the kernel, and the checks that need a card);
+# the fake one gives the (B, Npad) bool mask and launches nothing.
+def _nms_sweep_impl(sboxes, alive0, iou_threshold, max_out):
+    if sboxes.device.type == "cpu":
+        return nms_sweep_plain(sboxes, alive0, iou_threshold, max_out, WORD)
     return _sweep_kernel(sboxes, alive0, iou_threshold, max_out)
+
+
+_NMS_SWEEP = define_op(
+    "nms_sweep(Tensor sboxes, Tensor alive0, float iou_threshold, "
+    "int max_out) -> Tensor",
+    _nms_sweep_impl, lambda sboxes, alive0, *_: alive0.new_empty(
+        alive0.shape))
 
 
 def _nms_kernel(boxes, scores, iou_threshold, max_out, score_threshold):
     sboxes, alive0, order, _ = sort_pad_candidates(
         boxes.to(torch.float32), scores, score_threshold, WORD)
-    alive = _sweep_kernel(sboxes, alive0, iou_threshold, max_out)
+    alive = _NMS_SWEEP(sboxes, alive0, float(iou_threshold), int(max_out))
     return _emit_from_alive(alive, order, max_out)
 
 

@@ -35,8 +35,12 @@ launch error, a shape the kernel does not take); a CPU tensor takes the
 plain version ``window_attention_plain``. There is no fallback from one
 to the other.
 
-``window_attention_checkpointed`` is the differentiable form, as in JAX:
-its forward is the kernel, its backward recomputes the gradients of
+The kernel is bound as one ``torch.library`` op, ``dltpu::window_attn``,
+with a fake implementation, so ``torch.export``
+and fake-mode traces show each launch as one node. It is differentiable
+(``register_autograd``), so ``window_attention_checkpointed``, the
+differentiable form in JAX, is the same call: its forward is the kernel,
+its backward recomputes the gradients of
 ``ops/window_utils.windowed_attention_reference`` (the model's unfused
 path) for qkv and bias; the mask gets none. The backward's oracle is that
 reference, not the kernel's plain version: the JAX package has no
@@ -51,7 +55,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .kernels import kernel_head_dim
+from .kernels import define_op, kernel_head_dim
 from .window_utils import windowed_attention_reference
 
 __all__ = ["window_attention", "window_attention_checkpointed",
@@ -229,43 +233,65 @@ def _check_args(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"no window attention for device {qkv.device}")
 
 
+# --------------------------------------------------------- the custom op
+# K2 is one ``torch.library`` op, ``dltpu::window_attn``
+# (``kernels.define_op``): the only binding, for eager runs,
+# ``torch.export`` and fake-mode traces alike. The real implementation
+# dispatches by where the tensors lie (the plain version on the CPU; on
+# the card the kernel, and the checks that need a card); the fake one
+# gives the real one's (BW, N, heads·d) contiguous result and launches
+# nothing.
+def _window_attn_impl(qkv, bias, mask, windows_per_block):
+    _check_args(qkv, bias, mask)
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, bias, mask).contiguous()
+    return _launch(qkv, bias, mask, windows_per_block)
+
+
+def _window_attn_fake(qkv, bias, mask, windows_per_block):
+    _check_args(qkv, bias, mask)
+    bw, n, _, heads, d = qkv.shape
+    return qkv.new_empty((bw, n, heads * d))
+
+
+def _setup(ctx, inputs, output) -> None:
+    qkv, bias, mask, _ = inputs
+    ctx.save_for_backward(qkv, bias)
+    ctx.mask = mask
+
+
+def _backward(ctx, g):
+    """The backward recomputes the unfused reference (the counterpart of
+    the JAX ``custom_vjp``); the mask gets no gradient."""
+    qkv, bias = ctx.saved_tensors
+    with torch.enable_grad():
+        a = qkv.detach().requires_grad_()
+        b = bias.detach().requires_grad_()
+        out = windowed_attention_reference(a, b, ctx.mask)
+        dqkv, dbias = torch.autograd.grad(out, (a, b), g)
+    return dqkv, dbias, None, None
+
+
+_WINDOW_ATTN = define_op(
+    "window_attn(Tensor qkv, Tensor bias, Tensor? mask, "
+    "int windows_per_block) -> Tensor",
+    _window_attn_impl, _window_attn_fake, backward=_backward,
+    setup_context=_setup)
+
+
 # ---------------------------------------------------------- entry points
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
                      windows_per_block: int = 8) -> torch.Tensor:
-    """Fused attention over partitioned windows (forward only).
+    """Fused attention over partitioned windows: one
+    ``dltpu::window_attn`` call.
 
     qkv:  (BW, N, 3, heads, d), BW = batch * num_windows, N = window².
     bias: (heads, N, N) relative-position bias.
     mask: (nW, N, N) additive shift mask or None.
     Returns (BW, N, heads*d).
     """
-    _check_args(qkv, bias, mask)
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, mask)
-    return _launch(qkv, bias, mask, windows_per_block)
-
-
-class _WindowAttention(torch.autograd.Function):
-    """Forward through the kernel; backward through the unfused
-    reference, recomputed (the counterpart of the JAX ``custom_vjp``)."""
-
-    @staticmethod
-    def forward(ctx, qkv, bias, mask, windows_per_block):
-        ctx.save_for_backward(qkv, bias)
-        ctx.mask = mask
-        return window_attention(qkv.detach(), bias.detach(), mask,
-                                windows_per_block)
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            a = qkv.detach().requires_grad_()
-            b = bias.detach().requires_grad_()
-            out = windowed_attention_reference(a, b, ctx.mask)
-            dqkv, dbias = torch.autograd.grad(out, (a, b), g)
-        return dqkv, dbias, None, None
+    return _WINDOW_ATTN(qkv, bias, mask, max(int(windows_per_block), 1))
 
 
 def window_attention_checkpointed(qkv: torch.Tensor, bias: torch.Tensor,
@@ -279,7 +305,7 @@ def window_attention_checkpointed(qkv: torch.Tensor, bias: torch.Tensor,
     if kw:
         raise TypeError(f"unexpected keywords {sorted(kw)}")
     mask = mask.detach() if mask is not None else None
-    return _WindowAttention.apply(qkv, bias, mask, windows_per_block)
+    return window_attention(qkv, bias, mask, windows_per_block)
 
 
 def flops(bw: int, n: int, heads: int, d: int) -> float:

@@ -577,9 +577,14 @@ def main(argv=None) -> int:
     if args.zoo is not None and args.http is None:
         ap.error("--zoo requires --http (stdin mode is single-model)")
 
+    from ..analysis import strict as strict_mod
     from ..elastic import heartbeat as hb
     from ..obs import spans
     from .batcher import MicroBatcher
+
+    # DLTPU_STRICT=threads: instrument the fleet's locks BEFORE the zoo,
+    # batcher and heartbeat objects below create them
+    strict_mod.maybe_enable_threads(strict_mod.resolve())
 
     # DLTPU_TRACE=1: the span timeline, dumped on a graceful exit (beside
     # the endpoint file when supervised, one trace a replica workdir)

@@ -71,9 +71,9 @@ the rows of its data index):
   torchrun --nproc_per_node=2 -m deeplearning_tpu_torch.train \
       --cfg configs/vit_b16_imagenet.yaml train.mesh_seq_axis=2
 
-Options of later slices raise naming the ROADMAP Queue 1 item that brings
-them (``train.strict=threads`` / ``all`` item 8c); the port has no
-``train.donate_batch`` (it updates the state in place).
+``train.strict=threads`` (or ``all``) arms the thread sanitizer for the
+run (``analysis/threadsan.py``); the port has no ``train.donate_batch``
+(it updates the state in place).
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ class TrainCfg:
     microbatches: int = 0            # 0: pipeline_stages
     precompile: bool = True          # start the feed before the first step
     recovery: str = "none"           # none|abort|rollback
-    strict: str = ""                 # transfers|nans (threads: item 8c)
+    strict: str = ""                 # transfers|nans|threads|all
     weight_update: str = "replicated"  # replicated | zero1: shard adam
     grad_comm: str = "fp32"          # fp32 | int8: EQuARX block-scaled
 
@@ -185,7 +185,7 @@ def check_slice(cfg: Config) -> None:
                 f"divisible by train.microbatches={micro}")
     if t.strict:
         from ..analysis import strict
-        strict.resolve(t.strict)     # threads / all: item 8c
+        strict.resolve(t.strict)     # an unknown mode raises here
     if t.recovery not in ("none", "", "abort", "rollback"):
         raise ValueError(f"train.recovery={t.recovery!r} "
                          "(none | abort | rollback)")

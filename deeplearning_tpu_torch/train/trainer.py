@@ -24,8 +24,9 @@ The robust half, as in JAX:
   parameters at step N so the whole path runs for real.
 - ``strict``: ``"transfers"`` wraps every step region in
   ``torch.cuda.set_sync_debug_mode("error")`` (the lagged metrics fetch
-  stays outside it); ``"nans"`` arms NaN detection for the whole run
-  (``analysis/strict.py``).
+  stays outside it); ``"nans"`` arms NaN detection for the whole run;
+  ``"threads"`` arms the thread sanitizer before the run's objects build
+  their locks (``analysis/strict.py``, ``analysis/threadsan.py``).
 - ``preemptible``: SIGTERM / SIGINT flush the in-flight checkpoint, and
   ``Preempted`` is raised at the next step boundary after the state is
   checkpointed at the step rank 0 reports (``elastic/preempt.py``; the
@@ -173,6 +174,10 @@ class Trainer:
         # DLTPU_STRICT in the environment
         self.strict_modes = strict_mod.resolve(strict)
         self.strict_sections = 0     # guard regions entered (test hook)
+        # "threads" arms the thread sanitizer now, before the prefetcher,
+        # heartbeat and metrics objects construct their locks: enable()
+        # patches modules' threading attributes, so timing matters
+        strict_mod.maybe_enable_threads(self.strict_modes)
         # self-healing policy: None/"abort" raises on the first bad step;
         # "rollback" (or a RecoveryPolicy / RecoveryManager) rolls back
         # to a device-side anchor, skips the bad data window and damps

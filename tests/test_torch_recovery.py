@@ -12,7 +12,8 @@ analysis/strict) vs the JAX package, on the CPU.
   flushes and flags, ``flush_pending`` writes the deferred dump.
 - Heartbeat records equal JAX's for the same calls (time fields apart).
 - ``strict.resolve`` gives JAX's sets for every spelling JAX and the port
-  share; ``threads`` / ``all`` raise naming item 8; the NaN hooks name
+  share, ``threads`` / ``all`` included, and ``maybe_enable_threads``
+  arms the sanitizer for ``threads``; the NaN hooks name
   the first module whose output, or whose output's gradient, holds a NaN.
 """
 
@@ -287,8 +288,20 @@ def test_strict_resolve_matches_jax(value, monkeypatch):
 
 @pytest.mark.parametrize("value", ["threads", "all", "nans,threads"])
 def test_strict_threads_names_item_8(value):
-    with pytest.raises(ValueError, match="item 8"):
-        strict.resolve(value)
+    """The ``threads`` mode (item 8c): resolved as JAX resolves it, and
+    ``maybe_enable_threads`` arms the sanitizer for it."""
+    from deeplearning_tpu_torch.analysis import threadsan
+    modes = strict.resolve(value)
+    assert modes == jstrict.resolve(value) and "threads" in modes
+    assert not threadsan.enabled()
+    try:
+        assert strict.maybe_enable_threads(modes)
+        assert threadsan.enabled()
+    finally:
+        threadsan.disable()
+        threadsan.reset()
+    assert not strict.maybe_enable_threads(strict.resolve("nans"))
+    assert not threadsan.enabled()
     with pytest.raises(ValueError, match="unknown strict mode"):
         strict.resolve("transfer")
 

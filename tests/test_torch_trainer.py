@@ -378,7 +378,10 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
 
 
 @pytest.mark.parametrize("opt,error", [
-    ("train.strict=threads", "item 8"), ("train.strict=all", "item 8"),
+    # item 8c's thread sanitizer now arms (the ids keep their old names)
+    pytest.param("train.strict=threads", None,
+                 id="train.strict=threads-item 8"),
+    pytest.param("train.strict=all", None, id="train.strict=all-item 8"),
     # item 7c's model axis now runs: at one process JAX's mesh error
     pytest.param("train.mesh_model_axis=2",
                  "1 devices not divisible by fixed axes 2",
@@ -390,7 +393,8 @@ def test_cli_data_and_defaults_are_the_jax_clis(monkeypatch):
     ("train.grad_comm=int8", None)])
 def test_cli_later_slice_options_name_their_slice(opt, error, tmp_path,
                                                   capsys):
-    """At a one-process world: strict threads / all name item 8; a model
+    """At a one-process world: strict threads / all arm the thread
+    sanitizer for the run and train lock-clean (item 8c); a model
     or seq axis or pipeline stages of two need two ranks (JAX's mesh
     error, from a gloo world the CLI starts and destroys); train.seq_parallel without a seq axis and train.microbatches
     without stages run as JAX's CLI runs them; ZeRO-1 and the int8
@@ -403,7 +407,17 @@ def test_cli_later_slice_options_name_their_slice(opt, error, tmp_path,
             cli.main(CLI_TINY + [opt])
         assert not dist.is_initialized()
         return
-    assert cli.main(CLI_TINY + [opt, f"train.workdir={tmp_path}"]) == 0
+    from deeplearning_tpu_torch.analysis import threadsan
+    threadsan.reset()
+    try:
+        assert cli.main(CLI_TINY + [opt, f"train.workdir={tmp_path}"]) == 0
+        armed = threadsan.status()
+    finally:
+        threadsan.disable()
+        threadsan.reset()
+    if opt.startswith("train.strict="):
+        assert armed["enabled"] and armed["modules_patched"] > 0
+        assert armed["locks_instrumented"] > 0 and armed["violations"] == 0
     assert not dist.is_initialized()
     assert "top1" in capsys.readouterr().out.strip().splitlines()[-1]
     with open(tmp_path / "ckpt" / "topology.json") as f:

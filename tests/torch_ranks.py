@@ -855,8 +855,30 @@ def tensor_parallel(rank, n, payload, d):
     return _tp_three_d(rank, n, payload)
 
 
+def audits(rank, n, payload, d):
+    """The audit's ZeRO-1 rows over this group (one real step each, read
+    through collectives.launch_counts()), and the collectives a fake-mode
+    walk of a process-group all-reduce and all-gather counts."""
+    import torch.distributed as dist
+
+    from deeplearning_tpu_torch.analysis import audit
+    rows = audit.run_audits([a for a in audit.builtin_audits("cpu")
+                             if a.name.startswith(("train_step_zero1",
+                                                   "train_step_replicated"))])
+    mode = audit.fake_mode()
+    x = audit.fake_tensor(mode, (4, 8))
+
+    def fn(x):
+        dist.all_reduce(x)
+        out = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(out, x)
+    return {"rows": rows, "counts": audit.count_collectives(fn, x),
+            "bytes": audit.collective_bytes(fn, x)}
+
+
 SCENARIOS = {"collectives": collectives, "steps": steps,
-             "seq_pipe": seq_pipe, "tensor_parallel": tensor_parallel}
+             "seq_pipe": seq_pipe, "tensor_parallel": tensor_parallel,
+             "audits": audits}
 
 
 def main(name, rank, n, d):
