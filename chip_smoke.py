@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. build the CUDA kernels from ``deeplearning_tpu_torch/csrc`` (nvcc,
-   first use) and print the build seconds and the ptxas register report;
+   first use) and print the build seconds and the ptxas register report
+   (phase 60's g++ builds start with the script, in a thread joined at
+   60);
 2. hold the flash-attention kernel against its plain PyTorch version on
    the card, for both instantiations (one head and four heads per CTA),
    at the ViT-B/16 shape (B=32, H=12, N=197, D=64; bf16 tolerance 2e-2,
@@ -573,6 +575,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    in turns). ``fuse_conv_bn`` on ResNet-50 (float32, 224², batch 8,
    BatchNorm statistics drawn from the seed): the fused logits within
    ``FUSE_REL_TOL`` of the largest unfused one.
+60. the serving artifact. The op library (``native/dltpu_ops.cpp``:
+   ``dltpu::flash_fwd``, ``window_attn`` and ``nms_sweep`` registered
+   from C++, their CUDA impls launching the kernels built in phase 1) and
+   the AOTInductor runner (``native/aoti_runner.cc``) are built by g++ in
+   a thread started with the script and joined here. ViT-B/16 on
+   flash_hb at batch 8 (bf16) is packaged by ``export_savedmodel``
+   (``torch.export``, then AOTInductor for the card) and run by the
+   runner, a process with no Python, on the JAX runner's ramp: its output
+   shape, first 16 logits and all 8 x 1000 (the file it writes) against
+   eager's within ``AOTI_LOGIT_TOL``, its log-probabilities against a
+   naive-attention copy of the same weights within ``LOGP_TOL``, and 12
+   ``flash_fwd`` kernel launches through the C++ registration in its
+   checked run. Beside the packaging, a process of this script that
+   imports torch only calls the C++ ``dltpu::flash_fwd`` on the card at
+   ViT-B/16's (8, 12, 197, 64), on views of a fused qkv (``bnhd``) and on
+   contiguous copies, against the plain version (phase 2's bf16
+   tolerance; the Python op's output strides). The package and build
+   seconds, and the forward ms at
+   batch 8 of the runner, the ``.pt2`` program and eager (host clock over
+   ``AOTI_ITERS`` runs ending in a synchronise, in turns);
+61. the user CLIs in this process, each on the card by default:
+   ``predict`` on ViT-B/16 with ``--tta`` over an ``.npz`` of 8 images (its
+   top-5 lines equal an engine's TTA probabilities on the same weights;
+   K1 3 x 2 x 12), ``demo`` on YOLOX-S at 640² (one K3 launch, the
+   annotated image written) and ``evaluate`` on ViT-B/16 over 64 images
+   (its top-1 / top-5 / per-class equal a loop over the same batches;
+   K1 2 x 12).
 
 The kernels line's K3 entry is timed on YOLOX-S's served batch (phase
 14); its launches are the sum over the five served detection paths
@@ -593,7 +622,10 @@ step's (the supervised children's launches are not counted). Phase 57
 adds its four Trainer runs' (the flash_hb entries), phase 58 the zoo's
 (flash_hb forward and K2, from both tenants warm), and phase 59 the
 exported program's call (the flash_hb forward; the dispatch-cost loop
-and the fake-stride checks are comparisons, not counted).
+and the fake-stride checks are comparisons, not counted). Phase 60 adds
+the runner's K1 forward launches in its checked run (read from the op
+library's counter in that process; its timed runs are not counted), and
+phase 61 the CLIs' (the flash_hb forward; K3).
 
 The last three lines: the card's name and power limit (nvidia-smi), one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": ...}``.
@@ -686,7 +718,14 @@ def main() -> int:
     # phases 45-48 run two or four processes of this script, one a rank
     ap.add_argument("--par-phase", type=int, default=None,
                     help=argparse.SUPPRESS)
+    # phase 60 runs the C++ op library in a process of this script that
+    # imports torch only (the library and the Python ops both define
+    # dltpu::*)
+    ap.add_argument("--cpp-ops", nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cpp_ops is not None:
+        return _cpp_ops_child(*args.cpp_ops)
     if args.par_phase is not None:
         return PAR_RANKS[args.par_phase](args.mesh_rank, args.mesh_dir,
                                          args.seed)
@@ -699,10 +738,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 3
+    from deeplearning_tpu_torch.native import build as native_build
     from deeplearning_tpu_torch.ops import flash_attention as fa
     from deeplearning_tpu_torch.ops.flash_bench import graph_ms
     from deeplearning_tpu_torch.ops.kernels import build
 
+    # phase 60's g++ builds (the op library and the AOTInductor runner)
+    # need no card: they run beside phases 1-59 and are joined at 60
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build_dir, "inductor"))
+    serving_pool = ThreadPoolExecutor(1)
+    serving = serving_pool.submit(native_build.build_serving)
     dev = torch.device("cuda")
     # float32 references in full float32 (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1140,8 +1188,6 @@ def main() -> int:
         dist.destroy_process_group()
 
     # ------------ 45. two ranks on the one card: seq = 2, ring, Ulysses
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "build")
     phase(45, started)
     torch.cuda.empty_cache()
     # phase 46's ranks start now: their start-up overlaps phase 45
@@ -1239,12 +1285,32 @@ def main() -> int:
     # ----------------------------- 59. the audit and the export on K1
     phase(59, started)
     torch.cuda.empty_cache()
-    _add_launches(kernels, _audit_export(
+    counts, exported = _audit_export(
         fa, wa, nms_ops, dev, args.seed, os.path.join(build_dir,
-                                                      "smoke_export")))
+                                                      "smoke_export"))
+    _add_launches(kernels, counts)
+    log(f"chip_smoke: phases 57-59 in {time.perf_counter() - t57:.1f}s")
+
+    # ------ 60. the serving artifact: ViT-B/16 packaged, run by the runner
+    phase(60, started)
+    t60 = time.perf_counter()
+    torch.cuda.empty_cache()
+    runner_launches, cpp_err = _aoti_runner(
+        fa, dev, args.seed, os.path.join(build_dir, "smoke_aoti"), serving,
+        exported)
+    del exported
+    _add_launches(kernels, runner_launches)
+    k1["max_abs_err"] = max(k1["max_abs_err"], cpp_err)
+    serving_pool.shutdown()
+
+    # --------------------- 61. predict, demo and evaluate, in this process
+    phase(61, started)
+    _add_launches(kernels, _user_clis(
+        fa, wa, nms_ops, dev, args.seed, os.path.join(build_dir,
+                                                      "smoke_clis")))
     check(k1["launches"] > 0 and k2["launches"] > 0
           and k3["launches"] > 0, "K1, K2 and K3 launched")
-    log(f"chip_smoke: phases 57-59 in {time.perf_counter() - t57:.1f}s; "
+    log(f"chip_smoke: phases 60-61 in {time.perf_counter() - t60:.1f}s; "
         f"all in {time.perf_counter() - started:.1f}s")
 
     smi = subprocess.run(
@@ -7980,7 +8046,7 @@ def _threads_zoo(fa, wa, dev, seed) -> dict:
     return counts
 
 
-def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> dict:
+def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> tuple:
     """Phase 59: the fake-mode audit and the export. ViT-B/16's train step
     at batch 128 (flash_hb) traced on the card's device: 12 forward, 12 dQ
     and 12 dK/dV kernel nodes, 0 transfers, no launch, its peak
@@ -7994,7 +8060,8 @@ def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> dict:
     statistics drawn from the seed) against the unfused eval logits. And
     the host cost of the custom-op dispatch: one K1 forward at B = 1
     through ``attention_bnhd`` beside a direct call of the C entry point,
-    in turns."""
+    in turns. Returns the launches, and the ViT-B/16 model and its loaded
+    program for phase 60."""
     import io
     import shutil
     import torch
@@ -8195,7 +8262,9 @@ def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> dict:
     check(per_call == DEPTH, "the loaded program launches 12 K1 forwards")
     check(np.isfinite(err) and err <= EXPORT_LOGIT_TOL,
           "exported logits equal eager's")
-    del ep, loaded, model
+    # phase 60 packages this model and times this program beside its runner
+    exported = {"model": model, "program": loaded}
+    del ep, model, loaded
     shutil.rmtree(workdir, ignore_errors=True)
 
     # Conv + BatchNorm folding on ResNet-50
@@ -8231,7 +8300,390 @@ def _audit_export(fa, wa, nms_ops, dev, seed, workdir) -> dict:
           "fused ResNet-50's logits equal the unfused ones")
     del model, state, fused
     torch.cuda.empty_cache()
-    return counts
+    return counts, exported
+
+
+AOTI_ITERS = 20               # runs a forward-ms reading of phase 60
+# the runner's logits (all 8 x 1000) vs eager's: the package's Inductor
+# kernels fuse the elementwise ops around the GEMMs and K1 and round bf16 at
+# other places than eager's op-by-op run (3.907e-03 measured over the first
+# 16 in bf16, 8.848e-07 in float32). Against the naive attention on the same
+# weights the runner is held as phase 3 holds the eager engines: LOGP_TOL
+AOTI_LOGIT_TOL = 2e-2
+K1_BF16_TOL, LSE_TOL = 2e-2, 1e-3      # phase 2's K1 vs the plain version
+
+
+def _ramp(dims):
+    """The runners' input: 0.001f * (i % 1000) in float32, row-major
+    (``native/aoti_runner.cc``, as JAX's ``savedmodel_runner.cc``)."""
+    import torch
+    n = int(np.prod(dims))
+    vals = np.float32(0.001) * (np.arange(n) % 1000).astype(np.float32)
+    return torch.from_numpy(vals.reshape(dims))
+
+
+def _run_runner(runner, package, ops, dims, iters=0, out=None) -> dict:
+    """One run of ``aoti_runner``: its parsed lines (output_shape,
+    values, launches, forward_ms), its whole first output under "whole"
+    when ``out`` names the file it writes, and its wall seconds; raises
+    when it exits non-zero."""
+    cmd = [str(runner), str(package), str(ops), ",".join(map(str, dims))]
+    if iters or out:
+        cmd.append(str(iters))
+    if out:
+        cmd.append(str(out))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"aoti_runner exited {proc.returncode}: {proc.stderr[-3000:]}")
+    res = {"wall_s": wall}
+    for line in proc.stdout.splitlines():
+        key, _, rest = line.partition(":")
+        if key == "output_shape":
+            res["shape"] = tuple(int(v) for v in rest.split())
+        elif key == "values":
+            res["values"] = np.array([float(v) for v in rest.split()])
+        elif key == "launches":
+            res["launches"] = {k: int(v) for k, v in
+                               (kv.split("=") for kv in rest.split())}
+        elif key == "forward_ms":
+            res["forward_ms"] = float(rest)
+    if out:
+        res["whole"] = np.fromfile(out, np.float32).reshape(res["shape"])
+    return res
+
+
+def _wall_ms(fn, iters: int = AOTI_ITERS, warmup: int = 3) -> float:
+    """Mean host-clock ms a call over ``iters`` calls ending in a
+    synchronise, after ``warmup`` calls: the runner's own method."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _cpp_ops_child(lib: str, in_path: str, out_path: str) -> int:
+    """A process of this script that imports torch only: loads the C++ op
+    library and calls its ``dltpu::flash_fwd`` on the card on the views
+    ViT-B/16's attention hands K1 (q, k, v sliced from one fused (B, N, 3,
+    H, D) qkv, read as (B, H, N, D), ``bnhd``) and on contiguous (B, H, N,
+    D) copies of them. Saves each call's outputs with their strides, and
+    the library's launch counter."""
+    import ctypes
+    import torch
+    torch.ops.load_library(lib)
+    count = ctypes.CDLL(lib).dltpu_launches
+    count.argtypes, count.restype = [ctypes.c_char_p], ctypes.c_long
+    job = torch.load(in_path)
+    qkv = job["qkv"].cuda()
+    views = [t.transpose(1, 2) for t in qkv.unbind(2)]
+    out = {}
+    for bnhd, (q, k, v) in ((True, views),
+                            (False, [t.contiguous() for t in views])):
+        o, lse = torch.ops.dltpu.flash_fwd(q, k, v, job["scale"], False,
+                                           job["hpc"], bnhd)
+        torch.cuda.synchronize()
+        out[bnhd] = {"o": o.cpu(), "o_stride": tuple(o.stride()),
+                     "lse": lse.cpu(), "lse_stride": tuple(lse.stride())}
+    out["launches"] = count(b"flash_fwd")
+    torch.save(out, out_path)
+    return 0
+
+
+def _cpp_ops_start(ops, workdir, qkv, hpc) -> dict:
+    """Starts ``_cpp_ops_child`` on ``qkv`` (its inputs saved first)."""
+    import torch
+    inp = os.path.join(workdir, "cpp_ops_in.pt")
+    out = os.path.join(workdir, "cpp_ops_out.pt")
+    torch.save({"qkv": qkv.cpu(), "scale": HEAD_DIM ** -0.5, "hpc": hpc},
+               inp)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpp-ops", str(ops),
+         inp, out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return {"proc": proc, "out": out}
+
+
+def _cpp_ops_check(fa, run, qkv, hpc) -> float:
+    """The C++ registration's K1 forward (``_cpp_ops_child``) against the
+    plain version on the same inputs, with the Python op's output strides:
+    max |out - plain| (held at phase 2's bf16 tolerance) and max |lse -
+    plain| (``LSE_TOL``). Returns the larger output error."""
+    import torch
+    try:
+        text = run["proc"].communicate(timeout=300)[0]
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+    if run["proc"].returncode != 0:
+        log(text[-4000:])
+    check(run["proc"].returncode == 0, "the C++ op library's child ran")
+    got = torch.load(run["out"])
+    views = [t.transpose(1, 2) for t in qkv.unbind(2)]
+    want_o, want_lse = fa.flash_attention_reference(*views)
+    worst = 0.0
+    for bnhd in (True, False):
+        q, k, v = views if bnhd else [t.contiguous() for t in views]
+        py_o, py_lse = fa._attention(q, k, v, sm_scale=None, causal=False,
+                                     heads_per_cta=hpc, bnhd=bnhd)
+        g = got[bnhd]
+        err = float((g["o"].float() - want_o.float().cpu()).abs().max())
+        lse_err = float((g["lse"] - want_lse.cpu()).abs().max())
+        strides = (g["o_stride"] == tuple(py_o.stride())
+                   and g["lse_stride"] == tuple(py_lse.stride()))
+        log(f"C++ dltpu::flash_fwd on the card vs the plain version, "
+            f"ViT-B/16's {tuple(q.shape)} bf16, hpc={hpc}, bnhd={bnhd} "
+            f"({'views of the fused qkv' if bnhd else 'contiguous'}): out "
+            f"{err:.3e} (tol {K1_BF16_TOL}) lse {lse_err:.3e} (tol "
+            f"{LSE_TOL}), strides {g['o_stride']} as the Python op's "
+            f"{strides}")
+        check(np.isfinite(err) and err <= K1_BF16_TOL
+              and lse_err <= LSE_TOL and strides,
+              f"the C++ registration of K1 (bnhd={bnhd}) disagrees with the "
+              f"plain version at ViT-B/16's shape")
+        worst = max(worst, err)
+    check(got["launches"] == 2, f"the C++ op launched K1 twice, counted "
+          f"{got['launches']}")
+    return worst
+
+
+def _aoti_runner(fa, dev, seed, workdir, serving, exported) -> tuple:
+    """Phase 60: the serving artifact. ViT-B/16 at batch 8 on flash_hb
+    (bf16: phase 59's model, ``exported``) packaged by ``export_savedmodel`` on
+    the card (``torch.export``, then AOTInductor), and run by
+    ``aoti_runner`` (built by g++ in the background since the script's
+    start, with the op library whose CUDA impls launch K1) on the JAX
+    runner's ramp: its shape and all its logits against the eager port's
+    within ``AOTI_LOGIT_TOL``, its log-probabilities against a naive-
+    attention copy of the same weights (the plain path) within
+    ``LOGP_TOL``, and 12 ``flash_fwd`` kernel launches through the C++
+    registration in its one checked run. Beside the packaging, a process
+    that imports torch only holds the C++ registration's K1 forward at
+    ViT-B/16's shape against the plain version. Then the forward ms at
+    batch 8 (host clock over ``AOTI_ITERS`` runs ending in a synchronise)
+    of the runner, phase 59's ``.pt2`` program and eager, in turns. Returns the runner's K1 launches and the C++
+    registration's max error against the plain version."""
+    import copy
+    import shutil
+    import torch
+    from deeplearning_tpu_torch.export.serialize import export_savedmodel
+    from deeplearning_tpu_torch.ops.attention import get_attn_fn
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    built = serving.result()
+    (ops, ops_s), (runner, runner_s) = built["dltpu_ops"], \
+        built["aoti_runner"]
+    log(f"g++ builds (started with the script): op library {ops_s:.2f}s, "
+        f"runner {runner_s:.2f}s; joined after "
+        f"{time.perf_counter() - t0:.2f}s of waiting")
+    hpc = HPC_FOR["flash_attn_fwd_hb"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(EXPORT_BATCH, TOKENS, 3, HEADS, HEAD_DIM, device=dev,
+                      generator=g).to(torch.bfloat16)
+    cpp_run = _cpp_ops_start(ops, workdir, qkv, hpc)
+    model, program = exported["model"], exported["program"]
+    dims = (EXPORT_BATCH, 224, 224, 3)
+    x = _ramp(dims).to(dev)
+    # the plain path: the same weights with the naive attention
+    naive = copy.deepcopy(model)
+    for m in naive.modules():
+        if hasattr(m, "attn_fn"):
+            m.attn_fn = get_attn_fn("naive")
+    with torch.no_grad():
+        want = model(x).float().cpu()
+        plain = naive(x).float().cpu()
+    del naive
+    package = os.path.join(workdir, "vit_b16_flash_hb_aoti.pt2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_savedmodel(model, [x], package)
+    t_package = time.perf_counter() - t0
+    first = _run_runner(runner, package, ops, dims, iters=AOTI_ITERS,
+                        out=os.path.join(workdir, "logits.f32"))
+    cpp_err = _cpp_ops_check(fa, cpp_run, qkv, hpc)
+    whole = first["whole"]
+    err16 = float(np.abs(first["values"] - want.flatten()[:16].numpy()).max())
+    err = float(np.abs(whole - want.numpy()).max())
+    err_plain = float(np.abs(whole - plain.numpy()).max())
+    launches = first["launches"]
+    log(f"export_savedmodel ViT-B/16 flash_hb batch {EXPORT_BATCH} "
+        f"({str(model.dtype)[6:]}): {t_package:.2f}s, "
+        f"{os.path.getsize(package)} bytes; aoti_runner: shape "
+        f"{first['shape']}, logits max |runner - eager| over all "
+        f"{whole.size} {err:.3e} (first 16: {err16:.3e}; tol "
+        f"{AOTI_LOGIT_TOL}), max |runner - naive attention| {err_plain:.3e}, "
+        f"launches {json.dumps(launches)}, process {first['wall_s']:.2f}s")
+    check(first["shape"] == tuple(want.shape), "the runner's output shape")
+    check(np.isfinite(whole).all() and err <= AOTI_LOGIT_TOL
+          and err16 <= AOTI_LOGIT_TOL, "the runner's logits equal eager's")
+    _compare(torch.from_numpy(whole).softmax(-1).numpy(),
+             plain.softmax(-1).numpy(),
+             "runner vs the naive attention on the same weights, all rows")
+    check(launches == {"flash_fwd": DEPTH, "window_attn": 0,
+                       "nms_sweep": 0},
+          f"the runner launched K1 {DEPTH} times through dltpu::flash_fwd")
+    ms = {"runner": [first["forward_ms"]]}
+    with torch.no_grad():
+        for name in ("eager", "pt2 program", "pt2 program", "eager",
+                     "runner"):
+            if name == "runner":
+                ms[name].append(_run_runner(runner, package, ops, dims,
+                                            iters=AOTI_ITERS)["forward_ms"])
+            else:
+                fn = model if name == "eager" else program
+                ms.setdefault(name, []).append(_wall_ms(lambda: fn(x)))
+    log(f"forward ms at batch {EXPORT_BATCH} (host clock, {AOTI_ITERS} "
+        f"runs ending in a synchronise, in turns runner, eager, pt2, pt2, "
+        f"eager, runner): "
+        f"{json.dumps({k: [round(v, 4) for v in vs] for k, vs in ms.items()})}")
+    del program, model
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"flash_attn_fwd_hb": launches["flash_fwd"]}, cpp_err
+
+
+CLI_PREDICT_BATCH = 8          # phase 61: predict's .npz, flip-TTA on K1
+CLI_EVAL_IMAGES, CLI_EVAL_BATCH = 64, 32
+
+
+def _cli_stdout(main, argv) -> list:
+    """Run a CLI's ``main(argv)`` in this process; its stdout lines."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__} {' '.join(argv)} exited {rc}")
+    return buf.getvalue().splitlines()
+
+
+def _user_clis(fa, wa, nms_ops, dev, seed, workdir) -> dict:
+    """Phase 61: the user CLIs in this process, on the card by default.
+    ``predict`` on ViT-B/16 (flash_hb) with ``--tta`` over an ``.npz`` of
+    8 images: buckets 1 and 8 warmed and one run, two views each, so
+    3 x 2 x 12 K1 launches; its top-5 lines equal an engine's TTA
+    probabilities on the same weights. ``demo`` on YOLOX-S at 640² over a
+    seeded 480 x 640 PNG at score 0: one K3 launch, the annotated image
+    written, one JSON line a detection. ``evaluate`` on ViT-B/16 over 64
+    images in batches of 32: 2 x 12 K1 launches, its top-1 / top-5 /
+    per-class equal to a loop over the same batches in this script.
+    Returns the launches, each CLI counted from zero just before its
+    run."""
+    import shutil
+    import torch
+    from PIL import Image
+    from deeplearning_tpu_torch import demo, evaluate, hub, predict
+    from deeplearning_tpu_torch.evaluation.metrics import (
+        confusion_matrix, miou_from_confusion, topk_correct)
+    from deeplearning_tpu_torch.ops.tta import classify_tta
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    reset, read = _counters(fa, wa, nms_ops)
+    total: dict = {}
+    rng = np.random.default_rng(seed + 61)
+
+    # predict: ViT-B/16, flip-TTA, one .npz of 8 images
+    x = rng.normal(size=(CLI_PREDICT_BATCH, 224, 224, 3)).astype(np.float32)
+    npz = os.path.join(workdir, "vit.npz")
+    np.savez(npz, images=x, labels=np.zeros(len(x), np.int32))
+    t0 = time.perf_counter()
+    reset()
+    lines = _cli_stdout(predict.main, [
+        "--model", MODEL, "--num-classes", "1000", "--input", npz,
+        "--tta", "--topk", "5", "--seed", str(seed)])
+    counts = read()
+    t_predict = time.perf_counter() - t0
+    _add(total, counts)
+    model, _ = hub.load(MODEL, num_classes=1000, seed=seed, device=dev,
+                        **hub.model_kwargs(MODEL, "flash_hb"))
+    with torch.no_grad():
+        probs = classify_tta(model, torch.from_numpy(x).to(dev)).cpu().numpy()
+    want = [f"image {i}: " + "  ".join(
+        f"{int(c)}={p[c]:.4f}" for c in np.argsort(-p)[:5])
+        for i, p in enumerate(probs)]
+    log(f"predict ViT-B/16 --tta on {len(x)} images: {t_predict:.2f}s, "
+        f"launches {json.dumps(counts)}; {lines[0]}")
+    check(lines[-len(want):] == want,
+          "predict's top-5 lines == the TTA probabilities of the same "
+          "weights")
+    check(counts == {fa.KERNEL_NAMES[4]: 3 * 2 * DEPTH},
+          "predict: K1 launches == 3 forwards x 2 views x 12")
+
+    # demo: YOLOX-S at 640² on a seeded PNG
+    src = os.path.join(workdir, "street.png")
+    out = os.path.join(workdir, "street_det.png")
+    Image.fromarray(rng.integers(0, 255, (480, 640, 3), dtype=np.uint8)
+                    ).save(src)
+    t0 = time.perf_counter()
+    reset()
+    lines = _cli_stdout(demo.main, [
+        "--model", YOLOX, "--num-classes", str(YOLOX_CLASSES), "--input",
+        src, "--out", out, "--size", str(YOLOX_SIZE), "--score", "0.0",
+        "--seed", str(seed)])
+    counts = read()
+    t_demo = time.perf_counter() - t0
+    _add(total, counts)
+    rows = [json.loads(line) for line in lines[:-1]]
+    drawn = np.asarray(Image.open(out))
+    log(f"demo YOLOX-S 640² on a 480 x 640 PNG: {t_demo:.2f}s, "
+        f"{len(rows)} detections, launches {json.dumps(counts)}; "
+        f"{lines[-1]}")
+    check(counts == {nms_ops.KERNEL_NAMES[0]: 1}, "demo: one K3 launch")
+    check(lines[-1] == f"wrote {out} ({len(rows)} detections)"
+          and 0 < len(rows) <= YOLOX_MAX_DET and all(
+              np.isfinite(r["box"]).all() for r in rows),
+          "demo: finite boxes, one line a detection")
+    check(drawn.shape == (480, 640, 3) and not np.array_equal(
+        drawn, np.asarray(Image.open(src))), "demo: the boxes were drawn")
+
+    # evaluate: ViT-B/16 over 64 images, batches of 32
+    images = rng.normal(size=(CLI_EVAL_IMAGES, 224, 224, 3)).astype(
+        np.float32)
+    labels = rng.integers(0, 1000, CLI_EVAL_IMAGES).astype(np.int32)
+    npz = os.path.join(workdir, "eval.npz")
+    np.savez(npz, images=images, labels=labels)
+    t0 = time.perf_counter()
+    reset()
+    lines = _cli_stdout(evaluate.main, [
+        "--model", MODEL, "--num-classes", "1000", "--npz", npz,
+        "--batch", str(CLI_EVAL_BATCH), "--seed", str(seed)])
+    counts = read()
+    t_eval = time.perf_counter() - t0
+    _add(total, counts)
+    got = json.loads(lines[-1])
+    hits = {"top1": 0, "top5": 0}
+    cm = torch.zeros((1000, 1000), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for s in range(0, CLI_EVAL_IMAGES, CLI_EVAL_BATCH):
+            xb = torch.from_numpy(images[s:s + CLI_EVAL_BATCH]).to(dev)
+            yb = torch.from_numpy(labels[s:s + CLI_EVAL_BATCH]).to(dev)
+            scores = model(xb).float()
+            c = topk_correct(scores, yb)
+            hits = {k: hits[k] + int(c[k]) for k in hits}
+            cm += confusion_matrix(scores.argmax(-1), yb, 1000)
+    stats = miou_from_confusion(cm.cpu())
+    want = {"top1": round(hits["top1"] / CLI_EVAL_IMAGES, 4),
+            "top5": round(hits["top5"] / CLI_EVAL_IMAGES, 4),
+            "count": CLI_EVAL_IMAGES,
+            "per_class_acc": [round(float(a), 4)
+                              for a in stats["class_acc"]]}
+    log(f"evaluate ViT-B/16 on {CLI_EVAL_IMAGES} images: {t_eval:.2f}s, "
+        f"top1 {got['top1']} top5 {got['top5']}, launches "
+        f"{json.dumps(counts)}")
+    check(got == want, "evaluate == a loop over the same batches here")
+    check(counts == {fa.KERNEL_NAMES[4]: 2 * DEPTH},
+          "evaluate: K1 launches == 2 batches x 12")
+    del model
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
 
 
 PAR_RANKS = {45: _sp_rank, 46: _pp_rank, 47: _tp_rank, 48: _tp_seq_rank,

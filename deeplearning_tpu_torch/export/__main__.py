@@ -26,6 +26,7 @@ exports on K1; ``--device`` (default ``cuda``; the tests pass ``cpu``);
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -139,6 +140,8 @@ def main(argv=None) -> int:
         print(f"wrote {len(blob)} bytes of .pt2 to {args.out}")
     else:
         export_savedmodel(fn, [example], args.out)
+        print(f"wrote an AOTInductor package ({args.device}) of "
+              f"{os.path.getsize(args.out)} bytes to {args.out}")
     return 0
 
 

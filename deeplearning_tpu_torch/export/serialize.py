@@ -8,12 +8,16 @@
   ``dltpu::window_attn``, ``dltpu::nms_sweep`` ...), so a model on them
   exports with each launch one node, and the loaded program launches the
   same kernels.
-- ``export_savedmodel`` raises ``ValueError``: the serving artifact and its
-  native runner (an AOTInductor package and a libtorch C++ runner) come
-  with ROADMAP Queue 1 item 8d.
-- ``flops_estimate``: the forward's operations by
-  ``torch.utils.flop_counter.FlopCounterMode`` over a fake-mode run
-  (nothing computed; K1 counts through its registered formula).
+- ``export_savedmodel``: the serving artifact, as JAX's TF SavedModel is
+  its: ``torch.export``, then ``torch._inductor.aoti_compile_and_package``
+  into one AOTInductor package (``.pt2``) compiled for the example
+  arguments' device. ``native/aoti_runner.cc`` loads and runs it with no
+  Python, the kernel ops registered from C++ by ``native/dltpu_ops.cpp``
+  (both built by ``native/build.py``).
+- ``flops_estimate``: the forward's operations, by
+  ``utils/profiling.compiled_flops`` (``FlopCounterMode`` over a
+  fake-mode run: nothing computed; K1 counts through its registered
+  formula).
 """
 
 from __future__ import annotations
@@ -60,26 +64,35 @@ def load_program(blob: Union[bytes, str, os.PathLike]) -> Callable:
 
 
 def export_savedmodel(fn: Callable, example_args: Sequence[Any],
-                      path: str) -> bool:
-    """JAX's TF SavedModel export; the port's serving artifact comes with
-    ROADMAP Queue 1 item 8d."""
-    raise ValueError("export_savedmodel: the port's serving artifact (an "
-                     "AOTInductor package with a libtorch C++ runner) "
-                     "comes with ROADMAP Queue 1 item 8d")
+                      path: Union[str, os.PathLike]) -> bool:
+    """``torch.export`` ``fn`` on ``example_args``, then compile and package
+    it with AOTInductor into ``path`` (a ``.pt2`` package) for the
+    arguments' device. Returns True. Run the package with
+    ``native/aoti_runner.cc`` and the op library
+    (``native.build.build_serving()`` builds both), or from Python with
+    ``torch._inductor.aoti_load_package``. The package's host code is
+    compiled by the g++ that builds the runner (``native.build.CXX``),
+    whatever ``$CXX`` names. A package for the card holds no CPU kernels,
+    so its build skips Inductor's probe builds of the host's vector ISAs
+    (which pick the CPU kernels' instruction set), and the precompiled
+    header of the wrapper (which pays only across several wrapper builds;
+    a package has one)."""
+    from torch._inductor import aoti_compile_and_package
+
+    from ..native.build import CXX
+    configs = {"cpp.cxx": (None, CXX)}
+    if any(isinstance(a, torch.Tensor) and a.is_cuda for a in example_args):
+        configs.update({"cpp.vec_isa_ok": False,
+                        "aot_inductor.precompile_headers": False})
+    ep = torch.export.export(_as_module(fn), tuple(example_args))
+    aoti_compile_and_package(ep, package_path=os.fspath(path),
+                             inductor_configs=configs)
+    return True
 
 
 def flops_estimate(fn: Callable, *example_args) -> float:
-    """Operations of ``fn(*example_args)`` by ``FlopCounterMode`` over
-    fake tensors — the thop / fvcore FLOPs-counter successor
-    (vision_transformer/flops.py, yolov5 torch_utils.py:104)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from ..analysis.audit import fake_mode
-    mode = fake_mode()
-    counter = FlopCounterMode(display=False)
-    with mode:
-        args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
-                for a in example_args]
-        with counter, torch.no_grad():
-            fn(*args)
-    return float(counter.get_total_flops())
+    """Operations of ``fn(*example_args)`` — the thop / fvcore
+    FLOPs-counter successor (vision_transformer/flops.py, yolov5
+    torch_utils.py:104). Delegates to ``utils/profiling.compiled_flops``."""
+    from ..utils.profiling import compiled_flops
+    return compiled_flops(fn, *example_args)

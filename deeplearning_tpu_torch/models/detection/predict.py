@@ -47,23 +47,31 @@ def head_classes(name: str, num_classes: int) -> int:
 
 def _cached(make: Callable):
     """``get(hw, device)``: ``make(hw)``'s numpy arrays (a tuple, a dict or
-    one array) as tensors on ``device``, built once per (size, device)."""
+    one array) as tensors on ``device``, built once per (size, device).
+    Tensors built under a tracing mode (``torch.export``, a fake-mode
+    walk) are fake or traced: they are returned but never cached, so a
+    later eager call builds real ones."""
     cache: Dict[Tuple, object] = {}
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a))
+    def up(a, device):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def get(hw, device):
         key = (hw, device)
-        if key not in cache:
-            made = make(hw)
-            if isinstance(made, dict):
-                cache[key] = {k: up(v).to(device) for k, v in made.items()}
-            elif isinstance(made, tuple):
-                cache[key] = tuple(up(v).to(device) for v in made)
-            else:
-                cache[key] = up(made).to(device)
-        return cache[key]
+        if key in cache:
+            return cache[key]
+        made = make(hw)
+        if isinstance(made, dict):
+            out = {k: up(v, device) for k, v in made.items()}
+            leaves = list(out.values())
+        elif isinstance(made, tuple):
+            out = leaves = tuple(up(v, device) for v in made)
+        else:
+            out = up(made, device)
+            leaves = [out]
+        if all(type(t) is torch.Tensor for t in leaves):
+            cache[key] = out
+        return out
     return get
 
 

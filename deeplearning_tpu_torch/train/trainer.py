@@ -249,7 +249,7 @@ class Trainer:
                              log_backends)
         self.tb = self.hub.tb
         self.meters = MetricLogger()
-        self.rng = rng_mod.root_key(seed)
+        self.rng = rng_mod.host_key(seed)
         self.epoch = 0
         # lagged metrics: default lag = log_every, so at each log point
         # the previous window is ready and a NaN aborts within

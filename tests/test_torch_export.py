@@ -16,8 +16,9 @@ CPU.
 - ``register_onnx_lowering`` and the error that names it behave as JAX's.
 - A ``.pt2`` round trip of ViT-B/16 on K1 keeps its kernel nodes and
   launches nothing at export; ``my_add`` gives 3a + 2b and exports as one
-  node; the export CLI's ONNX self-check passes; ``savedmodel`` raises
-  naming item 8d.
+  node; the export CLI's ONNX self-check passes, and its ``savedmodel``
+  writes an AOTInductor package whose loaded forward equals eager's
+  (``tests/test_torch_aoti.py`` runs such a package in the C++ runner).
 """
 
 import io
@@ -311,8 +312,6 @@ def test_pt2_roundtrip_keeps_the_k1_nodes(tmp_path):
     with torch.no_grad():
         torch.testing.assert_close(serialize.load_program(str(path))(x),
                                    model(x), atol=0, rtol=0)
-    with pytest.raises(ValueError, match="item 8d"):
-        serialize.export_savedmodel(model, [x], str(tmp_path / "sm"))
 
 
 def test_my_add_gives_3a_plus_2b_and_exports():
@@ -339,7 +338,15 @@ def test_export_cli(tmp_path, capsys):
     assert out.stat().st_size > 1000
     log = capsys.readouterr().out
     assert "load-back max|diff|=" in log and "FAILED" not in log
-    with pytest.raises(ValueError, match="item 8d"):
-        main(["--model", "mnist_cnn", "--size", "28", "--format",
-              "savedmodel", "--out", str(tmp_path / "sm"), "--device",
-              "cpu"])
+    # the serving artifact: an AOTInductor package of the model
+    from torch._inductor import aoti_load_package
+    package = tmp_path / "fcn.pt2"
+    assert main(["--model", "mnist_fcn", "--size", "28", "--format",
+                 "savedmodel", "--out", str(package), "--device",
+                 "cpu"]) == 0
+    assert "wrote an AOTInductor package (cpu)" in capsys.readouterr().out
+    model, _ = hub.load("mnist_fcn", num_classes=10, seed=0, device="cpu")
+    probe = torch.from_numpy(_images((1, 28, 28, 3)))
+    with torch.no_grad():
+        torch.testing.assert_close(aoti_load_package(str(package))(probe),
+                                   model(probe), atol=1e-5, rtol=1e-5)

@@ -876,9 +876,18 @@ def audits(rank, n, payload, d):
             "bytes": audit.collective_bytes(fn, x)}
 
 
+def sync_bn(rank, n, payload, d):
+    """utils/normalization.sync_batch_norm_stats over this group, on this
+    rank's slice of the batch."""
+    from deeplearning_tpu_torch.utils.normalization import (
+        sync_batch_norm_stats)
+    mean, var = sync_batch_norm_stats(torch.from_numpy(payload["x"][rank]))
+    return {"mean": _np(mean), "var": _np(var)}
+
+
 SCENARIOS = {"collectives": collectives, "steps": steps,
              "seq_pipe": seq_pipe, "tensor_parallel": tensor_parallel,
-             "audits": audits}
+             "audits": audits, "sync_bn": sync_bn}
 
 
 def main(name, rank, n, d):
